@@ -3,15 +3,16 @@
 The JAX side exports ``{name: onp.asarray(p.data()._data)}`` over
 ``net.collect_params()``; the port's modules use the same names
 (``layer0.attention.wq.weight``, ``norm.gamma``, ...) and shapes, so
-the dict loads by name.  Only numpy crosses over: this module imports
-nothing of the JAX package.
+the dict loads by name; :func:`export_params` is the way back, so
+weights after training compare by name.  Only numpy crosses over: this
+module imports nothing of the JAX package.
 """
 from __future__ import annotations
 
 import numpy as onp
 import torch
 
-__all__ = ["load_params"]
+__all__ = ["load_params", "export_params"]
 
 
 def load_params(net, params):
@@ -37,3 +38,16 @@ def load_params(net, params):
                 arr = arr.astype(onp.float32)
             p.copy_(torch.from_numpy(onp.array(arr, copy=True)))
     return net
+
+
+def export_params(net):
+    """``{name: np.ndarray}`` of ``net``'s parameters, the inverse of
+    :func:`load_params`; bf16 weights come out as float32 (numpy has no
+    bfloat16), which holds them exactly."""
+    out = {}
+    for name, p in net.named_parameters():
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out

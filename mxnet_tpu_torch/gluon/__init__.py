@@ -1,2 +1,5 @@
-"""Gluon layers of the port (``nn``)."""
-from . import nn  # noqa: F401
+"""Gluon of the port: the ``Block`` base, layers (``nn``), losses and
+the ``Trainer``."""
+from . import loss, nn  # noqa: F401
+from .block import Block  # noqa: F401
+from .trainer import Trainer  # noqa: F401

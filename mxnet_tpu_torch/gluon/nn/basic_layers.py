@@ -4,7 +4,8 @@ Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` (``Dense`` :94,
 ``Embedding`` :159, ``RMSNorm`` :303).  Parameter names and shapes are
 MXNet's -- ``weight`` (Dense: (out, in)), ``bias``, ``gamma`` -- so a
 model's ``state_dict()`` keys equal the JAX ``collect_params()`` keys.
-Parameters are created empty on ``device``; a loader fills them.
+Parameters are created empty on ``device``; a loader fills them.  Each
+layer is a :class:`~mxnet_tpu_torch.gluon.block.Block`.
 ``device=None`` means CUDA and raises without a card
 (:func:`~mxnet_tpu_torch.context.resolve_device`).
 """
@@ -15,6 +16,7 @@ from torch import nn
 
 from ...context import resolve_device
 from ...ops import nn as F
+from ..block import Block
 
 __all__ = ["Dense", "Embedding", "RMSNorm"]
 
@@ -23,7 +25,7 @@ def _dtype(dtype):
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
-class Dense(nn.Module):
+class Dense(Block):
     """``y = x @ W.T + b`` over the trailing dim (``flatten=False``).  The
     input is cast to the weight's dtype, so a bf16 layer runs a bf16
     matmul (fp32 accumulation) on float32 activations."""
@@ -40,7 +42,7 @@ class Dense(nn.Module):
         return F.dense(x.to(self.weight.dtype), self.weight, self.bias)
 
 
-class Embedding(nn.Module):
+class Embedding(Block):
     def __init__(self, input_dim, output_dim, dtype="float32", device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
@@ -51,7 +53,7 @@ class Embedding(nn.Module):
         return F.embedding(x, self.weight)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Block):
     """RMS normalization over the last axis.  ``gamma`` is float32 in
     every model, as in the JAX layer, so the output of a norm is float32
     whatever the input's dtype."""

@@ -7,7 +7,9 @@ module tree and parameter names (``layer0.attention.wq.weight``,
 the port's kernels: the full-sequence forward and the serving prefill
 through the flash forward, the serving decode through the paged decode
 kernel; the chunk (prefix-cache) prefill is plain PyTorch, as it is
-plain XLA in the JAX package.
+plain XLA in the JAX package.  The full-sequence forward is
+differentiable end to end on both devices: on CUDA its attention
+backward runs the flash backward kernels (``cuda_ops._FlashAttention``).
 
 Precision follows what the JAX package computes for a bf16 config:
 weights are bf16, but the norm gains are float32, so every activation
@@ -26,9 +28,9 @@ import math
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from ..context import resolve_device
+from ..gluon.block import Block
 from ..gluon.nn import Dense, Embedding, RMSNorm
 from ..ops import nn as F
 from ..ops.cuda_ops import flash_attention, paged_attention
@@ -94,7 +96,7 @@ def _heads_first(x):
     return x.transpose(1, 2).contiguous()
 
 
-class Attention(nn.Module):
+class Attention(Block):
     def __init__(self, cfg: LlamaConfig, layer_idx=0, device=None):
         super().__init__()
         if cfg.attn_impl != "flash":
@@ -198,7 +200,7 @@ class Attention(nn.Module):
         return o.reshape(B, T, nh * hd)
 
 
-class FeedForward(nn.Module):
+class FeedForward(Block):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         kw = {"use_bias": False, "dtype": cfg.dtype,
@@ -213,7 +215,7 @@ class FeedForward(nn.Module):
                        * self.w3(x).float())
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Block):
     def __init__(self, cfg: LlamaConfig, layer_idx=0, device=None):
         super().__init__()
         if cfg.moe_num_experts > 0:
@@ -232,7 +234,7 @@ class TransformerBlock(nn.Module):
         return x + self.feed_forward(self.ffn_norm(x)).float()
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(Block):
     """Decoder-only LM.  Input: (B, T) int tokens; output: (B, T, vocab).
 
     ``device=None`` means CUDA (and raises without a card); pass
@@ -267,6 +269,9 @@ class TransformerLM(nn.Module):
             else:
                 p.normal_(0.0, std, generator=generator)
         return self
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())
 
     def forward(self, tokens, cache=None):
         """Full-sequence logits (``cache=None``), or the incremental

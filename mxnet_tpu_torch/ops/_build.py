@@ -19,7 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -99,15 +99,30 @@ def library(name):
     return lib
 
 
-def _declare(name, lib):
+def _signatures():
+    """Entry point name -> ``argtypes`` of each source's C functions."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "flash_fwd":
-        fn = lib.mx_flash_fwd
+    return {
         # q k v q_off k_off o lse BH BHkv T Tk D scale causal stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, p]
-    else:
-        fn = lib.mx_paged_decode
+        "flash_fwd": {"mx_flash_fwd": [p, p, p, p, p, p, p, i, i, i, i, i,
+                                       f, i, p]},
+        # q k v dout lse delta q_off k_off dq | dk dv, BH BHkv T Tk D scale
+        # causal stream
+        "flash_bwd": {"mx_flash_bwd_dq": [p] * 9 + [i] * 5 + [f, i, p],
+                      "mx_flash_bwd_dkv": [p] * 10 + [i] * 5 + [f, i, p]},
         # q k_pages v_pages page_table lengths out S H Hkv psz D MP scale
         # stream
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, p]
-    fn.restype = ctypes.c_int
+        "paged_decode": {"mx_paged_decode": [p, p, p, p, p, p, i, i, i, i,
+                                             i, i, f, p]},
+    }
+
+
+def _declare(name, lib):
+    sigs = _signatures()
+    if name not in sigs:
+        raise ValueError("no C interface declared for kernel source %r"
+                         % name)
+    for fn_name, argtypes in sigs[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int

@@ -1,20 +1,26 @@
-"""Attention kernels of the serving path: hand-written CUDA on the card,
-their plain PyTorch versions on the CPU.
+"""Attention kernels: hand-written CUDA on the card, their plain PyTorch
+versions on the CPU.
 
-Counterpart of ``mxnet_tpu/ops/pallas_ops.py``.  Two of its four Pallas
-kernels are on the serving path and are ported here:
+Counterpart of ``mxnet_tpu/ops/pallas_ops.py``, all four of its Pallas
+kernels:
 
 * ``flash_attention_with_lse`` / ``flash_attention`` -- the flash
-  forward ``_fwd_call`` (pallas_ops.py:62), now ``csrc/flash_fwd.cu``;
+  forward ``_fwd_call`` (pallas_ops.py:62), now ``csrc/flash_fwd.cu``,
+  differentiable through :class:`_FlashAttention` (the ``_flash_lse``
+  custom VJP, pallas_ops.py:334-376), whose backward is the recompute
+  pair ``_bwd_dq_call`` (:149) and ``_bwd_dkv_call`` (:227), now
+  ``csrc/flash_bwd.cu``;
+* ``flash_attention_block_bwd`` -- the ring-attention backward
+  primitive (pallas_ops.py:540), over the same backward kernels;
 * ``paged_attention`` -- the page-table decode kernel
   ``_paged_kernel_call`` (pallas_ops.py:621), now
   ``csrc/paged_decode.cu``.
 
 Dispatch is by the device of the tensors and nothing else: a CPU tensor
-goes to the plain version (``_dense_with_lse``, ``_paged_dense``, the
-same semantics as the JAX fallbacks of those names); a CUDA tensor goes
-to the kernel, or the wrapper raises on what the kernel does not take.
-There is no fallback from the card to the plain path.
+goes to the plain version (``_dense_with_lse``, ``_flash_bwd_dense``,
+``_paged_dense``, the semantics of the JAX fallbacks); a CUDA tensor
+goes to the kernel, or the wrapper raises on what the kernel does not
+take.  There is no fallback from the card to the plain path.
 
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one
 where it launches and nowhere else, so a run can show which kernels its
@@ -27,12 +33,14 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_with_lse", "flash_attention",
-           "paged_attention", "LAUNCHES", "reset_launch_counts"]
+           "flash_attention_block_bwd", "paged_attention", "LAUNCHES",
+           "reset_launch_counts"]
 
 NEG_INF = float("-inf")
 
 #: kernel name -> launches since the last reset
-LAUNCHES = {"flash_fwd": 0, "paged_decode": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_decode": 0}
 
 
 def reset_launch_counts():
@@ -128,6 +136,136 @@ def _flash_fwd_cuda(q, k, v, q_off, k_off, causal, scale):
     return o, lse
 
 
+# ---------------------------------------------------------------------------
+# flash backward
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_dense(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
+    """Plain recompute backward, the semantics of the dense branch of
+    ``flash_attention_block_bwd`` (pallas_ops.py:579-601) with the
+    kernels' -inf lse rule (:174, :256): P = exp(s * scale - lse), a
+    -inf lse read as 0 and masked pairs 0; dS = P o (dO V^T - delta) *
+    scale; the GQA grads summed over the ``rep`` query heads of a group.
+    Returns float32 (dq, dk, dv)."""
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        qpos = q_off.to(q.device)[0] + torch.arange(T, device=q.device)
+        kpos = k_off.to(q.device)[0] + torch.arange(Tk, device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+    lse = lse.float()
+    lse = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.float()[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    if rep > 1:
+        dk = dk.reshape(B, Hkv, rep, Tk, D).sum(dim=2)
+        dv = dv.reshape(B, Hkv, rep, Tk, D).sum(dim=2)
+    return dq, dk, dv
+
+
+def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, q_off, k_off, causal,
+                scale):
+    """Check the inputs and launch ``mx_<kernel>`` of
+    ``csrc/flash_bwd.cu`` into the preallocated ``outs``."""
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_kernel_input(name, t, torch.bfloat16, 4)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_kernel_input(name, t, torch.float32, 3)
+    if D not in (64, 128):
+        raise ValueError("flash kernel takes head_dim 64 or 128, got %d" % D)
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+            or do.shape != q.shape or lse.shape != (B, H, T) \
+            or delta.shape != (B, H, T):
+        raise ValueError("flash backward: k %s, v %s, do %s, lse %s, delta "
+                         "%s do not fit q %s"
+                         % tuple(tuple(t.shape) for t in
+                                 (k, v, do, lse, delta, q)))
+    if q_off.device != q.device or k_off.device != q.device:
+        raise ValueError("flash kernel: offsets must be on %s" % q.device)
+    fn = getattr(_build.library("flash_bwd"), "mx_" + kernel)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
+             k_off.data_ptr(), *(o.data_ptr() for o in outs), B * H,
+             B * Hkv, T, Tk, D, float(scale), int(bool(causal)),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (kernel, err))
+    LAUNCHES[kernel] += 1
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, *rest):
+    """dq (bf16) from ``mx_flash_bwd_dq``; ``rest`` is (lse, delta,
+    q_off, k_off, causal, scale)."""
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, *rest)
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, *rest):
+    """(dk, dv) (bf16) from ``mx_flash_bwd_dkv``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, *rest)
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
+    """(dq, dk, dv) in bf16 from the two kernels of ``csrc/flash_bwd.cu``."""
+    args = (q, k, v, do, lse, delta, q_off, k_off, causal, scale)
+    return (_flash_bwd_dq_cuda(*args),) + _flash_bwd_dkv_cuda(*args)
+
+
+def _flash_bwd(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
+    if _is_cuda(q, k, v, do, lse, delta):
+        return _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off,
+                               causal, scale)
+    return _flash_bwd_dense(q, k, v, do, lse, delta, q_off, k_off, causal,
+                            scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(o, lse) with a recompute backward: the ``_flash_lse`` custom VJP
+    (pallas_ops.py:334-376).  The forward keeps only O and the lse; the
+    backward folds the lse cotangent into delta = rowsum(dO o O) - dlse
+    and re-forms each score tile from q and k."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_off, k_off, causal, scale):
+        if _is_cuda(q, k, v):
+            o, lse = _flash_fwd_cuda(q, k, v, q_off, k_off, causal, scale)
+        else:
+            o, lse = _dense_with_lse(q, k, v, q_off, k_off, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse, q_off, k_off)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, q_off, k_off = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        dor = do.to(q.dtype).contiguous()
+        dq, dk, dv = _flash_bwd(q, k, v, dor, lse, delta.contiguous(), q_off,
+                                k_off, ctx.causal, ctx.scale)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
 def flash_attention_with_lse(q, k, v, causal=False, scale=None,
                              q_offset=None, k_offset=None):
     """Attention returning (output, logsumexp) on (B, H, T, D).
@@ -137,26 +275,41 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None,
     ``q_offset``/``k_offset`` are global position offsets for the causal
     mask (ints or int32 tensors of one element); the kernel reads them
     on the device.  On CUDA, q/k/v must be contiguous bf16 with head_dim
-    64 or 128; the lse is float32 (B, H, T).  Forward only: the
-    backward kernels are not ported yet."""
+    64 or 128; the lse is float32 (B, H, T).  Gradients flow through
+    both outputs, on CUDA through the backward kernels."""
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(
             "flash_attention: %d query heads not a multiple of %d kv "
             "heads" % (q.shape[1], k.shape[1]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    cuda = _is_cuda(q, k, v)
     q_off = _offsets(q_offset, q.device)
     k_off = _offsets(k_offset, q.device)
-    if cuda:
-        return _flash_fwd_cuda(q, k, v, q_off, k_off, causal, scale)
-    return _dense_with_lse(q, k, v, q_off, k_off, causal, scale)
+    return _FlashAttention.apply(q, k, v, q_off, k_off, causal, scale)
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
     """Flash attention on (B, H, T, D); see
     :func:`flash_attention_with_lse`."""
     return flash_attention_with_lse(q, k, v, causal=causal, scale=scale)[0]
+
+
+def flash_attention_block_bwd(q, k, v, do, lse, delta, causal=False,
+                              scale=None, q_offset=None, k_offset=None):
+    """(dq, dk, dv) of one attention block against the global merged
+    ``lse`` (B, H, T) and its ``delta`` = rowsum(dO o O) (B, H, T): the
+    ring-attention backward primitive (pallas_ops.py:540).  The block's
+    probabilities exp(s - lse) are the global ones, so the per-block
+    contributions sum to the dense gradient.  On CUDA it runs the two
+    backward kernels (``do`` cast to q's dtype, as the JAX kernel path
+    does); returns float32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q_off = _offsets(q_offset, q.device)
+    k_off = _offsets(k_offset, q.device)
+    dq, dk, dv = _flash_bwd(q, k, v, do.to(q.dtype), lse, delta, q_off,
+                            k_off, causal, scale)
+    return dq.float(), dk.float(), dv.float()
 
 
 # ---------------------------------------------------------------------------

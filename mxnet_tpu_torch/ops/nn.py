@@ -1,16 +1,17 @@
 """Plain PyTorch counterparts of the ``mxnet_tpu/ops/nn.py`` functions
-the Llama serving path calls (``dense`` :38, ``rms_norm`` :262,
-``activation`` :374, ``embedding`` :399, ``dot_product_attention``
-:467).  The model's projections, FFN and logits stay library matmuls,
-as the JAX package leaves them to XLA.
+the Llama serving and training paths call (``dense`` :38, ``rms_norm``
+:262, ``log_softmax`` :322, ``activation`` :374, ``embedding`` :399,
+``pick`` :409, ``dot_product_attention`` :467).  The model's
+projections, FFN and logits stay library matmuls, as the JAX package
+leaves them to XLA.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense", "rms_norm", "activation", "embedding",
-           "dot_product_attention"]
+__all__ = ["dense", "rms_norm", "log_softmax", "activation", "embedding",
+           "pick", "dot_product_attention"]
 
 
 def dense(x, weight, bias=None):
@@ -27,6 +28,22 @@ def rms_norm(x, gamma, axis=-1, eps=1e-6):
     shape = [1] * x.dim()
     shape[axis] = x.shape[axis]
     return out * gamma.reshape(shape)
+
+
+def log_softmax(x, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return F.log_softmax(x, dim=axis)
+
+
+def pick(x, index, axis=-1, keepdims=False, mode="clip"):
+    """``x`` at ``index`` along ``axis``; an index out of range is
+    clipped (``mode="clip"``) or wrapped (``"wrap"``)."""
+    n = x.shape[axis]
+    index = index.long()
+    index = index.clamp(0, n - 1) if mode == "clip" else index % n
+    picked = torch.gather(x, axis, index.unsqueeze(axis))
+    return picked if keepdims else picked.squeeze(axis)
 
 
 def activation(x, act_type):

@@ -108,7 +108,8 @@ def test_cpu_path_launches_no_kernel():
     cuda_ops.paged_attention(q, kp, vp, pt, lens)
     qq, kk, vv = (torch.from_numpy(a) for a in _qkv(3, 1, 4, 2, 16, 16, 64))
     cuda_ops.flash_attention(qq, kk, vv, causal=True)
-    assert cuda_ops.LAUNCHES == {"flash_fwd": 0, "paged_decode": 0}
+    assert cuda_ops.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                 "flash_bwd_dkv": 0, "paged_decode": 0}
 
 
 def test_gqa_head_mismatch_raises():

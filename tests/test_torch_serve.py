@@ -447,7 +447,11 @@ def test_scheduler_prefix_eviction_only_at_zero_refs_when_dry():
 # ----------------------------------------------------------------------
 def test_package_imports_neither_jax_nor_mxnet_tpu():
     code = ("import sys, mxnet_tpu_torch; "
-            "import mxnet_tpu_torch.serve, mxnet_tpu_torch.convert; "
+            "import mxnet_tpu_torch.serve, mxnet_tpu_torch.convert, "
+            "mxnet_tpu_torch.autograd, mxnet_tpu_torch.gluon.loss, "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.lr_scheduler, "
+            "mxnet_tpu_torch.parallel.train_step; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -15,6 +15,14 @@ the launch counts reset before it and read after it, and fails unless
 every kernel it goes through was launched.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without a CUDA device it exits non-zero at once.
+
+A kernel's time is its own device time, summed from a torch.profiler
+trace of its calls with the L2 cache flushed before each
+(:func:`device_ms`); the event time of the whole wrapper call is kept
+beside it as ``call_ms``.  ``python3 chip_smoke.py --kernel-timing``
+runs only the forward and paged kernels' checks and timing; copied into
+another checkout's root, it times that tree's kernels the same way, so
+two trees compare in one call.
 """
 from __future__ import annotations
 
@@ -50,8 +58,20 @@ FLASH_BWD_TOL = 1e-2
 # does not.
 PARITY_LOSS_RTOL = 1e-2
 GRAD_REL_TOL = 3e-2
+# Served tokens against a teacher-forced full forward.  The two paths
+# round differently in bf16 (decode GEMMs at M = 8 against M = T; the
+# paged kernel keeps P in fp32 where the flash kernel rounds it to bf16),
+# so near-ties flip.  Measured on an H100 over all 448 greedy positions
+# of the serving run: the served token's logit was at most 0.1875 below
+# the full forward's top with the mma.sync forward and unsplit paged
+# decode, 0.1562 with the TMA/wgmma forward and split paged decode (6
+# and 5 bf16 steps of a logit in [4, 8)), and 93.5% / 95.1% of the
+# served tokens were the argmax.
+SERVED_LOGIT_TOL = 0.25         # 8 bf16 steps of a logit in [4, 8)
+SERVED_EXACT_MIN = 0.85
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 FLUSH_BYTES = 256 << 20         # > the 50 MB L2: every timed call is cold
+FLUSH_KERNEL = "FillFunctor<unsigned char>"   # the flush's zero_()
 
 
 class SmokeFailure(RuntimeError):
@@ -89,6 +109,42 @@ def time_ms(fn, iters=20, warmup=3):
     return total / iters
 
 
+def device_ms(fn, match=None, iters=20, warmup=3, attempts=5):
+    """(ms, per_kernel) of ``fn()``: the device time per call of its
+    kernels whose name contains ``match`` (all of them when None), from
+    a torch.profiler trace of ``iters`` calls with the L2 cache flushed
+    before each; ``per_kernel`` maps every kernel of the call to its ms
+    per call.  The flush is a uint8 fill, left out by its kernel's name.
+    The trace now and then comes back missing some or all device events
+    (seen on the H100 machine); it counts only when the flush kernel
+    appears once per call, and is taken again otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        if sum(e.count for e in events if FLUSH_KERNEL in e.key) == iters:
+            break
+    else:
+        raise SmokeFailure("%d profiler traces in a row lacked device "
+                           "events: %s" % (attempts,
+                                           sorted(e.key for e in events)))
+    per = {e.key: e.self_device_time_total / iters / 1e3
+           for e in events if FLUSH_KERNEL not in e.key}
+    ms = sum(v for k, v in per.items() if match is None or match in k)
+    check(ms > 0, "no device time for %r in %s" % (match, sorted(per)))
+    return ms, per
+
+
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -101,13 +157,13 @@ def bound_ms(nbytes, flops):
 def flash_phase(co, dev):
     gen = torch.Generator(device="cpu").manual_seed(1)
     H, Hkv, D = 32, 8, 128
-    # (B, T, Tk, causal, q_off, k_off); the last is the training path's
-    # shape, q (2,32,1024,128) causal over k/v (2,8,1024,128)
+    # (B, T, Tk, causal, q_off, k_off); the main path's two shapes are
+    # checked where they are timed (flash_timing)
     cases = [(1, 128, 128, True, 0, 0), (1, 128, 128, False, 0, 0),
-             (1, 512, 512, True, 0, 0), (1, 512, 512, False, 0, 0),
+             (1, 512, 512, False, 0, 0),
              (1, 300, 300, True, 0, 0), (1, 300, 300, False, 0, 0),
              # a later ring step: rows 0..99 of q see no key at all
-             (1, 300, 428, True, 28, 128), (2, 1024, 1024, True, 0, 0)]
+             (1, 300, 428, True, 28, 128)]
     err_o = err_l = 0.0
     for B, T, Tk, causal, qo, ko in cases:
         q = torch.randn(B, H, T, D, generator=gen).to(dev, torch.bfloat16)
@@ -134,29 +190,66 @@ def flash_phase(co, dev):
               "%.0e / %.0e)" % (eo, el, FLASH_O_ATOL, FLASH_LSE_ATOL))
         err_o, err_l = max(err_o, eo), max(err_l, el)
 
-    # timing at the main path's largest prefill: q (1,32,512,128) causal
-    T = 512
-    q = torch.randn(1, H, T, D, generator=gen).to(dev, torch.bfloat16)
-    k = torch.randn(1, Hkv, T, D, generator=gen).to(dev, torch.bfloat16)
-    v = torch.randn(1, Hkv, T, D, generator=gen).to(dev, torch.bfloat16)
-    zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: co.flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: co._dense_with_lse(q, k, v, zero, zero, True,
-                                                  D ** -0.5))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-    nbytes = 2 * (2 * H * T * D + 2 * Hkv * T * D) + 4 * H * T
-    flops = 4 * D * H * (T * (T + 1) // 2)          # visible pairs only
-    b_ms, b_by = bound_ms(nbytes, flops)
-    print("flash timing q(1,32,512,128) causal: kernel %.4f ms, plain %.4f "
-          "ms, SDPA %.4f ms, bound %.4f ms (%s)"
-          % (ms, plain_ms, lib_ms, b_ms, b_by))
+    shapes = flash_timing(co, dev)
+    head = shapes[0]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "mxnet_tpu/ops/pallas_ops.py:62",
-            "max_abs_err": err_o, "max_abs_err_lse": err_l, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "max_abs_err": max([err_o] + [s["max_abs_err"] for s in shapes]),
+            "max_abs_err_lse": max([err_l] + [s["max_abs_err_lse"]
+                                              for s in shapes]),
+            **{k: head[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms",
+                                    "library_kernels")},
+            "shapes": shapes}
+
+
+def flash_timing(co, dev):
+    """The flash forward at the main path's shapes, q (1,32,512,128) (the
+    serving ladder's top rung) and (2,32,1024,128) (training), causal
+    over 8 kv heads: held against plain, then timed -- the kernel's own
+    device time, the event time of the whole wrapper call, the plain
+    version and SDPA (its kernels' device time, names on record)."""
+    H, Hkv, D = 32, 8, 128
+    out = []
+    for i, (B, T) in enumerate(((1, 512), (2, 1024))):
+        gen = torch.Generator(device="cpu").manual_seed(100 + i)
+        q = torch.randn(B, H, T, D, generator=gen).to(dev, torch.bfloat16)
+        k = torch.randn(B, Hkv, T, D, generator=gen).to(dev, torch.bfloat16)
+        v = torch.randn(B, Hkv, T, D, generator=gen).to(dev, torch.bfloat16)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        o, lse = co.flash_attention_with_lse(q, k, v, causal=True)
+        o_p, lse_p = co._dense_with_lse(q, k, v, zero, zero, True, D ** -0.5)
+        eo = (o.float() - o_p.float()).abs().max().item()
+        el = (lse - lse_p).abs().max().item()
+        check(eo <= FLASH_O_ATOL and el <= FLASH_LSE_ATOL,
+              "flash (%d,%d,%d,%d) disagrees with plain: %.3e / %.3e"
+              % (B, H, T, D, eo, el))
+        del o, lse, o_p, lse_p
+        ms, _ = device_ms(lambda: co.flash_attention(q, k, v, causal=True),
+                          "flash_fwd")
+        call_ms = time_ms(lambda: co.flash_attention(q, k, v, causal=True))
+        plain_ms = time_ms(lambda: co._dense_with_lse(
+            q, k, v, zero, zero, True, D ** -0.5), iters=5)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms, lib_k = device_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                               enable_gqa=True))
+        nbytes = 2 * (2 * B * H * T * D + 2 * B * Hkv * T * D) + 4 * B * H * T
+        flops = 4 * D * B * H * (T * (T + 1) // 2)     # visible pairs only
+        b_ms, b_by = bound_ms(nbytes, flops)
+        shape = "q(%d,%d,%d,%d) causal" % (B, H, T, D)
+        print("flash timing %s: kernel %.4f ms (device), call %.4f ms "
+              "(events), plain %.4f ms, SDPA %.4f ms (device; kernels %s), "
+              "bound %.4f ms (%s); max|dO| %.3e max|dlse| %.3e"
+              % (shape, ms, call_ms, plain_ms, lib_ms,
+                 ", ".join("%s %.4f" % kv for kv in lib_k.items()), b_ms,
+                 b_by, eo, el))
+        out.append({"shape": shape, "ms": ms, "call_ms": call_ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library_kernels": lib_k, "bound_ms": b_ms,
+                    "bound_by": b_by, "max_abs_err": eo,
+                    "max_abs_err_lse": el})
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -231,8 +324,13 @@ def flash_bwd_phase(co, dev, card):
 
     # timing on the training shape's inputs, the last case above
     args = (q, k, v, do, lse, delta, *offs, True, D ** -0.5)
-    dq_ms = time_ms(lambda: co._flash_bwd_dq_cuda(*args))
-    dkv_ms = time_ms(lambda: co._flash_bwd_dkv_cuda(*args))
+    # each kernel's own device time, and the event time of its call
+    dq_ms, _ = device_ms(lambda: co._flash_bwd_dq_cuda(*args),
+                         "flash_bwd_dq")
+    dkv_ms, _ = device_ms(lambda: co._flash_bwd_dkv_cuda(*args),
+                          "flash_bwd_dkv")
+    dq_call = time_ms(lambda: co._flash_bwd_dq_cuda(*args))
+    dkv_call = time_ms(lambda: co._flash_bwd_dkv_cuda(*args))
     delta_ms = time_ms(lambda: (do.float() * o.float()).sum(-1) - dlse)
     plain_ms = time_ms(lambda: co._flash_bwd_dense(*args), iters=5)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -241,30 +339,37 @@ def flash_bwd_phase(co, dev, card):
         (out, lse_g), (qg, kg, vg), (do, dlse), retain_graph=True))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ref = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
-    lib_ms = time_ms(lambda: torch.autograd.grad(
-        ref, (qg, kg, vg), do, retain_graph=True))
+    def sdpa_bwd():
+        return torch.autograd.grad(ref, (qg, kg, vg), do, retain_graph=True)
+    lib_ms, lib_k = device_ms(sdpa_bwd)
+    lib_call = time_ms(sdpa_bwd)
     pairs = B * H * T * (T + 1) // 2                 # visible pairs only
     reads = 2 * (2 * B * H * T * D + 2 * B * Hkv * T * D) + 2 * 4 * B * H * T
     dq_b = bound_ms(reads + 2 * B * H * T * D, 6 * D * pairs)
     dkv_b = bound_ms(reads + 2 * 2 * B * Hkv * T * D, 8 * D * pairs)
     print("flash bwd timing q(2,32,1024,128) causal, kv (2,8,1024,128): "
-          "dq %.4f ms (bound %.4f, %s), dkv %.4f ms (bound %.4f, %s), "
-          "delta pass %.4f ms, whole port backward %.4f ms, plain %.4f ms, "
-          "SDPA backward %.4f ms [%s]"
-          % (dq_ms, dq_b[0], dq_b[1], dkv_ms, dkv_b[0], dkv_b[1], delta_ms,
-             port_ms, plain_ms, lib_ms, card))
+          "dq %.4f ms (device; call %.4f, bound %.4f, %s), dkv %.4f ms "
+          "(device; call %.4f, bound %.4f, %s), delta pass %.4f ms, whole "
+          "port backward %.4f ms, plain %.4f ms, SDPA backward %.4f ms "
+          "(device; call %.4f; kernels %s) [%s]"
+          % (dq_ms, dq_call, dq_b[0], dq_b[1], dkv_ms, dkv_call, dkv_b[0],
+             dkv_b[1], delta_ms, port_ms, plain_ms, lib_ms, lib_call,
+             ", ".join("%s %.4f" % kv for kv in lib_k.items()), card))
     common = {"route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
               "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library_call_ms": lib_call, "library_kernels": lib_k,
               "backward_ms": port_ms, "delta_ms": delta_ms}
     return [dict(common, name="flash_bwd_dq",
                  replaces="mxnet_tpu/ops/pallas_ops.py:149",
                  max_abs_err=abs_err["dq"], max_rel_err=worst["dq"],
-                 ms=dq_ms, bound_ms=dq_b[0], bound_by=dq_b[1]),
+                 ms=dq_ms, call_ms=dq_call, bound_ms=dq_b[0],
+                 bound_by=dq_b[1]),
             dict(common, name="flash_bwd_dkv",
                  replaces="mxnet_tpu/ops/pallas_ops.py:227",
                  max_abs_err=max(abs_err["dk"], abs_err["dv"]),
                  max_rel_err=max(worst["dk"], worst["dv"]),
-                 ms=dkv_ms, bound_ms=dkv_b[0], bound_by=dkv_b[1])]
+                 ms=dkv_ms, call_ms=dkv_call, bound_ms=dkv_b[0],
+                 bound_by=dkv_b[1])]
 
 
 # ----------------------------------------------------------------------
@@ -323,45 +428,72 @@ def parity_phase(mt, co, dev, card):
 # phase 5: paged decode kernel vs plain _paged_dense
 # ----------------------------------------------------------------------
 def paged_phase(co, dev):
-    gen = torch.Generator(device="cpu").manual_seed(2)
-    S, H, Hkv, D, psz, MP, P = 8, 32, 8, 128, 128, 5, 64
-    q = torch.randn(S, H, D, generator=gen).to(dev, torch.bfloat16)
-    kp = torch.randn(P, Hkv, psz, D, generator=gen).to(dev, torch.bfloat16)
-    vp = torch.randn(P, Hkv, psz, D, generator=gen).to(dev, torch.bfloat16)
-    # scattered page ids (never the trash page), ragged lengths with an
-    # empty slot, one exactly full page and a full table
-    pt = (torch.randperm(P - 1, generator=gen)[:S * MP] + 1).reshape(S, MP)
-    pt = pt.to(dev, torch.int32)
-    lens_h = [0, 37, 128, 129, 300, 450, 531, 640]
-    lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
-    out = co.paged_attention(q, kp, vp, pt, lens)
-    want = co._paged_dense(q, kp, vp, pt, lens, D ** -0.5)
-    torch.cuda.synchronize()
-    diff = (out.float() - want.float()).abs()
-    err = diff.max().item()
-    # the largest excess over the limit atol + rtol*|plain|, <= 0 to pass
-    excess = (diff - PAGED_ATOL - PAGED_RTOL * want.float().abs()).max()
-    print("paged S=8 lengths %s: max|dO| %.3e, limit %.0e + %.0e*|O| "
-          "exceeded by %.3e, empty slot max %.1f"
-          % (lens_h, err, PAGED_ATOL, PAGED_RTOL, excess.item(),
-             out[0].abs().max().item()))
-    check(excess.item() <= 0, "paged kernel disagrees with plain: max|dO| "
-          "%.3e, over the limit by %.3e" % (err, excess.item()))
-    check(not out[0].any().item(), "paged: an empty slot is not zero")
-    ms = time_ms(lambda: co.paged_attention(q, kp, vp, pt, lens))
-    plain_ms = time_ms(lambda: co._paged_dense(q, kp, vp, pt, lens,
-                                               D ** -0.5))
-    live = sum(lens_h)
-    nbytes = 2 * live * Hkv * D * 2 + 2 * 2 * S * H * D + 4 * (S * MP + S)
-    flops = 4 * live * H * D
-    b_ms, b_by = bound_ms(nbytes, flops)
-    print("paged timing: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-          % (ms, plain_ms, b_ms, b_by))
+    """The paged decode kernel against plain at three shapes, each then
+    timed: ``paged_phase`` (ragged lengths with an empty slot, one exactly
+    full page and a full table), ``serve`` (the lengths of the served
+    decode steps) and ``long`` (8 slots of 8192 tokens, 268 MB of K/V,
+    where bytes really bound it)."""
+    shapes = paged_timing(co, dev)
+    head = shapes[1]
     return {"name": "paged_decode", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/paged_decode.cu",
             "replaces": "mxnet_tpu/ops/pallas_ops.py:621",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            **{k: head[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "shapes": shapes}
+
+
+def paged_timing(co, dev):
+    H, Hkv, D, psz = 32, 8, 128, 128
+    cases = [("paged_phase", [0, 37, 128, 129, 300, 450, 531, 640], 5),
+             ("serve", [51, 90, 128, 129, 200, 256, 300, 347], 5),
+             ("long", [8192] * 8, 64)]
+    out = []
+    for i, (name, lens_h, MP) in enumerate(cases):
+        gen = torch.Generator(device="cpu").manual_seed(200 + i)
+        S = len(lens_h)
+        P = S * MP + 1                         # page 0 is the trash page
+        q = torch.randn(S, H, D, generator=gen).to(dev, torch.bfloat16)
+        kp = torch.randn(P, Hkv, psz, D, generator=gen).to(dev,
+                                                           torch.bfloat16)
+        vp = torch.randn(P, Hkv, psz, D, generator=gen).to(dev,
+                                                           torch.bfloat16)
+        pt = (torch.randperm(P - 1, generator=gen) + 1).reshape(S, MP)
+        pt = pt.to(dev, torch.int32)
+        lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
+        got = co.paged_attention(q, kp, vp, pt, lens)
+        want = co._paged_dense(q, kp, vp, pt, lens, D ** -0.5)
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        # the largest excess over the limit atol + rtol*|plain|, <= 0
+        excess = (diff - PAGED_ATOL - PAGED_RTOL * want.float().abs()).max()
+        check(excess.item() <= 0, "paged %s disagrees with plain: max|dO| "
+              "%.3e, over the limit by %.3e" % (name, err, excess.item()))
+        for s, n in enumerate(lens_h):
+            check(n > 0 or not got[s].any().item(),
+                  "paged: an empty slot is not zero")
+        del got, want, diff
+        ms, _ = device_ms(lambda: co.paged_attention(q, kp, vp, pt, lens),
+                          "paged_decode")
+        call_ms = time_ms(lambda: co.paged_attention(q, kp, vp, pt, lens))
+        plain_ms = time_ms(lambda: co._paged_dense(q, kp, vp, pt, lens,
+                                                   D ** -0.5), iters=5)
+        live = sum(lens_h)
+        nbytes = 2 * live * Hkv * D * 2 + 2 * 2 * S * H * D + 4 * (S * MP + S)
+        b_ms, b_by = bound_ms(nbytes, 4 * live * H * D)
+        print("paged %s S=%d lengths %s: max|dO| %.3e (limit %.0e + %.0e*"
+              "|O|, exceeded by %.3e); kernel %.4f ms (device), call %.4f "
+              "ms (events), plain %.4f ms, bound %.4f ms (%s)"
+              % (name, S, lens_h if S <= 8 and MP < 64 else "%d x %d"
+                 % (S, lens_h[0]), err, PAGED_ATOL, PAGED_RTOL,
+                 excess.item(), ms, call_ms, plain_ms, b_ms, b_by))
+        out.append({"shape": name, "lengths": lens_h, "ms": ms,
+                    "call_ms": call_ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+        del q, kp, vp
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -515,31 +647,37 @@ def step_timing(srv, reqs, res, card):
 # ----------------------------------------------------------------------
 # phase 7: served tokens vs a full-sequence forward (teacher forced)
 # ----------------------------------------------------------------------
-def consistency_phase(net, reqs, res, dev, gap_tol=0.1):
-    greedy = [i for i, (p, sp) in enumerate(reqs) if sp is None
-              and (len(p) + len(res[i]["tokens"]) - 1) % 64]
-    ties = checked = 0
+def consistency_phase(net, reqs, res, dev):
+    """Every greedy request's served tokens against a teacher-forced full
+    forward of the same sequence: at every position the served token's
+    logit is within SERVED_LOGIT_TOL of the full forward's largest, and
+    at least SERVED_EXACT_MIN of the positions are its argmax."""
+    exact = checked = 0
+    worst = (0.0, None)
     with torch.no_grad():
-        for i in greedy[-2:]:
-            prompt, served = reqs[i][0], list(res[i]["tokens"])
+        for i, (prompt, sp) in enumerate(reqs):
+            if sp is not None:
+                continue
+            served = list(res[i]["tokens"])
             seq = torch.tensor([prompt + served[:-1]], device=dev)
             logits = net(seq)[0, len(prompt) - 1:].float()
-            top2 = logits.topk(2, dim=-1).values
-            gap = top2[:, 0] - top2[:, 1]
-            am = logits.argmax(dim=-1).tolist()
-            for pos, (a, s) in enumerate(zip(am, served)):
+            got = logits.gather(1, torch.tensor(served, device=dev)[:, None])
+            deficit = (logits.amax(dim=-1) - got[:, 0]).tolist()
+            for pos, d in enumerate(deficit):
                 checked += 1
-                if gap[pos].item() < gap_tol:
-                    ties += 1
-                    continue
-                check(a == s, "request %d position %d: served %d, full "
-                      "forward %d (gap %.3f)" % (i, pos, s, a,
-                                                 gap[pos].item()))
-            print("consistency: request %d (T=%d) matches the full forward"
-                  % (i, seq.shape[1]))
-    print("consistency: %d positions checked, %d near-ties (top-2 gap < "
-          "%.1f) skipped" % (checked, ties, gap_tol))
-    check(checked - ties > 0, "no position was checked")
+                exact += d == 0.0
+                if d > worst[0]:
+                    worst = (d, (i, pos))
+                check(d <= SERVED_LOGIT_TOL, "request %d position %d: the "
+                      "served token is %.4f below the full forward's top "
+                      "logit (limit %.2f)" % (i, pos, d, SERVED_LOGIT_TOL))
+    print("consistency: %d positions of %d greedy requests; served token "
+          "= full-forward argmax at %d (%.1f%%); largest shortfall %.4f "
+          "(request, position %s), limit %.2f"
+          % (checked, sum(sp is None for _, sp in reqs), exact,
+             100 * exact / checked, worst[0], worst[1], SERVED_LOGIT_TOL))
+    check(exact >= SERVED_EXACT_MIN * checked, "consistency: only %d of %d "
+          "served tokens are the full forward's argmax" % (exact, checked))
 
 
 # ----------------------------------------------------------------------
@@ -637,7 +775,7 @@ def train_phase(mt, co, dev, card, B=2, T=1024):
     return launches
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -657,6 +795,14 @@ def main():
     _build.build_all()
     print("kernel build %.2f s (nvcc, one process per source)"
           % (time.monotonic() - t0))
+    if argv[1:] == ["--kernel-timing"]:
+        # only the forward and paged kernels' timing, for comparing two
+        # trees in one call: copy this file into the other tree's root
+        print(json.dumps({"kernel_timing": {
+            "tree": root, "card": card, "flash_fwd": flash_timing(co, dev),
+            "paged_decode": paged_timing(co, dev)}}))
+        return 0
+    check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing]")
 
     flash = flash_phase(co, dev)
     flash_bwd = flash_bwd_phase(co, dev, card)
@@ -692,4 +838,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

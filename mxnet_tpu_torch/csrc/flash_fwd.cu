@@ -4,41 +4,58 @@
 // mxnet_tpu/ops/pallas_ops.py (its pallas_call at :126): causal or
 // non-causal attention with an online softmax, returning O in the input
 // dtype and the per-row logsumexp in fp32 (-inf, with O = 0, on a row
-// that sees no key).  GQA: query row bh reads kv row bh / rep, so the
-// repeated K/V never exist in memory.  The causal mask is built from the
-// runtime offsets q_off[0] / k_off[0] (device int32 tensors, read here,
-// because the ring passes offsets that change each step), and key tiles
-// wholly in a query tile's future are never loaded.
+// that sees no key; the backward kernels depend on both).  GQA: query
+// row bh reads kv row bh / rep, so the repeated K/V never exist in
+// memory.  The causal mask is built from the runtime offsets q_off[0] /
+// k_off[0] (device int32 tensors, read here, because the ring passes
+// offsets that change each step), and key tiles wholly in a query
+// tile's future are never loaded.
 //
 // What bounds it on this card: the work is 4*D flops per visible
 // (query, key) pair and head against (Q + O + K + V) bytes plus the lse,
 // so the intensity grows with T.  With 32 query heads over 8 kv heads
 // at D = 128, a causal T = 512 prefill (the serving ladder's top rung)
 // is ~2.15 GFLOP over ~10.55 MB, ~204 flop/byte, below the H100's ~295
-// flop/byte ridge: the prefill rungs (causal T <= 512) are bound by
-// bytes.  Causal T above ~740, or non-causal T above ~370, is bound by
+// flop/byte ridge: the prefill rungs are bound by bytes.  The training
+// shape (B = 2, causal T = 1024) and anything longer is bound by
 // tensor-core operations.
 //
-// What the design does about it: the bytes are kept to Q, O, the lse
-// and the live K/V -- K/V are read in their un-repeated GQA layout, key
-// tiles past the causal bound are never loaded, and the scores never
-// touch memory.  Both products run on the tensor cores through mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate), so the longer, compute-bound
-// shapes are served too; the score tile never leaves registers -- the FlashAttention-2 layout, where the
-// fp32 accumulator fragment of S = Q K^T is repacked in registers as the
-// bf16 A fragment of P V.  One CTA of 4 warps owns a 64-row query tile
-// of one (batch, head) and loops over 64-row K/V tiles staged in shared
-// memory; each warp owns 16 query rows, so the row max / row sum need
-// only a 4-lane shuffle.  V is stored transposed in shared memory so
-// its B fragments are single 32-bit loads.  Row strides are padded by
-// 8 elements, which makes every fragment load bank-conflict free.
-// This is the simple form: no cp.async / TMA double buffering and no
-// wgmma -- a later change can add them.
+// What the design does about it:
+// * K/V arrive by TMA into a ring of NSTAGES tiles in dynamic shared
+//   memory, each stage guarded by a "full" and an "empty" mbarrier.  One
+//   producer warp (one thread of it) keeps the next tiles' loads in
+//   flight while the consumer warpgroup computes; Q comes the same way
+//   once.  The tensor maps are 3-D over (heads, rows, D), so a ragged T
+//   or Tk edge is zero-filled by the hardware instead of reading the
+//   next head's rows.  A tile is D / 64 boxes of 64 rows x 64 columns
+//   (128 bytes) in the 128-byte swizzle that wgmma reads.  The maps are
+//   encoded on the host in the C entry point; cuTensorMapEncodeTiled is
+//   reached through cudaGetDriverEntryPoint, so the build links no
+//   -lcuda.
+// * Both products run on wgmma.  S = Q K^T (m64n64k16) reads Q and K
+//   from shared memory, both K-major.  O += P V (m64nDk16) takes P from
+//   registers as the A operand -- the S accumulator repacked to bf16 in
+//   place, as in FlashAttention-2 -- and reads V from shared memory as
+//   MN-major with the transpose bit set, so no transposed copy of V is
+//   ever made.
+// * One consumer warpgroup owns a 64-row query tile.  A 128-row tile
+//   (two consumer warpgroups) would give 128 CTAs at the serving shape,
+//   fewer than the 132 SMs; with 64 rows the grid is 256 CTAs there and
+//   two CTAs share an SM (82 KB of shared memory each), so one CTA's
+//   softmax overlaps the other's products.
+// * The online softmax runs in exp2f with scale * log2(e) folded into
+//   the scores once, and keeps the row statistics in the wgmma
+//   accumulator layout (each row lives in one quad of lanes, so a max or
+//   sum needs two shuffles; the row sum is reduced once, at the end).
+// * Heaviest causal tiles first: the query tile index is the slow grid
+//   dimension and runs in reverse, so the tiles with the most keys are
+//   dispatched in the first wave and the cheap ones fill the tail.
 //
-// Shapes: any T and Tk (the ragged edge is masked and zero-filled),
-// D in {64, 128}, H % Hkv == 0.  Layouts: q (BH, T, D), k/v (BHkv, Tk,
-// D), o (BH, T, D), lse (BH, T), all contiguous.
+// Shapes: any T and Tk, D in {64, 128}, H % Hkv == 0.  Layouts: q (BH,
+// T, D), k/v (BHkv, Tk, D), o (BH, T, D), lse (BH, T), all contiguous
+// with 16-byte aligned bases.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,18 +63,191 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per CTA (16 per warp)
-constexpr int BK = 64;          // keys per K/V tile
-constexpr int NTHREADS = 128;   // 4 warps
+constexpr int BQ = 64;                     // query rows per CTA
+constexpr int BK = 64;                     // keys per K/V tile
+constexpr int NSTAGES = 2;                 // K/V ring depth
+constexpr int NCONSUMER = 128;             // one warpgroup
+constexpr int NTHREADS = NCONSUMER + 32;   // + the producer warp
+constexpr int BOX = 64 * 64;               // elements of one 64x64 box
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+template <int D>
+struct Smem {
+  alignas(1024) __nv_bfloat16 q[BQ * D];
+  alignas(1024) __nv_bfloat16 k[NSTAGES][BK * D];
+  alignas(1024) __nv_bfloat16 v[NSTAGES][BK * D];
+  uint64_t q_full, full[NSTAGES], empty[NSTAGES];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier `b` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands
+// (Q, K): SBO = 1024 B between 8-row groups, LBO unused.  MN-major V:
+// LBO = the stride between 64-column boxes, SBO = 1024 B between groups
+// of 8 keys.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving register reads or writes across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in
+// shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in
+// shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(o, a, db);
+  else
+    wgmma_rs_n64(o, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -65,127 +255,121 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
                  const int* __restrict__ q_off_p,
                  const int* __restrict__ k_off_p,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int rep, int T, int Tk, float scale, int causal) {
-  constexpr int KS = D + 8;      // padded row stride of Ks (elements)
-  constexpr int VS = BK + 8;     // padded row stride of Vt
-  constexpr int NKT = D / 16;    // k-steps of Q K^T
-  constexpr int NDT = D / 8;     // n-tiles of the O accumulator
-  constexpr int NST = BK / 8;    // n-tiles of the score tile
-  constexpr int VEC = 8;         // bf16 per 16-byte load
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * KS];  // also stages Q
-  __shared__ __align__(16) __nv_bfloat16 Vt[D * VS];
+                 int rep, int T, int Tk, float scale_log2, int causal) {
+  constexpr int NB = D / 64;               // 64-column boxes per row
+  constexpr int KV_BYTES = 2 * BK * D * 2; // one stage: a K and a V tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
+      smem_raw + (((raw + 1023u) & ~1023u) - raw));
 
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
   const int bkv = bh / rep;
+  const int row0 = qt * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
   const int q_off = q_off_p[0], k_off = k_off_p[0];
-  const int row0 = qt * BQ;
-
-  const __nv_bfloat16* qb = q + ((size_t)bh * T) * D;
-  const __nv_bfloat16* kb = k + ((size_t)bkv * Tk) * D;
-  const __nv_bfloat16* vb = v + ((size_t)bkv * Tk) * D;
-
-  // ---- stage the Q tile through Ks, keep its A fragments in registers
-  for (int i = tid; i < BQ * D / VEC; i += NTHREADS) {
-    int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(&Ks[r * KS + c]) = val;
-  }
-  __syncthreads();
-  uint32_t qf[NKT][4];
-  {
-    const int r = warp * 16 + g;
-#pragma unroll
-    for (int kk = 0; kk < NKT; ++kk) {
-      const int c = kk * 16 + tig * 2;
-      qf[kk][0] = ld_u32(&Ks[r * KS + c]);
-      qf[kk][1] = ld_u32(&Ks[(r + 8) * KS + c]);
-      qf[kk][2] = ld_u32(&Ks[r * KS + c + 8]);
-      qf[kk][3] = ld_u32(&Ks[(r + 8) * KS + c + 8]);
-    }
-  }
-
-  float acc[NDT][4];
-#pragma unroll
-  for (int n = 0; n < NDT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY};
-  float l_i[2] = {0.f, 0.f};
-  // global positions of this thread's two rows (g and g + 8 of the warp)
-  const int qrow[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
 
   // key tiles to visit: all of them, or up to the causal bound of the
   // last real row of this query tile
   const int nk = (Tk + BK - 1) / BK;
   int upper = nk;
   if (causal) {
-    const int qmax = q_off + min(row0 + BQ, T) - 1;
-    const int diff = qmax - k_off;
+    const int diff = q_off + min(row0 + BQ, T) - 1 - k_off;
     upper = diff < 0 ? 0 : min(diff / BK + 1, nk);
   }
 
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < NSTAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], NCONSUMER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NCONSUMER / 32) {
+    // ---- producer: one thread keeps the ring full
+    if (lane == 0 && upper > 0) {
+      mbar_expect_tx(&sm.q_full, BQ * D * 2);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(sm.q + b * BOX, &tm_q, &sm.q_full, b * 64, row0, bh);
+      for (int kt = 0; kt < upper; ++kt) {
+        const int st = kt % NSTAGES;
+        if (kt >= NSTAGES) mbar_wait(&sm.empty[st], (kt / NSTAGES - 1) & 1);
+        mbar_expect_tx(&sm.full[st], KV_BYTES);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(sm.k[st] + b * BOX, &tm_k, &sm.full[st], b * 64,
+                      kt * BK, bkv);
+          tma_load_3d(sm.v[st] + b * BOX, &tm_v, &sm.full[st], b * 64,
+                      kt * BK, bkv);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: rows warp * 16 + g and + 8 of the tile
+  const int g = lane >> 2, tig = lane & 3;
+  const int qrow[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY};   // log2 domain
+  float l_i[2] = {0.f, 0.f};               // this thread's share of the row
+
+  if (upper > 0) mbar_wait(&sm.q_full, 0);
   for (int kt = 0; kt < upper; ++kt) {
+    const int st = kt % NSTAGES;
     const int key0 = kt * BK;
-    __syncthreads();  // previous tile (or the Q staging) fully consumed
-    for (int i = tid; i < BK * D / VEC; i += NTHREADS) {
-      int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key0 + r < Tk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(key0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(key0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KS + c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) Vt[(c + e) * VS + r] = ve[e];
-    }
-    __syncthreads();
+    mbar_wait(&sm.full[st], (kt / NSTAGES) & 1);
 
-    // S = Q K^T for this warp's 16 rows x 64 keys (fp32 fragments)
-    float s[NST][4];
+    // S = Q K^T: D / 16 k-steps, 16 columns (32 bytes) each
+    float s[BK / 2];
 #pragma unroll
-    for (int n = 0; n < NST; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const int kr = n * 8 + g;
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < NKT; ++kk) {
-        const int c = kk * 16 + tig * 2;
-        mma_bf16(s[n], qf[kk], ld_u32(&Ks[kr * KS + c]),
-                 ld_u32(&Ks[kr * KS + c + 8]));
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * BOX + (kk % 4) * 16;
+      wgmma_ss_n64(s, sw128_desc(sm.q + off, 16, 1024),
+                   sw128_desc(sm.k[st] + off, 16, 1024), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
 
-    // scale, mask, online softmax (rows g -> h = 0, g + 8 -> h = 1)
+    // scale into the log2 domain, mask the causal and ragged edges.
+    // Accumulator element i: row half h = (i >> 1) & 1, key
+    // 8 * (i >> 2) + 2 * tig + (i & 1).
+    const bool edge = key0 + BK > Tk ||
+                      (causal && k_off + key0 + BK - 1 > q_off + row0);
     float mcur[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < NST; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int key = key0 + n * 8 + tig * 2 + (e & 1);
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      float val = s[i] * scale_log2;
+      if (edge) {
+        const int key = key0 + 8 * (i >> 2) + 2 * tig + (i & 1);
         bool ok = key < Tk;
         if (causal) ok = ok && (q_off + qrow[h] >= k_off + key);
-        const float val = ok ? s[n][e] * scale : -INFINITY;
-        s[n][e] = val;
-        mcur[h] = fmaxf(mcur[h], val);
+        val = ok ? val : -INFINITY;
       }
+      s[i] = val;
+      mcur[h] = fmaxf(mcur[h], val);
     }
     float alpha[2], msafe[2];
 #pragma unroll
@@ -194,70 +378,124 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       mcur[h] = fmaxf(mcur[h], __shfl_xor_sync(0xffffffff, mcur[h], 2));
       const float mnew = fmaxf(m_i[h], mcur[h]);
       msafe[h] = mnew == -INFINITY ? 0.f : mnew;
-      alpha[h] = m_i[h] == -INFINITY ? 0.f : expf(m_i[h] - msafe[h]);
+      alpha[h] = m_i[h] == -INFINITY ? 0.f : exp2f(m_i[h] - msafe[h]);
       m_i[h] = mnew;
-    }
-    float lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < NST; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        // exp(-inf - finite) = 0 covers every masked key
-        const float p = expf(s[n][e] - msafe[e >> 1]);
-        s[n][e] = p;
-        lsum[h] += p;
-      }
+      l_i[h] *= alpha[h];
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      lsum[h] += __shfl_xor_sync(0xffffffff, lsum[h], 1);
-      lsum[h] += __shfl_xor_sync(0xffffffff, lsum[h], 2);
-      l_i[h] = l_i[h] * alpha[h] + lsum[h];
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = exp2f(s[i] - msafe[h]);   // 0 on a masked key
+      s[i] = p;
+      l_i[h] += p;
     }
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V: the S accumulator fragments of n-tiles 2kk, 2kk+1 are
-    // exactly the bf16 A fragment of k-step kk
+    // O += P V: accumulator n-tiles 2kk, 2kk + 1 of S are the bf16 A
+    // fragment of k-step kk; V's keys 16kk .. 16kk + 15 start 16 rows
+    // (2048 bytes) further into the stage
+    uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int c = kk * 16 + tig * 2;
-#pragma unroll
-      for (int n = 0; n < NDT; ++n) {
-        const int vr = n * 8 + g;
-        mma_bf16(acc[n], pa, ld_u32(&Vt[vr * VS + c]),
-                 ld_u32(&Vt[vr * VS + c + 8]));
-      }
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_pv<D>(acc, pa[kk],
+                  sw128_desc(sm.v[st] + kk * 16 * 64, BOX * 2, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    mbar_arrive(&sm.empty[st]);   // this stage may be refilled
   }
 
   // epilogue: O = acc / l (0 on a fully masked row), lse = m + log(l)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
+    float l = l_i[h];
+    l += __shfl_xor_sync(0xffffffff, l, 1);
+    l += __shfl_xor_sync(0xffffffff, l, 2);
     const int r = qrow[h];
     if (r >= T) continue;
-    const float l = l_i[h];
     const float inv = l == 0.f ? 0.f : 1.f / l;
     __nv_bfloat16* orow = o + ((size_t)bh * T + r) * D;
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      *reinterpret_cast<uint32_t*>(&orow[n * 8 + tig * 2]) =
-          pack_bf16(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(&orow[8 * j + 2 * tig]) =
+          pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
     if (tig == 0)
-      lse[(size_t)bh * T + r] = l == 0.f ? -INFINITY : m_i[h] + logf(l);
+      lse[(size_t)bh * T + r] =
+          l == 0.f ? -INFINITY : m_i[h] * LN2 + logf(l);
   }
+}
+
+// ---- host side: tensor maps and launch
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over (heads, rows, D) of bf16, boxes of 64 rows x 64
+// columns in the 128-byte swizzle; out-of-range rows read as zeros.
+bool make_map(CUtensorMap* map, const void* base, int heads, int rows,
+              int D) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const int* qo,
+           const int* ko, __nv_bfloat16* o, float* lse, int BH, int BHkv,
+           int T, int Tk, float scale, int causal, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, BH, T, D) || !make_map(&tk, k, BHkv, Tk, D) ||
+      !make_map(&tv, v, BHkv, Tk, D))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem<D>) + 1024;   // + alignment slack
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (T + BQ - 1) / BQ);
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem, s>>>(
+      tq, tk, tv, qo, ko, o, lse, BH / BHkv, T, Tk, scale * LOG2E, causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -267,27 +505,18 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             void* lse, int BH, int BHkv, int T, int Tk,
                             int D, float scale, int causal, void* stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || T <= 0 || Tk <= 0 ||
-      BH > 65535)
+      (T + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((T + BQ - 1) / BQ, BH);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int rep = BH / BHkv;
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto kp = static_cast<const __nv_bfloat16*>(k);
-  auto vp = static_cast<const __nv_bfloat16*>(v);
   auto qo = static_cast<const int*>(q_off);
   auto ko = static_cast<const int*>(k_off);
   auto op = static_cast<__nv_bfloat16*>(o);
   auto lp = static_cast<float*>(lse);
   if (D == 128)
-    flash_fwd_kernel<128><<<grid, NTHREADS, 0, s>>>(qp, kp, vp, qo, ko, op,
-                                                    lp, rep, T, Tk, scale,
-                                                    causal);
-  else if (D == 64)
-    flash_fwd_kernel<64><<<grid, NTHREADS, 0, s>>>(qp, kp, vp, qo, ko, op,
-                                                   lp, rep, T, Tk, scale,
-                                                   causal);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch<128>(q, k, v, qo, ko, op, lp, BH, BHkv, T, Tk, scale,
+                       causal, s);
+  if (D == 64)
+    return launch<64>(q, k, v, qo, ko, op, lp, BH, BHkv, T, Tk, scale,
+                      causal, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -110,10 +110,9 @@ def _signatures():
         # causal stream
         "flash_bwd": {"mx_flash_bwd_dq": [p] * 9 + [i] * 5 + [f, i, p],
                       "mx_flash_bwd_dkv": [p] * 10 + [i] * 5 + [f, i, p]},
-        # q k_pages v_pages page_table lengths out S H Hkv psz D MP scale
-        # stream
-        "paged_decode": {"mx_paged_decode": [p, p, p, p, p, p, i, i, i, i,
-                                             i, i, f, p]},
+        # q k_pages v_pages page_table lengths out part_acc part_ml, S H
+        # Hkv psz D MP nsplit kps chunk, scale stream
+        "paged_decode": {"mx_paged_decode": [p] * 8 + [i] * 9 + [f, p]},
     }
 
 

@@ -33,8 +33,8 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_with_lse", "flash_attention",
-           "flash_attention_block_bwd", "paged_attention", "LAUNCHES",
-           "reset_launch_counts"]
+           "flash_attention_block_bwd", "paged_attention",
+           "paged_split_plan", "LAUNCHES", "reset_launch_counts"]
 
 NEG_INF = float("-inf")
 
@@ -70,9 +70,19 @@ def _check_kernel_input(name, t, dtype, dim):
         raise ValueError("%s must be 16-byte aligned" % name)
 
 
+_ZERO_OFFSETS = {}
+
+
 def _offsets(offset, device):
+    """The offset as a one-element int32 tensor on ``device``.  ``None``
+    gives one cached zero per device (the kernels only read it), so a
+    call without offsets launches no fill kernel and allocates nothing."""
     if offset is None:
-        return torch.zeros(1, dtype=torch.int32, device=device)
+        zero = _ZERO_OFFSETS.get(device)
+        if zero is None:
+            zero = _ZERO_OFFSETS[device] = torch.zeros(
+                1, dtype=torch.int32, device=device)
+        return zero
     return torch.as_tensor(offset, dtype=torch.int32,
                            device=device).reshape(1)
 
@@ -343,6 +353,67 @@ def _paged_dense(q, k_pages, v_pages, page_table, lengths, scale):
     return o.to(q.dtype)
 
 
+#: CTAs the split plan aims for: 8 per SM of an H100.  Splits past a
+#: slot's length exit at once, so a generous grid costs little.
+PAGED_TARGET_CTAS = 8 * 132
+
+
+def paged_split_plan(S, Hkv, MP, psz):
+    """How ``csrc/paged_decode.cu`` splits each (slot, kv head):
+    ``(nsplit, keys_per_split, chunk)``.  Split ``i`` covers key
+    positions ``[i * keys_per_split, (i + 1) * keys_per_split)`` of the
+    ``MP * psz`` a slot can hold, in chunks of ``chunk`` keys that never
+    straddle a page.  It depends on the shapes only, never on the
+    lengths, so sizing the grid reads nothing from the device."""
+    chunk = next(c for c in (64, 32, 16) if psz % c == 0)
+    n_chunks = MP * psz // chunk
+    want = max(1, -(-PAGED_TARGET_CTAS // (S * Hkv)))
+    per = -(-n_chunks // min(n_chunks, want))
+    return -(-n_chunks // per), per * chunk, chunk
+
+
+def _paged_split_dense(q, k_pages, v_pages, page_table, lengths, scale):
+    """Plain version of the kernel's algorithm: each split of
+    :func:`paged_split_plan` takes an fp32 softmax over its own keys,
+    giving (m, l, acc); the splits are merged in split order.  Equal to
+    :func:`_paged_dense` up to fp32 rounding."""
+    S, H, D = q.shape
+    Hkv, psz = k_pages.shape[1], k_pages.shape[2]
+    MP = page_table.shape[1]
+    nsplit, kps, _ = paged_split_plan(S, Hkv, MP, psz)
+    rep = H // Hkv
+    pt = page_table.long()
+
+    def gather(pages):
+        x = pages[pt].permute(0, 1, 3, 2, 4).reshape(S, MP * psz, Hkv, D)
+        return x.repeat_interleave(rep, dim=2).float()
+    k, v = gather(k_pages), gather(v_pages)
+    sc = torch.einsum("shd,skhd->shk", q.float(), k) * scale
+    kpos = torch.arange(MP * psz, device=q.device)
+    live = kpos[None, None, :] < lengths.to(q.device)[:, None, None]
+    sc = sc.masked_fill(~live, NEG_INF)
+    parts = []
+    for i in range(nsplit):
+        lo, hi = i * kps, min((i + 1) * kps, MP * psz)
+        m = sc[..., lo:hi].amax(dim=-1)
+        m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+        p = torch.exp(sc[..., lo:hi] - m_safe[..., None])
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("shk,skhd->shd", p, v[:, lo:hi])))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    m_all = torch.where(torch.isneginf(m_all), torch.zeros_like(m_all),
+                        m_all)
+    l = torch.zeros_like(m_all)
+    acc = torch.zeros(S, H, D, dtype=torch.float32, device=q.device)
+    for m, l_i, acc_i in parts:
+        w = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                        torch.exp(m - m_all))
+        l = l + w * l_i
+        acc = acc + w[..., None] * acc_i
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).to(q.dtype)
+
+
 def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
     S, H, D = q.shape
     P, Hkv, psz, _ = k_pages.shape
@@ -368,17 +439,25 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
                          % (tuple(k_pages.shape), tuple(v_pages.shape),
                             tuple(page_table.shape), tuple(lengths.shape),
                             tuple(q.shape)))
+    MP = page_table.shape[1]
+    nsplit, kps, chunk = paged_split_plan(S, Hkv, MP, psz)
     out = torch.empty_like(q)
+    # each split's unnormalised (acc, (m, l)), merged by the second kernel
+    part_acc = torch.empty((S, H, nsplit, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((S, H, nsplit, 2), dtype=torch.float32,
+                          device=q.device)
     lib = _build.library("paged_decode")
     err = lib.mx_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, H,
-        Hkv, psz, D, page_table.shape[1], float(scale),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), S, H, Hkv, psz, D, MP,
+        nsplit, kps, chunk, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError("paged_decode kernel launch failed: CUDA error "
                            "%d" % err)
-    LAUNCHES["paged_decode"] += 1
+    LAUNCHES["paged_decode"] += 1     # the split and merge kernels as one
     return out
 
 

@@ -38,42 +38,85 @@ def _bf16(dev, seed, *shape):
         dev, torch.bfloat16)
 
 
-@pytest.mark.parametrize("T,Tk,causal,q_off,k_off,D", [
-    (128, 128, True, 0, 0, 128), (300, 300, True, 0, 0, 128),
-    (300, 300, False, 0, 0, 128), (128, 128, True, 0, 100, 128),
-    (77, 200, True, 150, 30, 64), (64, 64, False, 0, 0, 64)])
-def test_flash_kernel_matches_plain(dev, T, Tk, causal, q_off, k_off, D):
-    q = _bf16(dev, T, 1, 8, T, D)
-    k, v = _bf16(dev, Tk, 1, 2, Tk, D), _bf16(dev, Tk + 1, 1, 2, Tk, D)
+# (B, H, Hkv, T, Tk, causal, q_off, k_off, D): the serving prefill's
+# top rung and the training shape, ragged T, ring steps whose first rows
+# see no key, D = 64, rep in {1, 4, 8}, non-causal
+FLASH_CASES = [
+    (1, 8, 2, 128, 128, True, 0, 0, 128), (1, 8, 2, 300, 300, True, 0, 0, 128),
+    (1, 8, 2, 300, 300, False, 0, 0, 128),
+    (1, 8, 2, 128, 128, True, 0, 100, 128),
+    (1, 8, 2, 77, 200, True, 150, 30, 64), (1, 8, 2, 64, 64, False, 0, 0, 64),
+    (1, 32, 8, 512, 512, True, 0, 0, 128),
+    (2, 32, 8, 1024, 1024, True, 0, 0, 128),
+    (1, 8, 8, 300, 300, True, 0, 0, 128), (1, 8, 1, 77, 77, True, 0, 0, 64),
+    (1, 8, 2, 300, 428, True, 28, 128, 128),
+    (1, 4, 4, 77, 200, False, 0, 0, 64),
+    (1, 8, 1, 300, 300, False, 0, 0, 128),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, case):
+    """The TMA + wgmma forward against plain at the main path's shapes
+    and the edges of its design (ragged tiles, GQA groups of 1, 4 and 8,
+    masked rows); two calls give the same bits."""
+    B, H, Hkv, T, Tk, causal, q_off, k_off, D = case
+    q = _bf16(dev, T, B, H, T, D)
+    k, v = _bf16(dev, Tk, B, Hkv, Tk, D), _bf16(dev, Tk + 1, B, Hkv, Tk, D)
     before = cuda_ops.LAUNCHES["flash_fwd"]
     o, lse = cuda_ops.flash_attention_with_lse(
         q, k, v, causal=causal, q_offset=q_off, k_offset=k_off)
+    o2, lse2 = cuda_ops.flash_attention_with_lse(
+        q, k, v, causal=causal, q_offset=q_off, k_offset=k_off)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["flash_fwd"] == before + 1
+    assert cuda_ops.LAUNCHES["flash_fwd"] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     offs = [torch.tensor([x], dtype=torch.int32, device=dev)
             for x in (q_off, k_off)]
     o_p, lse_p = cuda_ops._dense_with_lse(q, k, v, *offs, causal, D ** -0.5)
     masked = torch.isneginf(lse_p)
     assert torch.equal(torch.isneginf(lse), masked)
+    assert bool(masked.any()) == (causal and k_off > q_off)
     assert not o[masked[..., None].expand_as(o)].any()
     torch.testing.assert_close(o.float(), o_p.float(), atol=2e-2,
                                rtol=1e-2)
     assert (lse[~masked] - lse_p[~masked]).abs().max().item() < 1e-5
 
 
-def test_paged_kernel_matches_plain(dev):
-    S, H, Hkv, D, psz, P, MP = 5, 8, 2, 64, 32, 24, 4
+# (S, H, Hkv, D, psz, P, MP, lengths): lengths on the split boundaries
+# +-1 (cuda_ops.paged_split_plan), full tables, empty slots, S = 1,
+# rep in {1, 4, 8}, page sizes 16, 32 and 128, D 64 and 128, and a long
+# case with several chunks per split (the double-buffered loop)
+PAGED_CASES = [
+    (5, 8, 2, 64, 32, 24, 4, [0, 1, 32, 33, 128]),
+    (8, 32, 8, 128, 128, 64, 5, [0, 63, 64, 65, 127, 128, 129, 640]),
+    (1, 8, 8, 64, 16, 12, 10, [160]),
+    (4, 8, 1, 64, 128, 24, 4, [1, 511, 512, 0]),
+    (3, 32, 4, 128, 16, 40, 12, [15, 16, 17]),
+    (2, 32, 8, 128, 128, 130, 64, [8192, 5000]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain(dev, case):
+    """The split-page decode against plain; the splits are merged in a
+    fixed order, so two calls give the same bits."""
+    S, H, Hkv, D, psz, P, MP, lens = case
     q, kp, vp = (_bf16(dev, 1, S, H, D), _bf16(dev, 2, P, Hkv, psz, D),
                  _bf16(dev, 3, P, Hkv, psz, D))
     pt = torch.from_numpy(onp.random.RandomState(4).permutation(
         onp.arange(1, P))[:S * MP].reshape(S, MP).astype(onp.int32)).to(dev)
-    lens = torch.tensor([0, 1, 32, 33, 128], dtype=torch.int32, device=dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
     before = cuda_ops.LAUNCHES["paged_decode"]
-    got = cuda_ops.paged_attention(q, kp, vp, pt, lens)
+    got = cuda_ops.paged_attention(q, kp, vp, pt, ln)
+    again = cuda_ops.paged_attention(q, kp, vp, pt, ln)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["paged_decode"] == before + 1
-    want = cuda_ops._paged_dense(q, kp, vp, pt, lens, D ** -0.5)
-    assert not got[0].any()
+    assert cuda_ops.LAUNCHES["paged_decode"] == before + 2
+    assert torch.equal(got, again)
+    want = cuda_ops._paged_dense(q, kp, vp, pt, ln, D ** -0.5)
+    for s, n in enumerate(lens):
+        if n == 0:
+            assert not got[s].any()
     torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
                                rtol=1e-2)
 

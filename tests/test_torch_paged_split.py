@@ -1,0 +1,106 @@
+"""The split plan of the port's paged decode kernel and its plain
+split-and-merge version, against the plain paged read and the JAX
+package's Pallas kernel.
+
+``cuda_ops.paged_split_plan`` sizes the kernel's grid from the shapes
+alone; ``cuda_ops._paged_split_dense`` repeats the kernel's algorithm
+(one softmax per split, merged in split order) in PyTorch.  Both run
+here on the CPU.  The JAX side runs the Pallas kernel in interpret mode,
+as ``tests/test_torch_attention.py`` does.  fp32 throughout; the
+tolerance is fp32 summation-order noise (the merge reorders the sums).
+"""
+import inspect
+
+import numpy as onp
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mxnet_tpu.ops import pallas_ops
+from mxnet_tpu_torch.ops import cuda_ops
+
+ATOL = 1e-5
+
+
+@pytest.mark.parametrize("S,Hkv,MP,psz", [
+    (8, 8, 5, 128), (8, 8, 64, 128), (1, 1, 3, 16), (2, 2, 4, 32),
+    (1, 8, 7, 48), (64, 8, 20, 80), (3, 1, 1, 16), (5, 2, 9, 64)])
+def test_split_plan_covers_every_key_once(S, Hkv, MP, psz):
+    nsplit, kps, chunk = cuda_ops.paged_split_plan(S, Hkv, MP, psz)
+    assert chunk in (16, 32, 64) and psz % chunk == 0 and kps % chunk == 0
+    cover = onp.zeros(MP * psz, onp.int64)
+    for i in range(nsplit):
+        lo, hi = i * kps, min((i + 1) * kps, MP * psz)
+        assert lo < hi                      # no split is empty
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    # the first chunk of every split starts a chunk, and no chunk
+    # straddles a page
+    assert all((i * kps) % chunk == 0 for i in range(nsplit))
+
+
+def test_split_plan_reads_shapes_only():
+    assert list(inspect.signature(cuda_ops.paged_split_plan).parameters) \
+        == ["S", "Hkv", "MP", "psz"]
+    # the serving shape: 8 slots x 8 kv heads over 5 pages of 128 give
+    # more CTAs than the card's 132 SMs
+    nsplit, _, _ = cuda_ops.paged_split_plan(8, 8, 5, 128)
+    assert 8 * 8 * nsplit > 132
+
+
+def _paged(seed, S, H, Hkv, D, psz, P, MP, lens):
+    rng = onp.random.RandomState(seed)
+    q = rng.randn(S, H, D).astype(onp.float32)
+    kp = rng.randn(P, Hkv, psz, D).astype(onp.float32)
+    vp = rng.randn(P, Hkv, psz, D).astype(onp.float32)
+    pt = rng.permutation(onp.arange(1, P))[:S * MP].reshape(S, MP)
+    return q, kp, vp, pt.astype(onp.int32), onp.asarray(lens, onp.int32)
+
+
+# (S, H, Hkv, D, psz, P, MP, lengths): empty slots, lengths at the split
+# boundaries +-1 and a full table (MP * psz)
+CASES = [
+    (8, 8, 2, 64, 32, 40, 4, [0, 31, 32, 33, 63, 64, 65, 128]),
+    (4, 4, 4, 64, 16, 24, 5, [1, 15, 17, 80]),
+    (3, 8, 1, 128, 64, 10, 3, [192, 0, 129]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_split_merge_matches_plain(case):
+    S, H, Hkv, D, psz, P, MP, lens = CASES[case]
+    args = [torch.from_numpy(a)
+            for a in _paged(case, S, H, Hkv, D, psz, P, MP, lens)]
+    nsplit, _, _ = cuda_ops.paged_split_plan(S, Hkv, MP, psz)
+    assert nsplit > 1
+    got = cuda_ops._paged_split_dense(*args, D ** -0.5)
+    want = cuda_ops._paged_dense(*args, D ** -0.5)
+    onp.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
+                                rtol=0)
+    for s, n in enumerate(lens):
+        if n == 0:
+            assert not got[s].any()
+
+
+@pytest.mark.parametrize("case", [0, 2])
+def test_split_merge_matches_pallas_kernel(monkeypatch, case):
+    monkeypatch.setattr(pallas_ops, "_INTERPRET", True)
+    S, H, Hkv, D, psz, P, MP, lens = CASES[case]
+    arrs = _paged(case, S, H, Hkv, D, psz, P, MP, lens)
+    want = pallas_ops._paged_kernel_call(*(jnp.asarray(a) for a in arrs),
+                                         D ** -0.5)
+    got = cuda_ops._paged_split_dense(*(torch.from_numpy(a) for a in arrs),
+                                      D ** -0.5)
+    onp.testing.assert_allclose(got.numpy(), onp.asarray(want), atol=ATOL,
+                                rtol=0)
+
+
+def test_zero_offsets_are_cached_per_device():
+    cpu = torch.device("cpu")
+    a = cuda_ops._offsets(None, cpu)
+    assert a is cuda_ops._offsets(None, cpu)
+    assert a.dtype == torch.int32 and a.tolist() == [0]
+    # an explicit offset is a fresh tensor every time
+    assert cuda_ops._offsets(5, cpu).tolist() == [5]
+    assert cuda_ops._offsets(0, cpu) is not a

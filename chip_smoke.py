@@ -4,10 +4,12 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``mxnet_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, checks one
-training step of a small bf16 model on the card against the CPU, serves
-a Llama-3-8B-width ``TransformerLM`` (random weights from a seed)
+It builds the hand-written CUDA kernels from ``mxnet_tpu_torch/csrc``
+(printing each kernel's registers and spills, and failing where ptxas
+serialised its wgmma pipeline), holds each against its plain PyTorch
+version on the card, checks one training step of a small bf16 model
+on the card against the CPU, serves a Llama-3-8B-width
+``TransformerLM`` (random weights from a seed)
 through the port's ``Server`` and checks the served tokens against a
 full-sequence forward, then trains an 8-layer Llama-3-8B-width model
 through ``TrainStep`` and the Gluon ``Trainer``.  Each path runs with
@@ -20,7 +22,7 @@ A kernel's time is its own device time, summed from a torch.profiler
 trace of its calls with the L2 cache flushed before each
 (:func:`device_ms`); the event time of the whole wrapper call is kept
 beside it as ``call_ms``.  ``python3 chip_smoke.py --kernel-timing``
-runs only the forward and paged kernels' checks and timing; copied into
+runs only the forward, backward and paged kernels' timing; copied into
 another checkout's root, it times that tree's kernels the same way, so
 two trees compare in one call.
 """
@@ -29,6 +31,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -145,6 +148,27 @@ def device_ms(fn, match=None, iters=20, warmup=3, attempts=5):
     return ms, per
 
 
+def ptxas_report(build):
+    """Registers and spill bytes of every kernel, from the ``-Xptxas
+    -v`` output kept beside each library; fails where ptxas serialised
+    the wgmma pipeline (warnings C7514 / C7515)."""
+    out = []
+    for name in build.SOURCES:
+        log = build.build_log(name)
+        check("C7514" not in log and "C7515" not in log,
+              "ptxas serialised wgmma in %s:\n%s" % (name, log))
+        for fn, body in re.findall(
+                r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry"
+                r" function|\Z)", log, re.S):
+            kern = re.search(r"\d([a-z_]+_kernel)ILi(\d+)E", fn)
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores", body)
+            out.append("%s<%s> %s regs %s B spill"
+                       % (kern.group(1), kern.group(2), regs.group(1),
+                          spill.group(1)))
+    print("ptxas: " + "; ".join(sorted(out)))
+
+
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -182,8 +206,8 @@ def flash_phase(co, dev):
               "flash: a fully masked row is not zero")
         eo = (o.float() - o_p.float()).abs().max().item()
         el = (lse[~masked] - lse_p[~masked]).abs().max().item()
-        print("flash B=%d T=%d Tk=%d causal=%s q_off=%d k_off=%d: max|dO| "
-              "%.3e max|dlse| %.3e masked rows %d"
+        print("flash B=%d T=%d Tk=%d causal=%s q_off=%d k_off=%d: O err "
+              "%.3e, lse err %.3e (max |kernel - plain|); masked rows %d"
               % (B, T, Tk, causal, qo, ko, eo, el, int(masked.sum())))
         check(eo <= FLASH_O_ATOL and el <= FLASH_LSE_ATOL,
               "flash kernel disagrees with plain: %.3e / %.3e (limits "
@@ -240,7 +264,7 @@ def flash_timing(co, dev):
         shape = "q(%d,%d,%d,%d) causal" % (B, H, T, D)
         print("flash timing %s: kernel %.4f ms (device), call %.4f ms "
               "(events), plain %.4f ms, SDPA %.4f ms (device; kernels %s), "
-              "bound %.4f ms (%s); max|dO| %.3e max|dlse| %.3e"
+              "bound %.4f ms (%s); O err %.3e, lse err %.3e"
               % (shape, ms, call_ms, plain_ms, lib_ms,
                  ", ".join("%s %.4f" % kv for kv in lib_k.items()), b_ms,
                  b_by, eo, el))
@@ -274,8 +298,7 @@ def flash_bwd_phase(co, dev, card):
     gen = torch.Generator(device="cpu").manual_seed(4)
     H, Hkv = 32, 8
     # (B, T, Tk, causal, q_off, k_off, D); the last is the training
-    # path's shape, q (2,32,1024,128) causal over k/v (2,8,1024,128),
-    # whose inputs are also the timed ones
+    # path's shape, q (2,32,1024,128) causal over k/v (2,8,1024,128)
     cases = [(1, 128, 128, True, 0, 0, 128), (1, 128, 128, False, 0, 0, 128),
              (1, 300, 300, True, 0, 0, 128), (1, 300, 300, False, 0, 0, 128),
              (1, 1024, 1024, True, 0, 0, 128),
@@ -299,77 +322,132 @@ def flash_bwd_phase(co, dev, card):
               "flash bwd: the forward disagrees with plain: %.3e / %.3e "
               "(limits %.0e / %.0e)" % (eo, el, FLASH_O_ATOL, FLASH_LSE_ATOL))
         del o_p, lse_p
-        got = co._flash_bwd_cuda(q, k, v, do, lse, delta, *offs, causal,
-                                 D ** -0.5)
         want = co._flash_bwd_dense(q, k, v, do, lse, delta, *offs, causal,
                                    D ** -0.5)
-        torch.cuda.synchronize()
-        rel = {}
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            err = (g.float() - w).abs().max().item()
-            rel[name] = err / w.abs().max().item()
-            abs_err[name] = max(abs_err[name], err)
-            worst[name] = max(worst[name], rel[name])
-        check(not got[0][masked[..., None].expand_as(got[0])].any(),
-              "flash bwd: dq of a fully masked row is not zero")
-        print("flash bwd B=%d T=%d Tk=%d causal=%s q_off=%d k_off=%d D=%d: "
-              "forward max|dO| %.3e max|dlse| %.3e; max|d|/max|plain| dq "
-              "%.3e dk %.3e dv %.3e, masked rows %d"
-              % (B, T, Tk, causal, qo, ko, D, eo, el, rel["dq"], rel["dk"],
-                 rel["dv"], int(masked.sum())))
-        check(max(rel.values()) <= FLASH_BWD_TOL,
-              "flash bwd kernels disagree with plain: %s (limit %.0e)"
-              % (rel, FLASH_BWD_TOL))
-        del got, want
+        # delta computed inside the dq launch from O and dlse (the
+        # training path), then given (the ring primitive's path)
+        for how, extra in (("fused delta", dict(o=o, dlse=dlse)),
+                           ("given delta", {})):
+            got = co._flash_bwd_cuda(q, k, v, do, lse,
+                                     None if extra else delta, *offs,
+                                     causal, D ** -0.5, **extra)
+            torch.cuda.synchronize()
+            rel = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w).abs().max().item()
+                rel[name] = err / w.abs().max().item()
+                abs_err[name] = max(abs_err[name], err)
+                worst[name] = max(worst[name], rel[name])
+            check(not got[0][masked[..., None].expand_as(got[0])].any(),
+                  "flash bwd: dq of a fully masked row is not zero")
+            print("flash bwd B=%d T=%d Tk=%d causal=%s q_off=%d k_off=%d "
+                  "D=%d, %s: forward O err %.3e, lse err %.3e; "
+                  "max|d|/max|plain| dq %.3e dk %.3e dv %.3e, masked rows %d"
+                  % (B, T, Tk, causal, qo, ko, D, how, eo, el, rel["dq"],
+                     rel["dk"], rel["dv"], int(masked.sum())))
+            check(max(rel.values()) <= FLASH_BWD_TOL,
+                  "flash bwd kernels disagree with plain (%s): %s (limit "
+                  "%.0e)" % (how, rel, FLASH_BWD_TOL))
+            del got
+        del want
 
     # timing on the training shape's inputs, the last case above
+    t = bwd_timing(co, dev, card, q, k, v, do, o, lse, dlse, delta, offs)
+    others = sorted(k for k in t["backward_kernels"] if "flash_bwd" not in k)
+    check(not others, "the backward launched kernels besides dq and dk/dv "
+          "(an eager delta pass?): %s" % others)
+    common = {"route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+              **{k: t[k] for k in ("plain_ms", "library_ms",
+                                   "library_call_ms", "library_kernels",
+                                   "backward_ms", "backward_call_ms",
+                                   "backward_kernels", "delta_ms")}}
+    return [dict(common, name="flash_bwd_dq",
+                 replaces="mxnet_tpu/ops/pallas_ops.py:149",
+                 max_abs_err=abs_err["dq"], max_rel_err=worst["dq"],
+                 ms=t["dq_ms"], call_ms=t["dq_call"],
+                 bound_ms=t["dq_bound"][0], bound_by=t["dq_bound"][1]),
+            dict(common, name="flash_bwd_dkv",
+                 replaces="mxnet_tpu/ops/pallas_ops.py:227",
+                 max_abs_err=max(abs_err["dk"], abs_err["dv"]),
+                 max_rel_err=max(worst["dk"], worst["dv"]),
+                 ms=t["dkv_ms"], call_ms=t["dkv_call"],
+                 bound_ms=t["dkv_bound"][0], bound_by=t["dkv_bound"][1])]
+
+
+def bwd_timing(co, dev, card, q=None, k=None, v=None, do=None, o=None,
+               lse=None, dlse=None, delta=None, offs=None):
+    """The backward at the training shape, q (2,32,1024,128) causal over
+    k/v (2,8,1024,128) (inputs made here unless given): each kernel's own
+    device time and its call's event time; the whole port backward --
+    ``torch.autograd.grad`` through ``flash_attention_with_lse`` with dO
+    and a dlse cotangent, delta pass included wherever the tree does it
+    -- by device time (all its kernels) and event time; SDPA's backward
+    the same way; the eager delta pass and the plain version by event
+    time.  Only calls that an earlier tree also has, so that this file
+    copied into that tree's root times it the same way."""
+    import inspect
+    B, H, Hkv, T, D = 2, 32, 8, 1024, 128
+    if q is None:
+        gen = torch.Generator(device="cpu").manual_seed(104)
+        q, k, v, do, o, lse, dlse, delta, offs = _bwd_inputs(
+            co, gen, dev, B, H, Hkv, T, T, D, True, 0, 0)
     args = (q, k, v, do, lse, delta, *offs, True, D ** -0.5)
-    # each kernel's own device time, and the event time of its call
-    dq_ms, _ = device_ms(lambda: co._flash_bwd_dq_cuda(*args),
-                         "flash_bwd_dq")
+    if "o" in inspect.signature(co._flash_bwd_dq_cuda).parameters:
+        scratch = torch.empty_like(delta)   # the dq launch writes delta
+
+        def dq_fn():
+            return co._flash_bwd_dq_cuda(q, k, v, do, lse, scratch, *offs,
+                                         True, D ** -0.5, o=o, dlse=dlse)
+    else:
+        def dq_fn():
+            return co._flash_bwd_dq_cuda(*args)
+    dq_ms, _ = device_ms(dq_fn, "flash_bwd_dq")
     dkv_ms, _ = device_ms(lambda: co._flash_bwd_dkv_cuda(*args),
                           "flash_bwd_dkv")
-    dq_call = time_ms(lambda: co._flash_bwd_dq_cuda(*args))
+    dq_call = time_ms(dq_fn)
     dkv_call = time_ms(lambda: co._flash_bwd_dkv_cuda(*args))
     delta_ms = time_ms(lambda: (do.float() * o.float()).sum(-1) - dlse)
     plain_ms = time_ms(lambda: co._flash_bwd_dense(*args), iters=5)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out, lse_g = co.flash_attention_with_lse(qg, kg, vg, causal=True)
-    port_ms = time_ms(lambda: torch.autograd.grad(
-        (out, lse_g), (qg, kg, vg), (do, dlse), retain_graph=True))
+
+    def port_bwd():
+        return torch.autograd.grad((out, lse_g), (qg, kg, vg), (do, dlse),
+                                   retain_graph=True)
+    port_ms, port_k = device_ms(port_bwd)
+    port_call = time_ms(port_bwd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ref = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+
     def sdpa_bwd():
         return torch.autograd.grad(ref, (qg, kg, vg), do, retain_graph=True)
     lib_ms, lib_k = device_ms(sdpa_bwd)
     lib_call = time_ms(sdpa_bwd)
     pairs = B * H * T * (T + 1) // 2                 # visible pairs only
-    reads = 2 * (2 * B * H * T * D + 2 * B * Hkv * T * D) + 2 * 4 * B * H * T
-    dq_b = bound_ms(reads + 2 * B * H * T * D, 6 * D * pairs)
-    dkv_b = bound_ms(reads + 2 * 2 * B * Hkv * T * D, 8 * D * pairs)
+    qd, kd = 2 * B * H * T * D, 2 * B * Hkv * T * D  # bytes of one q / k
+    # dq: q, dO, O, k, v, lse and dlse read, dq and delta written
+    dq_b = bound_ms(3 * qd + 2 * kd + 2 * 4 * B * H * T + qd + 4 * B * H * T,
+                    6 * D * pairs)
+    # dk/dv: q, dO, k, v, lse and delta read, dk and dv written
+    dkv_b = bound_ms(2 * qd + 2 * kd + 2 * 4 * B * H * T + 2 * kd,
+                     8 * D * pairs)
     print("flash bwd timing q(2,32,1024,128) causal, kv (2,8,1024,128): "
           "dq %.4f ms (device; call %.4f, bound %.4f, %s), dkv %.4f ms "
-          "(device; call %.4f, bound %.4f, %s), delta pass %.4f ms, whole "
-          "port backward %.4f ms, plain %.4f ms, SDPA backward %.4f ms "
-          "(device; call %.4f; kernels %s) [%s]"
+          "(device; call %.4f, bound %.4f, %s); whole port backward %.4f "
+          "ms (device; call %.4f; kernels %s); SDPA backward %.4f ms "
+          "(device; call %.4f; kernels %s); eager delta pass %.4f ms, plain "
+          "%.4f ms (events) [%s]"
           % (dq_ms, dq_call, dq_b[0], dq_b[1], dkv_ms, dkv_call, dkv_b[0],
-             dkv_b[1], delta_ms, port_ms, plain_ms, lib_ms, lib_call,
-             ", ".join("%s %.4f" % kv for kv in lib_k.items()), card))
-    common = {"route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
-              "plain_ms": plain_ms, "library_ms": lib_ms,
-              "library_call_ms": lib_call, "library_kernels": lib_k,
-              "backward_ms": port_ms, "delta_ms": delta_ms}
-    return [dict(common, name="flash_bwd_dq",
-                 replaces="mxnet_tpu/ops/pallas_ops.py:149",
-                 max_abs_err=abs_err["dq"], max_rel_err=worst["dq"],
-                 ms=dq_ms, call_ms=dq_call, bound_ms=dq_b[0],
-                 bound_by=dq_b[1]),
-            dict(common, name="flash_bwd_dkv",
-                 replaces="mxnet_tpu/ops/pallas_ops.py:227",
-                 max_abs_err=max(abs_err["dk"], abs_err["dv"]),
-                 max_rel_err=max(worst["dk"], worst["dv"]),
-                 ms=dkv_ms, call_ms=dkv_call, bound_ms=dkv_b[0],
-                 bound_by=dkv_b[1])]
+             dkv_b[1], port_ms, port_call,
+             ", ".join("%s %.4f" % kv for kv in port_k.items()), lib_ms,
+             lib_call, ", ".join("%s %.4f" % kv for kv in lib_k.items()),
+             delta_ms, plain_ms, card))
+    return {"dq_ms": dq_ms, "dq_call": dq_call, "dq_bound": dq_b,
+            "dkv_ms": dkv_ms, "dkv_call": dkv_call, "dkv_bound": dkv_b,
+            "backward_ms": port_ms, "backward_call_ms": port_call,
+            "backward_kernels": port_k, "library_ms": lib_ms,
+            "library_call_ms": lib_call, "library_kernels": lib_k,
+            "delta_ms": delta_ms, "plain_ms": plain_ms}
 
 
 # ----------------------------------------------------------------------
@@ -468,7 +546,7 @@ def paged_timing(co, dev):
         err = diff.max().item()
         # the largest excess over the limit atol + rtol*|plain|, <= 0
         excess = (diff - PAGED_ATOL - PAGED_RTOL * want.float().abs()).max()
-        check(excess.item() <= 0, "paged %s disagrees with plain: max|dO| "
+        check(excess.item() <= 0, "paged %s disagrees with plain: O err "
               "%.3e, over the limit by %.3e" % (name, err, excess.item()))
         for s, n in enumerate(lens_h):
             check(n > 0 or not got[s].any().item(),
@@ -482,7 +560,7 @@ def paged_timing(co, dev):
         live = sum(lens_h)
         nbytes = 2 * live * Hkv * D * 2 + 2 * 2 * S * H * D + 4 * (S * MP + S)
         b_ms, b_by = bound_ms(nbytes, 4 * live * H * D)
-        print("paged %s S=%d lengths %s: max|dO| %.3e (limit %.0e + %.0e*"
+        print("paged %s S=%d lengths %s: O err %.3e (limit %.0e + %.0e*"
               "|O|, exceeded by %.3e); kernel %.4f ms (device), call %.4f "
               "ms (events), plain %.4f ms, bound %.4f ms (%s)"
               % (name, S, lens_h if S <= 8 and MP < 64 else "%d x %d"
@@ -796,13 +874,15 @@ def main(argv):
     print("kernel build %.2f s (nvcc, one process per source)"
           % (time.monotonic() - t0))
     if argv[1:] == ["--kernel-timing"]:
-        # only the forward and paged kernels' timing, for comparing two
-        # trees in one call: copy this file into the other tree's root
+        # only the kernels' timing, for comparing two trees in one
+        # call: copy this file into the other tree's root
         print(json.dumps({"kernel_timing": {
             "tree": root, "card": card, "flash_fwd": flash_timing(co, dev),
+            "flash_bwd": bwd_timing(co, dev, card),
             "paged_decode": paged_timing(co, dev)}}))
         return 0
     check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing]")
+    ptxas_report(_build)
 
     flash = flash_phase(co, dev)
     flash_bwd = flash_bwd_phase(co, dev, card)

@@ -3,13 +3,16 @@
 Each ``.cu`` source is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded through ``ctypes``; no PyTorch
 header is included, so a build takes seconds.  The build happens at the
-first kernel use and is keyed by a hash of the source and the flags:
-``_build/<hash>/<name>.so``.  :func:`build_all` starts one ``nvcc`` per
-source at once, so a cold start pays for the slowest file, not the sum.
+first kernel use and is keyed by a hash of the source, every shared
+header (``csrc/*.cuh``) and the flags: ``_build/<hash>/<name>.so``,
+with nvcc's output beside it (:func:`build_log`).  :func:`build_all`
+starts one ``nvcc`` per source at once, so a cold start pays for the
+slowest file, not the sum.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -21,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs = {}
@@ -39,10 +42,16 @@ def _nvcc():
 
 
 def _target(name):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD, key[:16], name + ".so")
+    """``_build/<key>/<name>.so``, the key a hash of ``<name>.cu``, of
+    each header under ``csrc/`` (name and bytes, so an edited header
+    never loads a stale library) and of the flags."""
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD, h.hexdigest()[:16], name + ".so")
 
 
 def _start(name):
@@ -67,7 +76,16 @@ def _finish(job):
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed (%d) building %s:\n%s"
                            % (proc.returncode, out, log))
+    with open(out + ".log", "w") as f:   # ptxas: registers, spills
+        f.write(log)
     os.replace(tmp, out)   # atomic: a concurrent builder sees all or none
+
+
+def build_log(name):
+    """nvcc's output for ``csrc/<name>.cu``, ``-Xptxas -v`` included
+    (each kernel's registers and spills), kept beside its library."""
+    with open(_target(name) + ".log") as f:
+        return f.read()
 
 
 def build_all():
@@ -106,9 +124,9 @@ def _signatures():
         # q k v q_off k_off o lse BH BHkv T Tk D scale causal stream
         "flash_fwd": {"mx_flash_fwd": [p, p, p, p, p, p, p, i, i, i, i, i,
                                        f, i, p]},
-        # q k v dout lse delta q_off k_off dq | dk dv, BH BHkv T Tk D scale
-        # causal stream
-        "flash_bwd": {"mx_flash_bwd_dq": [p] * 9 + [i] * 5 + [f, i, p],
+        # q k v dout o lse dlse delta q_off k_off dq | q k v dout lse delta
+        # q_off k_off dk dv, BH BHkv T Tk D scale causal stream
+        "flash_bwd": {"mx_flash_bwd_dq": [p] * 11 + [i] * 5 + [f, i, p],
                       "mx_flash_bwd_dkv": [p] * 10 + [i] * 5 + [f, i, p]},
         # q k_pages v_pages page_table lengths out part_acc part_ml, S H
         # Hkv psz D MP nsplit kps chunk, scale stream

@@ -182,64 +182,100 @@ def _flash_bwd_dense(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
     return dq, dk, dv
 
 
-def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, q_off, k_off, causal,
-                scale):
-    """Check the inputs and launch ``mx_<kernel>`` of
-    ``csrc/flash_bwd.cu`` into the preallocated ``outs``."""
+def _delta(do, o, dlse):
+    """Plain delta = rowsum(dO o O) - dlse in float32 (``_flash_lse_bwd``,
+    pallas_ops.py:356-359); ``dlse`` may be None."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, o, dlse):
     B, H, T, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _check_kernel_input(name, t, torch.bfloat16, 4)
-    for name, t in (("lse", lse), ("delta", delta)):
-        _check_kernel_input(name, t, torch.float32, 3)
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("o", o)):
+        if t is not None:
+            _check_kernel_input(name, t, torch.bfloat16, 4)
+    for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
+        if t is not None:
+            _check_kernel_input(name, t, torch.float32, 3)
     if D not in (64, 128):
         raise ValueError("flash kernel takes head_dim 64 or 128, got %d" % D)
+    rows = [t for t in (lse, delta, dlse) if t is not None]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
-            or do.shape != q.shape or lse.shape != (B, H, T) \
-            or delta.shape != (B, H, T):
-        raise ValueError("flash backward: k %s, v %s, do %s, lse %s, delta "
-                         "%s do not fit q %s"
-                         % tuple(tuple(t.shape) for t in
-                                 (k, v, do, lse, delta, q)))
+            or do.shape != q.shape or (o is not None and o.shape != q.shape) \
+            or any(t.shape != (B, H, T) for t in rows):
+        raise ValueError("flash backward: k %s, v %s, do %s, o %s, lse / "
+                         "delta / dlse %s do not fit q %s"
+                         % (tuple(k.shape), tuple(v.shape), tuple(do.shape),
+                            None if o is None else tuple(o.shape),
+                            [tuple(t.shape) for t in rows], tuple(q.shape)))
     if q_off.device != q.device or k_off.device != q.device:
         raise ValueError("flash kernel: offsets must be on %s" % q.device)
+
+
+def _launch_bwd(kernel, tensors, q, k, causal, scale):
+    """Launch ``mx_<kernel>`` of ``csrc/flash_bwd.cu`` on ``tensors``'
+    pointers (None passes a null one) and the shapes of q and k."""
+    B, H, T, D = q.shape
     fn = getattr(_build.library("flash_bwd"), "mx_" + kernel)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
-             k_off.data_ptr(), *(o.data_ptr() for o in outs), B * H,
-             B * Hkv, T, Tk, D, float(scale), int(bool(causal)),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+             B * H, B * k.shape[1], T, k.shape[2], D, float(scale),
+             int(bool(causal)), stream)
     if err:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (kernel, err))
     LAUNCHES[kernel] += 1
 
 
-def _flash_bwd_dq_cuda(q, k, v, do, *rest):
-    """dq (bf16) from ``mx_flash_bwd_dq``; ``rest`` is (lse, delta,
-    q_off, k_off, causal, scale)."""
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                       o=None, dlse=None):
+    """dq (bf16) from ``mx_flash_bwd_dq``.  Without ``o`` the kernel
+    reads ``delta``.  With ``o`` it computes delta = rowsum(dO o O) -
+    dlse (``dlse`` may be None) for its own rows in the same launch and
+    writes it into ``delta`` (B, H, T) float32, which
+    :func:`_flash_bwd_dkv_cuda` then reads: launch that after this one,
+    on the same stream."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, o, dlse)
     dq = torch.empty_like(q)
-    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, *rest)
+    _launch_bwd("flash_bwd_dq", (q, k, v, do, o, lse, dlse, delta, q_off,
+                                 k_off, dq), q, k, causal, scale)
     return dq
 
 
-def _flash_bwd_dkv_cuda(q, k, v, do, *rest):
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
+                        scale):
     """(dk, dv) (bf16) from ``mx_flash_bwd_dkv``."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, None, None)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, *rest)
+    _launch_bwd("flash_bwd_dkv", (q, k, v, do, lse, delta, q_off, k_off, dk,
+                                  dv), q, k, causal, scale)
     return dk, dv
 
 
-def _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
-    """(dq, dk, dv) in bf16 from the two kernels of ``csrc/flash_bwd.cu``."""
-    args = (q, k, v, do, lse, delta, q_off, k_off, causal, scale)
-    return (_flash_bwd_dq_cuda(*args),) + _flash_bwd_dkv_cuda(*args)
+def _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                    o=None, dlse=None):
+    """(dq, dk, dv) in bf16 from the two kernels of ``csrc/flash_bwd.cu``.
+    With ``o`` (and ``delta`` None) the dq kernel computes delta from
+    ``o`` and ``dlse``; otherwise ``delta`` is given."""
+    if o is not None:
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
+                            scale, o=o, dlse=dlse)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off,
+                                 causal, scale)
+    return dq, dk, dv
 
 
-def _flash_bwd(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
-    if _is_cuda(q, k, v, do, lse, delta):
+def _flash_bwd(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+               o=None, dlse=None):
+    """(dq, dk, dv): the kernels for CUDA tensors, the plain recompute on
+    the CPU.  Give either ``delta`` or ``o`` (and ``dlse``, or None)."""
+    if _is_cuda(*(t for t in (q, k, v, do, lse, delta, o, dlse)
+                  if t is not None)):
         return _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off,
-                               causal, scale)
+                               causal, scale, o=o, dlse=dlse)
+    if o is not None:
+        delta = _delta(do, o, dlse)
     return _flash_bwd_dense(q, k, v, do, lse, delta, q_off, k_off, causal,
                             scale)
 
@@ -248,7 +284,8 @@ class _FlashAttention(torch.autograd.Function):
     """(o, lse) with a recompute backward: the ``_flash_lse`` custom VJP
     (pallas_ops.py:334-376).  The forward keeps only O and the lse; the
     backward folds the lse cotangent into delta = rowsum(dO o O) - dlse
-    and re-forms each score tile from q and k."""
+    (on CUDA inside the dq kernel's launch) and re-forms each score tile
+    from q and k."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_off, k_off, causal, scale):
@@ -266,12 +303,11 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, q_off, k_off = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        delta = (do.float() * o.float()).sum(dim=-1)
-        if dlse is not None:
-            delta = delta - dlse.float()
         dor = do.to(q.dtype).contiguous()
-        dq, dk, dv = _flash_bwd(q, k, v, dor, lse, delta.contiguous(), q_off,
-                                k_off, ctx.causal, ctx.scale)
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
+        dq, dk, dv = _flash_bwd(q, k, v, dor, lse, None, q_off, k_off,
+                                ctx.causal, ctx.scale, o=o, dlse=dlse)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None)
 

@@ -121,36 +121,114 @@ def test_paged_kernel_matches_plain(dev, case):
                                rtol=1e-2)
 
 
-@pytest.mark.parametrize("T,Tk,causal,q_off,k_off,D", [
-    (300, 300, True, 0, 0, 128), (77, 200, True, 150, 30, 64)])
-def test_flash_bwd_kernels_match_plain(dev, T, Tk, causal, q_off, k_off, D):
-    """dq, dk, dv of the two backward kernels against
-    ``_flash_bwd_dense`` on the same bf16 inputs, the lse and delta of a
-    real forward with a dlse cotangent folded in.  P and dS are rounded
-    to bf16 before their products: within 1e-2 of max|plain| per tensor
-    (4.7e-3 measured on an H100), and exactly 0 in dq on a row that
-    sees no key."""
-    q = _bf16(dev, T, 1, 8, T, D)
-    k, v = _bf16(dev, Tk, 1, 2, Tk, D), _bf16(dev, Tk + 1, 1, 2, Tk, D)
-    do = _bf16(dev, T + 2, 1, 8, T, D)
+def _bwd_case(dev, case):
+    """bf16 q, k, v, dO of a FLASH_CASES case, the forward kernel's O and
+    lse, a dlse cotangent, and the device offsets."""
+    B, H, Hkv, T, Tk, causal, q_off, k_off, D = case
+    q = _bf16(dev, T, B, H, T, D)
+    k, v = _bf16(dev, Tk, B, Hkv, Tk, D), _bf16(dev, Tk + 1, B, Hkv, Tk, D)
+    do = _bf16(dev, T + 2, B, H, T, D)
     offs = [torch.tensor([x], dtype=torch.int32, device=dev)
             for x in (q_off, k_off)]
     o, lse = cuda_ops._flash_fwd_cuda(q, k, v, *offs, causal, D ** -0.5)
-    dlse = _bf16(dev, T + 3, 1, 8, T).float()
+    dlse = _bf16(dev, T + 3, B, H, T).float()
+    return q, k, v, do, o, lse, dlse, offs
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_bwd_kernels_match_plain(dev, case):
+    """dq, dk, dv of the two backward kernels against
+    ``_flash_bwd_dense`` on the same bf16 inputs, the lse of a real
+    forward with a dlse cotangent folded into delta: once with delta
+    computed inside the dq launch from O (the training path), once with
+    delta given (the ring primitive's path).  P and dS are rounded to
+    bf16 before their products: within 1e-2 of max|plain| per tensor,
+    and exactly 0 in dq on a row that sees no key."""
+    causal, D = case[5], case[8]
+    q, k, v, do, o, lse, dlse, offs = _bwd_case(dev, case)
     delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
-    before = dict(cuda_ops.LAUNCHES)
-    got = cuda_ops._flash_bwd_cuda(q, k, v, do, lse, delta, *offs, causal,
-                                   D ** -0.5)
-    torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
-    assert cuda_ops.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
     want = cuda_ops._flash_bwd_dense(q, k, v, do, lse, delta, *offs, causal,
                                      D ** -0.5)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = (g.float() - w).abs().max().item()
-        assert err <= 1e-2 * w.abs().max().item(), (name, err)
     masked = torch.isneginf(lse)
-    assert not got[0][masked[..., None].expand_as(got[0])].any()
+    for kw in (dict(delta=None, o=o, dlse=dlse), dict(delta=delta)):
+        before = dict(cuda_ops.LAUNCHES)
+        d = kw.pop("delta")
+        got = cuda_ops._flash_bwd_cuda(q, k, v, do, lse, d, *offs, causal,
+                                       D ** -0.5, **kw)
+        torch.cuda.synchronize()
+        assert cuda_ops.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+        assert cuda_ops.LAUNCHES["flash_bwd_dkv"] == \
+            before["flash_bwd_dkv"] + 1
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w).abs().max().item()
+            assert err <= 1e-2 * w.abs().max().item(), (name, err, kw.keys())
+        assert not got[0][masked[..., None].expand_as(got[0])].any()
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 4, 7, 10)])
+def test_flash_bwd_kernels_give_the_same_bits(dev, case):
+    """No atomics: two calls give the same dq, dk and dv bits."""
+    causal, D = case[5], case[8]
+    q, k, v, do, o, lse, dlse, offs = _bwd_case(dev, case)
+    args = (q, k, v, do, lse, None, *offs, causal, D ** -0.5)
+    first = cuda_ops._flash_bwd_cuda(*args, o=o, dlse=dlse)
+    again = cuda_ops._flash_bwd_cuda(*args, o=o, dlse=dlse)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("with_dlse", [True, False])
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (4, 7, 10)])
+def test_flash_bwd_dq_writes_delta(dev, case, with_dlse):
+    """The delta the dq kernel computes and writes, against the eager
+    rowsum(dO o O) - dlse.  The products of two bf16 values are exact in
+    fp32, so the two differ only by the order of D + 1 fp32 additions:
+    |err| <= (D + 1) * 2^-24 * (sum |dO o O| + |dlse|) per row, the
+    classic bound for recursive summation in any order."""
+    causal, D = case[5], case[8]
+    q, k, v, do, o, lse, dlse, offs = _bwd_case(dev, case)
+    dlse = dlse if with_dlse else None
+    delta = torch.full(lse.shape, float("nan"), device=dev)
+    cuda_ops._flash_bwd_dq_cuda(q, k, v, do, lse, delta, *offs, causal,
+                                D ** -0.5, o=o, dlse=dlse)
+    torch.cuda.synchronize()
+    prod = do.float() * o.float()
+    want = prod.sum(-1) - (0 if dlse is None else dlse)
+    bound = (D + 1) * 2.0 ** -24 * (
+        prod.abs().sum(-1) + (0 if dlse is None else dlse.abs()))
+    assert bool(((delta - want).abs() <= bound).all()), \
+        (delta - want).abs().max().item()
+
+
+def test_tma_kernels_launch_from_a_fresh_thread(dev):
+    """The kernels that encode TMA tensor maps (flash forward, dq, dk/dv)
+    launch from a thread that has made no CUDA runtime call of its own
+    -- PyTorch's autograd worker is one -- with its tensors from the
+    allocator's cache: the encoder needs a context bound to the thread."""
+    import threading
+    case = FLASH_CASES[1]
+    causal, D = case[5], case[8]
+    q, k, v, do, o, lse, dlse, offs = _bwd_case(dev, case)
+    torch.cuda.synchronize()
+    torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # warm the cache
+    out = {}
+
+    def run():
+        try:
+            out["fwd"] = cuda_ops._flash_fwd_cuda(q, k, v, *offs, causal,
+                                                  D ** -0.5)
+            out["bwd"] = cuda_ops._flash_bwd_cuda(
+                q, k, v, do, lse, None, *offs, causal, D ** -0.5, o=o,
+                dlse=dlse)
+            torch.cuda.synchronize()
+        except Exception as e:          # re-raised in the test's thread
+            out["error"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    assert "error" not in out, out.get("error")
+    assert torch.equal(out["fwd"][0], o)
 
 
 def test_attention_weights_get_grads_on_cuda(dev):

@@ -11,10 +11,13 @@ version on the card, checks one training step of a small bf16 model
 on the card against the CPU, serves a Llama-3-8B-width
 ``TransformerLM`` (random weights from a seed)
 through the port's ``Server`` and checks the served tokens against a
-full-sequence forward, then trains an 8-layer Llama-3-8B-width model
-through ``TrainStep`` and the Gluon ``Trainer``.  Each path runs with
-the launch counts reset before it and read after it, and fails unless
-every kernel it goes through was launched.
+full-sequence forward, trains an 8-layer Llama-3-8B-width model
+through ``TrainStep`` and the Gluon ``Trainer``, runs ResNet-50 from
+the Gluon zoo (inference at ``__graft_entry__.entry()``'s shape, eager and
+hybridized, NCHW and NHWC, then training) and trains BERT-base through
+the flash kernels at head_dim 64.  Each path that runs kernels does so
+with the launch counts reset before it and read after it, and fails
+unless every kernel it goes through was launched.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without a CUDA device it exits non-zero at once.
 
@@ -28,8 +31,10 @@ two trees compare in one call.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -228,40 +233,50 @@ def flash_phase(co, dev):
             "shapes": shapes}
 
 
-def flash_timing(co, dev):
-    """The flash forward at the main path's shapes, q (1,32,512,128) (the
-    serving ladder's top rung) and (2,32,1024,128) (training), causal
-    over 8 kv heads: held against plain, then timed -- the kernel's own
-    device time, the event time of the whole wrapper call, the plain
-    version and SDPA (its kernels' device time, names on record)."""
-    H, Hkv, D = 32, 8, 128
+# (B, H, Hkv, T, D, causal): the serving ladder's top rung, the training
+# shape, and BERT-base's attention (12 heads of 64, non-causal)
+FWD_SHAPES = [(1, 32, 8, 512, 128, True), (2, 32, 8, 1024, 128, True),
+              (16, 12, 12, 512, 64, False)]
+
+
+def _pairs(B, H, T, causal):
+    """Score pairs the work needs: the visible ones when causal."""
+    return B * H * (T * (T + 1) // 2 if causal else T * T)
+
+
+def flash_timing(co, dev, shapes=FWD_SHAPES):
+    """The flash forward at the main paths' shapes: held against plain,
+    then timed -- the kernel's own device time, the event time of the
+    whole wrapper call, the plain version and SDPA (its kernels' device
+    time, names on record)."""
     out = []
-    for i, (B, T) in enumerate(((1, 512), (2, 1024))):
+    for i, (B, H, Hkv, T, D, causal) in enumerate(shapes):
         gen = torch.Generator(device="cpu").manual_seed(100 + i)
         q = torch.randn(B, H, T, D, generator=gen).to(dev, torch.bfloat16)
         k = torch.randn(B, Hkv, T, D, generator=gen).to(dev, torch.bfloat16)
         v = torch.randn(B, Hkv, T, D, generator=gen).to(dev, torch.bfloat16)
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        o, lse = co.flash_attention_with_lse(q, k, v, causal=True)
-        o_p, lse_p = co._dense_with_lse(q, k, v, zero, zero, True, D ** -0.5)
+        o, lse = co.flash_attention_with_lse(q, k, v, causal=causal)
+        o_p, lse_p = co._dense_with_lse(q, k, v, zero, zero, causal,
+                                        D ** -0.5)
         eo = (o.float() - o_p.float()).abs().max().item()
         el = (lse - lse_p).abs().max().item()
         check(eo <= FLASH_O_ATOL and el <= FLASH_LSE_ATOL,
               "flash (%d,%d,%d,%d) disagrees with plain: %.3e / %.3e"
               % (B, H, T, D, eo, el))
         del o, lse, o_p, lse_p
-        ms, _ = device_ms(lambda: co.flash_attention(q, k, v, causal=True),
+        ms, _ = device_ms(lambda: co.flash_attention(q, k, v, causal=causal),
                           "flash_fwd")
-        call_ms = time_ms(lambda: co.flash_attention(q, k, v, causal=True))
+        call_ms = time_ms(lambda: co.flash_attention(q, k, v, causal=causal))
         plain_ms = time_ms(lambda: co._dense_with_lse(
-            q, k, v, zero, zero, True, D ** -0.5), iters=5)
+            q, k, v, zero, zero, causal, D ** -0.5), iters=5)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms, lib_k = device_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                               enable_gqa=True))
+        lib_ms, lib_k = device_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                               enable_gqa=Hkv != H))
         nbytes = 2 * (2 * B * H * T * D + 2 * B * Hkv * T * D) + 4 * B * H * T
-        flops = 4 * D * B * H * (T * (T + 1) // 2)     # visible pairs only
-        b_ms, b_by = bound_ms(nbytes, flops)
-        shape = "q(%d,%d,%d,%d) causal" % (B, H, T, D)
+        b_ms, b_by = bound_ms(nbytes, 4 * D * _pairs(B, H, T, causal))
+        shape = "q(%d,%d,%d,%d) %s" % (B, H, T, D,
+                                       "causal" if causal else "non-causal")
         print("flash timing %s: kernel %.4f ms (device), call %.4f ms "
               "(events), plain %.4f ms, SDPA %.4f ms (device; kernels %s), "
               "bound %.4f ms (%s); O err %.3e, lse err %.3e"
@@ -273,6 +288,7 @@ def flash_timing(co, dev):
                     "library_kernels": lib_k, "bound_ms": b_ms,
                     "bound_by": b_by, "max_abs_err": eo,
                     "max_abs_err_lse": el})
+        del q, k, v
     return out
 
 
@@ -294,23 +310,33 @@ def _bwd_inputs(co, gen, dev, B, H, Hkv, T, Tk, D, causal, qo, ko):
     return q, k, v, do, o, lse, dlse, delta, offs
 
 
+TRAIN_ATTN = (2, 32, 8, 1024, 128, True)     # (B, H, Hkv, T, D, causal)
+BERT_ATTN = (16, 12, 12, 512, 64, False)
+
+
 def flash_bwd_phase(co, dev, card):
     gen = torch.Generator(device="cpu").manual_seed(4)
-    H, Hkv = 32, 8
-    # (B, T, Tk, causal, q_off, k_off, D); the last is the training
-    # path's shape, q (2,32,1024,128) causal over k/v (2,8,1024,128)
-    cases = [(1, 128, 128, True, 0, 0, 128), (1, 128, 128, False, 0, 0, 128),
-             (1, 300, 300, True, 0, 0, 128), (1, 300, 300, False, 0, 0, 128),
-             (1, 1024, 1024, True, 0, 0, 128),
-             (1, 1024, 1024, False, 0, 0, 128),
+    # (B, H, Hkv, T, Tk, causal, q_off, k_off, D); the last two are the
+    # main paths' shapes: training, q (2,32,1024,128) causal over k/v
+    # (2,8,1024,128), and BERT-base, q/k/v (16,12,512,64) non-causal
+    cases = [(1, 32, 8, 128, 128, True, 0, 0, 128),
+             (1, 32, 8, 128, 128, False, 0, 0, 128),
+             (1, 32, 8, 300, 300, True, 0, 0, 128),
+             (1, 32, 8, 300, 300, False, 0, 0, 128),
+             (1, 32, 8, 1024, 1024, True, 0, 0, 128),
+             (1, 32, 8, 1024, 1024, False, 0, 0, 128),
              # a later ring step: rows 0..99 of q see no key at all
-             (1, 300, 428, True, 28, 128, 128), (1, 300, 300, True, 0, 0, 64),
-             (2, 1024, 1024, True, 0, 0, 128)]
+             (1, 32, 8, 300, 428, True, 28, 128, 128),
+             (1, 32, 8, 300, 300, True, 0, 0, 64),
+             (2, 32, 8, 1024, 1024, True, 0, 0, 128),
+             (16, 12, 12, 512, 512, False, 0, 0, 64)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     abs_err = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    for B, T, Tk, causal, qo, ko, D in cases:
-        q, k, v, do, o, lse, dlse, delta, offs = _bwd_inputs(
-            co, gen, dev, B, H, Hkv, T, Tk, D, causal, qo, ko)
+    timed = {}
+    for B, H, Hkv, T, Tk, causal, qo, ko, D in cases:
+        inputs = _bwd_inputs(co, gen, dev, B, H, Hkv, T, Tk, D, causal, qo,
+                             ko)
+        q, k, v, do, o, lse, dlse, delta, offs = inputs
         # the forward's O and lse, which the backward takes, against plain
         o_p, lse_p = co._dense_with_lse(q, k, v, *offs, causal, D ** -0.5)
         masked = torch.isneginf(lse_p)
@@ -340,45 +366,60 @@ def flash_bwd_phase(co, dev, card):
                 worst[name] = max(worst[name], rel[name])
             check(not got[0][masked[..., None].expand_as(got[0])].any(),
                   "flash bwd: dq of a fully masked row is not zero")
-            print("flash bwd B=%d T=%d Tk=%d causal=%s q_off=%d k_off=%d "
-                  "D=%d, %s: forward O err %.3e, lse err %.3e; "
+            print("flash bwd B=%d H=%d/%d T=%d Tk=%d causal=%s q_off=%d "
+                  "k_off=%d D=%d, %s: forward O err %.3e, lse err %.3e; "
                   "max|d|/max|plain| dq %.3e dk %.3e dv %.3e, masked rows %d"
-                  % (B, T, Tk, causal, qo, ko, D, how, eo, el, rel["dq"],
-                     rel["dk"], rel["dv"], int(masked.sum())))
+                  % (B, H, Hkv, T, Tk, causal, qo, ko, D, how, eo, el,
+                     rel["dq"], rel["dk"], rel["dv"], int(masked.sum())))
             check(max(rel.values()) <= FLASH_BWD_TOL,
                   "flash bwd kernels disagree with plain (%s): %s (limit "
                   "%.0e)" % (how, rel, FLASH_BWD_TOL))
             del got
         del want
+        shape = (B, H, Hkv, T, D, causal)
+        if shape in (TRAIN_ATTN, BERT_ATTN) and T == Tk and qo == ko == 0:
+            timed[shape] = inputs
+        del inputs, q, k, v, do, o, lse, dlse, delta
 
-    # timing on the training shape's inputs, the last case above
-    t = bwd_timing(co, dev, card, q, k, v, do, o, lse, dlse, delta, offs)
-    others = sorted(k for k in t["backward_kernels"] if "flash_bwd" not in k)
-    check(not others, "the backward launched kernels besides dq and dk/dv "
-          "(an eager delta pass?): %s" % others)
+    # timing on the main paths' inputs, the last two cases above
+    ts = [bwd_timing(co, dev, card, shape, timed.pop(shape))
+          for shape in (TRAIN_ATTN, BERT_ATTN)]
+    for t in ts:
+        others = sorted(k for k in t["backward_kernels"]
+                        if "flash_bwd" not in k)
+        check(not others, "the backward launched kernels besides dq and "
+              "dk/dv (an eager delta pass?): %s" % others)
+    t = ts[0]
+    keys = ("plain_ms", "library_ms", "library_call_ms", "library_kernels",
+            "backward_ms", "backward_call_ms", "backward_kernels",
+            "delta_ms")
     common = {"route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
-              **{k: t[k] for k in ("plain_ms", "library_ms",
-                                   "library_call_ms", "library_kernels",
-                                   "backward_ms", "backward_call_ms",
-                                   "backward_kernels", "delta_ms")}}
+              **{k: t[k] for k in keys}}
+
+    def shapes(kernel):
+        return [dict({k: x[k] for k in ("shape",) + keys},
+                     ms=x[kernel + "_ms"], call_ms=x[kernel + "_call"],
+                     bound_ms=x[kernel + "_bound"][0],
+                     bound_by=x[kernel + "_bound"][1]) for x in ts]
     return [dict(common, name="flash_bwd_dq",
                  replaces="mxnet_tpu/ops/pallas_ops.py:149",
                  max_abs_err=abs_err["dq"], max_rel_err=worst["dq"],
                  ms=t["dq_ms"], call_ms=t["dq_call"],
-                 bound_ms=t["dq_bound"][0], bound_by=t["dq_bound"][1]),
+                 bound_ms=t["dq_bound"][0], bound_by=t["dq_bound"][1],
+                 shapes=shapes("dq")),
             dict(common, name="flash_bwd_dkv",
                  replaces="mxnet_tpu/ops/pallas_ops.py:227",
                  max_abs_err=max(abs_err["dk"], abs_err["dv"]),
                  max_rel_err=max(worst["dk"], worst["dv"]),
                  ms=t["dkv_ms"], call_ms=t["dkv_call"],
-                 bound_ms=t["dkv_bound"][0], bound_by=t["dkv_bound"][1])]
+                 bound_ms=t["dkv_bound"][0], bound_by=t["dkv_bound"][1],
+                 shapes=shapes("dkv"))]
 
 
-def bwd_timing(co, dev, card, q=None, k=None, v=None, do=None, o=None,
-               lse=None, dlse=None, delta=None, offs=None):
-    """The backward at the training shape, q (2,32,1024,128) causal over
-    k/v (2,8,1024,128) (inputs made here unless given): each kernel's own
-    device time and its call's event time; the whole port backward --
+def bwd_timing(co, dev, card, shape=TRAIN_ATTN, inputs=None):
+    """The backward at ``shape`` (B, H, Hkv, T, D, causal) over its
+    inputs (made here unless given): each kernel's own device time and
+    its call's event time; the whole port backward --
     ``torch.autograd.grad`` through ``flash_attention_with_lse`` with dO
     and a dlse cotangent, delta pass included wherever the tree does it
     -- by device time (all its kernels) and event time; SDPA's backward
@@ -386,18 +427,19 @@ def bwd_timing(co, dev, card, q=None, k=None, v=None, do=None, o=None,
     time.  Only calls that an earlier tree also has, so that this file
     copied into that tree's root times it the same way."""
     import inspect
-    B, H, Hkv, T, D = 2, 32, 8, 1024, 128
-    if q is None:
+    B, H, Hkv, T, D, causal = shape
+    if inputs is None:
         gen = torch.Generator(device="cpu").manual_seed(104)
-        q, k, v, do, o, lse, dlse, delta, offs = _bwd_inputs(
-            co, gen, dev, B, H, Hkv, T, T, D, True, 0, 0)
-    args = (q, k, v, do, lse, delta, *offs, True, D ** -0.5)
+        inputs = _bwd_inputs(co, gen, dev, B, H, Hkv, T, T, D, causal, 0, 0)
+    q, k, v, do, o, lse, dlse, delta, offs = inputs
+    scale = D ** -0.5
+    args = (q, k, v, do, lse, delta, *offs, causal, scale)
     if "o" in inspect.signature(co._flash_bwd_dq_cuda).parameters:
         scratch = torch.empty_like(delta)   # the dq launch writes delta
 
         def dq_fn():
             return co._flash_bwd_dq_cuda(q, k, v, do, lse, scratch, *offs,
-                                         True, D ** -0.5, o=o, dlse=dlse)
+                                         causal, scale, o=o, dlse=dlse)
     else:
         def dq_fn():
             return co._flash_bwd_dq_cuda(*args)
@@ -409,7 +451,7 @@ def bwd_timing(co, dev, card, q=None, k=None, v=None, do=None, o=None,
     delta_ms = time_ms(lambda: (do.float() * o.float()).sum(-1) - dlse)
     plain_ms = time_ms(lambda: co._flash_bwd_dense(*args), iters=5)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out, lse_g = co.flash_attention_with_lse(qg, kg, vg, causal=True)
+    out, lse_g = co.flash_attention_with_lse(qg, kg, vg, causal=causal)
 
     def port_bwd():
         return torch.autograd.grad((out, lse_g), (qg, kg, vg), (do, dlse),
@@ -417,13 +459,13 @@ def bwd_timing(co, dev, card, q=None, k=None, v=None, do=None, o=None,
     port_ms, port_k = device_ms(port_bwd)
     port_call = time_ms(port_bwd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ref = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    ref = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=Hkv != H)
 
     def sdpa_bwd():
         return torch.autograd.grad(ref, (qg, kg, vg), do, retain_graph=True)
     lib_ms, lib_k = device_ms(sdpa_bwd)
     lib_call = time_ms(sdpa_bwd)
-    pairs = B * H * T * (T + 1) // 2                 # visible pairs only
+    pairs = _pairs(B, H, T, causal)
     qd, kd = 2 * B * H * T * D, 2 * B * Hkv * T * D  # bytes of one q / k
     # dq: q, dO, O, k, v, lse and dlse read, dq and delta written
     dq_b = bound_ms(3 * qd + 2 * kd + 2 * 4 * B * H * T + qd + 4 * B * H * T,
@@ -431,23 +473,25 @@ def bwd_timing(co, dev, card, q=None, k=None, v=None, do=None, o=None,
     # dk/dv: q, dO, k, v, lse and delta read, dk and dv written
     dkv_b = bound_ms(2 * qd + 2 * kd + 2 * 4 * B * H * T + 2 * kd,
                      8 * D * pairs)
-    print("flash bwd timing q(2,32,1024,128) causal, kv (2,8,1024,128): "
-          "dq %.4f ms (device; call %.4f, bound %.4f, %s), dkv %.4f ms "
-          "(device; call %.4f, bound %.4f, %s); whole port backward %.4f "
-          "ms (device; call %.4f; kernels %s); SDPA backward %.4f ms "
-          "(device; call %.4f; kernels %s); eager delta pass %.4f ms, plain "
-          "%.4f ms (events) [%s]"
-          % (dq_ms, dq_call, dq_b[0], dq_b[1], dkv_ms, dkv_call, dkv_b[0],
-             dkv_b[1], port_ms, port_call,
+    name = "q(%d,%d,%d,%d) %s, kv (%d,%d,%d,%d)" % (
+        B, H, T, D, "causal" if causal else "non-causal", B, Hkv, T, D)
+    print("flash bwd timing %s: dq %.4f ms (device; call %.4f, bound %.4f, "
+          "%s), dkv %.4f ms (device; call %.4f, bound %.4f, %s); whole port "
+          "backward %.4f ms (device; call %.4f; kernels %s); SDPA backward "
+          "%.4f ms (device; call %.4f; kernels %s); eager delta pass %.4f "
+          "ms, plain %.4f ms (events) [%s]"
+          % (name, dq_ms, dq_call, dq_b[0], dq_b[1], dkv_ms, dkv_call,
+             dkv_b[0], dkv_b[1], port_ms, port_call,
              ", ".join("%s %.4f" % kv for kv in port_k.items()), lib_ms,
              lib_call, ", ".join("%s %.4f" % kv for kv in lib_k.items()),
              delta_ms, plain_ms, card))
-    return {"dq_ms": dq_ms, "dq_call": dq_call, "dq_bound": dq_b,
-            "dkv_ms": dkv_ms, "dkv_call": dkv_call, "dkv_bound": dkv_b,
-            "backward_ms": port_ms, "backward_call_ms": port_call,
-            "backward_kernels": port_k, "library_ms": lib_ms,
-            "library_call_ms": lib_call, "library_kernels": lib_k,
-            "delta_ms": delta_ms, "plain_ms": plain_ms}
+    return {"shape": name, "dq_ms": dq_ms, "dq_call": dq_call,
+            "dq_bound": dq_b, "dkv_ms": dkv_ms, "dkv_call": dkv_call,
+            "dkv_bound": dkv_b, "backward_ms": port_ms,
+            "backward_call_ms": port_call, "backward_kernels": port_k,
+            "library_ms": lib_ms, "library_call_ms": lib_call,
+            "library_kernels": lib_k, "delta_ms": delta_ms,
+            "plain_ms": plain_ms}
 
 
 # ----------------------------------------------------------------------
@@ -654,11 +698,13 @@ def serve_phase(mt, co, net, dev, card, max_new=32):
 
 
 def device_busy(fn, reps=5):
-    """(host ms per call, device ms per call, top kernels, counts) of
-    ``fn``: host time synchronized and unprofiled; device time the sum of
-    the CUDA kernels' self time in a torch.profiler trace of the same
-    calls; counts per call from that trace -- top-level aten ops, aten op
-    events at every level, and device events (kernels, memcpy, memset)."""
+    """(host ms per call, device ms per call, top kernels, counts, {kernel
+    name: (device ms, launches) per call}) of ``fn``: host time
+    synchronized and unprofiled; device time the sum of the CUDA
+    kernels' self time in a torch.profiler trace of the same calls;
+    counts per call from that trace -- top-level aten ops, aten op
+    events at every level, and device events (kernels, memcpy,
+    memset)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -683,7 +729,9 @@ def device_busy(fn, reps=5):
               "device events": sum(e.count for e in kernels)}
     counts = {k: v / reps for k, v in counts.items()}
     return host_ms, dev_ms, [(e.key[:40], e.self_device_time_total / reps
-                              / 1e3) for e in top], counts
+                              / 1e3) for e in top], counts, \
+        {e.key: (e.self_device_time_total / reps / 1e3, e.count / reps)
+         for e in kernels}
 
 
 def step_timing(srv, reqs, res, card):
@@ -709,7 +757,7 @@ def step_timing(srv, reqs, res, card):
                 table, lengths, tokens, active).cpu()),
             ("prefill T=512", lambda: pool.run_prefill(
                 padded, row, len(prompt)))):
-        ms, dev_ms, top, counts = device_busy(fn)
+        ms, dev_ms, top, counts, _ = device_busy(fn)
         out[name] = ms
         print("%s: %.2f ms host, %.2f ms of kernels (device busy %.1f%%) "
               "[%s]; top kernels (ms per call): %s"
@@ -825,13 +873,13 @@ def train_phase(mt, co, dev, card, B=2, T=1024):
     torch.cuda.empty_cache()
 
     params = list(net.parameters())
-    fb_ms, fb_dev, _, _ = device_busy(
+    fb_ms, fb_dev, _, _, _ = device_busy(
         lambda: torch.autograd.grad(fwd(net, toks, labels), params), reps=2)
     step = mt.parallel.TrainStep(net, None,
                                  mt.optimizer.AdamW(learning_rate=1e-3),
                                  forward_fn=fwd)
-    ms, dev_ms, top, counts = device_busy(lambda: step(toks, labels).item(),
-                                          reps=2)
+    ms, dev_ms, top, counts, _ = device_busy(
+        lambda: step(toks, labels).item(), reps=2)
     # useful model flops: 6 per matmul weight per token (the embedding
     # is a gather), attention 4 * D per visible pair forward, 8 * D back
     pairs = B * cfg.n_heads * T * (T + 1) // 2
@@ -850,6 +898,330 @@ def train_phase(mt, co, dev, card, B=2, T=1024):
                           dev_ms - fb_dev))
     print("train step: per step %s" % ", ".join("%s %.1f" % kv
                                                 for kv in counts.items()))
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 9: ResNet-50 (__graft_entry__.entry()'s model) through the zoo
+# ----------------------------------------------------------------------
+RESNET_B, RESNET_TRAIN_B, RESNET_TRAIN_STEPS = 32, 128, 3
+# Limits on ||a - b|| / ||b|| of the logits.  A replayed graph runs the
+# eager call's kernels.  NHWC and NCHW may run different cuDNN kernels
+# in bf16 (each rounding to bf16, a relative step of 2^-8).  The fp32
+# card forward (TF32 off) against the CPU sums in another order only.
+# Measured on an H100: replay and eager bitwise equal in both layouts;
+# NHWC and NCHW bitwise equal (cuDNN transposes NCHW to NHWC and runs
+# the same kernels); card vs CPU 1.08e-06.
+RESNET_HYB_REL = 1e-3
+RESNET_LAYOUT_REL = 1e-2
+RESNET_CPU_REL = 1e-5
+COPY_KERNEL = re.compile(r"copy|nchwToNhwc|nhwcToNchw|transpose", re.I)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _resnet50(mt, dev, layout="NCHW"):
+    """``resnet50_v1`` at full width, 1000 classes, its weights drawn
+    from seed 0 on the card at the first forward."""
+    net = mt.gluon.model_zoo.vision.resnet50_v1(layout=layout)
+    return net.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+
+
+def _ohwi(params):
+    """NCHW zoo weights -> NHWC: conv weights OIHW -> OHWI."""
+    import numpy as onp
+    return {k: onp.ascontiguousarray(v.transpose(0, 2, 3, 1))
+            if v.ndim == 4 else v for k, v in params.items()}
+
+
+def resnet_phase(mt, dev, card):
+    """ResNet-50 inference at ``__graft_entry__.entry()``'s shape (B=32,
+    3x224x224, every parameter bf16), eager and hybridized, NCHW and
+    NHWC, on the same weights; a B=2 float32 forward on the card against
+    the CPU; then 3 training steps at B=128."""
+    vision = mt.gluon.model_zoo.vision
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(RESNET_B, 3, 224, 224, generator=gen, device=dev).to(
+        torch.bfloat16)
+    nets = {"NCHW": _resnet50(mt, dev).cast("bfloat16")}
+    inputs = {"NCHW": x, "NHWC": x.permute(0, 2, 3, 1).contiguous()}
+    with mt.autograd.pause():
+        eager = {"NCHW": nets["NCHW"](x)}
+        params = mt.convert.export_params(nets["NCHW"])
+        nets["NHWC"] = mt.convert.load_params(
+            vision.resnet50_v1(layout="NHWC").initialize(device=dev).cast(
+                "bfloat16"), _ohwi(params))
+        eager["NHWC"] = nets["NHWC"](inputs["NHWC"])
+        lay = _rel(eager["NHWC"], eager["NCHW"])
+        print("resnet50 NHWC vs NCHW (same bf16 weights, B=%d): logits "
+              "||d||/||NCHW|| %.3e (limit %.0e), max|d| %.4f of max|logit| "
+              "%.4f" % (RESNET_B, lay, RESNET_LAYOUT_REL,
+                        (eager["NHWC"].float() - eager["NCHW"].float()).abs()
+                        .max().item(), eager["NCHW"].float().abs().max()
+                        .item()))
+        check(lay <= RESNET_LAYOUT_REL, "resnet50: NHWC disagrees with NCHW "
+              "by %.3e" % lay)
+    rows = []
+    for layout in ("NCHW", "NHWC"):
+        net, inp = nets[layout], inputs[layout]
+        for mode in ("eager", "hybridized"):
+            net.hybridize(mode == "hybridized")
+            # MXNet's ``net.hybridize(); net(x)``: outside any record()
+            # autograd is not recording, so no scope is needed to replay;
+            # the eager forward runs under pause() to keep no tape
+            scope = contextlib.nullcontext() if mode == "hybridized" \
+                else mt.autograd.pause()
+            with scope:
+                if mode == "hybridized":
+                    net(inp)                    # eager once, then capture
+                    out = net(inp)              # replay
+                    check(len(net._graphs) == 1 and not out.requires_grad,
+                          "resnet50: no graph was captured")
+                    rel = _rel(out, eager[layout])
+                    print("resnet50 %s hybridized vs eager: bitwise equal "
+                          "%s, ||d||/||eager|| %.3e (limit %.0e)"
+                          % (layout, torch.equal(out, eager[layout]), rel,
+                             RESNET_HYB_REL))
+                    check(rel <= RESNET_HYB_REL, "resnet50 %s: hybridized "
+                          "disagrees with eager by %.3e" % (layout, rel))
+                host, dev_ms, top, counts, per = device_busy(
+                    lambda: net(inp), reps=10)
+                copies = ["%s: %.4f ms in %g launches" % (k[:60], ms, n)
+                          for k, (ms, n) in per.items()
+                          if COPY_KERNEL.search(k)]
+                print("resnet50 %s %s forward (B=%d bf16): %.0f images/s, "
+                      "%.2f ms host, %.2f ms of kernels (device busy %.1f%%),"
+                      " %.1f device events per call; copy / layout kernels "
+                      "per call: %s; top kernels %s [%s]"
+                      % (layout, mode, RESNET_B, RESNET_B / host * 1e3, host,
+                         dev_ms, 100 * dev_ms / host,
+                         counts["device events"], "; ".join(copies) or "none",
+                         "; ".join("%s %.3f" % t for t in top), card))
+                rows.append((layout, mode, host))
+        net.hybridize(False)
+    print("resnet50 forward host ms, same run: %s"
+          % ", ".join("%s %s %.2f" % r for r in rows))
+    del nets, eager, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_cpu_check(mt, dev, params, x[:2].float())
+    del params
+    for layout in ("NCHW", "NHWC"):
+        resnet_train(mt, dev, card, layout)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def resnet_cpu_check(mt, dev, params, x):
+    """The same weights in float32 on the card (cuDNN with TF32 off, the
+    float32 matmul at full precision) and on the CPU: a B=2 forward."""
+    vision = mt.gluon.model_zoo.vision
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with mt.autograd.pause():
+            card = mt.convert.load_params(
+                vision.resnet50_v1().initialize(device=dev), params)(x)
+            cpu = mt.convert.load_params(
+                vision.resnet50_v1().initialize(device="cpu"),
+                params)(x.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rel = _rel(card.cpu(), cpu)
+    print("resnet50 float32 B=2, card (TF32 off) vs CPU: logits "
+          "||d||/||cpu|| %.3e, max|d| %.3e (limit %.0e)"
+          % (rel, (card.cpu() - cpu).abs().max().item(), RESNET_CPU_REL))
+    check(rel <= RESNET_CPU_REL, "resnet50: the card disagrees with the CPU "
+          "by %.3e" % rel)
+
+
+def resnet_train(mt, dev, card, layout):
+    """3 SGD steps (lr 0.05, momentum 0.9, wd 1e-4) at B=128 in
+    ``layout``, BatchNorm in training mode, the softmax CE, then the
+    steps timed.  Convolution and dense weights are bf16; BatchNorm's
+    gains and statistics stay float32, as mixed precision keeps them (a
+    bf16 running variance near 1 cannot take a step below half its
+    2^-8 spacing)."""
+    B = RESNET_TRAIN_B
+    net = _resnet50(mt, dev, layout).cast("bfloat16")
+    for m in net.modules():
+        if isinstance(m, mt.gluon.nn.BatchNorm):
+            m.cast("float32")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(B, 3, 224, 224, generator=gen, device=dev).to(
+        torch.bfloat16)
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    labels = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+    with mt.autograd.pause():
+        net(x[:2])                               # materialise the weights
+    before = {n: p.detach().to("cpu", copy=True)
+              for n, p in net.named_parameters()}
+    # lr 0.1 per 256 images (the linear scaling rule of ResNet training)
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.05, "momentum": 0.9,
+                                "wd": 1e-4})
+    loss_fn = mt.gluon.loss.SoftmaxCELoss()
+
+    def step():
+        with mt.autograd.record():
+            loss = loss_fn(net(x).float(), labels)
+        mt.autograd.backward(loss)
+        trainer.step(B)
+        return loss.mean().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    losses = [step() for _ in range(RESNET_TRAIN_STEPS)]
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), "resnet50 %s train: a loss "
+          "is not finite: %s" % (layout, losses))
+    unchanged = [n for n, p in net.named_parameters()
+                 if torch.equal(p.detach().cpu(), before[n])]
+    check(not unchanged, "resnet50 %s train: unchanged: %s"
+          % (layout, unchanged))
+    stats = sum("running" in n for n in before)
+    del before
+    ms, dev_ms, top, counts, _ = device_busy(step, reps=2)
+    print("resnet50 train (B=%d, %s, SGD lr 0.05 momentum 0.9 wd 1e-4): "
+          "losses %s;"
+          " every one of %d trainable tensors and %d BatchNorm statistics "
+          "changed; %d steps in %.2f s; step %.1f ms host, %.1f ms of "
+          "kernels (device busy %.1f%%), %.0f images/s, peak memory %.2f GB "
+          "[%s]; top kernels (ms per step): %s"
+          % (B, layout, losses,
+             sum(p.requires_grad for p in net.parameters()),
+             stats, RESNET_TRAIN_STEPS, wall, ms, dev_ms, 100 * dev_ms / ms,
+             B / ms * 1e3, peak / 1e9, card,
+             "; ".join("%s %.3f" % t for t in top)))
+
+
+# ----------------------------------------------------------------------
+# phase 10: BERT-base pretraining steps through the flash kernels
+# ----------------------------------------------------------------------
+BERT_B, BERT_T, BERT_STEPS = 16, 512, 3
+
+
+def bert_batch(cfg, dev, B, T, seed):
+    """Random tokens, two segments, MLM labels at every position and
+    NSP labels."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=dev)
+    types = (torch.arange(T, device=dev) >= T // 2).long().expand(B, T)
+    mlm = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev)
+    nsp = torch.randint(0, 2, (B,), generator=gen, device=dev)
+    return toks, types, mlm, nsp
+
+
+def bert_loss(mt, net, toks, types, mlm, nsp):
+    """Mean MLM + NSP softmax CE on float32 logits."""
+    ce = mt.gluon.loss.SoftmaxCELoss()
+    mlm_logits, nsp_logits = net(toks, types)
+    V = mlm_logits.shape[-1]
+    return ce(mlm_logits.float().reshape(-1, V), mlm.reshape(-1)).mean() \
+        + ce(nsp_logits.float(), nsp).mean()
+
+
+def bert_parity(mt, co, dev, card):
+    """A small head_dim-64 BERT (hidden 256, 4 heads, 2 layers), the
+    same bf16 weights on the card (flash kernels) and on the CPU (plain
+    versions), dropout off: the loss and every grad, as ``parity_phase``
+    compares them."""
+    cfg = mt.models.bert_tiny_config(hidden_size=256, num_heads=4,
+                                     intermediate_size=1024,
+                                     dtype="bfloat16", dropout=0.0)
+    net = mt.models.BERTForPretrain(cfg).initialize(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    cpu = mt.convert.load_params(
+        mt.models.BERTForPretrain(cfg).initialize(device="cpu"),
+        mt.convert.export_params(net))
+    batch = bert_batch(cfg, "cpu", 2, 128, 6)
+    losses = []
+    co.reset_launch_counts()
+    for model, d in ((net, dev), (cpu, "cpu")):
+        with mt.autograd.record():
+            loss = bert_loss(mt, model, *(t.to(d) for t in batch))
+        mt.autograd.backward(loss)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    check(co.LAUNCHES["flash_fwd"] == co.LAUNCHES["flash_bwd_dq"]
+          == co.LAUNCHES["flash_bwd_dkv"] == cfg.num_layers,
+          "bert parity: the flash kernels did not run: %s" % co.LAUNCHES)
+    rel = {}
+    for (name, g), (_, p) in zip(net.named_parameters(),
+                                 cpu.named_parameters()):
+        gc_, gp = g.grad.float().cpu(), p.grad.float()
+        rel[name] = ((gc_ - gp).norm() / gp.norm()).item()
+    worst = max(rel, key=rel.get)
+    print("bert parity (hidden 256, 4 heads of 64, 2 layers, vocab %d, "
+          "B=2, T=128): loss cuda %.6f cpu %.6f; grad ||cuda-cpu||/||cpu|| "
+          "max %.3e (%s), median %.3e [%s]"
+          % (cfg.vocab_size, losses[0], losses[1], rel[worst], worst,
+             sorted(rel.values())[len(rel) // 2], card))
+    check(abs(losses[0] - losses[1]) <= PARITY_LOSS_RTOL * abs(losses[1]),
+          "bert parity: losses differ: %s" % losses)
+    check(rel[worst] <= GRAD_REL_TOL, "bert parity: %s grad differs by "
+          "%.3e (limit %.0e)" % (worst, rel[worst], GRAD_REL_TOL))
+
+
+def bert_phase(mt, co, dev, card):
+    """``BERTForPretrain(bert_base_config())`` with bf16 weights, B=16,
+    T=512, no ``valid_length`` (the flash path): 3 AdamW steps through
+    the Gluon ``Trainer`` on one batch.  Returns the launch counts of
+    those steps."""
+    bert_parity(mt, co, dev, card)
+    cfg = mt.models.bert_base_config(dtype="bfloat16")
+    net = mt.models.BERTForPretrain(cfg).initialize(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    nparams = sum(p.numel() for p in net.parameters())
+    batch = bert_batch(cfg, dev, BERT_B, BERT_T, 7)
+    before = {n: p.detach().to("cpu", copy=True)
+              for n, p in net.named_parameters()}
+    trainer = mt.gluon.Trainer(net.collect_params(), "adamw",
+                               {"learning_rate": 2e-5, "wd": 0.01})
+
+    def step():
+        with mt.autograd.record():
+            loss = bert_loss(mt, net, *batch)
+        mt.autograd.backward(loss)
+        trainer.step(1)
+        return loss.item()
+    torch.cuda.manual_seed(8)     # dropout's masks: the same every run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
+    t0 = time.monotonic()
+    losses = [step() for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(co.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print("bert-base train losses (%d AdamW steps, B=%d, T=%d) %s; launches "
+          "%s" % (BERT_STEPS, BERT_B, BERT_T, losses, launches))
+    check(all(math.isfinite(v) for v in losses), "bert: a loss is not "
+          "finite: %s" % losses)
+    check(losses[-1] < losses[0], "bert: the loss did not fall: %s" % losses)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == cfg.num_layers * BERT_STEPS,
+              "bert: %s launched %d times in %d steps, want %d per step"
+              % (name, launches[name], BERT_STEPS, cfg.num_layers))
+    unchanged = [n for n, p in net.named_parameters()
+                 if torch.equal(p.detach().cpu(), before[n])]
+    check(not unchanged, "bert: parameters did not change: %s" % unchanged)
+    del before
+    ms, dev_ms, top, counts, _ = device_busy(step, reps=2)
+    print("bert-base train step (%.1f M params, bf16, B=%d, T=%d, dropout "
+          "0.1): %d steps in %.2f s; step %.1f ms host, %.1f ms of kernels "
+          "(device busy %.1f%%), %.1f samples/s, peak memory %.2f GB [%s]; "
+          "top kernels (ms per step): %s"
+          % (nparams / 1e6, BERT_B, BERT_T, BERT_STEPS, wall, ms, dev_ms,
+             100 * dev_ms / ms, BERT_B / ms * 1e3, peak / 1e9, card,
+             "; ".join("%s %.3f" % t for t in top)))
     return launches
 
 
@@ -878,7 +1250,8 @@ def main(argv):
         # call: copy this file into the other tree's root
         print(json.dumps({"kernel_timing": {
             "tree": root, "card": card, "flash_fwd": flash_timing(co, dev),
-            "flash_bwd": bwd_timing(co, dev, card),
+            "flash_bwd": [bwd_timing(co, dev, card, shape)
+                          for shape in (TRAIN_ATTN, BERT_ATTN)],
             "paged_decode": paged_timing(co, dev)}}))
         return 0
     check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing]")
@@ -901,11 +1274,18 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = train_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_phase(mt, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_launches = bert_phase(mt, co, dev, card)
 
     kernels = [flash] + flash_bwd + [paged]
     for k in kernels:
         by_path = {"serve": serve_launches[k["name"]],
-                   "train": train_launches[k["name"]]}
+                   "train": train_launches[k["name"]],
+                   "bert": bert_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print("total %.1f s" % (time.monotonic() - t_start))

@@ -2,18 +2,22 @@
 
 Counterpart of ``mxnet_tpu/autograd.py:18-110`` (``record``, ``pause``,
 ``train_mode``, ``predict_mode``, ``backward``, ``grad``).  The port
-keeps no tape of its own: ``record`` turns torch's grad mode on and sets
-the training flag, ``pause`` turns grad mode off, and ``backward`` /
-``grad`` call ``torch.autograd``.  A custom differentiable function is
-a ``torch.autograd.Function``, the port's idiom for what
-``autograd.Function`` (:113) does in the JAX package.
+keeps no tape of its own: torch autograd is the tape, and
+``backward`` / ``grad`` call ``torch.autograd``.  A custom
+differentiable function is a ``torch.autograd.Function``, the port's
+idiom for what ``autograd.Function`` (:113) does in the JAX package.
+
+The recording state is MXNet's: off by default, on inside ``record()``
+and off again inside a ``pause()``.  The scopes set torch's grad mode
+with it (``record`` on, ``pause`` off) and restore both on exit, so
+outside any scope torch's grad mode stays torch's own default and plain
+torch code is unaffected.  A hybridized block reads the recording
+state: it replays a captured graph wherever no ``record()`` is active.
 
 The training flag (``is_training``, set by ``record``, ``train_mode``
-and their opposites) is kept for the MXNet API: a layer that acts
-differently in training reads it, as the JAX package's layers do.  No
-layer of the port does yet (there is no dropout or batch norm on the
-ported paths), and the port never reads torch's ``Module.training``, so
-this flag is the one train/eval state.
+and their opposites) is the port's one train/eval state: ``Dropout``
+and ``BatchNorm`` read it, as the JAX package's layers do, and the port
+never reads torch's ``Module.training``.
 
 MXNet's ``loss.backward()`` on a non-scalar loss seeds every element
 with 1; torch's ``Tensor.backward`` takes only a scalar, so a per-sample
@@ -33,7 +37,7 @@ _state = threading.local()
 
 
 def is_recording():
-    return torch.is_grad_enabled()
+    return getattr(_state, "recording", False)
 
 
 def is_training():
@@ -41,8 +45,10 @@ def is_training():
 
 
 def set_recording(is_recording):  # noqa: A002
-    """Set grad mode; returns the previous value."""
-    prev = torch.is_grad_enabled()
+    """Set the recording state and torch's grad mode with it; returns
+    the previous recording state."""
+    prev = getattr(_state, "recording", False)
+    _state.recording = bool(is_recording)
     torch.set_grad_enabled(bool(is_recording))
     return prev
 
@@ -63,14 +69,16 @@ class _RecordingStateScope:
 
     def __enter__(self):
         if self._enter_is_record is not None:
-            self._prev_is_record = set_recording(self._enter_is_record)
+            self._prev_is_record = (is_recording(), torch.is_grad_enabled())
+            set_recording(self._enter_is_record)
         if self._enter_train_mode is not None:
             self._prev_train_mode = set_training(self._enter_train_mode)
         return self
 
     def __exit__(self, *exc):
         if self._enter_is_record is not None:
-            set_recording(self._prev_is_record)
+            _state.recording = self._prev_is_record[0]
+            torch.set_grad_enabled(self._prev_is_record[1])
         if self._enter_train_mode is not None:
             set_training(self._prev_train_mode)
 

@@ -12,6 +12,9 @@ from __future__ import annotations
 import numpy as onp
 import torch
 
+from .gluon.parameter import finish_deferred_init, is_deferred, \
+    mark_initialized
+
 __all__ = ["load_params", "export_params"]
 
 
@@ -19,7 +22,9 @@ def load_params(net, params):
     """Fill ``net``'s parameters from ``{name: np.ndarray}``, cast to each
     parameter's dtype and device.  Raises ``KeyError`` on a missing or
     extra name and ``ValueError`` on a shape mismatch, before anything
-    is written."""
+    is written.  A parameter still waiting for its shape (deferred
+    initialization) takes the array's, on the device ``initialize``
+    named, as MXNet's ``set_data`` does."""
     own = dict(net.named_parameters())
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -28,6 +33,8 @@ def load_params(net, params):
                        % (missing, extra))
     for name, p in own.items():
         shape = tuple(onp.shape(params[name]))
+        if is_deferred(p):
+            continue          # its shape is checked when it is made
         if shape != tuple(p.shape):
             raise ValueError("load_params: %s has shape %s, the model "
                              "wants %s" % (name, shape, tuple(p.shape)))
@@ -36,7 +43,9 @@ def load_params(net, params):
             arr = onp.asarray(params[name])
             if arr.dtype.name == "bfloat16":   # ml_dtypes, unknown to torch
                 arr = arr.astype(onp.float32)
+            finish_deferred_init(p, arr.shape)
             p.copy_(torch.from_numpy(onp.array(arr, copy=True)))
+            mark_initialized(p)
     return net
 
 

@@ -1,20 +1,28 @@
-"""``Block``: the base of the port's layers and models.
+"""``Block`` and ``HybridBlock``: the base of the port's layers and models.
 
-Counterpart of the parameter side of ``mxnet_tpu/gluon/block.py``
-(``collect_params`` :78, ``zero_grad`` :112) over ``torch.nn.Module``.
-A Parameter is a ``torch.nn.Parameter``; its MXNet ``grad_req`` maps to
-``requires_grad`` ("null" = False).  ``state_dict()`` keys and
+Counterpart of ``mxnet_tpu/gluon/block.py`` (``collect_params`` :78,
+``initialize`` :95, ``zero_grad`` :112, ``cast`` :122, ``HybridBlock``
+:346 with ``_CachedGraph`` / ``_build_cache`` / ``_call_cached``
+:332-494) over ``torch.nn.Module``.  A parameter is a
+``torch.nn.Parameter`` (:mod:`.parameter`); ``state_dict()`` keys and
 ``collect_params()`` names are the same structural paths
-(``layer0.attention.wq.weight``), which are the JAX package's names.
+(``features.4.0.body.0.weight``, ``layer0.attention.wq.weight``), which
+are the JAX package's names.
 """
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
 
+import torch
 from torch import nn
 
-__all__ = ["Block"]
+from .. import autograd
+from .. import initializer as init_mod
+from ..context import resolve_device
+from . import parameter as param_mod
+
+__all__ = ["Block", "HybridBlock"]
 
 
 class Block(nn.Module):
@@ -26,8 +34,185 @@ class Block(nn.Module):
         return OrderedDict((name, p) for name, p in self.named_parameters()
                            if pattern is None or pattern.match(name))
 
+    def initialize(self, init=None, device=None, generator=None,
+                   force_reinit=False):
+        """Initialize every parameter on ``device`` (``None`` = CUDA,
+        raising without a card) with its own initializer, else ``init``
+        (default ``Uniform(0.07)``), drawing from ``generator``.  A
+        parameter with an unknown dimension is filled at the block's
+        first forward.  Returns the block."""
+        if init is None or isinstance(init, str):
+            init = init_mod.create(init or "uniform")
+        device = resolve_device(device)
+        for name, p in self.collect_params().items():
+            param_mod.initialize(p, name, init, device, generator,
+                                 force_reinit)
+        return self
+
+    def cast(self, dtype):
+        """Cast every parameter (BatchNorm's statistics included) to
+        ``dtype``."""
+        for p in self.parameters():
+            param_mod.cast(p, dtype)
+        return self
+
+    def setattr(self, name, value):
+        """Set an attribute on every parameter; ``grad_req`` is the one
+        ported (``lr_mult`` / ``wd_mult``: ROADMAP queue 1b')."""
+        if name != "grad_req":
+            raise NotImplementedError("mxnet_tpu_torch: Parameter.%s is "
+                                      "not ported yet (ROADMAP queue 1b')"
+                                      % name)
+        for p in self.parameters():
+            param_mod.set_grad_req(p, value)
+
+    def hybridize(self, active=True, **kwargs):
+        """A plain Block passes ``hybridize`` on to its children."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
+
     def zero_grad(self):
         """Set every gradient that exists to zero, in place."""
         for p in self.parameters():
             if p.grad is not None:
                 p.grad.zero_()
+
+
+def _tensors(obj):
+    """The tensors of a nest of tuples, lists and dicts, in order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            yield from _tensors(obj[k])
+
+
+def _map(fn, obj):
+    """``obj`` with ``fn`` applied to each tensor of the nest."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_map(fn, o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _map(fn, v) for k, v in obj.items()}
+    return obj
+
+
+def _key(obj):
+    """Hashable signature of an argument nest: each tensor by shape,
+    strides, dtype and device, anything else by value."""
+    if isinstance(obj, torch.Tensor):
+        return ("t", tuple(obj.shape), obj.stride(), obj.dtype, obj.device)
+    if isinstance(obj, (tuple, list)):
+        return (type(obj).__name__,) + tuple(_key(o) for o in obj)
+    if isinstance(obj, dict):
+        return ("d",) + tuple((k, _key(obj[k])) for k in sorted(obj))
+    return ("v", obj)
+
+
+class _CachedGraph:
+    """One captured CUDA graph of a HybridBlock's forward: the counterpart
+    of the JAX package's ``_CachedGraph`` (block.py:332), one per input
+    signature and training flag.  ``inputs`` are the static buffers the
+    graph reads, ``out`` the static output it writes, ``ptrs`` the
+    storage of every parameter at capture."""
+
+    def __init__(self, graph, inputs, out, ptrs):
+        self.graph, self.inputs, self.out, self.ptrs = graph, inputs, out, ptrs
+
+
+class HybridBlock(Block):
+    """A Block that ``hybridize()`` runs as captured CUDA graphs.
+
+    The port's counterpart of the JAX package's per-signature ``jax.jit``
+    (block.py:404-494) is a CUDA graph per signature: the shapes, strides,
+    dtypes and device of the tensor arguments, every other argument's
+    value, and the training flag.  The first call with a signature runs
+    eagerly (materialising deferred parameters; its result is returned),
+    warms up on a side stream and captures the forward; later calls copy
+    their tensors into the graph's static inputs, replay it and return a
+    clone of its output, so a result stays valid after the next call.
+
+    A graph is used wherever autograd is not recording, that is outside
+    any ``autograd.record()`` (MXNet's default) or inside an
+    ``autograd.pause()``; capture and replay run under
+    ``torch.no_grad()``, so the result carries no autograd history.
+    Under ``record()`` the block runs eagerly, because torch autograd is
+    the port's tape and its backward is torch's.  On the CPU, which the
+    caller asked for by name, the block always runs eagerly: CUDA graphs
+    are CUDA-only.
+
+    In training mode (``autograd.train_mode()``) a BatchNorm's running
+    statistics are updated in place inside the graph, once per replay,
+    as eagerly; warm-up and capture leave them as the first call left
+    them.  A parameter whose storage is replaced (``p.data = ...``,
+    ``cast``) invalidates the graphs that read it; ``load_params`` and
+    the optimizers write in place, which the graphs read.  Only the
+    outermost hybridized block captures; its children run inside it.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self._active = False
+        self._graphs = {}
+
+    def hybridize(self, active=True, **kwargs):
+        """Run this block as captured CUDA graphs (``active``) or eagerly;
+        either way the cached graphs are dropped.  Static allocation and
+        shapes are what a CUDA graph is, so ``static_alloc`` /
+        ``static_shape`` are accepted and change nothing."""
+        self._active = active
+        self._graphs.clear()
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(False)
+
+    def reset_cache(self):
+        self._graphs.clear()
+
+    def __call__(self, *args, **kwargs):
+        if self._active and not autograd.is_recording():
+            tensors = list(_tensors((args, kwargs)))
+            if tensors and all(t.is_cuda for t in tensors):
+                with torch.no_grad():
+                    return self._call_cached(args, kwargs)
+        return super().__call__(*args, **kwargs)
+
+    def _call_cached(self, args, kwargs):
+        sig = (autograd.is_training(), _key(args), _key(kwargs))
+        g = self._graphs.get(sig)
+        if g is not None and g.ptrs != [p.data_ptr()
+                                        for p in self.parameters()]:
+            g = None                # a parameter's storage was replaced
+        if g is None:
+            out, self._graphs[sig] = self._capture(args, kwargs)
+            return out
+        for buf, t in zip(g.inputs, _tensors((args, kwargs))):
+            buf.copy_(t)
+        g.graph.replay()
+        return _map(torch.clone, g.out)
+
+    def _capture(self, args, kwargs):
+        out = super().__call__(*args, **kwargs)      # materialises params
+        aux = [p for p in self.parameters() if not p.requires_grad] \
+            if autograd.is_training() else []
+        saved = [p.detach().clone() for p in aux]
+        s_args, s_kwargs = _map(torch.clone, (args, kwargs))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                super().__call__(*s_args, **s_kwargs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            s_out = super().__call__(*s_args, **s_kwargs)
+        for p, v in zip(aux, saved):
+            p.detach().copy_(v)
+        return out, _CachedGraph(graph, list(_tensors((s_args, s_kwargs))),
+                                 s_out, [p.data_ptr()
+                                         for p in self.parameters()])

@@ -1,1 +1,13 @@
-from .basic_layers import Dense, Embedding, RMSNorm  # noqa: F401
+"""Gluon layers of the port (``mxnet_tpu/gluon/nn``): basic layers,
+activations, convolutions and pooling."""
+from .activations import (ELU, GELU, SELU, Activation, LeakyReLU,  # noqa: F401
+                          Mish, PReLU, SiLU, Swish)
+from .basic_layers import (BatchNorm, Dense, Dropout, Embedding,  # noqa: F401
+                           Flatten, GroupNorm, HybridSequential, Identity,
+                           InstanceNorm, LayerNorm, RMSNorm, Sequential)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D,  # noqa: F401
+                          Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
+                          Conv3D, Conv3DTranspose, GlobalAvgPool1D,
+                          GlobalAvgPool2D, GlobalAvgPool3D, GlobalMaxPool1D,
+                          GlobalMaxPool2D, GlobalMaxPool3D, MaxPool1D,
+                          MaxPool2D, MaxPool3D, ReflectionPad2D)

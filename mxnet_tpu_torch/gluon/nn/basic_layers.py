@@ -1,68 +1,265 @@
-"""Dense, Embedding and RMSNorm as ``torch.nn.Module``s.
+"""Basic Gluon layers as ``HybridBlock``s.
 
-Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` (``Dense`` :94,
-``Embedding`` :159, ``RMSNorm`` :303).  Parameter names and shapes are
-MXNet's -- ``weight`` (Dense: (out, in)), ``bias``, ``gamma`` -- so a
-model's ``state_dict()`` keys equal the JAX ``collect_params()`` keys.
-Parameters are created empty on ``device``; a loader fills them.  Each
-layer is a :class:`~mxnet_tpu_torch.gluon.block.Block`.
-``device=None`` means CUDA and raises without a card
-(:func:`~mxnet_tpu_torch.context.resolve_device`).
+Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``
+:20, ``HybridSequential`` :58, ``Dense`` :94, ``Dropout`` :144,
+``Embedding`` :159, ``Flatten`` :178, ``Identity`` :186, ``BatchNorm``
+:195, ``LayerNorm`` :277, ``RMSNorm`` :303, ``GroupNorm`` :321 and
+``InstanceNorm`` :344.  Parameter names and shapes are MXNet's --
+``weight`` (Dense: (out, in)), ``bias``, ``gamma``, ``beta``,
+``running_mean``, ``running_var`` -- so ``collect_params()`` keys equal
+the JAX package's.  Parameters come from
+:func:`~mxnet_tpu_torch.gluon.parameter.Parameter`: a dimension given
+as 0 (``in_units=0``, ``in_channels=0``) is taken from the first input.
+A layer's parameters get storage from ``initialize(device=...)`` or
+``convert.load_params``.
+
+Not ported yet (ROADMAP queue 2): ``SyncBatchNorm``, ``Lambda``,
+``HybridLambda``, ``Concatenate`` and ``HybridConcatenate``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
-from torch import nn
 
-from ...context import resolve_device
+from ... import autograd
 from ...ops import nn as F
-from ..block import Block
+from ..block import Block, HybridBlock
+from ..parameter import Parameter, finish_deferred_init
 
-__all__ = ["Dense", "Embedding", "RMSNorm"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
+           "Flatten", "Identity", "BatchNorm", "LayerNorm", "RMSNorm",
+           "GroupNorm", "InstanceNorm"]
 
 
-def _dtype(dtype):
-    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+class _Stack:
+    """Children run in order; a tuple output feeds its tail to the next
+    child as extra arguments."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.add_module(str(len(self._modules)), block)
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x, *args)
+            args = ()
+            if isinstance(x, (tuple, list)):
+                x, args = x[0], tuple(x[1:])
+        return (x,) + args if args else x
+
+    def __getitem__(self, key):
+        children = list(self._modules.values())
+        if isinstance(key, slice):
+            return type(self)(*children[key])
+        return children[key]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
-class Dense(Block):
-    """``y = x @ W.T + b`` over the trailing dim (``flatten=False``).  The
-    input is cast to the weight's dtype, so a bf16 layer runs a bf16
-    matmul (fp32 accumulation) on float32 activations."""
+class Sequential(_Stack, Block):
+    def __init__(self, *blocks):
+        Block.__init__(self)
+        self.add(*blocks)
 
-    def __init__(self, units, in_units, use_bias=True, dtype="float32",
-                 device=None):
+
+class HybridSequential(_Stack, HybridBlock):
+    def __init__(self, *blocks):
+        HybridBlock.__init__(self)
+        self.add(*blocks)
+
+
+class Dense(HybridBlock):
+    """``y = act(x W^T + b)``; ``flatten=True`` collapses every axis after
+    the first.  The input is cast to the weight's dtype, so a bf16 layer
+    runs a bf16 matmul (fp32 accumulation) on float32 activations."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0):
         super().__init__()
-        kw = {"dtype": _dtype(dtype), "device": resolve_device(device)}
-        self.weight = nn.Parameter(torch.empty(units, in_units, **kw))
-        self.bias = nn.Parameter(torch.empty(units, **kw)) if use_bias \
-            else None
+        self._units = units
+        self._flatten = flatten
+        self._activation = activation
+        self.weight = Parameter((units, in_units), dtype, weight_initializer)
+        self.bias = Parameter((units,), dtype, bias_initializer) \
+            if use_bias else None
 
     def forward(self, x):
-        return F.dense(x.to(self.weight.dtype), self.weight, self.bias)
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        finish_deferred_init(self.weight, (self._units, in_units))
+        if self.bias is not None:
+            finish_deferred_init(self.bias, (self._units,))
+        out = F.fully_connected(x.to(self.weight.dtype), self.weight,
+                                self.bias, self._flatten)
+        if self._activation is not None:
+            out = F.activation(out, self._activation)
+        return out
 
 
-class Embedding(Block):
-    def __init__(self, input_dim, output_dim, dtype="float32", device=None):
+class Dropout(HybridBlock):
+    """Inverted dropout in training mode (``autograd.record()`` /
+    ``train_mode()``), the identity otherwise.  The mask comes from the
+    device's default generator (``torch.manual_seed``)."""
+
+    def __init__(self, rate, axes=()):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            input_dim, output_dim, dtype=_dtype(dtype),
-            device=resolve_device(device)))
+        self._rate = rate
+        self._axes = axes
+
+    def forward(self, x):
+        if self._rate == 0 or not autograd.is_training():
+            return x
+        return F.dropout(x, self._rate, axes=self._axes)
+
+
+class Embedding(HybridBlock):
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None):
+        super().__init__()
+        self.weight = Parameter((input_dim, output_dim), dtype,
+                                weight_initializer)
 
     def forward(self, x):
         return F.embedding(x, self.weight)
 
 
-class RMSNorm(Block):
+class Flatten(HybridBlock):
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+def _norm_params(block, in_channels, center, scale, gamma_init, beta_init):
+    block.gamma = Parameter((in_channels,), "float32", gamma_init,
+                            "write" if scale else "null")
+    block.beta = Parameter((in_channels,), "float32", beta_init,
+                           "write" if center else "null")
+
+
+class BatchNorm(HybridBlock):
+    """Batch norm over ``axis`` (-1 for channels-last).
+
+    Training mode (``autograd.is_training()`` and not
+    ``use_global_stats``) normalises with the batch statistics, reduced
+    in float32, and updates the running ones in place with MXNet's
+    momentum, which keeps ``momentum`` of the old value: ``running =
+    momentum * running + (1 - momentum) * batch``, the variance being
+    the biased batch variance (torch's ``momentum`` means the opposite
+    and its running variance is the unbiased one, so the update is done
+    here).  Inference uses the running statistics.  ``scale=False``
+    fixes the gain at one, ``center=False`` freezes ``beta``.  The
+    running statistics are parameters with ``requires_grad=False``, as
+    ``collect_params()`` lists them in MXNet; the ``Trainer`` skips
+    them."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0):
+        super().__init__()
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        _norm_params(self, in_channels, center, scale, gamma_initializer,
+                     beta_initializer)
+        self.running_mean = Parameter((in_channels,), "float32",
+                                      running_mean_initializer, "null")
+        self.running_var = Parameter((in_channels,), "float32",
+                                     running_variance_initializer, "null")
+
+    def forward(self, x):
+        ch = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            finish_deferred_init(p, (ch,))
+        gamma = self.gamma if self._scale else None
+        if autograd.is_training() and not self._use_global_stats:
+            out, mean, var = F.batch_norm_train(x, gamma, self.beta,
+                                                self._epsilon, self._axis)
+            m = self._momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=1 - m)
+            return out
+        return F.batch_norm_inference(x, gamma, self.beta, self.running_mean,
+                                      self.running_var, self._epsilon,
+                                      self._axis)
+
+
+class LayerNorm(HybridBlock):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__()
+        self._axis = axis
+        self._epsilon = epsilon
+        _norm_params(self, in_channels, center, scale, gamma_initializer,
+                     beta_initializer)
+
+    def forward(self, x):
+        ch = x.shape[self._axis]
+        finish_deferred_init(self.gamma, (ch,))
+        finish_deferred_init(self.beta, (ch,))
+        return F.layer_norm(x, self.gamma, self.beta, self._axis,
+                            self._epsilon)
+
+
+class RMSNorm(HybridBlock):
     """RMS normalization over the last axis.  ``gamma`` is float32 in
     every model, as in the JAX layer, so the output of a norm is float32
     whatever the input's dtype."""
 
-    def __init__(self, in_channels, epsilon=1e-6, device=None):
+    def __init__(self, in_channels=0, epsilon=1e-6, gamma_initializer="ones"):
         super().__init__()
         self._epsilon = epsilon
-        self.gamma = nn.Parameter(torch.ones(
-            in_channels, dtype=torch.float32, device=resolve_device(device)))
+        self.gamma = Parameter((in_channels,), "float32", gamma_initializer)
 
     def forward(self, x):
+        finish_deferred_init(self.gamma, (x.shape[-1],))
         return F.rms_norm(x, self.gamma, eps=self._epsilon)
+
+
+class GroupNorm(HybridBlock):
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        _norm_params(self, in_channels, center, scale, gamma_initializer,
+                     beta_initializer)
+
+    def forward(self, x):
+        finish_deferred_init(self.gamma, (x.shape[1],))
+        finish_deferred_init(self.beta, (x.shape[1],))
+        return F.group_norm(x, self.gamma, self.beta, self._num_groups,
+                            self._epsilon)
+
+
+class InstanceNorm(HybridBlock):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__()
+        self._axis = axis
+        self._epsilon = epsilon
+        _norm_params(self, in_channels, center, scale, gamma_initializer,
+                     beta_initializer)
+
+    def forward(self, x):
+        ch = x.shape[self._axis]
+        finish_deferred_init(self.gamma, (ch,))
+        finish_deferred_init(self.beta, (ch,))
+        out = F.instance_norm(x.movedim(self._axis, 1), self.gamma,
+                              self.beta, self._epsilon)
+        return out.movedim(1, self._axis)

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import initializer as init_mod
 from ..context import resolve_device
 from ..gluon.block import Block
 from ..gluon.nn import Dense, Embedding, RMSNorm
@@ -97,22 +98,21 @@ def _heads_first(x):
 
 
 class Attention(Block):
-    def __init__(self, cfg: LlamaConfig, layer_idx=0, device=None):
+    def __init__(self, cfg: LlamaConfig, layer_idx=0):
         super().__init__()
         if cfg.attn_impl != "flash":
             raise NotImplementedError("mxnet_tpu_torch: attn_impl=%r is "
                                       "not ported (flash only)"
                                       % cfg.attn_impl)
-        device = resolve_device(device)
         self.cfg = cfg
         self.layer_idx = layer_idx
         hd = cfg.dim // cfg.n_heads
         self.head_dim = hd
-        kw = {"use_bias": False, "dtype": cfg.dtype, "device": device}
-        self.wq = Dense(cfg.n_heads * hd, cfg.dim, **kw)
-        self.wk = Dense(cfg.n_kv_heads * hd, cfg.dim, **kw)
-        self.wv = Dense(cfg.n_kv_heads * hd, cfg.dim, **kw)
-        self.wo = Dense(cfg.dim, cfg.n_heads * hd, **kw)
+        kw = {"use_bias": False, "flatten": False, "dtype": cfg.dtype}
+        self.wq = Dense(cfg.n_heads * hd, in_units=cfg.dim, **kw)
+        self.wk = Dense(cfg.n_kv_heads * hd, in_units=cfg.dim, **kw)
+        self.wv = Dense(cfg.n_kv_heads * hd, in_units=cfg.dim, **kw)
+        self.wo = Dense(cfg.dim, in_units=cfg.n_heads * hd, **kw)
 
     def forward(self, x, cache=None):
         cfg = self.cfg
@@ -201,13 +201,12 @@ class Attention(Block):
 
 
 class FeedForward(Block):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        kw = {"use_bias": False, "dtype": cfg.dtype,
-              "device": resolve_device(device)}
-        self.w1 = Dense(cfg.hidden_dim, cfg.dim, **kw)   # gate
-        self.w3 = Dense(cfg.hidden_dim, cfg.dim, **kw)   # up
-        self.w2 = Dense(cfg.dim, cfg.hidden_dim, **kw)   # down
+        kw = {"use_bias": False, "flatten": False, "dtype": cfg.dtype}
+        self.w1 = Dense(cfg.hidden_dim, in_units=cfg.dim, **kw)   # gate
+        self.w3 = Dense(cfg.hidden_dim, in_units=cfg.dim, **kw)   # up
+        self.w2 = Dense(cfg.dim, in_units=cfg.hidden_dim, **kw)   # down
 
     def forward(self, x):
         # the gate product in float32, as the JAX bf16 model computes it
@@ -216,17 +215,15 @@ class FeedForward(Block):
 
 
 class TransformerBlock(Block):
-    def __init__(self, cfg: LlamaConfig, layer_idx=0, device=None):
+    def __init__(self, cfg: LlamaConfig, layer_idx=0):
         super().__init__()
         if cfg.moe_num_experts > 0:
             raise NotImplementedError("mxnet_tpu_torch: the MoE FFN is "
                                       "not ported yet")
-        device = resolve_device(device)
-        kw = {"epsilon": cfg.norm_eps, "device": device}
-        self.attention_norm = RMSNorm(cfg.dim, **kw)
-        self.attention = Attention(cfg, layer_idx=layer_idx, device=device)
-        self.ffn_norm = RMSNorm(cfg.dim, **kw)
-        self.feed_forward = FeedForward(cfg, device=device)
+        self.attention_norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
+        self.attention = Attention(cfg, layer_idx=layer_idx)
+        self.ffn_norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
+        self.feed_forward = FeedForward(cfg)
 
     def forward(self, x, cache=None):
         """``x`` is the float32 residual stream."""
@@ -238,37 +235,34 @@ class TransformerLM(Block):
     """Decoder-only LM.  Input: (B, T) int tokens; output: (B, T, vocab).
 
     ``device=None`` means CUDA (and raises without a card); pass
-    ``device="cpu"`` for the plain path.  Parameters are created
-    uninitialized: fill them with :meth:`initialize` or
-    :func:`mxnet_tpu_torch.convert.load_params`."""
+    ``device="cpu"`` for the plain path.  The constructor initializes
+    every parameter on ``device`` through ``Block.initialize`` with
+    zero weights and unit norm gains; fill them with :meth:`initialize`
+    or :func:`mxnet_tpu_torch.convert.load_params`."""
 
     def __init__(self, cfg: LlamaConfig = None, device=None, **kwargs):
         super().__init__()
         cfg = cfg or LlamaConfig(**kwargs)
-        device = resolve_device(device)
         self.cfg = cfg
         self.tok_embeddings = Embedding(cfg.vocab_size, cfg.dim,
-                                        dtype=cfg.dtype, device=device)
+                                        dtype=cfg.dtype)
         blocks = []
         for i in range(cfg.n_layers):
-            blk = TransformerBlock(cfg, layer_idx=i, device=device)
+            blk = TransformerBlock(cfg, layer_idx=i)
             setattr(self, "layer%d" % i, blk)   # keys layer0.*, as in JAX
             blocks.append(blk)
         self.layers = tuple(blocks)
-        self.norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps, device=device)
-        self.output = Dense(cfg.vocab_size, cfg.dim, use_bias=False,
-                            dtype=cfg.dtype, device=device)
+        self.norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
+        self.output = Dense(cfg.vocab_size, in_units=cfg.dim, use_bias=False,
+                            flatten=False, dtype=cfg.dtype)
+        self._device = resolve_device(device)
+        super().initialize(init_mod.Zero(), device=self._device)
 
-    @torch.no_grad()
     def initialize(self, generator, std=0.02):
-        """Weights from N(0, std) drawn from ``generator`` (which must
-        live on the parameters' device), norm gains 1."""
-        for name, p in self.named_parameters():
-            if name.endswith("gamma"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, std, generator=generator)
-        return self
+        """Weights from N(0, std) drawn from ``generator``, norm gains 1
+        (``Block.initialize`` with ``Normal(std)``, refilling)."""
+        return super().initialize(init_mod.Normal(std), device=self._device,
+                                  generator=generator, force_reinit=True)
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

@@ -1,7 +1,10 @@
 """mxnet_tpu_torch on the card: the hand-written CUDA kernels against
 their plain PyTorch versions, the wrappers' refusals, a small bf16
-model served through the forward and decode kernels, and a small bf16
-model trained through the forward and backward kernels.
+model served through the forward and decode kernels, a small bf16
+model trained through the forward and backward kernels, a head_dim-64
+BERT layer through all three flash kernels, and the Gluon layers'
+card paths: ``hybridize()`` as CUDA-graph replay, NHWC against NCHW,
+BatchNorm's running statistics.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports neither jax nor mxnet_tpu, so it also runs on
@@ -40,7 +43,8 @@ def _bf16(dev, seed, *shape):
 
 # (B, H, Hkv, T, Tk, causal, q_off, k_off, D): the serving prefill's
 # top rung and the training shape, ragged T, ring steps whose first rows
-# see no key, D = 64, rep in {1, 4, 8}, non-causal
+# see no key, D = 64, rep in {1, 4, 8}, non-causal, and BERT-base's
+# full-width shape
 FLASH_CASES = [
     (1, 8, 2, 128, 128, True, 0, 0, 128), (1, 8, 2, 300, 300, True, 0, 0, 128),
     (1, 8, 2, 300, 300, False, 0, 0, 128),
@@ -52,6 +56,7 @@ FLASH_CASES = [
     (1, 8, 2, 300, 428, True, 28, 128, 128),
     (1, 4, 4, 77, 200, False, 0, 0, 64),
     (1, 8, 1, 300, 300, False, 0, 0, 128),
+    (16, 12, 12, 512, 512, False, 0, 0, 64),     # BERT-base's attention
 ]
 
 
@@ -320,3 +325,177 @@ def test_tiny_bf16_server_runs_both_kernels(dev):
     assert srv.sched.check_conservation() == []
     assert cuda_ops.LAUNCHES["flash_fwd"] > 0
     assert cuda_ops.LAUNCHES["paged_decode"] > 0
+
+
+def _resnet_block(dev, layout="NCHW", seed=0):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1
+    blk = BottleneckV1(64, 2, True, in_channels=32, layout=layout)
+    return blk.initialize(device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def test_hybridized_block_replays_a_graph_equal_to_eager(dev):
+    """``hybridize()`` captures the forward once per signature and
+    replays it: the replayed output equals eager (same cuDNN algorithms,
+    benchmark mode off), a second signature captures a second graph, a
+    result survives the next replay, and replacing a parameter's
+    storage invalidates the graph."""
+    from mxnet_tpu_torch import autograd
+    blk = _resnet_block(dev)
+    x = torch.from_numpy(onp.random.RandomState(0).randn(
+        4, 32, 16, 16).astype(onp.float32)).to(dev)
+    with autograd.pause():
+        want = blk(x)
+        blk.hybridize()
+        first = blk(x)                       # eager, then capture
+        got = blk(x)                         # replay
+        assert len(blk._graphs) == 1
+        torch.testing.assert_close(first, want, rtol=0, atol=0)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        other = blk(x[:2])
+        assert len(blk._graphs) == 2
+        torch.testing.assert_close(other, want[:2], rtol=1e-5, atol=1e-5)
+        kept = blk(x * 2)
+        blk(x)
+        torch.testing.assert_close(kept, blk(x * 2), rtol=0, atol=0)
+        w = blk.body[0].weight
+        w.data = w.data * 0.5                # new storage: recapture
+        halved = blk(x)
+        blk.hybridize(False)
+        torch.testing.assert_close(halved, blk(x), rtol=1e-5, atol=1e-5)
+        assert not torch.allclose(halved, want)
+        with autograd.record():              # recording runs eagerly
+            blk.hybridize()
+            blk(x).sum().backward()
+        assert w.grad is not None
+
+
+def test_hybridized_block_replays_outside_any_scope(dev):
+    """MXNet's idiom ``net.hybridize(); net(x)`` with no scope: autograd
+    is not recording there, so the block captures a graph and replays
+    it, with torch's grad mode left on, and the result carries no
+    autograd history."""
+    from mxnet_tpu_torch import autograd
+    blk = _resnet_block(dev)
+    x = torch.from_numpy(onp.random.RandomState(0).randn(
+        4, 32, 16, 16).astype(onp.float32)).to(dev)
+    with autograd.pause():
+        want = blk(x)
+    blk.hybridize()
+    assert torch.is_grad_enabled() and not autograd.is_recording()
+    first, got = blk(x), blk(x)              # capture, then replay
+    assert len(blk._graphs) == 1
+    assert not first.requires_grad and not got.requires_grad
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.is_grad_enabled()
+
+
+def test_hybridized_training_mode_updates_batch_norm_stats(dev):
+    """In training mode a replay updates BatchNorm's running statistics
+    in place, once per call, as eager calls do."""
+    from mxnet_tpu_torch import autograd
+    x = torch.from_numpy(onp.random.RandomState(1).randn(
+        4, 32, 16, 16).astype(onp.float32)).to(dev)
+    eager, hyb = _resnet_block(dev, seed=2), _resnet_block(dev, seed=2)
+    hyb.hybridize()
+    with autograd.pause(train_mode=True):
+        for _ in range(3):
+            torch.testing.assert_close(hyb(x), eager(x), rtol=1e-5,
+                                       atol=1e-5)
+    for (name, a), (_, b) in zip(eager.collect_params().items(),
+                                 hyb.collect_params().items()):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6, msg=name)
+
+
+@pytest.fixture()
+def fp32_convs():
+    """cuDNN convolutions in full float32: its default TF32 keeps about
+    three decimal digits, and the two layouts pick different kernels."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_nhwc_equals_nchw_on_cuda(dev, fp32_convs):
+    """The channels-last net on OHWI weights gives the NCHW net's
+    output, in inference and with BatchNorm in training mode."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import export_params, load_params
+    x = torch.from_numpy(onp.random.RandomState(3).randn(
+        4, 32, 16, 16).astype(onp.float32)).to(dev)
+    nchw, nhwc = _resnet_block(dev), _resnet_block(dev, "NHWC")
+    with autograd.pause():
+        nchw(x)
+        nhwc(x.permute(0, 2, 3, 1).contiguous())
+    params = {k: v.transpose(0, 2, 3, 1) if v.ndim == 4 else v
+              for k, v in export_params(nchw).items()}
+    load_params(nhwc, params)
+    for mode in (autograd.pause(), autograd.record()):
+        with mode:
+            want = nchw(x)
+            got = nhwc(x.permute(0, 2, 3, 1).contiguous())
+        torch.testing.assert_close(got.permute(0, 3, 1, 2), want, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_batch_norm_stats_follow_mxnet_momentum_on_cuda(dev):
+    """bf16 input, float32 statistics: running = 0.9 * running + 0.1 *
+    batch, with the biased batch variance."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    x = (torch.from_numpy(onp.random.RandomState(4).randn(
+        8, 16, 5, 5).astype(onp.float32)) * 3 + 1).to(dev, torch.bfloat16)
+    bn = BatchNorm(in_channels=16).initialize(device=dev)
+    with autograd.record():
+        bn(x)
+    xc = x.float().transpose(0, 1).reshape(16, -1)
+    assert bn.running_mean.dtype == torch.float32
+    torch.testing.assert_close(bn.running_mean.detach(), 0.1 * xc.mean(1),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(bn.running_var.detach(),
+                               0.9 + 0.1 * xc.var(1, unbiased=False),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_bert_layer_head_dim_64_runs_the_flash_kernels(dev):
+    """A bf16 BERT layer with 4 heads of 64 on the card, non-causal and
+    without a mask: the forward launches flash_fwd, the backward dq and
+    dk/dv, once each; output and grads agree with the same weights on
+    the CPU's plain path in relative norm (output to 1e-2, each grad to
+    3e-2: bf16 matmuls and the kernels' bf16 P and dS; the key bias,
+    whose true gradient is zero, is left out)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import export_params, load_params
+    from mxnet_tpu_torch.models.bert import BertLayer, bert_tiny_config
+    cfg = bert_tiny_config(hidden_size=256, num_heads=4,
+                           intermediate_size=1024, dtype="bfloat16",
+                           dropout=0.0)
+    net = BertLayer(cfg).initialize(
+        device=dev, generator=torch.Generator().manual_seed(0))
+    cpu = load_params(BertLayer(cfg).initialize(device="cpu"),
+                      export_params(net))
+    rng = onp.random.RandomState(5)
+    x, w = (torch.from_numpy(rng.randn(2, 128, 256).astype(onp.float32))
+            for _ in range(2))
+    outs, grads = [], []
+    cuda_ops.reset_launch_counts()
+    for model, d in ((net, dev), (cpu, "cpu")):
+        with autograd.record():     # a random projection of the output
+            out = model(x.to(d)).float()
+            loss = (out * w.to(d)).mean()
+        autograd.backward(loss)
+        outs.append(out.detach().cpu())
+        grads.append({k: p.grad.float().cpu()
+                      for k, p in model.collect_params().items()})
+    assert (cuda_ops.LAUNCHES["flash_fwd"], cuda_ops.LAUNCHES["flash_bwd_dq"],
+            cuda_ops.LAUNCHES["flash_bwd_dkv"]) == (1, 1, 1)
+    assert ((outs[0] - outs[1]).norm() / outs[1].norm()).item() <= 1e-2
+    for k, want in grads[1].items():
+        if k == "attention.qkv.bias":
+            want, got = (torch.cat([g[:256], g[512:]])    # the key bias's
+                         for g in (want, grads[0][k]))   # true grad is 0
+        else:
+            got = grads[0][k]
+        rel = ((got - want).norm() / want.norm()).item()
+        assert rel <= 3e-2, (k, rel)

@@ -26,9 +26,11 @@ from mxnet_tpu.models import tiny_config as j_tiny_config
 from mxnet_tpu.ndarray.ndarray import NDArray
 from mxnet_tpu.ops import pallas_ops
 from mxnet_tpu_torch.convert import load_params
-from mxnet_tpu_torch.gluon.nn import Dense, Embedding, RMSNorm
+from mxnet_tpu_torch.gluon.nn import (BatchNorm, Conv2D, Dense, Embedding,
+                                      RMSNorm)
 from mxnet_tpu_torch.models import (CacheSpec, CacheView, TransformerBlock,
                                     TransformerLM, init_pools, tiny_config)
+from mxnet_tpu_torch.models.bert import BERTModel, bert_tiny_config
 from mxnet_tpu_torch.models.transformer import Attention, FeedForward
 from mxnet_tpu_torch.ops import nn as tnn
 
@@ -323,15 +325,25 @@ def test_default_device_is_cuda_and_raises_without_card():
     assert resolve_device("cpu").type == "cpu"
 
 
-# every public constructor that allocates: device=None means CUDA
+# every public entry point that allocates: device=None means CUDA.  A
+# Gluon layer allocates in ``initialize``; ``TransformerLM`` initializes
+# itself on the device its constructor is given
 _ENTRY_POINTS = {
-    "Dense": lambda device: Dense(4, 4, device=device),
-    "Embedding": lambda device: Embedding(8, 4, device=device),
-    "RMSNorm": lambda device: RMSNorm(4, device=device),
-    "Attention": lambda device: Attention(tiny_config(), device=device),
-    "FeedForward": lambda device: FeedForward(tiny_config(), device=device),
-    "TransformerBlock": lambda device: TransformerBlock(tiny_config(),
-                                                       device=device),
+    "Dense": lambda device: Dense(4, in_units=4).initialize(device=device),
+    "Embedding": lambda device: Embedding(8, 4).initialize(device=device),
+    "RMSNorm": lambda device: RMSNorm(4).initialize(device=device),
+    "Conv2D": lambda device: Conv2D(4, 3, in_channels=2).initialize(
+        device=device),
+    "BatchNorm": lambda device: BatchNorm(in_channels=4).initialize(
+        device=device),
+    "BERTModel": lambda device: BERTModel(bert_tiny_config()).initialize(
+        device=device),
+    "Attention": lambda device: Attention(tiny_config()).initialize(
+        device=device),
+    "FeedForward": lambda device: FeedForward(tiny_config()).initialize(
+        device=device),
+    "TransformerBlock": lambda device: TransformerBlock(
+        tiny_config()).initialize(device=device),
     "TransformerLM": lambda device: TransformerLM(tiny_config(),
                                                   device=device),
     "init_pools": lambda device: init_pools(

@@ -15,9 +15,14 @@ full-sequence forward, trains an 8-layer Llama-3-8B-width model
 through ``TrainStep`` and the Gluon ``Trainer``, runs ResNet-50 from
 the Gluon zoo (inference at ``__graft_entry__.entry()``'s shape, eager and
 hybridized, NCHW and NHWC, then training) and trains BERT-base through
-the flash kernels at head_dim 64.  Each path that runs kernels does so
-with the launch counts reset before it and read after it, and fails
-unless every kernel it goes through was launched.
+the flash kernels at head_dim 64.  The general kernels (every dtype,
+head_dim and GQA ratio the Hopper ones do not take) are held against
+their plain versions and timed at BERT's float32 shape; the float32
+``tiny_config`` and ``bert_tiny_config`` run on the card against the
+CPU; BERT-base trains at its default float32; and ``entry()`` runs in
+its MXNet spelling (``import mxnet_tpu_torch as mx``).  Each path that
+runs kernels does so with the launch counts reset before it and read
+after it, and fails unless every kernel it goes through was launched.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without a CUDA device it exits non-zero at once.
 
@@ -78,8 +83,11 @@ GRAD_REL_TOL = 3e-2
 SERVED_LOGIT_TOL = 0.25         # 8 bf16 steps of a logit in [4, 8)
 SERVED_EXACT_MIN = 0.85
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 FLUSH_BYTES = 256 << 20         # > the 50 MB L2: every timed call is cold
-FLUSH_KERNEL = "FillFunctor<unsigned char>"   # the flush's zero_()
+# the flush's zero_(): a float64 fill, which no timed call launches (the
+# float32 memory-efficient SDPA backward fills a uint8 buffer of its own)
+FLUSH_KERNEL = "FillFunctor<double>"
 
 
 class SmokeFailure(RuntimeError):
@@ -101,7 +109,7 @@ def card_line():
 def time_ms(fn, iters=20, warmup=3):
     """Mean device time of ``fn()`` in ms, CUDA events around each call,
     with the L2 cache flushed before every call."""
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
@@ -122,12 +130,13 @@ def device_ms(fn, match=None, iters=20, warmup=3, attempts=5):
     kernels whose name contains ``match`` (all of them when None), from
     a torch.profiler trace of ``iters`` calls with the L2 cache flushed
     before each; ``per_kernel`` maps every kernel of the call to its ms
-    per call.  The flush is a uint8 fill, left out by its kernel's name.
+    per call.  The flush is a float64 fill, left out by its kernel's
+    name.
     The trace now and then comes back missing some or all device events
     (seen on the H100 machine); it counts only when the flush kernel
     appears once per call, and is taken again otherwise."""
     from torch.profiler import ProfilerActivity, profile
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -165,18 +174,21 @@ def ptxas_report(build):
         for fn, body in re.findall(
                 r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry"
                 r" function|\Z)", log, re.S):
-            kern = re.search(r"\d([a-z_]+_kernel)ILi(\d+)E", fn)
+            # <D> of a Hopper kernel, <type, NE> of a general one
+            kern = re.search(r"\d([a-z_]+_kernel)I(?:\d*([a-z_][a-z0-9_]*?))?Li(\d+)E",
+                             fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores", body)
+            targs = ",".join(t for t in kern.group(2, 3) if t)
             out.append("%s<%s> %s regs %s B spill"
-                       % (kern.group(1), kern.group(2), regs.group(1),
+                       % (kern.group(1), targs, regs.group(1),
                           spill.group(1)))
     print("ptxas: " + "; ".join(sorted(out)))
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1225,6 +1237,582 @@ def bert_phase(mt, co, dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 11: the general kernels, every dtype, head_dim and GQA ratio
+# ----------------------------------------------------------------------
+#: max |kernel - plain| / max |plain| per tensor against the plain
+#: version on the same card inputs, TF32 off.  float32 and float64 differ
+#: by the order of their sums only; a float16 / bf16 forward also by the
+#: plain version rounding P to the input type before P V, where the
+#: kernel keeps it in float32, and by one rounding of the output.  The
+#: backward sums in float32 (float64) on both sides from the same
+#: inputs, lse and delta, so every dtype is held to its accumulation
+#: type's limit.  Measured on an H100 over the cases below: float32 O
+#: 7.8e-7, backward 1.3e-6; float64 2.8e-16 / 1.1e-15; float16 O 8.1e-4;
+#: bf16 O 4.6e-3; float16 / bf16 backward 2.6e-6; paged 2.2e-5 (bf16),
+#: 3.0e-7 (float32), 6.2e-16 (float64).
+GENERAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5,
+               torch.float16: 4e-3, torch.bfloat16: 2e-2}
+_F16, _BF16, _F32, _F64 = (torch.float16, torch.bfloat16, torch.float32,
+                           torch.float64)
+# (B, H, Hkv, T, Tk, causal, q_off, k_off, D, dtype): fp16, fp32, fp64
+# and bf16 at D 256; D 16, 32, 96, 256; GQA groups 1, 4 and 32; causal
+# and not, with ring-step offsets whose first rows see no key
+GENERAL_FLASH_CASES = [
+    (2, 8, 2, 200, 200, True, 0, 0, 16, _F16),
+    (2, 8, 2, 130, 300, True, 170, 0, 16, _F32),
+    (1, 4, 4, 257, 257, False, 0, 0, 32, _F32),
+    (1, 32, 1, 128, 128, True, 0, 0, 32, _F16),
+    (1, 32, 1, 96, 160, True, 0, 40, 96, _F32),
+    (1, 8, 8, 100, 140, True, 10, 60, 96, _F64),
+    (1, 8, 2, 160, 160, True, 0, 0, 256, _BF16),
+    (1, 8, 2, 160, 160, False, 0, 0, 256, _F32),
+    (1, 4, 1, 70, 70, True, 0, 0, 256, _F64),
+    (2, 12, 12, 512, 512, False, 0, 0, 64, _F32),
+]
+# (S, H, Hkv, D, psz, MP, lengths, dtype): rep 16 and 32, page sizes 1,
+# 24 and 128, lengths of 0, head_dim 256
+GENERAL_PAGED_CASES = [
+    (3, 32, 2, 128, 16, 8, [0, 100, 128], _BF16),
+    (2, 32, 1, 64, 24, 6, [1, 144], _F32),
+    (2, 4, 2, 16, 1, 50, [50, 0], _F32),
+    (2, 8, 2, 256, 128, 3, [200, 384], _BF16),
+    (2, 8, 8, 96, 24, 4, [60, 0], _F64),
+    (3, 8, 4, 32, 7, 5, [34, 5, 7], _F16),
+    (8, 32, 8, 128, 128, 3, [51, 90, 128, 129, 200, 256, 300, 347], _F32),
+]
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """The plain oracle in full float32: TF32 off for matmuls and cuDNN."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+
+
+def _rel_err(got, want):
+    """(max |got - want|, that over max |want|)."""
+    err = (got.double() - want.double()).abs().max().item()
+    return err, err / max(want.double().abs().max().item(), 1e-300)
+
+
+def _general_check(co, dev, errs):
+    """Each general kernel against its plain version over the cases
+    above; fills ``errs`` {kernel: (max abs err, max rel err)}."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+
+    def note(kernel, name, dt, got, want, tol):
+        err, rel = _rel_err(got, want)
+        a, r = errs.get(kernel, (0.0, 0.0))
+        errs[kernel] = (max(a, err), max(r, rel))
+        check(rel <= tol, "%s %s (%s) disagrees with plain: %.3e of max"
+              "|plain| (limit %.0e)" % (kernel, name, dt, rel, tol))
+        return rel
+
+    for B, H, Hkv, T, Tk, causal, qo, ko, D, dt in GENERAL_FLASH_CASES:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen,
+                               dtype=torch.float64).to(dev, dt)
+        q, k, v, do = rnd(B, H, T, D), rnd(B, Hkv, Tk, D), \
+            rnd(B, Hkv, Tk, D), rnd(B, H, T, D)
+        offs = [torch.tensor([x], dtype=torch.int32, device=dev)
+                for x in (qo, ko)]
+        scale = D ** -0.5
+        before = dict(co.LAUNCHES)
+        o, lse = co._flash_fwd_cuda(q, k, v, *offs, causal, scale)
+        o_p, lse_p = co._dense_with_lse(q, k, v, *offs, causal, scale)
+        masked = torch.isneginf(lse_p)
+        check(torch.equal(torch.isneginf(lse), masked) and not o[
+            masked[..., None].expand_as(o)].any(),
+            "general flash: rows that see no key differ")
+        tol = GENERAL_TOL[dt]
+        r_o = note("flash_fwd_general", "O", dt, o, o_p, tol)
+        r_l = note("flash_fwd_general", "lse", dt, lse[~masked],
+                   lse_p[~masked], max(tol, 2 ** -23))
+        dlse = torch.randn(B, H, T, generator=gen).to(dev)
+        delta = co._delta(do, o_p, dlse)
+        want = co._flash_bwd_dense(q, k, v, do, lse_p, delta, *offs, causal,
+                                   scale)
+        btol = GENERAL_TOL[_F64 if dt == _F64 else _F32]
+        rels = {}
+        for how, kw in (("fused delta", dict(o=o_p, dlse=dlse)),
+                        ("given delta", {})):
+            got = co._flash_bwd_cuda(q, k, v, do, lse_p,
+                                     None if kw else delta, *offs, causal,
+                                     scale, **kw)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                kern = "flash_bwd_%s_general" % ("dq" if name == "dq"
+                                                 else "dkv")
+                rels[name] = max(rels.get(name, 0.0),
+                                 note(kern, "%s, %s" % (name, how), dt, g, w,
+                                      btol))
+        torch.cuda.synchronize()
+        for kern, n in (("flash_fwd_general", 1), ("flash_bwd_dq_general", 2),
+                        ("flash_bwd_dkv_general", 2)):
+            check(co.LAUNCHES[kern] == before[kern] + n,
+                  "general flash: %s did not run" % kern)
+        print("general flash %s B=%d H=%d/%d T=%d Tk=%d D=%d causal=%s "
+              "q_off=%d k_off=%d: max|d|/max|plain| O %.2e lse %.2e (limit "
+              "%.0e); dq %.2e dk %.2e dv %.2e (limit %.0e); rows seeing no "
+              "key %d" % (str(dt)[6:], B, H, Hkv, T, Tk, D, causal, qo, ko,
+                          r_o, r_l, tol, rels["dq"], rels["dk"], rels["dv"],
+                          btol, int(masked.sum())))
+        del q, k, v, do, o, lse, o_p, lse_p, got, want
+    for S, H, Hkv, D, psz, MP, lens_h, dt in GENERAL_PAGED_CASES:
+        P = S * MP + 1
+        q = torch.randn(S, H, D, generator=gen, dtype=torch.float64).to(
+            dev, dt)
+        kp, vp = (torch.randn(P, Hkv, psz, D, generator=gen,
+                              dtype=torch.float64).to(dev, dt)
+                  for _ in range(2))
+        pt = (torch.randperm(P - 1, generator=gen) + 1).reshape(S, MP).to(
+            dev, torch.int32)
+        lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
+        before = co.LAUNCHES["paged_decode_general"]
+        got = co.paged_attention(q, kp, vp, pt, lens)
+        torch.cuda.synchronize()
+        check(co.LAUNCHES["paged_decode_general"] == before + 1,
+              "general paged: the kernel did not run")
+        for s, n in enumerate(lens_h):
+            check(n > 0 or not got[s].any().item(),
+                  "general paged: an empty slot is not zero")
+        rel = note("paged_decode_general", "O", dt, got,
+                   co._paged_dense(q, kp, vp, pt, lens, D ** -0.5),
+                   GENERAL_TOL[dt])
+        print("general paged %s S=%d H=%d/%d (rep %d) D=%d page %d, lengths "
+              "%s: max|d|/max|plain| %.2e (limit %.0e)"
+              % (str(dt)[6:], S, H, Hkv, H // Hkv, D, psz, lens_h, rel,
+                 GENERAL_TOL[dt]))
+        del q, kp, vp, got
+
+
+def general_timing(co, dev, card):
+    """The general kernels at BERT-base's attention in float32, q/k/v
+    (16, 12, 512, 64) non-causal: forward, dq, dk/dv and the whole
+    backward by device time, SDPA on the same float32 inputs as the
+    library call, the plain versions by event time; paged decode at the
+    serving shape (8 slots, 32/8 heads of 128, pages of 128) in
+    float32.  Bounds use the float32 rate outside the tensor cores."""
+    B, H, Hkv, T, D, causal = BERT_ATTN
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    q, k, v, do = (torch.randn(B, n, T, D, generator=gen).to(dev)
+                   for n in (H, Hkv, Hkv, H))
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    o, lse = co._flash_fwd_cuda(q, k, v, zero, zero, causal, scale)
+    dlse = torch.zeros_like(lse)
+    delta = co._delta(do, o, dlse)
+    fwd_ms, _ = device_ms(lambda: co.flash_attention(q, k, v), "fwd_general")
+    fwd_call = time_ms(lambda: co.flash_attention(q, k, v))
+    scratch = torch.empty_like(delta)
+    dq_ms, _ = device_ms(lambda: co._flash_bwd_dq_cuda(
+        q, k, v, do, lse, scratch, zero, zero, causal, scale, o=o,
+        dlse=dlse), "dq_general")
+    dkv_ms, _ = device_ms(lambda: co._flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, zero, zero, causal, scale), "dkv_general")
+    with exact_fp32():
+        fwd_plain = time_ms(lambda: co._dense_with_lse(
+            q, k, v, zero, zero, causal, scale), iters=5)
+        bwd_plain = time_ms(lambda: co._flash_bwd_dense(
+            q, k, v, do, lse, delta, zero, zero, causal, scale), iters=5)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = co.flash_attention(qg, kg, vg)
+    bwd_ms, bwd_k = device_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd, lib_fk = device_ms(lambda: sdpa(q, k, v))
+    ref = sdpa(qg, kg, vg)
+    lib_bwd, lib_bk = device_ms(lambda: torch.autograd.grad(
+        ref, (qg, kg, vg), do, retain_graph=True))
+    pairs = _pairs(B, H, T, causal)
+    qd = 4 * B * H * T * D                      # bytes of one float32 q
+    fwd_b = bound_ms(4 * qd + 4 * B * H * T, 4 * D * pairs, FP32_FLOPS_PER_S)
+    dq_b = bound_ms(6 * qd + 3 * 4 * B * H * T, 6 * D * pairs,
+                    FP32_FLOPS_PER_S)
+    dkv_b = bound_ms(6 * qd + 2 * 4 * B * H * T, 8 * D * pairs,
+                     FP32_FLOPS_PER_S)
+    bwd_b = bound_ms(8 * qd + 2 * 4 * B * H * T, 14 * D * pairs,
+                     FP32_FLOPS_PER_S)
+    shape = "q/k/v (%d,%d,%d,%d) float32 non-causal" % (B, H, T, D)
+    print("general flash timing %s: forward %.4f ms (device; call %.4f; "
+          "bound %.4f, %s; plain %.4f; SDPA %.4f, kernels %s), dq %.4f ms "
+          "(bound %.4f), dk/dv %.4f ms (bound %.4f), whole backward %.4f ms "
+          "(device; kernels %s; bound %.4f; plain %.4f; SDPA backward %.4f, "
+          "kernels %s) [%s]"
+          % (shape, fwd_ms, fwd_call, fwd_b[0], fwd_b[1], fwd_plain, lib_fwd,
+             ", ".join("%s %.4f" % kv for kv in lib_fk.items()), dq_ms,
+             dq_b[0], dkv_ms, dkv_b[0], bwd_ms,
+             ", ".join("%s %.4f" % kv for kv in bwd_k.items()), bwd_b[0],
+             bwd_plain, lib_bwd,
+             ", ".join("%s %.4f" % kv for kv in lib_bk.items()), card))
+    del q, k, v, do, o, qg, kg, vg, out, ref
+    torch.cuda.empty_cache()
+    # paged decode at the serving shape, float32
+    S, Hq, Hk, Dp, psz, MP = 8, 32, 8, 128, 128, 3
+    lens_h = [51, 90, 128, 129, 200, 256, 300, 347]
+    P = S * MP + 1
+    qp = torch.randn(S, Hq, Dp, generator=gen).to(dev)
+    kp, vp = (torch.randn(P, Hk, psz, Dp, generator=gen).to(dev)
+              for _ in range(2))
+    pt = (torch.randperm(P - 1, generator=gen) + 1).reshape(S, MP).to(
+        dev, torch.int32)
+    lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
+    pg_ms, _ = device_ms(lambda: co.paged_attention(qp, kp, vp, pt, lens),
+                         "paged_general")
+    pg_call = time_ms(lambda: co.paged_attention(qp, kp, vp, pt, lens))
+    with exact_fp32():
+        pg_plain = time_ms(lambda: co._paged_dense(qp, kp, vp, pt, lens,
+                                                   Dp ** -0.5), iters=5)
+    live = sum(lens_h)
+    pg_b = bound_ms(2 * live * Hk * Dp * 4 + 2 * 4 * S * Hq * Dp
+                    + 4 * (S * MP + S), 4 * live * Hq * Dp, FP32_FLOPS_PER_S)
+    pshape = "S=%d H=%d/%d D=%d page %d float32, lengths %s" % (
+        S, Hq, Hk, Dp, psz, lens_h)
+    print("general paged timing %s: %.4f ms (device; call %.4f; bound %.4f, "
+          "%s; plain %.4f) [%s]" % (pshape, pg_ms, pg_call, pg_b[0], pg_b[1],
+                                    pg_plain, card))
+    common = {"shape": shape, "library_kernels_forward": lib_fk,
+              "library_kernels_backward": lib_bk, "backward_ms": bwd_ms,
+              "backward_kernels": bwd_k, "backward_bound_ms": bwd_b[0],
+              "backward_plain_ms": bwd_plain, "backward_library_ms": lib_bwd}
+    return {"flash_fwd_general": dict(
+                common, ms=fwd_ms, call_ms=fwd_call, plain_ms=fwd_plain,
+                bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=lib_fwd),
+            "flash_bwd_dq_general": dict(
+                common, ms=dq_ms, plain_ms=bwd_plain, bound_ms=dq_b[0],
+                bound_by=dq_b[1], library_ms=lib_bwd),
+            "flash_bwd_dkv_general": dict(
+                common, ms=dkv_ms, plain_ms=bwd_plain, bound_ms=dkv_b[0],
+                bound_by=dkv_b[1], library_ms=lib_bwd),
+            "paged_decode_general": dict(
+                shape=pshape, ms=pg_ms, call_ms=pg_call, plain_ms=pg_plain,
+                bound_ms=pg_b[0], bound_by=pg_b[1], library_ms=None)}
+
+
+def general_kernel_phase(co, dev, card):
+    """The four general kernels against their plain versions, then
+    timed; returns their records for the kernels line."""
+    errs = {}
+    with exact_fp32():
+        _general_check(co, dev, errs)
+    timing = general_timing(co, dev, card)
+    src = {"flash": "mxnet_tpu_torch/csrc/flash_general.cu",
+           "paged": "mxnet_tpu_torch/csrc/paged_general.cu"}
+    replaces = {"flash_fwd_general": "mxnet_tpu/ops/pallas_ops.py:62",
+                "flash_bwd_dq_general": "mxnet_tpu/ops/pallas_ops.py:149",
+                "flash_bwd_dkv_general": "mxnet_tpu/ops/pallas_ops.py:227",
+                "paged_decode_general": "mxnet_tpu/ops/pallas_ops.py:621"}
+    return [dict({"name": name, "route": "cuda",
+                  "source": src[name.split("_")[0]],
+                  "replaces": replaces[name], "max_abs_err": errs[name][0],
+                  "max_rel_err": errs[name][1]}, **timing[name])
+            for name in replaces]
+
+
+# ----------------------------------------------------------------------
+# phase 12: BERT-base at its default float32 on the general kernels
+# ----------------------------------------------------------------------
+def bert_fp32_phase(mt, co, dev, card):
+    """``BERTForPretrain(bert_base_config())`` at its default float32,
+    B=16, T=512, no ``valid_length``: 3 AdamW steps through the Gluon
+    ``Trainer``, attention on the general kernels.  Returns the launch
+    counts of those steps."""
+    cfg = mt.models.bert_base_config()
+    check(cfg.dtype == "float32", "bert_base_config is not float32: %s"
+          % cfg.dtype)
+    net = mt.models.BERTForPretrain(cfg).initialize(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    nparams = sum(p.numel() for p in net.parameters())
+    batch = bert_batch(cfg, dev, BERT_B, BERT_T, 7)
+    trainer = mt.gluon.Trainer(net.collect_params(), "adamw",
+                               {"learning_rate": 2e-5, "wd": 0.01})
+
+    def step():
+        with mt.autograd.record():
+            loss = bert_loss(mt, net, *batch)
+        mt.autograd.backward(loss)
+        trainer.step(1)
+        return loss.item()
+    torch.cuda.manual_seed(9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
+    t0 = time.monotonic()
+    losses = [step() for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(co.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), "bert fp32: a loss is not "
+          "finite: %s" % losses)
+    for name in ("flash_fwd_general", "flash_bwd_dq_general",
+                 "flash_bwd_dkv_general"):
+        check(launches[name] == cfg.num_layers * BERT_STEPS,
+              "bert fp32: %s launched %d times in %d steps, want %d per step"
+              % (name, launches[name], BERT_STEPS, cfg.num_layers))
+    ms, dev_ms, top, counts, _ = device_busy(step, reps=2)
+    print("bert-base float32 train (%.1f M params, B=%d, T=%d, dropout 0.1, "
+          "%d AdamW steps): losses %s; launches per step %s; step %.1f ms "
+          "host (%d steps in %.2f s), %.1f ms of kernels (device busy "
+          "%.1f%%), %.1f samples/s, peak memory %.2f GB [%s]; top kernels "
+          "(ms per step): %s"
+          % (nparams / 1e6, BERT_B, BERT_T, BERT_STEPS, losses,
+             {k: v / BERT_STEPS for k, v in launches.items() if v}, ms,
+             BERT_STEPS, wall, dev_ms, 100 * dev_ms / ms, BERT_B / ms * 1e3,
+             peak / 1e9, card, "; ".join("%s %.3f" % t for t in top)))
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 13: the float32 tiny models on the card against the CPU
+# ----------------------------------------------------------------------
+# tiny_config losses over 3 AdamW steps, card vs CPU: the same float32
+# weights and batch, sums taken in another order only (measured on an
+# H100: 9.9e-8).
+TINY_LOSS_RTOL = 1e-4
+# bert_tiny_config (float32, head_dim 32): the loss and each grad,
+# ||card - cpu|| / ||cpu|| (measured: loss 6.2e-8, grads 1.3e-5).
+TINY_GRAD_REL = 1e-4
+
+
+def tiny_fp32_phase(mt, co, dev, card):
+    """``tiny_config()`` (float32, head_dim 16): greedy serving through
+    ``Server`` and 3 AdamW ``TrainStep`` steps, card against CPU;
+    ``bert_tiny_config()`` (float32, head_dim 32): the loss and grads,
+    card against CPU.  Returns the launch counts of the card runs."""
+    cfg = mt.models.tiny_config()
+    check(cfg.dtype == "float32" and cfg.dim // cfg.n_heads == 16,
+          "tiny_config is not float32 at head_dim 16")
+    nets = {"cuda": mt.models.TransformerLM(cfg, device=dev).initialize(
+        torch.Generator(device=dev).manual_seed(0), std=0.1)}
+    nets["cpu"] = mt.convert.load_params(
+        mt.models.TransformerLM(cfg, device="cpu"),
+        mt.convert.export_params(nets["cuda"]))
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 11, 23, 30)]
+    toks, labels = (torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+                    for _ in range(2))
+    loss_fn = mt.gluon.loss.SoftmaxCELoss()
+
+    def fwd(model, t, lab):
+        return loss_fn(model(t).reshape(-1, cfg.vocab_size),
+                       lab.reshape(-1)).mean()
+    served, losses = {}, {}
+    co.reset_launch_counts()
+    with exact_fp32():
+        for name, d in (("cuda", dev), ("cpu", "cpu")):
+            scfg = mt.serve.ServeConfig(slots=3, page_size=8, pages=24,
+                                        ladder=(16, 32), max_new=8)
+            with mt.serve.Server(nets[name], scfg) as srv:
+                rids = [srv.submit(p) for p in prompts]
+                served[name] = [srv.result(r, timeout=300)["tokens"]
+                                for r in rids]
+            step = mt.parallel.TrainStep(
+                nets[name], None, mt.optimizer.AdamW(learning_rate=1e-2),
+                forward_fn=fwd)
+            losses[name] = [step(toks.to(d), labels.to(d)).item()
+                            for _ in range(3)]
+        torch.cuda.synchronize()
+        launches = dict(co.LAUNCHES)
+        bcfg = mt.models.bert_tiny_config()
+        check(bcfg.dtype == "float32", "bert_tiny_config is not float32")
+        bnet = mt.models.BERTForPretrain(bcfg).initialize(
+            device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        bcpu = mt.convert.load_params(
+            mt.models.BERTForPretrain(bcfg).initialize(device="cpu"),
+            mt.convert.export_params(bnet))
+        bbatch = bert_batch(bcfg, "cpu", 2, 64, 6)
+        blosses = []
+        before = dict(co.LAUNCHES)
+        for model, d in ((bnet, dev), (bcpu, "cpu")):
+            with mt.autograd.record(train_mode=False):   # dropout off
+                loss = bert_loss(mt, model, *(t.to(d) for t in bbatch))
+            mt.autograd.backward(loss)
+            blosses.append(loss.item())
+        torch.cuda.synchronize()
+    for k, v in co.LAUNCHES.items():
+        launches[k] += v - before[k]
+    grel = max(_rel(g.grad.cpu(), p.grad) for g, p in
+               zip(bnet.parameters(), bcpu.parameters()) if p.grad is not None)
+    lrel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                losses["cpu"])]
+    print("tiny_config float32 (head_dim 16) card vs CPU: served tokens "
+          "equal %s (%d requests, %d tokens); AdamW losses card %s cpu %s, "
+          "max rel diff %.2e (limit %.0e); bert_tiny_config float32 (head_dim "
+          "32): loss card %.8f cpu %.8f, max grad ||d||/||cpu|| %.2e (limit "
+          "%.0e); launches %s [%s]"
+          % (served["cuda"] == served["cpu"], len(prompts),
+             sum(map(len, served["cpu"])), losses["cuda"], losses["cpu"],
+             max(lrel), TINY_LOSS_RTOL, blosses[0], blosses[1], grel,
+             TINY_GRAD_REL, {k: v for k, v in launches.items() if v}, card))
+    check(served["cuda"] == served["cpu"], "tiny: served tokens differ: %s "
+          "vs %s" % (served["cuda"], served["cpu"]))
+    check(max(lrel) <= TINY_LOSS_RTOL, "tiny: losses differ: %s" % losses)
+    check(abs(blosses[0] - blosses[1]) <= TINY_GRAD_REL * abs(blosses[1])
+          and grel <= TINY_GRAD_REL, "bert tiny: card and CPU differ: "
+          "losses %s, grads %.2e" % (blosses, grel))
+    for name in ("flash_fwd_general", "flash_bwd_dq_general",
+                 "flash_bwd_dkv_general", "paged_decode_general"):
+        check(launches[name] > 0, "tiny: %s did not run" % name)
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 14: __graft_entry__.entry() in its MXNet spelling
+# ----------------------------------------------------------------------
+def entry_phase(mt, co, dev, card):
+    """``entry()`` as ``__graft_entry__.py:16-43`` writes it, through
+    ``import mxnet_tpu_torch as mx``: seed, ``resnet50_v1()``,
+    ``initialize()``, a (1, 3, 32, 32) forward of ``mx.np.ones``, every
+    float32 parameter cast to bf16 through ``p.data()``, then
+    ``net.forward(NDArray(x))`` at x (32, 3, 224, 224) bf16, eager and
+    hybridized, against the torch-tensor path on the same weights (bit
+    for bit).  Then an imperative SGD loop at B=32 with ``attach_grad``,
+    ``record``, ``loss.backward()`` and ``lr_mult=0`` on one parameter,
+    and ``npx.flash_attention`` on NDArrays, bf16 at head_dim 128 and
+    float32 at 64, forward and ``backward()``.  Returns the launch
+    counts of the phase."""
+    mx = mt
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    co.reset_launch_counts()
+    mx.np.random.seed(0)
+    net = vision.resnet50_v1()
+    net.initialize()
+    net(mx.np.ones((1, 3, 32, 32)))          # materialize deferred shapes
+    for p in net.collect_params().values():
+        d = p.data()
+        if d.dtype == mx.np.float32:
+            bf = d.astype("bfloat16")
+            p.cast("bfloat16")
+            p.set_data(bf)
+    check(all(p.dtype == torch.bfloat16 for p in net.parameters()),
+          "entry: a parameter is not bf16")
+    x = torch.ones((RESNET_B, 3, 224, 224), dtype=torch.bfloat16, device=dev)
+    rows = []
+    with mx.autograd.pause():
+        for mode in ("eager", "hybridized"):
+            net.hybridize(mode == "hybridized")
+            if mode == "eager":
+                def mxnet(): return net.forward(NDArray(x))
+            else:
+                def mxnet(): return net(NDArray(x))
+            out = mxnet()
+            out = mxnet()                       # a replay when hybridized
+            ref = net(x)
+            check(isinstance(out, NDArray) and out.shape == (RESNET_B, 1000)
+                  and bool(torch.isfinite(out._data).all()),
+                  "entry %s: bad logits" % mode)
+            same = torch.equal(out._data, ref)
+            check(same, "entry %s: MXNet-spelling logits differ from the "
+                  "torch-tensor path's" % mode)
+            mx_host, _, _, _, _ = device_busy(mxnet, reps=10)
+            t_host, _, _, _, _ = device_busy(lambda: net(x), reps=10)
+            rows.append("%s: MXNet spelling %.0f images/s, torch tensors "
+                        "%.0f images/s, logits bitwise equal %s"
+                        % (mode, RESNET_B / mx_host * 1e3,
+                           RESNET_B / t_host * 1e3, same))
+        net.hybridize(False)
+    print("entry (resnet50_v1, B=%d, 224x224, bf16): %s [%s]"
+          % (RESNET_B, "; ".join(rows), card))
+    # the imperative training loop
+    for m in net.modules():
+        if isinstance(m, mx.gluon.nn.BatchNorm):
+            m.cast("float32")
+    params = net.collect_params()
+    frozen = "output.weight"
+    params[frozen].lr_mult = 0.0
+    before = {k: p.data().asnumpy() for k, p in params.items()}
+    xb = mx.np.random.uniform(size=(RESNET_B, 3, 224, 224)).astype("bfloat16")
+    labels = mx.np.random.randint(0, 1000, size=(RESNET_B,))
+    xb.attach_grad()
+    trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                               "momentum": 0.9})
+    loss_fn = mx.gluon.loss.SoftmaxCELoss()
+    losses = []
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = loss_fn(net(xb).astype("float32"), labels)
+        loss.backward()
+        trainer.step(RESNET_B)
+        losses.append(float(loss.mean()))
+    import numpy as onp
+    changed = {k: not onp.array_equal(p.data().asnumpy(), before[k])
+               for k, p in params.items()}
+    check(not changed[frozen], "entry: the lr_mult=0 parameter changed")
+    moved = sum(changed[k] for k, p in params.items()
+                if p.requires_grad and k != frozen)
+    check(moved == sum(p.requires_grad for p in params.values()) - 1,
+          "entry: some trainable parameters did not change")
+    check(all(math.isfinite(v) for v in losses) and xb.grad is not None and
+          bool(torch.isfinite(xb.grad._data).all()),
+          "entry: bad losses or input grad: %s" % losses)
+    print("entry imperative loop (B=%d, SGD, 3 steps): losses %s; %s "
+          "(lr_mult 0) unchanged, the other %d trainable parameters "
+          "changed; x.grad finite, |x.grad| max %.3e"
+          % (RESNET_B, losses, frozen, moved,
+             float(abs(xb.grad).max())))
+    del net, trainer, xb, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    # npx.flash_attention on NDArrays: both kernel routes
+    for dt, D in (("bfloat16", 128), ("float32", 64)):
+        q, k, v = (mx.np.random.normal(size=(2, 8, 256, D)).astype(dt)
+                   for _ in range(3))
+        for t in (q, k, v):
+            t.attach_grad()
+        with mx.autograd.record():
+            o = mx.npx.flash_attention(q, k, v, causal=True)
+        o.backward()
+        with exact_fp32():
+            zero = torch.zeros(1, dtype=torch.int32, device=dev)
+            want = co._dense_with_lse(q._data, k._data, v._data, zero, zero,
+                                      True, D ** -0.5)[0]
+        err, rel = _rel_err(o._data, want)
+        tol = GENERAL_TOL[torch.bfloat16 if dt == "bfloat16"
+                          else torch.float32]
+        check(rel <= tol and all(bool(torch.isfinite(t.grad._data).all())
+                                 for t in (q, k, v)),
+              "entry: npx.flash_attention %s disagrees: %.3e" % (dt, rel))
+        print("entry npx.flash_attention %s D=%d causal: O max|d|/max|plain| "
+              "%.2e (limit %.0e), grads finite" % (dt, D, rel, tol))
+    torch.cuda.synchronize()
+    launches = dict(co.LAUNCHES)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_fwd_general", "flash_bwd_dq_general",
+                 "flash_bwd_dkv_general"):
+        check(launches[name] == 1, "entry: npx.flash_attention launched %s "
+              "%d times, want 1" % (name, launches[name]))
+    return launches
+
+
+def _short_names(obj, width=48):
+    """``obj`` with every dict key cut to ``width`` characters (the times
+    of kernels whose names then coincide summed): the kernels line keeps
+    the library's kernel names by their heads (the phase lines above
+    print them in full), so it stays well inside the 24,000 bytes of
+    output a caller may keep."""
+    if isinstance(obj, list):
+        return [_short_names(v, width) for v in obj]
+    if not isinstance(obj, dict):
+        return obj
+    out = {}
+    for k, v in obj.items():
+        v = _short_names(v, width)
+        if k[:width] in out and isinstance(v, float):
+            v += out[k[:width]]
+        out[k[:width]] = v
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1261,6 +1849,8 @@ def main(argv):
     flash_bwd = flash_bwd_phase(co, dev, card)
     parity_phase(mt, co, dev, card)
     paged = paged_phase(co, dev)
+    general = general_kernel_phase(co, dev, card)
+    tiny_launches = tiny_fp32_phase(mt, co, dev, card)
 
     n_layers = 32
     net = build_model(mt, dev, n_layers)
@@ -1280,17 +1870,24 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     bert_launches = bert_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_fp32_launches = bert_fp32_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_launches = entry_phase(mt, co, dev, card)
 
-    kernels = [flash] + flash_bwd + [paged]
+    kernels = [flash] + flash_bwd + [paged] + general
+    paths = {"serve": serve_launches, "train": train_launches,
+             "bert": bert_launches, "tiny_fp32": tiny_launches,
+             "bert_fp32": bert_fp32_launches, "entry": entry_launches}
     for k in kernels:
-        by_path = {"serve": serve_launches[k["name"]],
-                   "train": train_launches[k["name"]],
-                   "bert": bert_launches[k["name"]]}
+        by_path = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print("total %.1f s" % (time.monotonic() - t_start))
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _short_names(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

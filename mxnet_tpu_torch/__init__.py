@@ -9,21 +9,31 @@ over torch autograd), ``initializer`` (also ``init``), ``gluon``
 ``parallel`` (``TrainStep``), ``models`` (the Llama-class
 ``TransformerLM`` and its paged KV cache, BERT), ``serve`` (the
 continuous-batching server) and ``convert`` (weights to and from the
-JAX package, as numpy).  It
-imports ``torch`` and never ``jax`` or ``mxnet_tpu``.
+JAX package, as numpy), and the imperative MXNet surface: ``nd``
+(``NDArray``), ``np`` (with ``np.random``), ``npx``, ``engine`` and the
+contexts ``cpu()`` / ``gpu()``.  ``import mxnet_tpu_torch as mx`` reads
+like the JAX package.  It imports ``torch`` and never ``jax`` or
+``mxnet_tpu``.
 
-Device rule: entry points take ``device=None``, meaning CUDA, and raise
-``RuntimeError`` when no card is present; the CPU runs only when asked
-for by name (``device="cpu"``), and then every kernel runs its plain
-PyTorch version.
+Device rule: entry points take ``device=None``, meaning the current
+context -- CUDA outside any scope, raising ``RuntimeError`` when no card
+is present; the CPU runs only when asked for by name (``device="cpu"``
+or ``with mx.cpu():``), and then every kernel runs its plain PyTorch
+version.
 """
 from __future__ import annotations
 
-from . import (autograd, context, convert, gluon,  # noqa: F401
-               initializer, lr_scheduler, models, ops, optimizer, parallel,
-               serve)
-from .context import resolve_device  # noqa: F401
+from . import (autograd, context, convert, engine, gluon,  # noqa: F401
+               initializer, lr_scheduler, models, ndarray, numpy,
+               numpy_extension, ops, optimizer, parallel, serve)
+from .context import (Context, Device, cpu, current_context,  # noqa: F401
+                      current_device, gpu, num_gpus, resolve_device, tpu)
+from .ndarray import NDArray, waitall  # noqa: F401
 
 init = initializer
+nd = ndarray
+np = numpy
+npx = numpy_extension
+random = numpy.random
 
 __version__ = "2.0.0.torch0"

@@ -22,6 +22,14 @@ never reads torch's ``Module.training``.
 MXNet's ``loss.backward()`` on a non-scalar loss seeds every element
 with 1; torch's ``Tensor.backward`` takes only a scalar, so a per-sample
 loss goes through :func:`backward` here, which seeds with ones.
+
+The imperative surface (``mxnet_tpu/_tape.py``) maps onto the same tape:
+:func:`mark_variables` (``NDArray.attach_grad``) makes an array a leaf
+with a zero gradient buffer; :func:`backward` and :func:`grad` take
+NDArrays as well as tensors.  A variable's ``grad_req`` is MXNet's:
+``"add"`` is torch's accumulation; ``"write"`` zeroes the buffer, in
+place, as each backward reaches the variable, so the buffer holds that
+backward's gradient and every handle on it stays valid.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "backward",
            "grad", "is_recording", "is_training", "set_recording",
-           "set_training"]
+           "set_training", "mark_variables"]
 
 _state = threading.local()
 
@@ -101,21 +109,60 @@ def predict_mode():
     return _RecordingStateScope(None, False)
 
 
+def _tensor(x):
+    from .ndarray.ndarray import NDArray
+    return x._data if isinstance(x, NDArray) else x
+
+
 def _seeded(heads, head_grads):
-    if isinstance(heads, torch.Tensor):
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
         head_grads = None if head_grads is None else [head_grads]
-    heads = list(heads)
+    heads = [_tensor(h) for h in heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
-    head_grads = [torch.ones_like(h) if g is None else g
+    head_grads = [torch.ones_like(h) if g is None else _tensor(g)
                   for h, g in zip(heads, head_grads)]
     return heads, head_grads
 
 
-def backward(heads, head_grads=None, retain_graph=False):
-    """Gradients of ``heads`` into the ``.grad`` of every leaf that
-    requires one; a head without a head gradient is seeded with ones."""
+def _write_hook(leaf):
+    """Zero ``leaf``'s gradient buffer before a backward adds into it."""
+    def hook(g):
+        if leaf.grad is not None:
+            leaf.grad.zero_()
+        return g
+    return hook
+
+
+def mark_variables(variables, gradients=None, grad_reqs="write"):
+    """Make each NDArray of ``variables`` a leaf of the tape (a detached
+    alias of its storage), with ``gradients`` (NDArrays) as its buffers or
+    zero ones, and ``grad_reqs`` (``"write"``, ``"add"`` or ``"null"``,
+    one or one each)."""
+    from .ndarray.ndarray import NDArray
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    if gradients is None:
+        gradients = [None] * len(variables)
+    for var, buf, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be write/add/null, got %r"
+                             % (req,))
+        leaf = var._data.detach().requires_grad_(req != "null")
+        if req != "null":
+            leaf.grad = torch.zeros_like(leaf) if buf is None \
+                else _tensor(buf)
+            if req == "write":
+                leaf.register_hook(_write_hook(leaf))
+        if isinstance(var, NDArray):
+            var._data = leaf
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` (tensors or NDArrays) into the ``.grad`` of
+    every leaf that requires one; a head without a head gradient is
+    seeded with ones."""
     heads, head_grads = _seeded(heads, head_grads)
     torch.autograd.backward(heads, head_grads, retain_graph=retain_graph)
 
@@ -123,11 +170,15 @@ def backward(heads, head_grads=None, retain_graph=False):
 def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False):
     """Gradients of ``heads`` with respect to ``variables``, returned
-    (not accumulated); one tensor for a single variable."""
+    (not accumulated); one for a single variable.  NDArray variables get
+    NDArray gradients."""
+    from .ndarray.ndarray import NDArray
     heads, head_grads = _seeded(heads, head_grads)
-    single = isinstance(variables, torch.Tensor)
-    res = torch.autograd.grad(heads, [variables] if single else
-                              list(variables), head_grads,
-                              retain_graph=retain_graph,
+    single = not isinstance(variables, (list, tuple))
+    variables = [variables] if single else list(variables)
+    res = torch.autograd.grad(heads, [_tensor(v) for v in variables],
+                              head_grads, retain_graph=retain_graph,
                               create_graph=create_graph)
-    return res[0] if single else list(res)
+    res = [NDArray(g) if isinstance(v, NDArray) else g
+           for v, g in zip(variables, res)]
+    return res[0] if single else res

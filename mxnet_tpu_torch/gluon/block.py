@@ -8,9 +8,17 @@ Counterpart of ``mxnet_tpu/gluon/block.py`` (``collect_params`` :78,
 ``collect_params()`` names are the same structural paths
 (``features.4.0.body.0.weight``, ``layer0.attention.wq.weight``), which
 are the JAX package's names.
+
+A block takes ``NDArray`` inputs as well as tensors: called with one (or
+with one given to ``forward`` directly, as ``net.forward(NDArray(x))``),
+it runs on the tensors the NDArrays hold and returns NDArrays, so the
+torch-tensor paths stay as they are.  ``initialize()`` without a
+generator draws from ``mx.np.random``'s generator for the device, which
+``mx.np.random.seed`` seeds.
 """
 from __future__ import annotations
 
+import functools
 import re
 from collections import OrderedDict
 
@@ -20,12 +28,67 @@ from torch import nn
 from .. import autograd
 from .. import initializer as init_mod
 from ..context import resolve_device
+from ..ndarray.ndarray import NDArray
 from . import parameter as param_mod
 
 __all__ = ["Block", "HybridBlock"]
 
 
+def _has_nd(args, kwargs):
+    """Whether an argument (or an item of a list / tuple argument) is an
+    NDArray; on every forward, so kept cheap."""
+    for a in (args if not kwargs else (*args, *kwargs.values())):
+        if isinstance(a, NDArray) or (isinstance(a, (list, tuple)) and any(
+                isinstance(x, NDArray) for x in a)):
+            return True
+    return False
+
+
+def _unwrap(obj):
+    """``obj`` with every NDArray of the nest replaced by its tensor."""
+    if isinstance(obj, NDArray):
+        return obj._data
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_unwrap(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _unwrap(v) for k, v in obj.items()}
+    return obj
+
+
+def _wrap(obj):
+    return _map(NDArray, obj)
+
+
+def _nd_call(fn, args, kwargs):
+    """``fn`` on the tensors of NDArray arguments, its tensors back as
+    NDArrays."""
+    return _wrap(fn(*_unwrap(args), **_unwrap(kwargs)))
+
+
+def _nd_forward(forward):
+    """``forward`` taking NDArrays too (for ``net.forward(NDArray(x))``,
+    which bypasses ``__call__``)."""
+    @functools.wraps(forward)
+    def wrapped(self, *args, **kwargs):
+        if _has_nd(args, kwargs):
+            return _nd_call(functools.partial(forward, self), args, kwargs)
+        return forward(self, *args, **kwargs)
+    wrapped._mx_nd = True
+    return wrapped
+
+
 class Block(nn.Module):
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        fwd = cls.__dict__.get("forward")
+        if fwd is not None and not getattr(fwd, "_mx_nd", False):
+            cls.forward = _nd_forward(fwd)
+
+    def __call__(self, *args, **kwargs):
+        if _has_nd(args, kwargs):
+            return _nd_call(self.__call__, args, kwargs)
+        return super().__call__(*args, **kwargs)
 
     def collect_params(self, select=None):
         """Ordered ``{name: Parameter}``; ``select`` is a regular
@@ -36,14 +99,19 @@ class Block(nn.Module):
 
     def initialize(self, init=None, device=None, generator=None,
                    force_reinit=False):
-        """Initialize every parameter on ``device`` (``None`` = CUDA,
-        raising without a card) with its own initializer, else ``init``
-        (default ``Uniform(0.07)``), drawing from ``generator``.  A
-        parameter with an unknown dimension is filled at the block's
-        first forward.  Returns the block."""
+        """Initialize every parameter on ``device`` (``None`` = the
+        current context: CUDA outside any scope, raising without a card)
+        with its own initializer, else ``init`` (default
+        ``Uniform(0.07)``), drawing from ``generator`` (default:
+        ``mx.np.random``'s generator for the device).  A parameter with
+        an unknown dimension is filled at the block's first forward.
+        Returns the block."""
         if init is None or isinstance(init, str):
             init = init_mod.create(init or "uniform")
         device = resolve_device(device)
+        if generator is None:
+            from ..numpy import random as np_random
+            generator = np_random.generator(device)
         for name, p in self.collect_params().items():
             param_mod.initialize(p, name, init, device, generator,
                                  force_reinit)
@@ -57,14 +125,30 @@ class Block(nn.Module):
         return self
 
     def setattr(self, name, value):
-        """Set an attribute on every parameter; ``grad_req`` is the one
-        ported (``lr_mult`` / ``wd_mult``: ROADMAP queue 1b')."""
-        if name != "grad_req":
-            raise NotImplementedError("mxnet_tpu_torch: Parameter.%s is "
-                                      "not ported yet (ROADMAP queue 1b')"
-                                      % name)
+        """Set an attribute on every parameter: ``grad_req``,
+        ``lr_mult``, ``wd_mult``."""
+        if name not in ("grad_req", "lr_mult", "wd_mult"):
+            raise AttributeError("a parameter has no MXNet attribute %r"
+                                 % (name,))
         for p in self.parameters():
-            param_mod.set_grad_req(p, value)
+            if name == "grad_req":
+                param_mod.set_grad_req(p, value)
+            else:
+                setattr(param_mod._spec(p), name, value)
+
+    def share_parameters(self, shared):
+        """Use the parameters of ``shared`` (``{name: Parameter}``, as
+        ``collect_params()`` gives) in place of this block's own of the
+        same names; returns the block."""
+        own = self.collect_params()
+        for name, p in shared.items():
+            if name in own:
+                *path, leaf = name.split(".")
+                blk = self
+                for part in path:
+                    blk = getattr(blk, part)
+                setattr(blk, leaf, p)
+        return self
 
     def hybridize(self, active=True, **kwargs):
         """A plain Block passes ``hybridize`` on to its children."""
@@ -175,12 +259,14 @@ class HybridBlock(Block):
         self._graphs.clear()
 
     def __call__(self, *args, **kwargs):
+        if _has_nd(args, kwargs):
+            return _nd_call(self.__call__, args, kwargs)
         if self._active and not autograd.is_recording():
             tensors = list(_tensors((args, kwargs)))
             if tensors and all(t.is_cuda for t in tensors):
                 with torch.no_grad():
                     return self._call_cached(args, kwargs)
-        return super().__call__(*args, **kwargs)
+        return nn.Module.__call__(self, *args, **kwargs)
 
     def _call_cached(self, args, kwargs):
         sig = (autograd.is_training(), _key(args), _key(kwargs))

@@ -14,6 +14,8 @@ next backward writes them fresh.  ``None`` is also how the Trainer tells
 a stale gradient: a trainable parameter that no backward reached since
 the last step has ``.grad is None`` and raises the stale-gradient
 ``UserWarning`` (:241-247), unless ``ignore_stale_grad=True`` skips it.
+A parameter with ``grad_req="add"`` keeps its gradient across steps, as
+in MXNet: the caller zeroes it (``zero_grad``).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: a kvstore with more than one worker, ``update_on_kvstore``
@@ -119,7 +121,8 @@ class Trainer:
             if self._states[i] is None:
                 self._states[i] = self._optimizer.create_state(i, p)
             self._optimizer.update(i, p.data, p.grad, self._states[i])
-            p.grad = None   # grad_req="write": the next backward writes
+            if getattr(p, "grad_req", "write") != "add":
+                p.grad = None   # "write": the next backward writes
 
     @staticmethod
     def _stale_msg(name):

@@ -22,7 +22,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_general",
+           "paged_general")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -120,6 +121,7 @@ def library(name):
 def _signatures():
     """Entry point name -> ``argtypes`` of each source's C functions."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    d = ctypes.c_double
     return {
         # q k v q_off k_off o lse BH BHkv T Tk D scale causal stream
         "flash_fwd": {"mx_flash_fwd": [p, p, p, p, p, p, p, i, i, i, i, i,
@@ -131,6 +133,18 @@ def _signatures():
         # q k_pages v_pages page_table lengths out part_acc part_ml, S H
         # Hkv psz D MP nsplit kps chunk, scale stream
         "paged_decode": {"mx_paged_decode": [p] * 8 + [i] * 9 + [f, p]},
+        # the general kernels: B H Hkv T Tk D (S H Hkv psz D MP for paged),
+        # scale as a double, causal, dtype code (general.cuh), stream
+        "flash_general": {
+            # q k v q_off k_off o lse
+            "mx_flash_fwd_general": [p] * 7 + [i] * 6 + [d, i, i, p],
+            # q k v dout o lse dlse delta q_off k_off dq
+            "mx_flash_bwd_dq_general": [p] * 11 + [i] * 6 + [d, i, i, p],
+            # q k v dout lse delta q_off k_off dk dv
+            "mx_flash_bwd_dkv_general": [p] * 10 + [i] * 6 + [d, i, i, p]},
+        # q k_pages v_pages page_table lengths out
+        "paged_general": {"mx_paged_decode_general": [p] * 6 + [i] * 6
+                          + [d, i, p]},
     }
 
 

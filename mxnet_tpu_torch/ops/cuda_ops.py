@@ -16,11 +16,21 @@ kernels:
   ``_paged_kernel_call`` (pallas_ops.py:621), now
   ``csrc/paged_decode.cu``.
 
-Dispatch is by the device of the tensors and nothing else: a CPU tensor
-goes to the plain version (``_dense_with_lse``, ``_flash_bwd_dense``,
-``_paged_dense``, the semantics of the JAX fallbacks); a CUDA tensor
-goes to the kernel, or the wrapper raises on what the kernel does not
-take.  There is no fallback from the card to the plain path.
+Each has two hand-written kernels on the card.  The Hopper kernels
+above (TMA, wgmma / mma.sync) take bf16 with head_dim 64 or 128 (paged
+decode also: a page size that is a multiple of 16, at most 8 query heads
+per kv head).  Every other CUDA call goes to the general kernels of
+``csrc/flash_general.cu`` and ``csrc/paged_general.cu``, which take the
+reference's whole contract: float16, bfloat16, float32 and float64, any
+head_dim from 1 to 256, any GQA ratio and any page size.
+
+Dispatch is by the device of the tensors: a CPU tensor goes to the
+plain version (``_dense_with_lse``, ``_flash_bwd_dense``,
+``_paged_dense``, the semantics of the JAX fallbacks, in float64 for
+float64 inputs and float32 otherwise); a CUDA tensor goes to a kernel,
+or the wrapper raises on what no kernel takes (head_dim above 256, a
+non-contiguous input, mixed dtypes or devices).  There is no fallback
+from the card to the plain path.
 
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one
 where it launches and nowhere else, so a run can show which kernels its
@@ -40,7 +50,14 @@ NEG_INF = float("-inf")
 
 #: kernel name -> launches since the last reset
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode": 0}
+            "paged_decode": 0, "flash_fwd_general": 0,
+            "flash_bwd_dq_general": 0, "flash_bwd_dkv_general": 0,
+            "paged_decode_general": 0}
+
+#: dtype codes of the general kernels' C interface (csrc/general.cuh)
+GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
+                  torch.float64: 3}
+MAX_HEAD_DIM = 256
 
 
 def reset_launch_counts():
@@ -58,7 +75,7 @@ def _is_cuda(*ts):
                      "CUDA, got %s" % sorted(devs))
 
 
-def _check_kernel_input(name, t, dtype, dim):
+def _check_kernel_input(name, t, dtype, dim, align=16):
     if t.dtype != dtype:
         raise TypeError("%s: expected %s, got %s" % (name, dtype, t.dtype))
     if t.dim() != dim:
@@ -66,8 +83,35 @@ def _check_kernel_input(name, t, dtype, dim):
                          % (name, dim, tuple(t.shape)))
     if not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
-    if t.data_ptr() % 16:
-        raise ValueError("%s must be 16-byte aligned" % name)
+    if t.data_ptr() % align:
+        raise ValueError("%s must be %d-byte aligned" % (name, align))
+
+
+def _acc(t):
+    """The plain versions' (and the general kernels') accumulation type:
+    float64 for float64 inputs, float32 for every other float."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _fits_hopper(D, *ts):
+    """Whether the Hopper kernels take these inputs: bf16, 16-byte
+    aligned, head_dim 64 or 128.  Every other CUDA call runs a general
+    kernel."""
+    return D in (64, 128) and all(
+        t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _general_dtype(q, D):
+    """The general kernels' dtype code of ``q``, raising on a dtype or a
+    head_dim they do not take."""
+    code = GENERAL_DTYPES.get(q.dtype)
+    if code is None:
+        raise TypeError("attention kernels take float16, bfloat16, float32 "
+                        "or float64, got %s" % q.dtype)
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError("attention kernels take head_dim 1 to %d, got %d"
+                         % (MAX_HEAD_DIM, D))
+    return code
 
 
 _ZERO_OFFSETS = {}
@@ -98,7 +142,8 @@ def _dense_with_lse(q, k, v, q_off, k_off, causal, scale):
         rep = q.shape[1] // k.shape[1]
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    acc = _acc(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     if causal:
         T, Tk = q.shape[2], k.shape[2]
         qpos = q_off.to(q.device)[0] + torch.arange(T, device=q.device)
@@ -116,21 +161,57 @@ def _dense_with_lse(q, k, v, q_off, k_off, causal, scale):
                      v)
     lse = torch.where(l == 0, torch.full_like(l, NEG_INF),
                       m + torch.log(l_safe))
-    return o.to(q.dtype), lse
+    return o.to(q.dtype), lse.float()
 
 
-def _flash_fwd_cuda(q, k, v, q_off, k_off, causal, scale):
-    B, H, T, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
+def _check_fwd_inputs(q, k, v, q_off, k_off, dtype, align):
+    B, D = q.shape[0], q.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_input(name, t, torch.bfloat16, 4)
-    if D not in (64, 128):
-        raise ValueError("flash kernel takes head_dim 64 or 128, got %d" % D)
+        _check_kernel_input(name, t, dtype, 4, align)
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError("flash kernel: k %s / v %s do not fit q %s"
                          % (tuple(k.shape), tuple(v.shape), tuple(q.shape)))
     if q_off.device != q.device or k_off.device != q.device:
         raise ValueError("flash kernel: offsets must be on %s" % q.device)
+
+
+def _flash_fwd_cuda(q, k, v, q_off, k_off, causal, scale):
+    """(o, lse) from the Hopper kernel where it takes the inputs, else
+    from the general kernel."""
+    if _fits_hopper(q.shape[-1], q, k, v):
+        return _flash_fwd_hopper(q, k, v, q_off, k_off, causal, scale)
+    return _flash_fwd_general(q, k, v, q_off, k_off, causal, scale)
+
+
+def _flash_fwd_general(q, k, v, q_off, k_off, causal, scale):
+    B, H, T, D = q.shape
+    code = _general_dtype(q, D)
+    _check_fwd_inputs(q, k, v, q_off, k_off, q.dtype, 1)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    err = _build.library("flash_general").mx_flash_fwd_general(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_off.data_ptr(),
+        k_off.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, k.shape[1], T,
+        k.shape[2], D, float(scale), int(bool(causal)), code,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("flash_fwd_general kernel launch failed: CUDA "
+                           "error %d" % err)
+    LAUNCHES["flash_fwd_general"] += 1
+    return o, lse
+
+
+def _check_hopper_dim(D):
+    if D not in (64, 128):
+        raise ValueError("Hopper flash kernels take head_dim 64 or 128, "
+                         "got %d" % D)
+
+
+def _flash_fwd_hopper(q, k, v, q_off, k_off, causal, scale):
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    _check_hopper_dim(D)
+    _check_fwd_inputs(q, k, v, q_off, k_off, torch.bfloat16, 16)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_fwd")
@@ -156,24 +237,25 @@ def _flash_bwd_dense(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
     kernels' -inf lse rule (:174, :256): P = exp(s * scale - lse), a
     -inf lse read as 0 and masked pairs 0; dS = P o (dO V^T - delta) *
     scale; the GQA grads summed over the ``rep`` query heads of a group.
-    Returns float32 (dq, dk, dv)."""
+    Returns (dq, dk, dv) in float64 for float64 inputs, else float32."""
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     rep = H // Hkv
-    qf, dof = q.float(), do.float()
-    kf = k.float().repeat_interleave(rep, dim=1)
-    vf = v.float().repeat_interleave(rep, dim=1)
+    acc = _acc(q)
+    qf, dof = q.to(acc), do.to(acc)
+    kf = k.to(acc).repeat_interleave(rep, dim=1)
+    vf = v.to(acc).repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     if causal:
         qpos = q_off.to(q.device)[0] + torch.arange(T, device=q.device)
         kpos = k_off.to(q.device)[0] + torch.arange(Tk, device=q.device)
         s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
-    lse = lse.float()
+    lse = lse.to(acc)
     lse = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
     p = torch.exp(s - lse[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    ds = p * (dp - delta.float()[..., None]) * scale
+    ds = p * (dp - delta.to(acc)[..., None]) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     if rep > 1:
@@ -183,22 +265,23 @@ def _flash_bwd_dense(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
 
 
 def _delta(do, o, dlse):
-    """Plain delta = rowsum(dO o O) - dlse in float32 (``_flash_lse_bwd``,
-    pallas_ops.py:356-359); ``dlse`` may be None."""
-    delta = (do.float() * o.float()).sum(dim=-1)
-    return delta if dlse is None else delta - dlse.float()
+    """Plain delta = rowsum(dO o O) - dlse (``_flash_lse_bwd``,
+    pallas_ops.py:356-359), summed in the accumulation type and stored in
+    float32, as the kernels store it; ``dlse`` may be None."""
+    acc = _acc(do)
+    delta = (do.to(acc) * o.to(acc)).sum(dim=-1)
+    return (delta if dlse is None else delta - dlse.to(acc)).float()
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, o, dlse):
+def _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, o, dlse,
+                      dtype=torch.bfloat16, align=16):
     B, H, T, D = q.shape
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("o", o)):
         if t is not None:
-            _check_kernel_input(name, t, torch.bfloat16, 4)
+            _check_kernel_input(name, t, dtype, 4, align)
     for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
         if t is not None:
-            _check_kernel_input(name, t, torch.float32, 3)
-    if D not in (64, 128):
-        raise ValueError("flash kernel takes head_dim 64 or 128, got %d" % D)
+            _check_kernel_input(name, t, torch.float32, 3, align)
     rows = [t for t in (lse, delta, dlse) if t is not None]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
             or do.shape != q.shape or (o is not None and o.shape != q.shape) \
@@ -227,14 +310,65 @@ def _launch_bwd(kernel, tensors, q, k, causal, scale):
     LAUNCHES[kernel] += 1
 
 
+def _launch_bwd_general(kernel, tensors, q, k, causal, scale):
+    """Launch ``mx_<kernel>_general`` of ``csrc/flash_general.cu``."""
+    B, H, T, D = q.shape
+    code = _general_dtype(q, D)
+    fn = getattr(_build.library("flash_general"), "mx_%s_general" % kernel)
+    err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+             B, H, k.shape[1], T, k.shape[2], D, float(scale),
+             int(bool(causal)), code,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("%s_general kernel launch failed: CUDA error %d"
+                           % (kernel, err))
+    LAUNCHES[kernel + "_general"] += 1
+
+
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
                        o=None, dlse=None):
+    """dq from the Hopper kernel (bf16) where it takes the inputs, else
+    from the general kernel (in the accumulation type); ``o`` / ``dlse``
+    / ``delta`` as for :func:`_flash_bwd_dq_hopper`."""
+    if _fits_hopper(q.shape[-1], *(t for t in (q, k, v, do, o)
+                                   if t is not None)):
+        return _flash_bwd_dq_hopper(q, k, v, do, lse, delta, q_off, k_off,
+                                    causal, scale, o=o, dlse=dlse)
+    _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, o, dlse,
+                      q.dtype, 1)
+    dq = torch.empty(q.shape, dtype=_acc(q), device=q.device)
+    _launch_bwd_general("flash_bwd_dq", (q, k, v, do, o, lse, dlse, delta,
+                                         q_off, k_off, dq), q, k, causal,
+                        scale)
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
+                        scale):
+    """(dk, dv) from the Hopper kernel (bf16) where it takes the inputs,
+    else from the general kernel (in the accumulation type)."""
+    if _fits_hopper(q.shape[-1], q, k, v, do):
+        return _flash_bwd_dkv_hopper(q, k, v, do, lse, delta, q_off, k_off,
+                                     causal, scale)
+    _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, None, None,
+                      q.dtype, 1)
+    dk = torch.empty(k.shape, dtype=_acc(q), device=q.device)
+    dv = torch.empty(v.shape, dtype=_acc(q), device=q.device)
+    _launch_bwd_general("flash_bwd_dkv", (q, k, v, do, lse, delta, q_off,
+                                          k_off, dk, dv), q, k, causal,
+                        scale)
+    return dk, dv
+
+
+def _flash_bwd_dq_hopper(q, k, v, do, lse, delta, q_off, k_off, causal,
+                         scale, o=None, dlse=None):
     """dq (bf16) from ``mx_flash_bwd_dq``.  Without ``o`` the kernel
     reads ``delta``.  With ``o`` it computes delta = rowsum(dO o O) -
     dlse (``dlse`` may be None) for its own rows in the same launch and
     writes it into ``delta`` (B, H, T) float32, which
     :func:`_flash_bwd_dkv_cuda` then reads: launch that after this one,
     on the same stream."""
+    _check_hopper_dim(q.shape[-1])
     _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, o, dlse)
     dq = torch.empty_like(q)
     _launch_bwd("flash_bwd_dq", (q, k, v, do, o, lse, dlse, delta, q_off,
@@ -242,9 +376,10 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
     return dq
 
 
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
-                        scale):
+def _flash_bwd_dkv_hopper(q, k, v, do, lse, delta, q_off, k_off, causal,
+                          scale):
     """(dk, dv) (bf16) from ``mx_flash_bwd_dkv``."""
+    _check_hopper_dim(q.shape[-1])
     _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, None, None)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_bwd_dkv", (q, k, v, do, lse, delta, q_off, k_off, dk,
@@ -254,9 +389,11 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
 
 def _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
                     o=None, dlse=None):
-    """(dq, dk, dv) in bf16 from the two kernels of ``csrc/flash_bwd.cu``.
-    With ``o`` (and ``delta`` None) the dq kernel computes delta from
-    ``o`` and ``dlse``; otherwise ``delta`` is given."""
+    """(dq, dk, dv) from the two backward kernels: those of
+    ``csrc/flash_bwd.cu`` (bf16 out) where they take the inputs, else the
+    general ones (out in the accumulation type).  With ``o`` (and
+    ``delta`` None) the dq kernel computes delta from ``o`` and
+    ``dlse``; otherwise ``delta`` is given."""
     if o is not None:
         delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
@@ -320,9 +457,11 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None,
     each query head to its kv group, so repeated K/V are never stored.
     ``q_offset``/``k_offset`` are global position offsets for the causal
     mask (ints or int32 tensors of one element); the kernel reads them
-    on the device.  On CUDA, q/k/v must be contiguous bf16 with head_dim
-    64 or 128; the lse is float32 (B, H, T).  Gradients flow through
-    both outputs, on CUDA through the backward kernels."""
+    on the device.  On CUDA, q/k/v are contiguous, of one float dtype,
+    with head_dim 1 to 256 (bf16 at 64 or 128 runs the Hopper kernels,
+    everything else the general ones); the lse is float32 (B, H, T).
+    Gradients flow through both outputs, on CUDA through the backward
+    kernels."""
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(
             "flash_attention: %d query heads not a multiple of %d kv "
@@ -376,7 +515,8 @@ def _paged_dense(q, k_pages, v_pages, page_table, lengths, scale):
         rep = H // Hkv
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    sc = torch.einsum("shd,skhd->shk", q.float(), k.float()) * scale
+    acc = _acc(q)
+    sc = torch.einsum("shd,skhd->shk", q.to(acc), k.to(acc)) * scale
     kpos = torch.arange(MP * psz, device=q.device)
     mask = kpos[None, None, :] < lengths.to(q.device)[:, None, None]
     sc = sc.masked_fill(~mask, NEG_INF)
@@ -385,7 +525,7 @@ def _paged_dense(q, k_pages, v_pages, page_table, lengths, scale):
     p = torch.exp(sc - m_safe[..., None]).masked_fill(~mask, 0.0)
     l = p.sum(dim=-1)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    o = torch.einsum("shk,skhd->shd", p / l_safe[..., None], v.float())
+    o = torch.einsum("shk,skhd->shd", p / l_safe[..., None], v.to(acc))
     return o.to(q.dtype)
 
 
@@ -451,30 +591,65 @@ def _paged_split_dense(q, k_pages, v_pages, page_table, lengths, scale):
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
-    S, H, D = q.shape
-    P, Hkv, psz, _ = k_pages.shape
-    _check_kernel_input("q", q, torch.bfloat16, 3)
-    _check_kernel_input("k_pages", k_pages, torch.bfloat16, 4)
-    _check_kernel_input("v_pages", v_pages, torch.bfloat16, 4)
-    _check_kernel_input("page_table", page_table, torch.int32, 2)
-    _check_kernel_input("lengths", lengths, torch.int32, 1)
-    if D not in (64, 128) or k_pages.shape[3] != D:
-        raise ValueError("paged kernel takes head_dim 64 or 128, got q %s "
-                         "and pools %s" % (tuple(q.shape),
-                                           tuple(k_pages.shape)))
-    if psz % 16:
-        raise ValueError("paged kernel takes a page size that is a "
-                         "multiple of 16, got %d" % psz)
-    if H // Hkv > 8:
-        raise ValueError("paged kernel takes at most 8 query heads per kv "
-                         "head, got %d" % (H // Hkv))
+    """The Hopper kernel where it takes the inputs (and rep <= 8, a page
+    size that is a multiple of 16), else the general kernel."""
+    H, Hkv, psz = q.shape[1], k_pages.shape[1], k_pages.shape[2]
+    if _fits_hopper(q.shape[-1], q, k_pages, v_pages) and H // Hkv <= 8 \
+            and psz % 16 == 0:
+        return _paged_decode_hopper(q, k_pages, v_pages, page_table,
+                                    lengths, scale)
+    return _paged_decode_general(q, k_pages, v_pages, page_table, lengths,
+                                 scale)
+
+
+def _check_paged_inputs(q, k_pages, v_pages, page_table, lengths, dtype,
+                        align):
+    S = q.shape[0]
+    _check_kernel_input("q", q, dtype, 3, align)
+    _check_kernel_input("k_pages", k_pages, dtype, 4, align)
+    _check_kernel_input("v_pages", v_pages, dtype, 4, align)
+    _check_kernel_input("page_table", page_table, torch.int32, 2, align)
+    _check_kernel_input("lengths", lengths, torch.int32, 1, align)
     if v_pages.shape != k_pages.shape or page_table.shape[0] != S \
-            or lengths.shape[0] != S:
+            or lengths.shape[0] != S or k_pages.shape[3] != q.shape[2]:
         raise ValueError("paged kernel: pools %s / %s, page table %s, "
                          "lengths %s do not fit q %s"
                          % (tuple(k_pages.shape), tuple(v_pages.shape),
                             tuple(page_table.shape), tuple(lengths.shape),
                             tuple(q.shape)))
+
+
+def _paged_decode_general(q, k_pages, v_pages, page_table, lengths, scale):
+    S, H, D = q.shape
+    code = _general_dtype(q, D)
+    _check_paged_inputs(q, k_pages, v_pages, page_table, lengths, q.dtype, 1)
+    out = torch.empty_like(q)
+    err = _build.library("paged_general").mx_paged_decode_general(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, H,
+        k_pages.shape[1], k_pages.shape[2], D, page_table.shape[1],
+        float(scale), code, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("paged_decode_general kernel launch failed: CUDA "
+                           "error %d" % err)
+    LAUNCHES["paged_decode_general"] += 1
+    return out
+
+
+def _paged_decode_hopper(q, k_pages, v_pages, page_table, lengths, scale):
+    S, H, D = q.shape
+    P, Hkv, psz, _ = k_pages.shape
+    _check_paged_inputs(q, k_pages, v_pages, page_table, lengths,
+                        torch.bfloat16, 16)
+    if D not in (64, 128):
+        raise ValueError("Hopper paged kernel takes head_dim 64 or 128, got "
+                         "%d" % D)
+    if psz % 16:
+        raise ValueError("Hopper paged kernel takes a page size that is a "
+                         "multiple of 16, got %d" % psz)
+    if H // Hkv > 8:
+        raise ValueError("Hopper paged kernel takes at most 8 query heads "
+                         "per kv head, got %d" % (H // Hkv))
     MP = page_table.shape[1]
     nsplit, kps, chunk = paged_split_plan(S, Hkv, MP, psz)
     out = torch.empty_like(q)

@@ -291,22 +291,219 @@ def test_train_step_on_cuda_matches_cpu(dev):
     assert got[1] < got[0]
 
 
-def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev,
+                                                         exact_fp32):
+    """What the Hopper kernels do not take (float32, head_dim 96, page
+    size 24) runs the general kernels and agrees with the plain oracle;
+    a head_dim above 256, a non-contiguous input and mixed devices are
+    still refused."""
     q, k = _bf16(dev, 1, 1, 4, 16, 96), _bf16(dev, 2, 1, 2, 16, 96)
-    with pytest.raises(ValueError, match="head_dim"):
-        cuda_ops.flash_attention(q, k, k)
+    before = cuda_ops.LAUNCHES["flash_fwd_general"]
+    got = cuda_ops.flash_attention(q, k, k)
+    want = cuda_ops._dense_with_lse(q, k, k, *_offs(dev, 0, 0), False,
+                                    96 ** -0.5)[0]
+    assert cuda_ops.LAUNCHES["flash_fwd_general"] == before + 1
+    assert _max_err(got, want) <= GENERAL_TOL[torch.bfloat16] * \
+        want.float().abs().max().item()
     q, k = _bf16(dev, 1, 1, 4, 16, 64), _bf16(dev, 2, 1, 2, 16, 64)
-    with pytest.raises(TypeError):
-        cuda_ops.flash_attention(q.float(), k.float(), k.float())
+    got = cuda_ops.flash_attention(q.float(), k.float(), k.float())
+    want = cuda_ops._dense_with_lse(q.float(), k.float(), k.float(),
+                                    *_offs(dev, 0, 0), False, 0.125)[0]
+    assert _max_err(got, want) <= GENERAL_TOL[torch.float32] * \
+        want.abs().max().item()
+    with pytest.raises(ValueError, match="head_dim"):
+        big = _bf16(dev, 1, 1, 2, 8, 320)
+        cuda_ops.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_ops.flash_attention(q.transpose(2, 3), k, k)
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         cuda_ops.flash_attention(q, k.cpu(), k)
-    kp = _bf16(dev, 3, 4, 2, 24, 64)              # page size 24: no
+    kp = _bf16(dev, 3, 4, 2, 24, 64)              # page size 24
     pt = torch.ones(1, 2, dtype=torch.int32, device=dev)
-    ln = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        cuda_ops.paged_attention(_bf16(dev, 4, 1, 4, 64), kp, kp, pt, ln)
+    ln = torch.full((1,), 30, dtype=torch.int32, device=dev)
+    qd = _bf16(dev, 4, 1, 4, 64)
+    before = cuda_ops.LAUNCHES["paged_decode_general"]
+    got = cuda_ops.paged_attention(qd, kp, kp, pt, ln)
+    want = cuda_ops._paged_dense(qd, kp, kp, pt, ln, 0.125)
+    assert cuda_ops.LAUNCHES["paged_decode_general"] == before + 1
+    assert _max_err(got, want) <= GENERAL_TOL[torch.bfloat16] * \
+        want.float().abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the general kernels (csrc/flash_general.cu, csrc/paged_general.cu)
+# ---------------------------------------------------------------------------
+
+#: max |kernel - plain| / max |plain| per tensor, against the plain
+#: version on the same card inputs with TF32 off.  float32 and float64
+#: differ only by the order of their sums; float16 / bf16 outputs also by
+#: the plain forward rounding P to the input type before P V, where the
+#: kernel keeps it in float32, and by one rounding of the output.
+GENERAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5,
+               torch.float16: 4e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture()
+def exact_fp32():
+    """The plain oracle in full float32: TF32 off for its matmuls."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _offs(dev, q_off, k_off):
+    return [torch.tensor([x], dtype=torch.int32, device=dev)
+            for x in (q_off, k_off)]
+
+
+def _max_err(got, want):
+    return (got.double() - want.double()).abs().max().item()
+
+
+def _rand(dev, seed, dtype, *shape):
+    rng = onp.random.RandomState(seed)
+    return torch.from_numpy(rng.randn(*shape)).to(dev, dtype)
+
+
+_F16, _BF16, _F32, _F64 = (torch.float16, torch.bfloat16, torch.float32,
+                           torch.float64)
+
+# (B, H, Hkv, T, Tk, causal, q_off, k_off, D, dtype): every dtype, head
+# dims 1 to 256, GQA groups 1, 4 and 32, ring-step offsets whose first
+# rows see no key, one-row decode
+GENERAL_FLASH_CASES = [
+    (2, 4, 4, 77, 77, False, 0, 0, 64, _F32),
+    (1, 8, 2, 50, 50, True, 0, 0, 16, _F32),
+    (1, 4, 1, 40, 70, True, 30, 0, 32, _F16),
+    (1, 4, 4, 33, 45, True, 0, 20, 96, _F64),
+    (1, 4, 2, 64, 64, True, 0, 0, 256, _BF16),
+    (1, 32, 1, 40, 40, True, 0, 0, 64, _F32),
+    (1, 2, 2, 10, 10, False, 0, 0, 1, _F32),
+    (1, 2, 1, 40, 40, True, 0, 0, 256, _F64),
+    (2, 8, 2, 1, 100, True, 99, 0, 128, _F32),
+    (1, 4, 4, 70, 70, True, 0, 0, 96, _BF16),
+]
+
+
+def _general_inputs(dev, case):
+    B, H, Hkv, T, Tk, causal, q_off, k_off, D, dt = case
+    q = _rand(dev, T, dt, B, H, T, D)
+    k, v = _rand(dev, Tk, dt, B, Hkv, Tk, D), \
+        _rand(dev, Tk + 1, dt, B, Hkv, Tk, D)
+    return q, k, v, _offs(dev, q_off, k_off)
+
+
+@pytest.mark.parametrize("case", GENERAL_FLASH_CASES)
+def test_general_flash_forward_matches_plain(dev, exact_fp32, case):
+    """(o, lse) of the general forward against ``_dense_with_lse``; the
+    same -inf rows; two calls give the same bits."""
+    causal, D, dt = case[5], case[8], case[9]
+    q, k, v, offs = _general_inputs(dev, case)
+    before = cuda_ops.LAUNCHES["flash_fwd_general"]
+    o, lse = cuda_ops._flash_fwd_cuda(q, k, v, *offs, causal, D ** -0.5)
+    o2, _ = cuda_ops._flash_fwd_cuda(q, k, v, *offs, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["flash_fwd_general"] == before + 2
+    assert o.dtype == dt and lse.dtype == torch.float32
+    assert torch.equal(o, o2)
+    o_p, lse_p = cuda_ops._dense_with_lse(q, k, v, *offs, causal, D ** -0.5)
+    masked = torch.isneginf(lse_p)
+    assert torch.equal(torch.isneginf(lse), masked)
+    assert not o[masked[..., None].expand_as(o)].any()
+    tol = GENERAL_TOL[dt]
+    assert _max_err(o, o_p) <= tol * o_p.double().abs().max().item()
+    assert _max_err(lse[~masked], lse_p[~masked]) <= \
+        max(tol, 2 ** -23) * lse_p[~masked].abs().max().item()
+
+
+@pytest.mark.parametrize("case", GENERAL_FLASH_CASES)
+def test_general_flash_backward_matches_plain(dev, exact_fp32, case):
+    """dq, dk, dv of the general backward against ``_flash_bwd_dense`` on
+    the same inputs, lse and delta: both sum in the accumulation type,
+    so every dtype is within its float32 / float64 tolerance; delta
+    computed inside the dq launch (the training path) and given (the
+    ring primitive's)."""
+    causal, D, dt = case[5], case[8], case[9]
+    q, k, v, offs = _general_inputs(dev, case)
+    do = _rand(dev, 7, dt, *q.shape)
+    o, lse = cuda_ops._dense_with_lse(q, k, v, *offs, causal, D ** -0.5)
+    dlse = _rand(dev, 8, torch.float32, *lse.shape)
+    delta = cuda_ops._delta(do, o, dlse)
+    want = cuda_ops._flash_bwd_dense(q, k, v, do, lse, delta, *offs, causal,
+                                     D ** -0.5)
+    tol = GENERAL_TOL[_F64 if dt == _F64 else _F32]
+    for kw in (dict(delta=None, o=o, dlse=dlse), dict(delta=delta)):
+        before = dict(cuda_ops.LAUNCHES)
+        d = kw.pop("delta")
+        got = cuda_ops._flash_bwd_cuda(q, k, v, do, lse, d, *offs, causal,
+                                       D ** -0.5, **kw)
+        again = cuda_ops._flash_bwd_cuda(q, k, v, do, lse, d, *offs, causal,
+                                         D ** -0.5, **kw)
+        torch.cuda.synchronize()
+        for name in ("flash_bwd_dq_general", "flash_bwd_dkv_general"):
+            assert cuda_ops.LAUNCHES[name] == before[name] + 2
+        for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+            assert g.dtype == w.dtype and torch.equal(g, g2), name
+            err = _max_err(g, w)
+            assert err <= tol * w.abs().max().item(), (name, err, kw.keys())
+
+
+# (S, H, Hkv, D, psz, P, MP, lens, dtype): rep 16 and 32, page sizes 1,
+# 7, 24 and 128, lengths of 0 and past the table, head_dim up to 256
+GENERAL_PAGED_CASES = [
+    (3, 32, 2, 128, 16, 40, 8, [0, 100, 128], _BF16),
+    (2, 32, 1, 64, 24, 20, 6, [1, 144], _F32),
+    (2, 4, 2, 16, 1, 120, 50, [50, 0], _F32),
+    (2, 8, 2, 256, 128, 6, 2, [200, 256], _BF16),
+    (2, 8, 8, 96, 24, 12, 4, [60, 99], _F64),
+    (3, 8, 4, 32, 7, 30, 5, [34, 5, 7], _F16),
+]
+
+
+@pytest.mark.parametrize("case", GENERAL_PAGED_CASES)
+def test_general_paged_kernel_matches_plain(dev, exact_fp32, case):
+    S, H, Hkv, D, psz, P, MP, lens, dt = case
+    q, kp, vp = (_rand(dev, 1, dt, S, H, D), _rand(dev, 2, dt, P, Hkv, psz, D),
+                 _rand(dev, 3, dt, P, Hkv, psz, D))
+    pt = torch.from_numpy(onp.random.RandomState(4).permutation(
+        onp.arange(1, P))[:S * MP].reshape(S, MP).astype(onp.int32)).to(dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = cuda_ops.LAUNCHES["paged_decode_general"]
+    got = cuda_ops.paged_attention(q, kp, vp, pt, ln)
+    again = cuda_ops.paged_attention(q, kp, vp, pt, ln)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["paged_decode_general"] == before + 2
+    assert torch.equal(got, again)
+    want = cuda_ops._paged_dense(q, kp, vp, pt, ln, D ** -0.5)
+    for s, n in enumerate(lens):
+        if n == 0:
+            assert not got[s].any()
+    assert _max_err(got, want) <= GENERAL_TOL[dt] * \
+        want.double().abs().max().item()
+
+
+def test_general_kernels_train_a_float32_layer(dev, exact_fp32):
+    """flash_attention's autograd on float32 CUDA tensors (head_dim 16,
+    GQA 4) runs the general forward, dq and dk/dv and gives the plain
+    CPU path's gradients."""
+    q, k, v = (_rand(torch.device("cpu"), s, _F32, *shape) for s, shape in
+               ((1, (2, 8, 24, 16)), (2, (2, 2, 24, 16)), (3, (2, 2, 24, 16))))
+    grads = []
+    cuda_ops.reset_launch_counts()
+    for d in (dev, "cpu"):
+        leaves = [t.to(d).requires_grad_() for t in (q, k, v)]
+        o, lse = cuda_ops.flash_attention_with_lse(*leaves, causal=True)
+        ((o * o).sum() + lse.sum()).backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for name in ("flash_fwd_general", "flash_bwd_dq_general",
+                 "flash_bwd_dkv_general"):
+        assert cuda_ops.LAUNCHES[name] == 1
+    for g, w in zip(*grads):
+        assert _max_err(g, w) <= 1e-5 * w.abs().max().item()
 
 
 def test_tiny_bf16_server_runs_both_kernels(dev):

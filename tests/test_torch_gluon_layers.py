@@ -24,6 +24,7 @@ from mxnet_tpu_torch import autograd, gluon, initializer
 from mxnet_tpu_torch.convert import load_params
 from mxnet_tpu_torch.gluon import nn as t_layers
 from mxnet_tpu_torch.gluon.parameter import (DeferredInitializationError,
+                                             TorchParameter,
                                              is_deferred)
 from mxnet_tpu_torch.ops import nn as t_nn
 
@@ -385,7 +386,7 @@ def test_deferred_shapes_and_names_match_jax(layout):
     assert list(tp) == list(jp)
     assert {k: tuple(p.shape) for k, p in tp.items()} == \
         {k: v.shape for k, v in jp.items()}
-    assert all(type(p) is torch.nn.Parameter for p in tp.values())
+    assert all(type(p) is TorchParameter for p in tp.values())
     load_params(tnet, jp)
     _close(tnet(torch.from_numpy(x)), jout)
 
@@ -419,8 +420,10 @@ def test_cast_and_grad_req():
         torch.bfloat16
     net.setattr("grad_req", "null")
     assert not any(p.requires_grad for p in net.parameters())
-    with pytest.raises(NotImplementedError):
-        net.setattr("lr_mult", 2.0)
+    net.setattr("lr_mult", 2.0)
+    assert {p.lr_mult for p in net.parameters()} == {2.0}
+    with pytest.raises(AttributeError):
+        net.setattr("no_such_attribute", 2.0)
 
 
 def test_trainer_skips_batch_norm_statistics():

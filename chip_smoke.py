@@ -16,11 +16,13 @@ through ``TrainStep`` and the Gluon ``Trainer``, runs ResNet-50 from
 the Gluon zoo (inference at ``__graft_entry__.entry()``'s shape, eager and
 hybridized, NCHW and NHWC, then training) and trains BERT-base through
 the flash kernels at head_dim 64.  The general kernels (every dtype,
-head_dim and GQA ratio the Hopper ones do not take) are held against
-their plain versions and timed at BERT's float32 shape; the float32
-``tiny_config`` and ``bert_tiny_config`` run on the card against the
-CPU; BERT-base trains at its default float32; and ``entry()`` runs in
-its MXNet spelling (``import mxnet_tpu_torch as mx``).  Each path that
+head_dim and GQA ratio the Hopper ones do not take) and the
+tensor-core backward (float16 / bfloat16 / float32 up to head_dim 128)
+are held against their plain versions and timed at BERT's float32
+shape; the float32 ``tiny_config`` and ``bert_tiny_config`` run on the
+card against the CPU; BERT-base trains at its default float32; and
+``entry()`` runs in its MXNet spelling (``import mxnet_tpu_torch as
+mx``).  Each path that
 runs kernels does so with the launch counts reset before it and read
 after it, and fails unless every kernel it goes through was launched.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
@@ -162,11 +164,26 @@ def device_ms(fn, match=None, iters=20, warmup=3, attempts=5):
     return ms, per
 
 
+def _demangle(names):
+    """``name<args>`` of each mangled kernel name, through ``c++filt``
+    (binutils, beside the host compiler nvcc drives), with the return
+    type, the anonymous namespace and the parameters dropped; the names
+    as given where c++filt is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+    return [d.replace("(anonymous namespace)::", "").removeprefix("void ")
+            .split("(", 1)[0].replace(", ", ",") for d in out]
+
+
 def ptxas_report(build):
     """Registers and spill bytes of every kernel, from the ``-Xptxas
     -v`` output kept beside each library; fails where ptxas serialised
     the wgmma pipeline (warnings C7514 / C7515)."""
-    out = []
+    rows = []
     for name in build.SOURCES:
         log = build.build_log(name)
         check("C7514" not in log and "C7515" not in log,
@@ -174,15 +191,11 @@ def ptxas_report(build):
         for fn, body in re.findall(
                 r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry"
                 r" function|\Z)", log, re.S):
-            # <D> of a Hopper kernel, <type, NE> of a general one
-            kern = re.search(r"\d([a-z_]+_kernel)I(?:\d*([a-z_][a-z0-9_]*?))?Li(\d+)E",
-                             fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores", body)
-            targs = ",".join(t for t in kern.group(2, 3) if t)
-            out.append("%s<%s> %s regs %s B spill"
-                       % (kern.group(1), targs, regs.group(1),
-                          spill.group(1)))
+            rows.append((fn, regs and regs.group(1), spill and spill.group(1)))
+    out = ["%s %s regs %s B spill" % (n, r, sp) for n, (_, r, sp) in
+           zip(_demangle([fn for fn, _, _ in rows]), rows)]
     print("ptxas: " + "; ".join(sorted(out)))
 
 
@@ -1247,17 +1260,24 @@ def bert_phase(mt, co, dev, card):
 #: kernel keeps it in float32, and by one rounding of the output.  The
 #: backward sums in float32 (float64) on both sides from the same
 #: inputs, lse and delta, so every dtype is held to its accumulation
-#: type's limit.  Measured on an H100 over the cases below: float32 O
-#: 7.8e-7, backward 1.3e-6; float64 2.8e-16 / 1.1e-15; float16 O 8.1e-4;
-#: bf16 O 4.6e-3; float16 / bf16 backward 2.6e-6; paged 2.2e-5 (bf16),
-#: 3.0e-7 (float32), 6.2e-16 (float64).
+#: type's limit; the tensor-core backward's float32 products are 3xTF32
+#: (about 2^-22 of each product) summed in float32.  Measured on an H100
+#: over the cases below: float32 O 7.8e-7; float64 2.8e-16 / 1.1e-15;
+#: float16 O 8.1e-4; bf16 O 4.6e-3; paged 2.2e-5 (bf16), 3.0e-7
+#: (float32), 6.2e-16 (float64); the general backward 8.8e-7, the
+#: tensor-core backward 1.6e-6 (float32), 9.2e-7 (float16), 6.4e-7
+#: (bf16).
 GENERAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5,
                torch.float16: 4e-3, torch.bfloat16: 2e-2}
 _F16, _BF16, _F32, _F64 = (torch.float16, torch.bfloat16, torch.float32,
                            torch.float64)
 # (B, H, Hkv, T, Tk, causal, q_off, k_off, D, dtype): fp16, fp32, fp64
-# and bf16 at D 256; D 16, 32, 96, 256; GQA groups 1, 4 and 32; causal
-# and not, with ring-step offsets whose first rows see no key
+# and bf16 at D 256; D 12, 16, 20, 32, 96, 256; GQA groups 1, 2, 3, 4
+# and 32; causal and not, with ring-step offsets whose first rows see no
+# key.  The backward of the fp16 / bf16 / fp32 cases up to D 128 with
+# 16-byte rows runs the tensor-core kernels, of the others (fp64, D 256,
+# fp16 D 12 and bf16 D 20 with 24- and 40-byte rows) the general ones
+# (_bwd_route), so every dtype is held on both routes.
 GENERAL_FLASH_CASES = [
     (2, 8, 2, 200, 200, True, 0, 0, 16, _F16),
     (2, 8, 2, 130, 300, True, 170, 0, 16, _F32),
@@ -1269,6 +1289,10 @@ GENERAL_FLASH_CASES = [
     (1, 8, 2, 160, 160, False, 0, 0, 256, _F32),
     (1, 4, 1, 70, 70, True, 0, 0, 256, _F64),
     (2, 12, 12, 512, 512, False, 0, 0, 64, _F32),
+    (1, 6, 2, 90, 130, True, 40, 0, 12, _F32),
+    (1, 8, 2, 150, 150, True, 0, 0, 96, _BF16),
+    (1, 8, 2, 120, 150, True, 0, 30, 12, _F16),
+    (1, 6, 3, 100, 100, False, 0, 0, 20, _BF16),
 ]
 # (S, H, Hkv, D, psz, MP, lengths, dtype): rep 16 and 32, page sizes 1,
 # 24 and 128, lengths of 0, head_dim 256
@@ -1304,8 +1328,9 @@ def _rel_err(got, want):
 
 
 def _general_check(co, dev, errs):
-    """Each general kernel against its plain version over the cases
-    above; fills ``errs`` {kernel: (max abs err, max rel err)}."""
+    """Each general kernel, and the tensor-core backward, against its
+    plain version over the cases above; fills ``errs`` {kernel: (max abs
+    err, max rel err)}."""
     gen = torch.Generator(device="cpu").manual_seed(11)
 
     def note(kernel, name, dt, got, want, tol):
@@ -1341,30 +1366,39 @@ def _general_check(co, dev, errs):
         want = co._flash_bwd_dense(q, k, v, do, lse_p, delta, *offs, causal,
                                    scale)
         btol = GENERAL_TOL[_F64 if dt == _F64 else _F32]
+        route = co._route_of(q, k, v, do, o_p)
+        suffix = "_" + co.BWD_ROUTES[route][1]
         rels = {}
         for how, kw in (("fused delta", dict(o=o_p, dlse=dlse)),
                         ("given delta", {})):
             got = co._flash_bwd_cuda(q, k, v, do, lse_p,
                                      None if kw else delta, *offs, causal,
                                      scale, **kw)
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                kern = "flash_bwd_%s_general" % ("dq" if name == "dq"
-                                                 else "dkv")
+            again = co._flash_bwd_cuda(q, k, v, do, lse_p,
+                                       None if kw else delta, *offs, causal,
+                                       scale, **kw)
+            for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+                kern = "flash_bwd_%s%s" % ("dq" if name == "dq" else "dkv",
+                                           suffix)
+                check(torch.equal(g, g2), "%s %s (%s): two calls differ"
+                      % (kern, name, dt))
                 rels[name] = max(rels.get(name, 0.0),
                                  note(kern, "%s, %s" % (name, how), dt, g, w,
                                       btol))
         torch.cuda.synchronize()
-        for kern, n in (("flash_fwd_general", 1), ("flash_bwd_dq_general", 2),
-                        ("flash_bwd_dkv_general", 2)):
+        for kern, n in (("flash_fwd_general", 1),
+                        ("flash_bwd_dq" + suffix, 4),
+                        ("flash_bwd_dkv" + suffix, 4)):
             check(co.LAUNCHES[kern] == before[kern] + n,
                   "general flash: %s did not run" % kern)
         print("general flash %s B=%d H=%d/%d T=%d Tk=%d D=%d causal=%s "
               "q_off=%d k_off=%d: max|d|/max|plain| O %.2e lse %.2e (limit "
-              "%.0e); dq %.2e dk %.2e dv %.2e (limit %.0e); rows seeing no "
-              "key %d" % (str(dt)[6:], B, H, Hkv, T, Tk, D, causal, qo, ko,
-                          r_o, r_l, tol, rels["dq"], rels["dk"], rels["dv"],
-                          btol, int(masked.sum())))
-        del q, k, v, do, o, lse, o_p, lse_p, got, want
+              "%.0e); backward on %s: dq %.2e dk %.2e dv %.2e (limit %.0e), "
+              "bitwise repeatable; rows seeing no key %d"
+              % (str(dt)[6:], B, H, Hkv, T, Tk, D, causal, qo, ko, r_o, r_l,
+                 tol, route, rels["dq"], rels["dk"], rels["dv"], btol,
+                 int(masked.sum())))
+        del q, k, v, do, o, lse, o_p, lse_p, got, again, want
     for S, H, Hkv, D, psz, MP, lens_h, dt in GENERAL_PAGED_CASES:
         P = S * MP + 1
         q = torch.randn(S, H, D, generator=gen, dtype=torch.float64).to(
@@ -1393,13 +1427,22 @@ def _general_check(co, dev, errs):
         del q, kp, vp, got
 
 
+TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores
+
+
 def general_timing(co, dev, card):
-    """The general kernels at BERT-base's attention in float32, q/k/v
-    (16, 12, 512, 64) non-causal: forward, dq, dk/dv and the whole
-    backward by device time, SDPA on the same float32 inputs as the
-    library call, the plain versions by event time; paged decode at the
-    serving shape (8 slots, 32/8 heads of 128, pages of 128) in
-    float32.  Bounds use the float32 rate outside the tensor cores."""
+    """The kernels of BERT-base's float32 attention, q/k/v (16, 12, 512,
+    64) non-causal: the general forward, the tensor-core dq and dk/dv
+    (the route the path takes) and the whole backward by device time;
+    the general (SIMT) dq and dk/dv on the same inputs through their
+    launcher (no public route reaches them at float32); SDPA on the
+    same float32 inputs as the library call; the plain versions by
+    event time; paged decode at the serving shape (8 slots, 32/8 heads
+    of 128, pages of 128) in float32.  The forward, paged and SIMT
+    bounds use the float32 rate outside the tensor cores; the bound of
+    the tensor-core backward is its 3xTF32 floor, three passes of its
+    flops at the published dense TF32 rate (the float32 one beside it
+    as ``bound_fp32_ms``)."""
     B, H, Hkv, T, D, causal = BERT_ATTN
     gen = torch.Generator(device="cpu").manual_seed(12)
     q, k, v, do = (torch.randn(B, n, T, D, generator=gen).to(dev)
@@ -1412,11 +1455,22 @@ def general_timing(co, dev, card):
     fwd_ms, _ = device_ms(lambda: co.flash_attention(q, k, v), "fwd_general")
     fwd_call = time_ms(lambda: co.flash_attention(q, k, v))
     scratch = torch.empty_like(delta)
-    dq_ms, _ = device_ms(lambda: co._flash_bwd_dq_cuda(
+    check(co._route_of(q, k, v, do, o) == "mma",
+          "BERT's float32 backward does not route to the tensor cores")
+    dq_ms, dkv_ms = {}, {}
+    dq_ms["mma"], _ = device_ms(lambda: co._flash_bwd_dq_cuda(
         q, k, v, do, lse, scratch, zero, zero, causal, scale, o=o,
-        dlse=dlse), "dq_general")
-    dkv_ms, _ = device_ms(lambda: co._flash_bwd_dkv_cuda(
-        q, k, v, do, lse, delta, zero, zero, causal, scale), "dkv_general")
+        dlse=dlse), "dq_mma")
+    dkv_ms["mma"], _ = device_ms(lambda: co._flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, zero, zero, causal, scale), "dkv_mma")
+    # the earlier design on the same inputs, through its launcher
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_ms["simt"], _ = device_ms(lambda: co._launch_bwd_general(
+        "flash_bwd_dq", (q, k, v, do, o, lse, dlse, scratch, zero, zero, dq),
+        q, k, causal, scale, "simt"), "dq_general")
+    dkv_ms["simt"], _ = device_ms(lambda: co._launch_bwd_general(
+        "flash_bwd_dkv", (q, k, v, do, lse, delta, zero, zero, dk, dv), q,
+        k, causal, scale, "simt"), "dkv_general")
     with exact_fp32():
         fwd_plain = time_ms(lambda: co._dense_with_lse(
             q, k, v, zero, zero, causal, scale), iters=5)
@@ -1434,25 +1488,33 @@ def general_timing(co, dev, card):
     pairs = _pairs(B, H, T, causal)
     qd = 4 * B * H * T * D                      # bytes of one float32 q
     fwd_b = bound_ms(4 * qd + 4 * B * H * T, 4 * D * pairs, FP32_FLOPS_PER_S)
-    dq_b = bound_ms(6 * qd + 3 * 4 * B * H * T, 6 * D * pairs,
-                    FP32_FLOPS_PER_S)
-    dkv_b = bound_ms(6 * qd + 2 * 4 * B * H * T, 8 * D * pairs,
-                     FP32_FLOPS_PER_S)
-    bwd_b = bound_ms(8 * qd + 2 * 4 * B * H * T, 14 * D * pairs,
-                     FP32_FLOPS_PER_S)
+    # (bytes, flops per pair and head-dim element) of dq, dk/dv and both
+    work = {"dq": (6 * qd + 3 * 4 * B * H * T, 6),
+            "dkv": (6 * qd + 2 * 4 * B * H * T, 8),
+            "bwd": (8 * qd + 2 * 4 * B * H * T, 14)}
+    fp32_b = {n: bound_ms(nb, f * D * pairs, FP32_FLOPS_PER_S)
+              for n, (nb, f) in work.items()}
+    floor = {n: bound_ms(nb, 3 * f * D * pairs, TF32_FLOPS_PER_S)
+             for n, (nb, f) in work.items()}
     shape = "q/k/v (%d,%d,%d,%d) float32 non-causal" % (B, H, T, D)
     print("general flash timing %s: forward %.4f ms (device; call %.4f; "
-          "bound %.4f, %s; plain %.4f; SDPA %.4f, kernels %s), dq %.4f ms "
-          "(bound %.4f), dk/dv %.4f ms (bound %.4f), whole backward %.4f ms "
-          "(device; kernels %s; bound %.4f; plain %.4f; SDPA backward %.4f, "
-          "kernels %s) [%s]"
+          "bound %.4f, %s; plain %.4f; SDPA %.4f, kernels %s); tensor-core "
+          "dq %.4f ms, dk/dv %.4f ms (general: %.4f, %.4f; float32 bound "
+          "%.4f, %.4f; 3xTF32 floor %.4f, %.4f), whole backward %.4f ms "
+          "(device; kernels %s; float32 bound %.4f; 3xTF32 floor %.4f; "
+          "general pair %.4f; plain %.4f; SDPA backward %.4f, kernels %s) "
+          "[%s]"
           % (shape, fwd_ms, fwd_call, fwd_b[0], fwd_b[1], fwd_plain, lib_fwd,
-             ", ".join("%s %.4f" % kv for kv in lib_fk.items()), dq_ms,
-             dq_b[0], dkv_ms, dkv_b[0], bwd_ms,
-             ", ".join("%s %.4f" % kv for kv in bwd_k.items()), bwd_b[0],
-             bwd_plain, lib_bwd,
-             ", ".join("%s %.4f" % kv for kv in lib_bk.items()), card))
-    del q, k, v, do, o, qg, kg, vg, out, ref
+             ", ".join("%s %.4f" % kv for kv in lib_fk.items()),
+             dq_ms["mma"], dkv_ms["mma"], dq_ms["simt"], dkv_ms["simt"],
+             fp32_b["dq"][0], fp32_b["dkv"][0], floor["dq"][0],
+             floor["dkv"][0], bwd_ms,
+             ", ".join("%s %.4f" % kv for kv in bwd_k.items()),
+             fp32_b["bwd"][0], floor["bwd"][0],
+             dq_ms["simt"] + dkv_ms["simt"], bwd_plain,
+             lib_bwd, ", ".join("%s %.4f" % kv for kv in lib_bk.items()),
+             card))
+    del q, k, v, do, o, qg, kg, vg, out, ref, dq, dk, dv
     torch.cuda.empty_cache()
     # paged decode at the serving shape, float32
     S, Hq, Hk, Dp, psz, MP = 8, 32, 8, 128, 128, 3
@@ -1480,50 +1542,62 @@ def general_timing(co, dev, card):
                                     pg_plain, card))
     common = {"shape": shape, "library_kernels_forward": lib_fk,
               "library_kernels_backward": lib_bk, "backward_ms": bwd_ms,
-              "backward_kernels": bwd_k, "backward_bound_ms": bwd_b[0],
+              "backward_kernels": bwd_k,
+              "backward_bound_ms": floor["bwd"][0],
+              "backward_bound_fp32_ms": fp32_b["bwd"][0],
               "backward_plain_ms": bwd_plain, "backward_library_ms": lib_bwd}
+    bwd = {}
+    for route, (_, tag) in co.BWD_ROUTES.items():
+        for kern, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+            b = floor[kern] if route == "mma" else fp32_b[kern]
+            extra = {"bound_fp32_ms": fp32_b[kern][0]} if route == "mma" \
+                else {}
+            bwd["flash_bwd_%s_%s" % (kern, tag)] = dict(
+                common, ms=ms[route], plain_ms=bwd_plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=lib_bwd, **extra)
     return {"flash_fwd_general": dict(
                 common, ms=fwd_ms, call_ms=fwd_call, plain_ms=fwd_plain,
                 bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=lib_fwd),
-            "flash_bwd_dq_general": dict(
-                common, ms=dq_ms, plain_ms=bwd_plain, bound_ms=dq_b[0],
-                bound_by=dq_b[1], library_ms=lib_bwd),
-            "flash_bwd_dkv_general": dict(
-                common, ms=dkv_ms, plain_ms=bwd_plain, bound_ms=dkv_b[0],
-                bound_by=dkv_b[1], library_ms=lib_bwd),
+            **bwd,
             "paged_decode_general": dict(
                 shape=pshape, ms=pg_ms, call_ms=pg_call, plain_ms=pg_plain,
                 bound_ms=pg_b[0], bound_by=pg_b[1], library_ms=None)}
 
 
 def general_kernel_phase(co, dev, card):
-    """The four general kernels against their plain versions, then
-    timed; returns their records for the kernels line."""
+    """The four general kernels and the two tensor-core backward kernels
+    against their plain versions, then timed; returns their records for
+    the kernels line."""
     errs = {}
     with exact_fp32():
         _general_check(co, dev, errs)
     timing = general_timing(co, dev, card)
-    src = {"flash": "mxnet_tpu_torch/csrc/flash_general.cu",
-           "paged": "mxnet_tpu_torch/csrc/paged_general.cu"}
+    src = {"general": "mxnet_tpu_torch/csrc/flash_general.cu",
+           "mma": "mxnet_tpu_torch/csrc/flash_bwd_mma.cu"}
     replaces = {"flash_fwd_general": "mxnet_tpu/ops/pallas_ops.py:62",
                 "flash_bwd_dq_general": "mxnet_tpu/ops/pallas_ops.py:149",
                 "flash_bwd_dkv_general": "mxnet_tpu/ops/pallas_ops.py:227",
-                "paged_decode_general": "mxnet_tpu/ops/pallas_ops.py:621"}
+                "paged_decode_general": "mxnet_tpu/ops/pallas_ops.py:621",
+                "flash_bwd_dq_mma": "mxnet_tpu/ops/pallas_ops.py:149",
+                "flash_bwd_dkv_mma": "mxnet_tpu/ops/pallas_ops.py:227"}
     return [dict({"name": name, "route": "cuda",
-                  "source": src[name.split("_")[0]],
+                  "source": ("mxnet_tpu_torch/csrc/paged_general.cu"
+                             if name.startswith("paged")
+                             else src[name.rsplit("_", 1)[1]]),
                   "replaces": replaces[name], "max_abs_err": errs[name][0],
                   "max_rel_err": errs[name][1]}, **timing[name])
             for name in replaces]
 
 
 # ----------------------------------------------------------------------
-# phase 12: BERT-base at its default float32 on the general kernels
+# phase 12: BERT-base at its default float32: the general forward and
+# the tensor-core backward
 # ----------------------------------------------------------------------
 def bert_fp32_phase(mt, co, dev, card):
     """``BERTForPretrain(bert_base_config())`` at its default float32,
     B=16, T=512, no ``valid_length``: 3 AdamW steps through the Gluon
-    ``Trainer``, attention on the general kernels.  Returns the launch
-    counts of those steps."""
+    ``Trainer``, attention on the general forward and the tensor-core
+    backward.  Returns the launch counts of those steps."""
     cfg = mt.models.bert_base_config()
     check(cfg.dtype == "float32", "bert_base_config is not float32: %s"
           % cfg.dtype)
@@ -1552,11 +1626,14 @@ def bert_fp32_phase(mt, co, dev, card):
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(v) for v in losses), "bert fp32: a loss is not "
           "finite: %s" % losses)
-    for name in ("flash_fwd_general", "flash_bwd_dq_general",
-                 "flash_bwd_dkv_general"):
-        check(launches[name] == cfg.num_layers * BERT_STEPS,
+    for name, per_step in (("flash_fwd_general", cfg.num_layers),
+                           ("flash_bwd_dq_mma", cfg.num_layers),
+                           ("flash_bwd_dkv_mma", cfg.num_layers),
+                           ("flash_bwd_dq_general", 0),
+                           ("flash_bwd_dkv_general", 0)):
+        check(launches[name] == per_step * BERT_STEPS,
               "bert fp32: %s launched %d times in %d steps, want %d per step"
-              % (name, launches[name], BERT_STEPS, cfg.num_layers))
+              % (name, launches[name], BERT_STEPS, per_step))
     ms, dev_ms, top, counts, _ = device_busy(step, reps=2)
     print("bert-base float32 train (%.1f M params, B=%d, T=%d, dropout 0.1, "
           "%d AdamW steps): losses %s; launches per step %s; step %.1f ms "
@@ -1659,8 +1736,8 @@ def tiny_fp32_phase(mt, co, dev, card):
     check(abs(blosses[0] - blosses[1]) <= TINY_GRAD_REL * abs(blosses[1])
           and grel <= TINY_GRAD_REL, "bert tiny: card and CPU differ: "
           "losses %s, grads %.2e" % (blosses, grel))
-    for name in ("flash_fwd_general", "flash_bwd_dq_general",
-                 "flash_bwd_dkv_general", "paged_decode_general"):
+    for name in ("flash_fwd_general", "flash_bwd_dq_mma",
+                 "flash_bwd_dkv_mma", "paged_decode_general"):
         check(launches[name] > 0, "tiny: %s did not run" % name)
     return launches
 
@@ -1787,8 +1864,8 @@ def entry_phase(mt, co, dev, card):
     torch.cuda.synchronize()
     launches = dict(co.LAUNCHES)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "flash_fwd_general", "flash_bwd_dq_general",
-                 "flash_bwd_dkv_general"):
+                 "flash_fwd_general", "flash_bwd_dq_mma",
+                 "flash_bwd_dkv_mma"):
         check(launches[name] == 1, "entry: npx.flash_attention launched %s "
               "%d times, want 1" % (name, launches[name]))
     return launches

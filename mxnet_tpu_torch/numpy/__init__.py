@@ -11,16 +11,17 @@ inputs are float32.
 
 Functions whose output shape depends on the data (``unique``,
 ``nonzero``, boolean selection) and a long tail torch has no operator
-for (``trim_zeros``, ``piecewise``, ``lexsort``, ``partition``,
-``histogram``, ``apply_along_axis``, ``interp`` with a ``period``) run
-on the host through numpy, as the JAX package runs its data-dependent
-ones; they are not recorded by autograd.
+for (``trim_zeros``, ``piecewise``, ``lexsort``, ``apply_along_axis``,
+``interp`` with a ``period``) run on the host through numpy, as the JAX
+package runs its data-dependent ones; they are not recorded by
+autograd.
 """
 from __future__ import annotations
 
 import builtins
 import functools
 import math
+import operator
 
 import numpy as onp
 import torch
@@ -1033,12 +1034,66 @@ def lexsort(keys, axis=-1):
                       keys[0])
 
 
+def _kth(x, kth, axis):
+    """(x with ``axis`` last, kth in [0, n)): ``jnp``'s canonical kth."""
+    x = x.reshape(-1) if axis is None else x.movedim(axis, -1)
+    n = x.shape[-1]
+    k = operator.index(kth)
+    if not -n <= k < n:
+        raise ValueError("kth %d out of bounds for an axis of %d" % (k, n))
+    return x, k % n
+
+
+_SAME_WIDTH_INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _total_order(y):
+    """An integer key that sorts floats in XLA's total order (-0.0
+    before 0.0, NaNs with the sign bit first, the others last); integer
+    tensors are their own key."""
+    if not y.is_floating_point():
+        return y
+    b = y.view(_SAME_WIDTH_INT[y.element_size()])
+    return torch.where(b < 0, b ^ torch.iinfo(b.dtype).max, b)
+
+
+def _bottom_top(y, k):
+    """Indices of the k + 1 smallest of ``y`` along its last axis,
+    ascending, and of the n - k - 1 largest, descending: ``lax.top_k``
+    of -y and of y, which take the lowest index among ties, as a stable
+    sort does."""
+    key = _total_order(y)
+    bottom = torch.sort(key, dim=-1, stable=True)[1][..., :k + 1]
+    top = torch.sort(key, dim=-1, descending=True,
+                     stable=True)[1][..., :y.shape[-1] - k - 1]
+    return bottom, top
+
+
 def partition(a, kth, axis=-1):
-    return _from_host(onp.partition(_host(a), kth, axis=axis), a)
+    """``jnp.partition``'s order, which is not numpy's: the kth + 1
+    smallest values ascending, then the largest n - kth - 1 descending.
+    Recorded: each value's gradient goes to the index ``lax.top_k``
+    takes it from."""
+    def f(x):
+        y, k = _kth(x, kth, axis)
+        out = torch.take_along_dim(y, torch.cat(_bottom_top(y, k), -1), -1)
+        return out if axis is None else out.movedim(-1, axis)
+    return apply_op(f, [a], "partition")
 
 
 def argpartition(a, kth, axis=-1):
-    return _from_host(onp.argpartition(_host(a), kth, axis=axis), a)
+    """``jnp.argpartition``: the indices of the kth + 1 smallest values,
+    then the remaining indices in ascending order; int32."""
+    def f(x):
+        y, k = _kth(x, kth, axis)
+        bottom = _bottom_top(y, k)[0]
+        rest = torch.ones(y.shape, dtype=torch.bool,
+                          device=y.device).scatter(-1, bottom, False)
+        top = torch.arange(y.shape[-1], device=y.device).expand(y.shape)[
+            rest].reshape(*y.shape[:-1], -1)
+        out = torch.cat([bottom, top], dim=-1).to(torch.int32)
+        return out if axis is None else out.movedim(-1, axis)
+    return apply_op(f, [a], "argpartition")
 
 
 def msort(a):
@@ -1065,11 +1120,35 @@ percentile = _quantile(100.0)
 
 
 def histogram(a, bins=10, range=None, weights=None, density=None):
-    h, edges = onp.histogram(_host(a), bins=_host(bins) if _is_arr(bins)
-                             else bins, range=range, density=density,
-                             weights=None if weights is None
-                             else _host(weights))
-    return _from_host(h, a), _from_host(edges, a)
+    """``jnp.histogram``'s algorithm: counts in the float type of ``a``
+    and ``weights`` (not numpy's int64), edges as ``jnp.linspace``
+    forms them, values outside the edges dropped.  Not recorded by
+    autograd, as the reference's is not."""
+    with torch.no_grad():
+        x = _float(_tensor_of(a)).reshape(-1)
+        w = None if weights is None else _tensor_of(weights, x).reshape(-1)
+        dt = x.dtype if w is None else torch.promote_types(
+            x.dtype, _float(w).dtype)
+        x = x.to(dt)
+        w = torch.ones_like(x) if w is None else w.to(dt)
+        if _is_arr(bins) or onp.ndim(bins) == 1:
+            edges = _tensor_of(bins, x).to(dt)
+        else:
+            lo, hi = (x.min(), x.max()) if range is None else (
+                torch.as_tensor(r, dtype=dt, device=x.device) for r in range)
+            if lo == hi:
+                lo, hi = lo - 0.5, hi + 0.5
+            step = (torch.arange(bins, device=x.device, dtype=dt)
+                    / torch.tensor(bins, dtype=dt, device=x.device))
+            edges = torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])
+        n = edges.shape[0]
+        idx = torch.searchsorted(edges, x, right=True)
+        idx = torch.where(x == edges[-1], n - 1, idx)
+        counts = torch.zeros(n + 1, dtype=dt, device=x.device).index_add_(
+            0, idx, w)[1:n]
+        if density:
+            counts = counts / torch.diff(edges) / counts.sum()
+    return NDArray(counts), NDArray(edges)
 
 
 def bincount(x, weights=None, minlength=0):

@@ -22,7 +22,11 @@ decode also: a page size that is a multiple of 16, at most 8 query heads
 per kv head).  Every other CUDA call goes to the general kernels of
 ``csrc/flash_general.cu`` and ``csrc/paged_general.cu``, which take the
 reference's whole contract: float16, bfloat16, float32 and float64, any
-head_dim from 1 to 256, any GQA ratio and any page size.
+head_dim from 1 to 256, any GQA ratio and any page size.  The backward
+has a third route between the two (:func:`_bwd_route`):
+``csrc/flash_bwd_mma.cu``, TF32 tensor cores in 3xTF32 for float16,
+bfloat16 and float32 at head_dim up to 128 with 16-byte rows; the
+general backward keeps float64, head_dim above 128 and unaligned rows.
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the
 plain version (``_dense_with_lse``, ``_flash_bwd_dense``,
@@ -52,12 +56,17 @@ NEG_INF = float("-inf")
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode": 0, "flash_fwd_general": 0,
             "flash_bwd_dq_general": 0, "flash_bwd_dkv_general": 0,
-            "paged_decode_general": 0}
+            "paged_decode_general": 0, "flash_bwd_dq_mma": 0,
+            "flash_bwd_dkv_mma": 0}
 
 #: dtype codes of the general kernels' C interface (csrc/general.cuh)
 GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
                   torch.float64: 3}
 MAX_HEAD_DIM = 256
+MMA_MAX_HEAD_DIM = 128
+#: backward route -> (library, entry-point / launch-count suffix)
+BWD_ROUTES = {"mma": ("flash_bwd_mma", "mma"),
+              "simt": ("flash_general", "general")}
 
 
 def reset_launch_counts():
@@ -310,28 +319,56 @@ def _launch_bwd(kernel, tensors, q, k, causal, scale):
     LAUNCHES[kernel] += 1
 
 
-def _launch_bwd_general(kernel, tensors, q, k, causal, scale):
-    """Launch ``mx_<kernel>_general`` of ``csrc/flash_general.cu``."""
+def _bwd_route(dtype, D, aligned):
+    """Which backward kernels take inputs of ``dtype`` at head_dim
+    ``D``; ``aligned``: rows of a 16-byte multiple (D * itemsize % 16
+    == 0) on 16-byte-aligned pointers.  ``"hopper"``: bf16 at 64 / 128
+    (``csrc/flash_bwd.cu``); ``"mma"``: float16, bfloat16 or float32 up
+    to 128 (``csrc/flash_bwd_mma.cu``, TF32 tensor cores); ``"simt"``:
+    the rest (float64, head_dim above 128, unaligned rows), on the CUDA
+    cores (``csrc/flash_general.cu``)."""
+    if aligned and dtype == torch.bfloat16 and D in (64, 128):
+        return "hopper"
+    if aligned and dtype in (torch.float16, torch.bfloat16, torch.float32) \
+            and 1 <= D <= MMA_MAX_HEAD_DIM:
+        return "mma"
+    return "simt"
+
+
+def _route_of(q, *ts):
+    """:func:`_bwd_route` of the backward's inputs ``q`` and ``ts``
+    (None entries skipped)."""
+    D = q.shape[-1]
+    aligned = D * q.element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q,) + ts if t is not None)
+    return _bwd_route(q.dtype, D, aligned)
+
+
+def _launch_bwd_general(kernel, tensors, q, k, causal, scale, route):
+    """Launch ``mx_<kernel>_mma`` of ``csrc/flash_bwd_mma.cu`` (route
+    ``"mma"``) or ``mx_<kernel>_general`` of ``csrc/flash_general.cu``
+    (``"simt"``): one C interface."""
     B, H, T, D = q.shape
     code = _general_dtype(q, D)
-    fn = getattr(_build.library("flash_general"), "mx_%s_general" % kernel)
-    err = fn(*(None if t is None else t.data_ptr() for t in tensors),
-             B, H, k.shape[1], T, k.shape[2], D, float(scale),
-             int(bool(causal)), code,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    lib, suffix = BWD_ROUTES[route]
+    name = "%s_%s" % (kernel, suffix)
+    err = getattr(_build.library(lib), "mx_" + name)(
+        *(None if t is None else t.data_ptr() for t in tensors),
+        B, H, k.shape[1], T, k.shape[2], D, float(scale), int(bool(causal)),
+        code, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError("%s_general kernel launch failed: CUDA error %d"
-                           % (kernel, err))
-    LAUNCHES[kernel + "_general"] += 1
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (name, err))
+    LAUNCHES[name] += 1
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
                        o=None, dlse=None):
-    """dq from the Hopper kernel (bf16) where it takes the inputs, else
-    from the general kernel (in the accumulation type); ``o`` / ``dlse``
-    / ``delta`` as for :func:`_flash_bwd_dq_hopper`."""
-    if _fits_hopper(q.shape[-1], *(t for t in (q, k, v, do, o)
-                                   if t is not None)):
+    """dq from the kernel of :func:`_bwd_route`: bf16 from the Hopper
+    kernel, else in the accumulation type; ``o`` / ``dlse`` / ``delta``
+    as for :func:`_flash_bwd_dq_hopper`."""
+    route = _route_of(q, k, v, do, o)
+    if route == "hopper":
         return _flash_bwd_dq_hopper(q, k, v, do, lse, delta, q_off, k_off,
                                     causal, scale, o=o, dlse=dlse)
     _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, o, dlse,
@@ -339,15 +376,16 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
     dq = torch.empty(q.shape, dtype=_acc(q), device=q.device)
     _launch_bwd_general("flash_bwd_dq", (q, k, v, do, o, lse, dlse, delta,
                                          q_off, k_off, dq), q, k, causal,
-                        scale)
+                        scale, route)
     return dq
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
                         scale):
-    """(dk, dv) from the Hopper kernel (bf16) where it takes the inputs,
-    else from the general kernel (in the accumulation type)."""
-    if _fits_hopper(q.shape[-1], q, k, v, do):
+    """(dk, dv) from the kernel of :func:`_bwd_route`: bf16 from the
+    Hopper kernel, else in the accumulation type."""
+    route = _route_of(q, k, v, do)
+    if route == "hopper":
         return _flash_bwd_dkv_hopper(q, k, v, do, lse, delta, q_off, k_off,
                                      causal, scale)
     _check_bwd_inputs(q, k, v, do, lse, delta, q_off, k_off, None, None,
@@ -356,7 +394,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
     dv = torch.empty(v.shape, dtype=_acc(q), device=q.device)
     _launch_bwd_general("flash_bwd_dkv", (q, k, v, do, lse, delta, q_off,
                                           k_off, dk, dv), q, k, causal,
-                        scale)
+                        scale, route)
     return dk, dv
 
 
@@ -389,11 +427,12 @@ def _flash_bwd_dkv_hopper(q, k, v, do, lse, delta, q_off, k_off, causal,
 
 def _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
                     o=None, dlse=None):
-    """(dq, dk, dv) from the two backward kernels: those of
-    ``csrc/flash_bwd.cu`` (bf16 out) where they take the inputs, else the
-    general ones (out in the accumulation type).  With ``o`` (and
-    ``delta`` None) the dq kernel computes delta from ``o`` and
-    ``dlse``; otherwise ``delta`` is given."""
+    """(dq, dk, dv) from the two backward kernels of
+    :func:`_bwd_route`'s route: those of ``csrc/flash_bwd.cu`` (bf16
+    out), ``csrc/flash_bwd_mma.cu`` or ``csrc/flash_general.cu`` (out in
+    the accumulation type).  With ``o`` (and ``delta`` None) the dq
+    kernel computes delta from ``o`` and ``dlse``; otherwise ``delta``
+    is given."""
     if o is not None:
         delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,

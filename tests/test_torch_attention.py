@@ -109,8 +109,9 @@ def test_cpu_path_launches_no_kernel():
     qq, kk, vv = (torch.from_numpy(a) for a in _qkv(3, 1, 4, 2, 16, 16, 64))
     cuda_ops.flash_attention(qq, kk, vv, causal=True)
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
-    assert cuda_ops.LAUNCHES == {
-        name: 0 for k in kernels for name in (k, k + "_general")}
+    assert cuda_ops.LAUNCHES == dict.fromkeys(
+        [name for k in kernels for name in (k, k + "_general")]
+        + ["flash_bwd_dq_mma", "flash_bwd_dkv_mma"], 0)
 
 
 def test_gqa_head_mismatch_raises():

@@ -338,7 +338,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev,
 #: version on the same card inputs with TF32 off.  float32 and float64
 #: differ only by the order of their sums; float16 / bf16 outputs also by
 #: the plain forward rounding P to the input type before P V, where the
-#: kernel keeps it in float32, and by one rounding of the output.
+#: kernel keeps it in float32, and by one rounding of the output.  The
+#: tensor-core backward also by its 3xTF32 products (about 2^-22 each).
 GENERAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5,
                torch.float16: 4e-3, torch.bfloat16: 2e-2}
 
@@ -386,6 +387,10 @@ GENERAL_FLASH_CASES = [
     (1, 2, 1, 40, 40, True, 0, 0, 256, _F64),
     (2, 8, 2, 1, 100, True, 99, 0, 128, _F32),
     (1, 4, 4, 70, 70, True, 0, 0, 96, _BF16),
+    (1, 6, 2, 90, 130, True, 40, 0, 12, _F32),   # mma, padded to 16
+    (1, 4, 1, 65, 65, False, 0, 0, 40, _F16),    # mma, padded to 64
+    (1, 4, 2, 60, 60, True, 0, 0, 12, _F16),     # simt: 24-byte rows
+    (1, 4, 4, 50, 80, True, 0, 30, 20, _BF16),   # simt: 40-byte rows
 ]
 
 
@@ -422,13 +427,19 @@ def test_general_flash_forward_matches_plain(dev, exact_fp32, case):
 
 @pytest.mark.parametrize("case", GENERAL_FLASH_CASES)
 def test_general_flash_backward_matches_plain(dev, exact_fp32, case):
-    """dq, dk, dv of the general backward against ``_flash_bwd_dense`` on
-    the same inputs, lse and delta: both sum in the accumulation type,
-    so every dtype is within its float32 / float64 tolerance; delta
-    computed inside the dq launch (the training path) and given (the
-    ring primitive's)."""
+    """dq, dk, dv of the backward that ``_bwd_route`` picks (the
+    tensor-core kernels for float16 / bfloat16 / float32 up to head_dim
+    128 with 16-byte rows, the general ones for float64, head_dim 256
+    and unaligned rows) against ``_flash_bwd_dense`` on the same inputs,
+    lse and delta: both sum in float32 (float64 for float64), so every
+    dtype is within its float32 / float64 tolerance; delta computed
+    inside the dq launch (the training path) and given (the ring
+    primitive's)."""
     causal, D, dt = case[5], case[8], case[9]
     q, k, v, offs = _general_inputs(dev, case)
+    route = cuda_ops._bwd_route(dt, D, D * q.element_size() % 16 == 0)
+    assert route == ("simt" if dt == _F64 or D > 128 or
+                     D * q.element_size() % 16 else "mma")
     do = _rand(dev, 7, dt, *q.shape)
     o, lse = cuda_ops._dense_with_lse(q, k, v, *offs, causal, D ** -0.5)
     dlse = _rand(dev, 8, torch.float32, *lse.shape)
@@ -444,7 +455,8 @@ def test_general_flash_backward_matches_plain(dev, exact_fp32, case):
         again = cuda_ops._flash_bwd_cuda(q, k, v, do, lse, d, *offs, causal,
                                          D ** -0.5, **kw)
         torch.cuda.synchronize()
-        for name in ("flash_bwd_dq_general", "flash_bwd_dkv_general"):
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            name += "_" + cuda_ops.BWD_ROUTES[route][1]
             assert cuda_ops.LAUNCHES[name] == before[name] + 2
         for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
             assert g.dtype == w.dtype and torch.equal(g, g2), name
@@ -488,8 +500,8 @@ def test_general_paged_kernel_matches_plain(dev, exact_fp32, case):
 
 def test_general_kernels_train_a_float32_layer(dev, exact_fp32):
     """flash_attention's autograd on float32 CUDA tensors (head_dim 16,
-    GQA 4) runs the general forward, dq and dk/dv and gives the plain
-    CPU path's gradients."""
+    GQA 4) runs the general forward and the tensor-core dq and dk/dv,
+    and gives the plain CPU path's gradients."""
     q, k, v = (_rand(torch.device("cpu"), s, _F32, *shape) for s, shape in
                ((1, (2, 8, 24, 16)), (2, (2, 2, 24, 16)), (3, (2, 2, 24, 16))))
     grads = []
@@ -499,8 +511,8 @@ def test_general_kernels_train_a_float32_layer(dev, exact_fp32):
         o, lse = cuda_ops.flash_attention_with_lse(*leaves, causal=True)
         ((o * o).sum() + lse.sum()).backward()
         grads.append([t.grad.cpu() for t in leaves])
-    for name in ("flash_fwd_general", "flash_bwd_dq_general",
-                 "flash_bwd_dkv_general"):
+    for name in ("flash_fwd_general", "flash_bwd_dq_mma",
+                 "flash_bwd_dkv_mma"):
         assert cuda_ops.LAUNCHES[name] == 1
     for g, w in zip(*grads):
         assert _max_err(g, w) <= 1e-5 * w.abs().max().item()

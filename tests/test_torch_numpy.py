@@ -423,3 +423,59 @@ def test_random_normal_reaches_its_parameters_with_gradients():
     onp.testing.assert_array_equal(loc.grad.asnumpy(), [1.0, 1.0])
     z = (s.asnumpy() - [1.0, 2.0]) / [0.5, 3.0]
     onp.testing.assert_allclose(scale.grad.asnumpy(), z, rtol=1e-6)
+
+
+# partition / argpartition follow jnp (two top-k's), not numpy: the kth
+# + 1 smallest ascending, then the largest descending; argpartition's
+# tail is the remaining indices in ascending order.  TIES rounds values
+# to a few levels so that equal values meet the kth boundary.
+TIES = onp.round(_rand(10, 3, 5, 6) * 2)
+DISTINCT = _rand(11, 3, 5, 6)
+PARTITION_CASES = [(kth, axis) for axis in (-1, 0, 1)
+                   for kth in (0, 2, -1, -3)]
+
+
+@pytest.mark.parametrize("data", [TIES, DISTINCT], ids=["ties", "distinct"])
+@pytest.mark.parametrize("kth,axis", PARTITION_CASES)
+def test_partition_and_argpartition_match_jax(data, kth, axis):
+    _close(*_both(lambda np, a: np.partition(a, kth, axis=axis), data))
+    _close(*_both(lambda np, a: np.argpartition(a, kth, axis=axis), data))
+
+
+@pytest.mark.parametrize("data", [TIES, DISTINCT], ids=["ties", "distinct"])
+def test_partition_gradient_matches_jax_grad(data):
+    """``partition`` is recorded, and its gradient reaches each value's
+    index as ``jax.grad`` of ``jnp.partition`` routes it (ties
+    included)."""
+    import jax
+    import jax.numpy as jnp
+    w = _rand(12, 3, 5, 6)
+    with tmx.cpu():
+        a = tmx.np.array(data)
+        a.attach_grad()
+        with tmx.autograd.record():
+            y = (tmx.np.partition(a, 2, axis=1) * tmx.np.array(w)).sum()
+        y.backward()
+        got = a.grad.asnumpy()
+    want = jax.grad(lambda x: (jnp.partition(x, 2, axis=1) * w).sum())(
+        jnp.asarray(data))
+    _close(got, onp.asarray(want))
+
+
+HIST_CASES = {
+    "bins": lambda np, a: np.histogram(a, bins=7),
+    "range": lambda np, a: np.histogram(a, bins=4, range=(-0.5, 0.5)),
+    "edges": lambda np, a: np.histogram(a, bins=np.array([-1.0, -0.2, 0.1,
+                                                          0.9])),
+    "weights_density": lambda np, a: np.histogram(
+        a, bins=5, weights=a * a, density=True),
+    "int_input": lambda np, a: np.histogram(np.round(a * 4).astype("int32"),
+                                            bins=3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HIST_CASES))
+def test_histogram_counts_and_edges_match_jax(name):
+    """Counts in the reference's float dtype (float32, not int), edges
+    to float32 rounding."""
+    _close(*_both(HIST_CASES[name], DISTINCT))

@@ -17,9 +17,9 @@ the Gluon zoo (inference at ``__graft_entry__.entry()``'s shape, eager and
 hybridized, NCHW and NHWC, then training) and trains BERT-base through
 the flash kernels at head_dim 64.  The general kernels (every dtype,
 head_dim and GQA ratio the Hopper ones do not take) and the
-tensor-core backward (float16 / bfloat16 / float32 up to head_dim 128)
-are held against their plain versions and timed at BERT's float32
-shape; the float32 ``tiny_config`` and ``bert_tiny_config`` run on the
+tensor-core forward and backward (float16 / bfloat16 / float32 up to
+head_dim 128) are held against their plain versions and timed at
+BERT's float32 shape; the float32 ``tiny_config`` and ``bert_tiny_config`` run on the
 card against the CPU; BERT-base trains at its default float32; and
 ``entry()`` runs in its MXNet spelling (``import mxnet_tpu_torch as
 mx``).  Each path that
@@ -1260,11 +1260,12 @@ def bert_phase(mt, co, dev, card):
 #: kernel keeps it in float32, and by one rounding of the output.  The
 #: backward sums in float32 (float64) on both sides from the same
 #: inputs, lse and delta, so every dtype is held to its accumulation
-#: type's limit; the tensor-core backward's float32 products are 3xTF32
+#: type's limit; the tensor-core kernels' float32 products are 3xTF32
 #: (about 2^-22 of each product) summed in float32.  Measured on an H100
-#: over the cases below: float32 O 7.8e-7; float64 2.8e-16 / 1.1e-15;
-#: float16 O 8.1e-4; bf16 O 4.6e-3; paged 2.2e-5 (bf16), 3.0e-7
-#: (float32), 6.2e-16 (float64); the general backward 8.8e-7, the
+#: over the cases below: the tensor-core forward O 1.1e-6, lse 1.9e-7
+#: (float32), O 8.1e-4 (float16), 4.8e-3 (bf16); the general forward
+#: 2.8e-16 (float64), 4.6e-3 (bf16 at D 256); paged 4.3e-8 (bf16),
+#: 7.8e-7 (float32), 5.4e-16 (float64); the general backward 8.8e-7, the
 #: tensor-core backward 1.6e-6 (float32), 9.2e-7 (float16), 6.4e-7
 #: (bf16).
 GENERAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5,
@@ -1274,10 +1275,10 @@ _F16, _BF16, _F32, _F64 = (torch.float16, torch.bfloat16, torch.float32,
 # (B, H, Hkv, T, Tk, causal, q_off, k_off, D, dtype): fp16, fp32, fp64
 # and bf16 at D 256; D 12, 16, 20, 32, 96, 256; GQA groups 1, 2, 3, 4
 # and 32; causal and not, with ring-step offsets whose first rows see no
-# key.  The backward of the fp16 / bf16 / fp32 cases up to D 128 with
-# 16-byte rows runs the tensor-core kernels, of the others (fp64, D 256,
-# fp16 D 12 and bf16 D 20 with 24- and 40-byte rows) the general ones
-# (_bwd_route), so every dtype is held on both routes.
+# key.  The forward and backward of the fp16 / bf16 / fp32 cases up to D
+# 128 with 16-byte rows run the tensor-core kernels, of the others (fp64,
+# D 256, fp16 D 12 and bf16 D 20 with 24- and 40-byte rows) the general
+# ones (_flash_route), so every dtype is held on both routes.
 GENERAL_FLASH_CASES = [
     (2, 8, 2, 200, 200, True, 0, 0, 16, _F16),
     (2, 8, 2, 130, 300, True, 170, 0, 16, _F32),
@@ -1295,7 +1296,8 @@ GENERAL_FLASH_CASES = [
     (1, 6, 3, 100, 100, False, 0, 0, 20, _BF16),
 ]
 # (S, H, Hkv, D, psz, MP, lengths, dtype): rep 16 and 32, page sizes 1,
-# 24 and 128, lengths of 0, head_dim 256
+# 7, 24 and 128, lengths of 0 and past the table, head_dim 256; the
+# page-7 rep-32 case's splits of 32 keys cross pages
 GENERAL_PAGED_CASES = [
     (3, 32, 2, 128, 16, 8, [0, 100, 128], _BF16),
     (2, 32, 1, 64, 24, 6, [1, 144], _F32),
@@ -1304,6 +1306,7 @@ GENERAL_PAGED_CASES = [
     (2, 8, 8, 96, 24, 4, [60, 0], _F64),
     (3, 8, 4, 32, 7, 5, [34, 5, 7], _F16),
     (8, 32, 8, 128, 128, 3, [51, 90, 128, 129, 200, 256, 300, 347], _F32),
+    (3, 32, 1, 64, 7, 40, [0, 131, 300], _F32),
 ]
 
 
@@ -1328,9 +1331,10 @@ def _rel_err(got, want):
 
 
 def _general_check(co, dev, errs):
-    """Each general kernel, and the tensor-core backward, against its
-    plain version over the cases above; fills ``errs`` {kernel: (max abs
-    err, max rel err)}."""
+    """Each general kernel, and the tensor-core forward and backward,
+    against its plain version over the cases above, each flash case on
+    the route ``_flash_route`` gives it; fills ``errs`` {kernel: (max
+    abs err, max rel err)}."""
     gen = torch.Generator(device="cpu").manual_seed(11)
 
     def note(kernel, name, dt, got, want, tol):
@@ -1350,23 +1354,29 @@ def _general_check(co, dev, errs):
         offs = [torch.tensor([x], dtype=torch.int32, device=dev)
                 for x in (qo, ko)]
         scale = D ** -0.5
+        route = co._route_of(q, k, v, do)
+        fwd = "flash_fwd_" + co.FWD_ROUTES[route][1]
         before = dict(co.LAUNCHES)
         o, lse = co._flash_fwd_cuda(q, k, v, *offs, causal, scale)
+        o2, lse2 = co._flash_fwd_cuda(q, k, v, *offs, causal, scale)
         o_p, lse_p = co._dense_with_lse(q, k, v, *offs, causal, scale)
         masked = torch.isneginf(lse_p)
         check(torch.equal(torch.isneginf(lse), masked) and not o[
             masked[..., None].expand_as(o)].any(),
             "general flash: rows that see no key differ")
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              "%s (%s): two calls differ" % (fwd, dt))
         tol = GENERAL_TOL[dt]
-        r_o = note("flash_fwd_general", "O", dt, o, o_p, tol)
-        r_l = note("flash_fwd_general", "lse", dt, lse[~masked],
-                   lse_p[~masked], max(tol, 2 ** -23))
+        r_o = note(fwd, "O", dt, o, o_p, tol)
+        r_l = note(fwd, "lse", dt, lse[~masked], lse_p[~masked],
+                   max(tol, 2 ** -23))
         dlse = torch.randn(B, H, T, generator=gen).to(dev)
         delta = co._delta(do, o_p, dlse)
         want = co._flash_bwd_dense(q, k, v, do, lse_p, delta, *offs, causal,
                                    scale)
         btol = GENERAL_TOL[_F64 if dt == _F64 else _F32]
-        route = co._route_of(q, k, v, do, o_p)
+        check(co._route_of(q, k, v, do, o_p) == route,
+              "general flash: the forward and backward routes differ")
         suffix = "_" + co.BWD_ROUTES[route][1]
         rels = {}
         for how, kw in (("fused delta", dict(o=o_p, dlse=dlse)),
@@ -1386,19 +1396,18 @@ def _general_check(co, dev, errs):
                                  note(kern, "%s, %s" % (name, how), dt, g, w,
                                       btol))
         torch.cuda.synchronize()
-        for kern, n in (("flash_fwd_general", 1),
-                        ("flash_bwd_dq" + suffix, 4),
+        for kern, n in ((fwd, 2), ("flash_bwd_dq" + suffix, 4),
                         ("flash_bwd_dkv" + suffix, 4)):
             check(co.LAUNCHES[kern] == before[kern] + n,
                   "general flash: %s did not run" % kern)
         print("general flash %s B=%d H=%d/%d T=%d Tk=%d D=%d causal=%s "
-              "q_off=%d k_off=%d: max|d|/max|plain| O %.2e lse %.2e (limit "
-              "%.0e); backward on %s: dq %.2e dk %.2e dv %.2e (limit %.0e), "
+              "q_off=%d k_off=%d, on %s: max|d|/max|plain| O %.2e lse %.2e "
+              "(limit %.0e); backward: dq %.2e dk %.2e dv %.2e (limit %.0e), "
               "bitwise repeatable; rows seeing no key %d"
-              % (str(dt)[6:], B, H, Hkv, T, Tk, D, causal, qo, ko, r_o, r_l,
-                 tol, route, rels["dq"], rels["dk"], rels["dv"], btol,
+              % (str(dt)[6:], B, H, Hkv, T, Tk, D, causal, qo, ko, route,
+                 r_o, r_l, tol, rels["dq"], rels["dk"], rels["dv"], btol,
                  int(masked.sum())))
-        del q, k, v, do, o, lse, o_p, lse_p, got, again, want
+        del q, k, v, do, o, lse, o2, lse2, o_p, lse_p, got, again, want
     for S, H, Hkv, D, psz, MP, lens_h, dt in GENERAL_PAGED_CASES:
         P = S * MP + 1
         q = torch.randn(S, H, D, generator=gen, dtype=torch.float64).to(
@@ -1411,20 +1420,24 @@ def _general_check(co, dev, errs):
         lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
         before = co.LAUNCHES["paged_decode_general"]
         got = co.paged_attention(q, kp, vp, pt, lens)
+        again = co.paged_attention(q, kp, vp, pt, lens)
         torch.cuda.synchronize()
-        check(co.LAUNCHES["paged_decode_general"] == before + 1,
+        check(co.LAUNCHES["paged_decode_general"] == before + 2,
               "general paged: the kernel did not run")
+        check(torch.equal(got, again), "general paged: two calls differ")
         for s, n in enumerate(lens_h):
             check(n > 0 or not got[s].any().item(),
                   "general paged: an empty slot is not zero")
         rel = note("paged_decode_general", "O", dt, got,
                    co._paged_dense(q, kp, vp, pt, lens, D ** -0.5),
                    GENERAL_TOL[dt])
+        nsplit, kps, _ = co.paged_general_plan(S, H, Hkv, MP, psz)
         print("general paged %s S=%d H=%d/%d (rep %d) D=%d page %d, lengths "
-              "%s: max|d|/max|plain| %.2e (limit %.0e)"
-              % (str(dt)[6:], S, H, Hkv, H // Hkv, D, psz, lens_h, rel,
-                 GENERAL_TOL[dt]))
-        del q, kp, vp, got
+              "%s, %d splits of %d keys: max|d|/max|plain| %.2e (limit "
+              "%.0e), bitwise repeatable"
+              % (str(dt)[6:], S, H, Hkv, H // Hkv, D, psz, lens_h, nsplit,
+                 kps, rel, GENERAL_TOL[dt]))
+        del q, kp, vp, got, again
 
 
 TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores
@@ -1432,17 +1445,17 @@ TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores
 
 def general_timing(co, dev, card):
     """The kernels of BERT-base's float32 attention, q/k/v (16, 12, 512,
-    64) non-causal: the general forward, the tensor-core dq and dk/dv
-    (the route the path takes) and the whole backward by device time;
-    the general (SIMT) dq and dk/dv on the same inputs through their
-    launcher (no public route reaches them at float32); SDPA on the
+    64) non-causal: the tensor-core forward, dq and dk/dv (the route the
+    path takes) and the whole backward by device time; the general
+    (SIMT) forward, dq and dk/dv on the same inputs through their
+    launchers (no public route reaches them at float32); SDPA on the
     same float32 inputs as the library call; the plain versions by
     event time; paged decode at the serving shape (8 slots, 32/8 heads
-    of 128, pages of 128) in float32.  The forward, paged and SIMT
-    bounds use the float32 rate outside the tensor cores; the bound of
-    the tensor-core backward is its 3xTF32 floor, three passes of its
-    flops at the published dense TF32 rate (the float32 one beside it
-    as ``bound_fp32_ms``)."""
+    of 128, pages of 128) in float32.  The paged and SIMT bounds use the
+    float32 rate outside the tensor cores; the bound of a tensor-core
+    kernel is its 3xTF32 floor, three passes of its flops at the
+    published dense TF32 rate (the float32 one beside it as
+    ``bound_fp32_ms``)."""
     B, H, Hkv, T, D, causal = BERT_ATTN
     gen = torch.Generator(device="cpu").manual_seed(12)
     q, k, v, do = (torch.randn(B, n, T, D, generator=gen).to(dev)
@@ -1452,11 +1465,16 @@ def general_timing(co, dev, card):
     o, lse = co._flash_fwd_cuda(q, k, v, zero, zero, causal, scale)
     dlse = torch.zeros_like(lse)
     delta = co._delta(do, o, dlse)
-    fwd_ms, _ = device_ms(lambda: co.flash_attention(q, k, v), "fwd_general")
+    check(co._route_of(q, k, v, do, o) == "mma", "BERT's float32 forward "
+          "and backward do not route to the tensor cores")
+    fwd_ms = {}
+    fwd_ms["mma"], _ = device_ms(lambda: co.flash_attention(q, k, v),
+                                 "fwd_mma")
     fwd_call = time_ms(lambda: co.flash_attention(q, k, v))
+    # the earlier design on the same inputs, through its launcher
+    fwd_ms["simt"], _ = device_ms(lambda: co._flash_fwd_general(
+        q, k, v, zero, zero, causal, scale, "simt"), "fwd_general")
     scratch = torch.empty_like(delta)
-    check(co._route_of(q, k, v, do, o) == "mma",
-          "BERT's float32 backward does not route to the tensor cores")
     dq_ms, dkv_ms = {}, {}
     dq_ms["mma"], _ = device_ms(lambda: co._flash_bwd_dq_cuda(
         q, k, v, do, lse, scratch, zero, zero, causal, scale, o=o,
@@ -1488,6 +1506,8 @@ def general_timing(co, dev, card):
     pairs = _pairs(B, H, T, causal)
     qd = 4 * B * H * T * D                      # bytes of one float32 q
     fwd_b = bound_ms(4 * qd + 4 * B * H * T, 4 * D * pairs, FP32_FLOPS_PER_S)
+    fwd_floor = bound_ms(4 * qd + 4 * B * H * T, 3 * 4 * D * pairs,
+                         TF32_FLOPS_PER_S)
     # (bytes, flops per pair and head-dim element) of dq, dk/dv and both
     work = {"dq": (6 * qd + 3 * 4 * B * H * T, 6),
             "dkv": (6 * qd + 2 * 4 * B * H * T, 8),
@@ -1497,14 +1517,16 @@ def general_timing(co, dev, card):
     floor = {n: bound_ms(nb, 3 * f * D * pairs, TF32_FLOPS_PER_S)
              for n, (nb, f) in work.items()}
     shape = "q/k/v (%d,%d,%d,%d) float32 non-causal" % (B, H, T, D)
-    print("general flash timing %s: forward %.4f ms (device; call %.4f; "
-          "bound %.4f, %s; plain %.4f; SDPA %.4f, kernels %s); tensor-core "
+    print("general flash timing %s: tensor-core forward %.4f ms (device; "
+          "call %.4f; general %.4f; float32 bound %.4f, %s; 3xTF32 floor "
+          "%.4f; plain %.4f; SDPA %.4f, kernels %s); tensor-core "
           "dq %.4f ms, dk/dv %.4f ms (general: %.4f, %.4f; float32 bound "
           "%.4f, %.4f; 3xTF32 floor %.4f, %.4f), whole backward %.4f ms "
           "(device; kernels %s; float32 bound %.4f; 3xTF32 floor %.4f; "
           "general pair %.4f; plain %.4f; SDPA backward %.4f, kernels %s) "
           "[%s]"
-          % (shape, fwd_ms, fwd_call, fwd_b[0], fwd_b[1], fwd_plain, lib_fwd,
+          % (shape, fwd_ms["mma"], fwd_call, fwd_ms["simt"], fwd_b[0],
+             fwd_b[1], fwd_floor[0], fwd_plain, lib_fwd,
              ", ".join("%s %.4f" % kv for kv in lib_fk.items()),
              dq_ms["mma"], dkv_ms["mma"], dq_ms["simt"], dkv_ms["simt"],
              fp32_b["dq"][0], fp32_b["dkv"][0], floor["dq"][0],
@@ -1555,8 +1577,13 @@ def general_timing(co, dev, card):
             bwd["flash_bwd_%s_%s" % (kern, tag)] = dict(
                 common, ms=ms[route], plain_ms=bwd_plain, bound_ms=b[0],
                 bound_by=b[1], library_ms=lib_bwd, **extra)
-    return {"flash_fwd_general": dict(
-                common, ms=fwd_ms, call_ms=fwd_call, plain_ms=fwd_plain,
+    return {"flash_fwd_mma": dict(
+                common, ms=fwd_ms["mma"], call_ms=fwd_call,
+                plain_ms=fwd_plain, bound_ms=fwd_floor[0],
+                bound_by=fwd_floor[1], bound_fp32_ms=fwd_b[0],
+                library_ms=lib_fwd),
+            "flash_fwd_general": dict(
+                common, ms=fwd_ms["simt"], plain_ms=fwd_plain,
                 bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=lib_fwd),
             **bwd,
             "paged_decode_general": dict(
@@ -1565,38 +1592,37 @@ def general_timing(co, dev, card):
 
 
 def general_kernel_phase(co, dev, card):
-    """The four general kernels and the two tensor-core backward kernels
+    """The four general kernels and the three tensor-core kernels
     against their plain versions, then timed; returns their records for
     the kernels line."""
     errs = {}
     with exact_fp32():
         _general_check(co, dev, errs)
     timing = general_timing(co, dev, card)
-    src = {"general": "mxnet_tpu_torch/csrc/flash_general.cu",
-           "mma": "mxnet_tpu_torch/csrc/flash_bwd_mma.cu"}
-    replaces = {"flash_fwd_general": "mxnet_tpu/ops/pallas_ops.py:62",
-                "flash_bwd_dq_general": "mxnet_tpu/ops/pallas_ops.py:149",
-                "flash_bwd_dkv_general": "mxnet_tpu/ops/pallas_ops.py:227",
-                "paged_decode_general": "mxnet_tpu/ops/pallas_ops.py:621",
-                "flash_bwd_dq_mma": "mxnet_tpu/ops/pallas_ops.py:149",
-                "flash_bwd_dkv_mma": "mxnet_tpu/ops/pallas_ops.py:227"}
+    pallas = "mxnet_tpu/ops/pallas_ops.py:"
+    # name -> (TPU kernel it replaces, source)
+    kernels = {"flash_fwd_general": ("62", "flash_general"),
+               "flash_bwd_dq_general": ("149", "flash_general"),
+               "flash_bwd_dkv_general": ("227", "flash_general"),
+               "paged_decode_general": ("621", "paged_general"),
+               "flash_fwd_mma": ("62", "flash_fwd_mma"),
+               "flash_bwd_dq_mma": ("149", "flash_bwd_mma"),
+               "flash_bwd_dkv_mma": ("227", "flash_bwd_mma")}
     return [dict({"name": name, "route": "cuda",
-                  "source": ("mxnet_tpu_torch/csrc/paged_general.cu"
-                             if name.startswith("paged")
-                             else src[name.rsplit("_", 1)[1]]),
-                  "replaces": replaces[name], "max_abs_err": errs[name][0],
+                  "source": "mxnet_tpu_torch/csrc/%s.cu" % src,
+                  "replaces": pallas + line, "max_abs_err": errs[name][0],
                   "max_rel_err": errs[name][1]}, **timing[name])
-            for name in replaces]
+            for name, (line, src) in kernels.items()]
 
 
 # ----------------------------------------------------------------------
-# phase 12: BERT-base at its default float32: the general forward and
-# the tensor-core backward
+# phase 12: BERT-base at its default float32: the tensor-core forward
+# and backward
 # ----------------------------------------------------------------------
 def bert_fp32_phase(mt, co, dev, card):
     """``BERTForPretrain(bert_base_config())`` at its default float32,
     B=16, T=512, no ``valid_length``: 3 AdamW steps through the Gluon
-    ``Trainer``, attention on the general forward and the tensor-core
+    ``Trainer``, attention on the tensor-core forward and
     backward.  Returns the launch counts of those steps."""
     cfg = mt.models.bert_base_config()
     check(cfg.dtype == "float32", "bert_base_config is not float32: %s"
@@ -1626,7 +1652,8 @@ def bert_fp32_phase(mt, co, dev, card):
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(v) for v in losses), "bert fp32: a loss is not "
           "finite: %s" % losses)
-    for name, per_step in (("flash_fwd_general", cfg.num_layers),
+    for name, per_step in (("flash_fwd_mma", cfg.num_layers),
+                           ("flash_fwd_general", 0),
                            ("flash_bwd_dq_mma", cfg.num_layers),
                            ("flash_bwd_dkv_mma", cfg.num_layers),
                            ("flash_bwd_dq_general", 0),
@@ -1736,7 +1763,7 @@ def tiny_fp32_phase(mt, co, dev, card):
     check(abs(blosses[0] - blosses[1]) <= TINY_GRAD_REL * abs(blosses[1])
           and grel <= TINY_GRAD_REL, "bert tiny: card and CPU differ: "
           "losses %s, grads %.2e" % (blosses, grel))
-    for name in ("flash_fwd_general", "flash_bwd_dq_mma",
+    for name in ("flash_fwd_mma", "flash_bwd_dq_mma",
                  "flash_bwd_dkv_mma", "paged_decode_general"):
         check(launches[name] > 0, "tiny: %s did not run" % name)
     return launches
@@ -1864,7 +1891,7 @@ def entry_phase(mt, co, dev, card):
     torch.cuda.synchronize()
     launches = dict(co.LAUNCHES)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "flash_fwd_general", "flash_bwd_dq_mma",
+                 "flash_fwd_mma", "flash_bwd_dq_mma",
                  "flash_bwd_dkv_mma"):
         check(launches[name] == 1, "entry: npx.flash_attention launched %s "
               "%d times, want 1" % (name, launches[name]))

@@ -89,8 +89,6 @@ using namespace mxm;
 constexpr int WARPS = 4;
 constexpr int NT = WARPS * 32;
 constexpr int BM = 16 * WARPS;      // rows a CTA owns: 16 per warp
-constexpr int MAX_D = 128;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // An instance: element type T, head dim padded to DP.
 template <typename T, int DP> struct Geo {
@@ -105,18 +103,6 @@ template <typename T, int DP> struct Geo {
       (size_t)ROWS * LD * sizeof(T) + 2 * BM * sizeof(float);
   static_assert(4 * BN <= 2 * BM, "dk/dv's lse and delta stages");
 };
-
-// Zero columns D .. DP - 1 of every row: cp.async writes columns < D.
-template <typename T, int DP>
-__device__ __forceinline__ void zero_pad(T* s, int D) {
-  using G = Geo<T, DP>;
-  const int w = DP - D;
-  if (w == 0) return;
-  for (int i = threadIdx.x; i < G::ROWS * w; i += NT) {
-    const int r = i / w;
-    s[(size_t)r * G::LD + D + (i - r * w)] = mxg::from_acc<T>(0.f);
-  }
-}
 
 // The float32 lse as the backward reads it: -inf as 0 (pallas_ops.py
 // :174, :256), times log2(e) for exp2.
@@ -156,7 +142,7 @@ __global__ void __launch_bounds__(NT, 2) dq_mma_kernel(
   const T* kb = k + (size_t)bkv * Tk * D;
   const T* vb = v + (size_t)bkv * Tk * D;
 
-  zero_pad<T, DP>(qs, D);
+  zero_cols<T, NT>(qs, G::ROWS, LD, D, DP);
   copy_rows<T, NT>(qs, LD, q + (size_t)bh * Tq * D, D, t0, BM, Tq);
   copy_rows<T, NT>(dos, LD, dout + (size_t)bh * Tq * D, D, t0, BM, Tq);
   cp_async_commit();
@@ -331,7 +317,7 @@ __global__ void __launch_bounds__(NT, 2) dkv_mma_kernel(
   const int g = lane >> 2, tq = lane & 3;
   const long long qo = q_off[0], ko = k_off[0];
 
-  zero_pad<T, DP>(ks, D);
+  zero_cols<T, NT>(ks, G::ROWS, LD, D, DP);
   copy_rows<T, NT>(ks, LD, k + (size_t)bkv * Tk * D, D, j0, BM, Tk);
   copy_rows<T, NT>(vs, LD, v + (size_t)bkv * Tk * D, D, j0, BM, Tk);
   cp_async_commit();
@@ -473,20 +459,6 @@ __global__ void __launch_bounds__(NT, 2) dkv_mma_kernel(
     }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// The shapes, and rows of 16-byte multiples on 16-byte boundaries.
-bool inputs_ok(int B, int H, int Hkv, int Tq, int Tk, int D, int dtype,
-               const void* q, const void* k, const void* v,
-               const void* dout) {
-  const int size = dtype == mxg::F32 ? 4 : 2;
-  return B >= 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && Tq >= 0 &&
-         Tk >= 0 && D >= 1 && D <= MAX_D && (D * size) % 16 == 0 &&
-         aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-}
-
 template <typename T, int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* o, const float* lse, const float* dlse,
@@ -528,28 +500,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace
-
-// Call LAUNCH<T, DP>(...) for the dtype code and the head dim's bucket.
-#define MXM_DISPATCH(dtype, D, LAUNCH, ...)                                  \
-  ([&]() -> int {                                                            \
-    const int dp_ = (D) <= 16 ? 16 : (D) <= 32 ? 32 : (D) <= 64 ? 64 : 128;  \
-    switch ((dtype) * 256 + dp_) {                                           \
-      case mxg::F16 * 256 + 16: return LAUNCH<__half, 16>(__VA_ARGS__);      \
-      case mxg::F16 * 256 + 32: return LAUNCH<__half, 32>(__VA_ARGS__);      \
-      case mxg::F16 * 256 + 64: return LAUNCH<__half, 64>(__VA_ARGS__);      \
-      case mxg::F16 * 256 + 128: return LAUNCH<__half, 128>(__VA_ARGS__);    \
-      case mxg::BF16 * 256 + 16: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__); \
-      case mxg::BF16 * 256 + 32: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__); \
-      case mxg::BF16 * 256 + 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__); \
-      case mxg::BF16 * 256 + 128:                                            \
-        return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                      \
-      case mxg::F32 * 256 + 16: return LAUNCH<float, 16>(__VA_ARGS__);       \
-      case mxg::F32 * 256 + 32: return LAUNCH<float, 32>(__VA_ARGS__);       \
-      case mxg::F32 * 256 + 64: return LAUNCH<float, 64>(__VA_ARGS__);       \
-      case mxg::F32 * 256 + 128: return LAUNCH<float, 128>(__VA_ARGS__);     \
-      default: return (int)cudaErrorInvalidValue;                            \
-    }                                                                        \
-  }())
 
 // dq (B*H, T, D) float32.  With `o` (non-null) delta = rowsum(dO o O) -
 // dlse (`dlse` may be null) is computed for each row and written into

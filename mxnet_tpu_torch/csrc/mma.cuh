@@ -1,8 +1,9 @@
 // Tensor-core pieces shared by the mma.sync attention kernels
-// (flash_bwd_mma.cu): the TF32 split of a float32 value and of a tile
-// in shared memory, the m16n8k8 TF32 mma, fragment loads from padded
-// shared-memory rows, and 16-byte cp.async copies with commit / wait
-// groups.
+// (flash_fwd_mma.cu, flash_bwd_mma.cu): the TF32 split of a float32
+// value and of a tile in shared memory, the m16n8k8 TF32 mma, fragment
+// loads from padded shared-memory rows, 16-byte cp.async copies with
+// commit / wait groups, and the input check and (dtype, head dim)
+// dispatch of their C interface.
 //
 // 3xTF32.  A TF32 operand keeps 10 explicit mantissa bits, about three
 // decimal digits.  A float32 x splits into hi = tf32(x) and
@@ -32,7 +33,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "general.cuh"
+
 namespace mxm {
+
+constexpr int MAX_D = 128;      // head dims up to 128, padded to 16..128
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -274,4 +280,56 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
   }
 }
 
+// Zero columns D .. DP - 1 of `rows` rows `ld` elements apart: cp.async
+// writes columns < D only, so a padded column stays zero and adds
+// nothing to a product over the head dim.
+template <typename T, int NT>
+__device__ __forceinline__ void zero_cols(T* s, int rows, int ld, int D,
+                                          int DP) {
+  const int w = DP - D;
+  if (w == 0) return;
+  for (int i = threadIdx.x; i < rows * w; i += NT) {
+    const int r = i / w;
+    s[(size_t)r * ld + D + (i - r * w)] = mxg::from_acc<T>(0.f);
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The shapes, and rows of 16-byte multiples on 16-byte boundaries
+// (`dout` may be null).
+inline bool inputs_ok(int B, int H, int Hkv, int Tq, int Tk, int D,
+                      int dtype, const void* q, const void* k,
+                      const void* v, const void* dout) {
+  const int size = dtype == mxg::F32 ? 4 : 2;
+  return B >= 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && Tq >= 0 &&
+         Tk >= 0 && D >= 1 && D <= MAX_D && (D * size) % 16 == 0 &&
+         aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
+}
+
 }  // namespace mxm
+
+// Call LAUNCH<T, DP>(...) for the dtype code (float16, bfloat16 or
+// float32) and the head dim's bucket, 16, 32, 64 or 128.
+#define MXM_DISPATCH(dtype, D, LAUNCH, ...)                                  \
+  ([&]() -> int {                                                            \
+    const int dp_ = (D) <= 16 ? 16 : (D) <= 32 ? 32 : (D) <= 64 ? 64 : 128;  \
+    switch ((dtype) * 256 + dp_) {                                           \
+      case mxg::F16 * 256 + 16: return LAUNCH<__half, 16>(__VA_ARGS__);      \
+      case mxg::F16 * 256 + 32: return LAUNCH<__half, 32>(__VA_ARGS__);      \
+      case mxg::F16 * 256 + 64: return LAUNCH<__half, 64>(__VA_ARGS__);      \
+      case mxg::F16 * 256 + 128: return LAUNCH<__half, 128>(__VA_ARGS__);    \
+      case mxg::BF16 * 256 + 16: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__); \
+      case mxg::BF16 * 256 + 32: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__); \
+      case mxg::BF16 * 256 + 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__); \
+      case mxg::BF16 * 256 + 128:                                            \
+        return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                      \
+      case mxg::F32 * 256 + 16: return LAUNCH<float, 16>(__VA_ARGS__);       \
+      case mxg::F32 * 256 + 32: return LAUNCH<float, 32>(__VA_ARGS__);       \
+      case mxg::F32 * 256 + 64: return LAUNCH<float, 64>(__VA_ARGS__);       \
+      case mxg::F32 * 256 + 128: return LAUNCH<float, 128>(__VA_ARGS__);     \
+      default: return (int)cudaErrorInvalidValue;                            \
+    }                                                                        \
+  }())

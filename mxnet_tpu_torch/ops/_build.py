@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_general",
-           "paged_general", "flash_bwd_mma")
+           "paged_general", "flash_bwd_mma", "flash_fwd_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -142,12 +142,16 @@ def _signatures():
             "mx_flash_bwd_dq_general": [p] * 11 + [i] * 6 + [d, i, i, p],
             # q k v dout lse delta q_off k_off dk dv
             "mx_flash_bwd_dkv_general": [p] * 10 + [i] * 6 + [d, i, i, p]},
-        # the tensor-core backward: the general backward's interface
+        # the tensor-core forward and backward: the general kernels'
+        # interfaces
+        "flash_fwd_mma": {
+            "mx_flash_fwd_mma": [p] * 7 + [i] * 6 + [d, i, i, p]},
         "flash_bwd_mma": {
             "mx_flash_bwd_dq_mma": [p] * 11 + [i] * 6 + [d, i, i, p],
             "mx_flash_bwd_dkv_mma": [p] * 10 + [i] * 6 + [d, i, i, p]},
-        # q k_pages v_pages page_table lengths out
-        "paged_general": {"mx_paged_decode_general": [p] * 6 + [i] * 6
+        # q k_pages v_pages page_table lengths out part_acc part_ml, S H
+        # Hkv psz D MP nsplit kps
+        "paged_general": {"mx_paged_decode_general": [p] * 8 + [i] * 8
                           + [d, i, p]},
     }
 

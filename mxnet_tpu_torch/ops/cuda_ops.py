@@ -22,11 +22,12 @@ decode also: a page size that is a multiple of 16, at most 8 query heads
 per kv head).  Every other CUDA call goes to the general kernels of
 ``csrc/flash_general.cu`` and ``csrc/paged_general.cu``, which take the
 reference's whole contract: float16, bfloat16, float32 and float64, any
-head_dim from 1 to 256, any GQA ratio and any page size.  The backward
-has a third route between the two (:func:`_bwd_route`):
+head_dim from 1 to 256, any GQA ratio and any page size.  The flash
+forward and backward have a third route between the two
+(:func:`_flash_route`): ``csrc/flash_fwd_mma.cu`` and
 ``csrc/flash_bwd_mma.cu``, TF32 tensor cores in 3xTF32 for float16,
 bfloat16 and float32 at head_dim up to 128 with 16-byte rows; the
-general backward keeps float64, head_dim above 128 and unaligned rows.
+general kernels keep float64, head_dim above 128 and unaligned rows.
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the
 plain version (``_dense_with_lse``, ``_flash_bwd_dense``,
@@ -48,7 +49,8 @@ from . import _build
 
 __all__ = ["flash_attention_with_lse", "flash_attention",
            "flash_attention_block_bwd", "paged_attention",
-           "paged_split_plan", "LAUNCHES", "reset_launch_counts"]
+           "paged_split_plan", "paged_general_plan", "LAUNCHES",
+           "reset_launch_counts"]
 
 NEG_INF = float("-inf")
 
@@ -57,14 +59,17 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode": 0, "flash_fwd_general": 0,
             "flash_bwd_dq_general": 0, "flash_bwd_dkv_general": 0,
             "paged_decode_general": 0, "flash_bwd_dq_mma": 0,
-            "flash_bwd_dkv_mma": 0}
+            "flash_bwd_dkv_mma": 0, "flash_fwd_mma": 0}
 
 #: dtype codes of the general kernels' C interface (csrc/general.cuh)
 GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
                   torch.float64: 3}
 MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 128
-#: backward route -> (library, entry-point / launch-count suffix)
+#: forward / backward route -> (library, entry-point / launch-count
+#: suffix) of the general launchers; "hopper" has launchers of its own
+FWD_ROUTES = {"mma": ("flash_fwd_mma", "mma"),
+              "simt": ("flash_general", "general")}
 BWD_ROUTES = {"mma": ("flash_bwd_mma", "mma"),
               "simt": ("flash_general", "general")}
 
@@ -103,9 +108,9 @@ def _acc(t):
 
 
 def _fits_hopper(D, *ts):
-    """Whether the Hopper kernels take these inputs: bf16, 16-byte
-    aligned, head_dim 64 or 128.  Every other CUDA call runs a general
-    kernel."""
+    """Whether the Hopper paged kernel's type rule takes these inputs:
+    bf16, 16-byte aligned, head_dim 64 or 128 (the flash kernels route
+    by :func:`_flash_route`)."""
     return D in (64, 128) and all(
         t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0 for t in ts)
 
@@ -185,28 +190,35 @@ def _check_fwd_inputs(q, k, v, q_off, k_off, dtype, align):
 
 
 def _flash_fwd_cuda(q, k, v, q_off, k_off, causal, scale):
-    """(o, lse) from the Hopper kernel where it takes the inputs, else
-    from the general kernel."""
-    if _fits_hopper(q.shape[-1], q, k, v):
+    """(o, lse) from the forward kernel of :func:`_flash_route`'s route:
+    ``csrc/flash_fwd.cu`` (Hopper), ``csrc/flash_fwd_mma.cu`` (tensor
+    cores) or ``csrc/flash_general.cu``."""
+    route = _route_of(q, k, v)
+    if route == "hopper":
         return _flash_fwd_hopper(q, k, v, q_off, k_off, causal, scale)
-    return _flash_fwd_general(q, k, v, q_off, k_off, causal, scale)
+    return _flash_fwd_general(q, k, v, q_off, k_off, causal, scale, route)
 
 
-def _flash_fwd_general(q, k, v, q_off, k_off, causal, scale):
+def _flash_fwd_general(q, k, v, q_off, k_off, causal, scale, route):
+    """(o, lse) from ``mx_flash_fwd_mma`` of ``csrc/flash_fwd_mma.cu``
+    (route ``"mma"``) or ``mx_flash_fwd_general`` of
+    ``csrc/flash_general.cu`` (``"simt"``): one C interface."""
     B, H, T, D = q.shape
     code = _general_dtype(q, D)
     _check_fwd_inputs(q, k, v, q_off, k_off, q.dtype, 1)
+    lib, suffix = FWD_ROUTES[route]
+    name = "flash_fwd_" + suffix
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    err = _build.library("flash_general").mx_flash_fwd_general(
+    err = getattr(_build.library(lib), "mx_" + name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_off.data_ptr(),
         k_off.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, k.shape[1], T,
         k.shape[2], D, float(scale), int(bool(causal)), code,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError("flash_fwd_general kernel launch failed: CUDA "
-                           "error %d" % err)
-    LAUNCHES["flash_fwd_general"] += 1
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (name, err))
+    LAUNCHES[name] += 1
     return o, lse
 
 
@@ -319,14 +331,15 @@ def _launch_bwd(kernel, tensors, q, k, causal, scale):
     LAUNCHES[kernel] += 1
 
 
-def _bwd_route(dtype, D, aligned):
-    """Which backward kernels take inputs of ``dtype`` at head_dim
-    ``D``; ``aligned``: rows of a 16-byte multiple (D * itemsize % 16
-    == 0) on 16-byte-aligned pointers.  ``"hopper"``: bf16 at 64 / 128
-    (``csrc/flash_bwd.cu``); ``"mma"``: float16, bfloat16 or float32 up
-    to 128 (``csrc/flash_bwd_mma.cu``, TF32 tensor cores); ``"simt"``:
-    the rest (float64, head_dim above 128, unaligned rows), on the CUDA
-    cores (``csrc/flash_general.cu``)."""
+def _flash_route(dtype, D, aligned):
+    """Which flash kernels, forward and backward, take inputs of
+    ``dtype`` at head_dim ``D``; ``aligned``: rows of a 16-byte multiple
+    (D * itemsize % 16 == 0) on 16-byte-aligned pointers.  ``"hopper"``:
+    bf16 at 64 / 128 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``);
+    ``"mma"``: float16, bfloat16 or float32 up to 128
+    (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_mma.cu``, TF32 tensor
+    cores); ``"simt"``: the rest (float64, head_dim above 128, unaligned
+    rows), on the CUDA cores (``csrc/flash_general.cu``)."""
     if aligned and dtype == torch.bfloat16 and D in (64, 128):
         return "hopper"
     if aligned and dtype in (torch.float16, torch.bfloat16, torch.float32) \
@@ -336,12 +349,12 @@ def _bwd_route(dtype, D, aligned):
 
 
 def _route_of(q, *ts):
-    """:func:`_bwd_route` of the backward's inputs ``q`` and ``ts``
-    (None entries skipped)."""
+    """:func:`_flash_route` of the inputs ``q`` and ``ts`` (None entries
+    skipped)."""
     D = q.shape[-1]
     aligned = D * q.element_size() % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (q,) + ts if t is not None)
-    return _bwd_route(q.dtype, D, aligned)
+    return _flash_route(q.dtype, D, aligned)
 
 
 def _launch_bwd_general(kernel, tensors, q, k, causal, scale, route):
@@ -364,7 +377,7 @@ def _launch_bwd_general(kernel, tensors, q, k, causal, scale, route):
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
                        o=None, dlse=None):
-    """dq from the kernel of :func:`_bwd_route`: bf16 from the Hopper
+    """dq from the kernel of :func:`_flash_route`: bf16 from the Hopper
     kernel, else in the accumulation type; ``o`` / ``dlse`` / ``delta``
     as for :func:`_flash_bwd_dq_hopper`."""
     route = _route_of(q, k, v, do, o)
@@ -382,7 +395,7 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_off, k_off, causal,
                         scale):
-    """(dk, dv) from the kernel of :func:`_bwd_route`: bf16 from the
+    """(dk, dv) from the kernel of :func:`_flash_route`: bf16 from the
     Hopper kernel, else in the accumulation type."""
     route = _route_of(q, k, v, do)
     if route == "hopper":
@@ -428,7 +441,7 @@ def _flash_bwd_dkv_hopper(q, k, v, do, lse, delta, q_off, k_off, causal,
 def _flash_bwd_cuda(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
                     o=None, dlse=None):
     """(dq, dk, dv) from the two backward kernels of
-    :func:`_bwd_route`'s route: those of ``csrc/flash_bwd.cu`` (bf16
+    :func:`_flash_route`'s route: those of ``csrc/flash_bwd.cu`` (bf16
     out), ``csrc/flash_bwd_mma.cu`` or ``csrc/flash_general.cu`` (out in
     the accumulation type).  With ``o`` (and ``delta`` None) the dq
     kernel computes delta from ``o`` and ``dlse``; otherwise ``delta``
@@ -497,8 +510,10 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None,
     ``q_offset``/``k_offset`` are global position offsets for the causal
     mask (ints or int32 tensors of one element); the kernel reads them
     on the device.  On CUDA, q/k/v are contiguous, of one float dtype,
-    with head_dim 1 to 256 (bf16 at 64 or 128 runs the Hopper kernels,
-    everything else the general ones); the lse is float32 (B, H, T).
+    with head_dim 1 to 256 (:func:`_flash_route`: bf16 at 64 or 128 runs
+    the Hopper kernels, float16 / bfloat16 / float32 up to 128 with
+    16-byte rows the tensor-core ones, the rest the general ones); the
+    lse is float32 (B, H, T).
     Gradients flow through both outputs, on CUDA through the backward
     kernels."""
     if q.shape[1] % k.shape[1] != 0:
@@ -587,23 +602,51 @@ def paged_split_plan(S, Hkv, MP, psz):
     return -(-n_chunks // per), per * chunk, chunk
 
 
-def _paged_split_dense(q, k_pages, v_pages, page_table, lengths, scale):
-    """Plain version of the kernel's algorithm: each split of
-    :func:`paged_split_plan` takes an fp32 softmax over its own keys,
-    giving (m, l, acc); the splits are merged in split order.  Equal to
-    :func:`_paged_dense` up to fp32 rounding."""
+#: key positions a tile of ``csrc/paged_general.cu`` stages, and the
+#: unit of its split plan
+PAGED_GENERAL_CHUNK = 32
+#: query heads one CTA of ``csrc/paged_general.cu`` scores
+PAGED_GENERAL_HEADS = 32
+
+
+def paged_general_plan(S, H, Hkv, MP, psz):
+    """How ``csrc/paged_general.cu`` splits each (slot, kv head):
+    ``(nsplit, keys_per_split, chunk)``, as :func:`paged_split_plan`,
+    but in chunks of :data:`PAGED_GENERAL_CHUNK` key positions that may
+    cross pages (the kernel looks up each position's page), so any page
+    size works, and with the CTAs of a GQA group above
+    :data:`PAGED_GENERAL_HEADS` query heads counted.  It depends on the
+    shapes only, never on the lengths."""
+    chunk = PAGED_GENERAL_CHUNK
+    n_chunks = -(-MP * psz // chunk)
+    groups = -(-(H // Hkv) // PAGED_GENERAL_HEADS)
+    want = max(1, -(-PAGED_TARGET_CTAS // max(1, S * Hkv * groups)))
+    per = -(-n_chunks // min(n_chunks, want))
+    return -(-n_chunks // per), per * chunk, chunk
+
+
+def _paged_split_dense(q, k_pages, v_pages, page_table, lengths, scale,
+                       plan=None):
+    """Plain version of the split kernels' algorithm: each split of
+    ``plan`` -- ``(nsplit, keys_per_split, chunk)``, by default
+    :func:`paged_split_plan`'s (the Hopper kernel's), or
+    :func:`paged_general_plan`'s (the general kernel's) -- takes a
+    softmax over its own keys, giving (m, l, acc); the splits are merged
+    in split order.  Sums in float64 for float64 inputs, else float32.
+    Equal to :func:`_paged_dense` up to rounding."""
     S, H, D = q.shape
     Hkv, psz = k_pages.shape[1], k_pages.shape[2]
     MP = page_table.shape[1]
-    nsplit, kps, _ = paged_split_plan(S, Hkv, MP, psz)
+    nsplit, kps, _ = plan or paged_split_plan(S, Hkv, MP, psz)
     rep = H // Hkv
+    acc_t = _acc(q)
     pt = page_table.long()
 
     def gather(pages):
         x = pages[pt].permute(0, 1, 3, 2, 4).reshape(S, MP * psz, Hkv, D)
-        return x.repeat_interleave(rep, dim=2).float()
+        return x.repeat_interleave(rep, dim=2).to(acc_t)
     k, v = gather(k_pages), gather(v_pages)
-    sc = torch.einsum("shd,skhd->shk", q.float(), k) * scale
+    sc = torch.einsum("shd,skhd->shk", q.to(acc_t), k) * scale
     kpos = torch.arange(MP * psz, device=q.device)
     live = kpos[None, None, :] < lengths.to(q.device)[:, None, None]
     sc = sc.masked_fill(~live, NEG_INF)
@@ -619,7 +662,7 @@ def _paged_split_dense(q, k_pages, v_pages, page_table, lengths, scale):
     m_all = torch.where(torch.isneginf(m_all), torch.zeros_like(m_all),
                         m_all)
     l = torch.zeros_like(m_all)
-    acc = torch.zeros(S, H, D, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(S, H, D, dtype=acc_t, device=q.device)
     for m, l_i, acc_i in parts:
         w = torch.where(torch.isneginf(m), torch.zeros_like(m),
                         torch.exp(m - m_all))
@@ -660,18 +703,26 @@ def _check_paged_inputs(q, k_pages, v_pages, page_table, lengths, dtype,
 
 def _paged_decode_general(q, k_pages, v_pages, page_table, lengths, scale):
     S, H, D = q.shape
+    Hkv, psz = k_pages.shape[1], k_pages.shape[2]
+    MP = page_table.shape[1]
     code = _general_dtype(q, D)
     _check_paged_inputs(q, k_pages, v_pages, page_table, lengths, q.dtype, 1)
+    nsplit, kps, _ = paged_general_plan(S, H, Hkv, MP, psz)
     out = torch.empty_like(q)
+    # each split's unnormalised (acc, (m, l)), merged by the second kernel
+    part_acc = torch.empty((S, H, nsplit, D), dtype=_acc(q),
+                           device=q.device)
+    part_ml = torch.empty((S, H, nsplit, 2), dtype=_acc(q), device=q.device)
     err = _build.library("paged_general").mx_paged_decode_general(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, H,
-        k_pages.shape[1], k_pages.shape[2], D, page_table.shape[1],
-        float(scale), code, torch.cuda.current_stream(q.device).cuda_stream)
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), S, H, Hkv, psz, D, MP,
+        nsplit, kps, float(scale), code,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError("paged_decode_general kernel launch failed: CUDA "
                            "error %d" % err)
-    LAUNCHES["paged_decode_general"] += 1
+    LAUNCHES["paged_decode_general"] += 1   # the split and merge as one
     return out
 
 

@@ -218,7 +218,7 @@ def test_bwd_route(dtype, D, aligned):
     ok = aligned and D * itemsize % 16 == 0
     want = ("hopper" if ok and dtype == _BF16 and D in (64, 128) else
             "mma" if ok and dtype != _F64 and D <= 128 else "simt")
-    assert cuda_ops._bwd_route(dtype, D, ok) == want
+    assert cuda_ops._flash_route(dtype, D, ok) == want
 
 
 def test_route_of_reads_alignment_from_the_tensors():

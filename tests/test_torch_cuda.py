@@ -294,15 +294,15 @@ def test_train_step_on_cuda_matches_cpu(dev):
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev,
                                                          exact_fp32):
     """What the Hopper kernels do not take (float32, head_dim 96, page
-    size 24) runs the general kernels and agrees with the plain oracle;
-    a head_dim above 256, a non-contiguous input and mixed devices are
-    still refused."""
+    size 24) runs the tensor-core or general kernels and agrees with the
+    plain oracle; a head_dim above 256, a non-contiguous input and mixed
+    devices are still refused."""
     q, k = _bf16(dev, 1, 1, 4, 16, 96), _bf16(dev, 2, 1, 2, 16, 96)
-    before = cuda_ops.LAUNCHES["flash_fwd_general"]
+    before = cuda_ops.LAUNCHES["flash_fwd_mma"]
     got = cuda_ops.flash_attention(q, k, k)
     want = cuda_ops._dense_with_lse(q, k, k, *_offs(dev, 0, 0), False,
                                     96 ** -0.5)[0]
-    assert cuda_ops.LAUNCHES["flash_fwd_general"] == before + 1
+    assert cuda_ops.LAUNCHES["flash_fwd_mma"] == before + 1
     assert _max_err(got, want) <= GENERAL_TOL[torch.bfloat16] * \
         want.float().abs().max().item()
     q, k = _bf16(dev, 1, 1, 4, 16, 64), _bf16(dev, 2, 1, 2, 16, 64)
@@ -339,7 +339,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev,
 #: differ only by the order of their sums; float16 / bf16 outputs also by
 #: the plain forward rounding P to the input type before P V, where the
 #: kernel keeps it in float32, and by one rounding of the output.  The
-#: tensor-core backward also by its 3xTF32 products (about 2^-22 each).
+#: tensor-core forward and backward also by their 3xTF32 products (about
+#: 2^-22 each).
 GENERAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5,
                torch.float16: 4e-3, torch.bfloat16: 2e-2}
 
@@ -404,15 +405,22 @@ def _general_inputs(dev, case):
 
 @pytest.mark.parametrize("case", GENERAL_FLASH_CASES)
 def test_general_flash_forward_matches_plain(dev, exact_fp32, case):
-    """(o, lse) of the general forward against ``_dense_with_lse``; the
-    same -inf rows; two calls give the same bits."""
+    """(o, lse) of the forward that ``_flash_route`` picks (the
+    tensor-core kernel for float16 / bfloat16 / float32 up to head_dim
+    128 with 16-byte rows, the general one for float64, head_dim 256
+    and unaligned rows) against ``_dense_with_lse``; the same -inf rows;
+    two calls give the same bits."""
     causal, D, dt = case[5], case[8], case[9]
     q, k, v, offs = _general_inputs(dev, case)
-    before = cuda_ops.LAUNCHES["flash_fwd_general"]
+    route = cuda_ops._flash_route(dt, D, D * q.element_size() % 16 == 0)
+    assert route == ("simt" if dt == _F64 or D > 128 or
+                     D * q.element_size() % 16 else "mma")
+    name = "flash_fwd_" + cuda_ops.FWD_ROUTES[route][1]
+    before = cuda_ops.LAUNCHES[name]
     o, lse = cuda_ops._flash_fwd_cuda(q, k, v, *offs, causal, D ** -0.5)
     o2, _ = cuda_ops._flash_fwd_cuda(q, k, v, *offs, causal, D ** -0.5)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["flash_fwd_general"] == before + 2
+    assert cuda_ops.LAUNCHES[name] == before + 2
     assert o.dtype == dt and lse.dtype == torch.float32
     assert torch.equal(o, o2)
     o_p, lse_p = cuda_ops._dense_with_lse(q, k, v, *offs, causal, D ** -0.5)
@@ -427,7 +435,7 @@ def test_general_flash_forward_matches_plain(dev, exact_fp32, case):
 
 @pytest.mark.parametrize("case", GENERAL_FLASH_CASES)
 def test_general_flash_backward_matches_plain(dev, exact_fp32, case):
-    """dq, dk, dv of the backward that ``_bwd_route`` picks (the
+    """dq, dk, dv of the backward that ``_flash_route`` picks (the
     tensor-core kernels for float16 / bfloat16 / float32 up to head_dim
     128 with 16-byte rows, the general ones for float64, head_dim 256
     and unaligned rows) against ``_flash_bwd_dense`` on the same inputs,
@@ -437,7 +445,7 @@ def test_general_flash_backward_matches_plain(dev, exact_fp32, case):
     primitive's)."""
     causal, D, dt = case[5], case[8], case[9]
     q, k, v, offs = _general_inputs(dev, case)
-    route = cuda_ops._bwd_route(dt, D, D * q.element_size() % 16 == 0)
+    route = cuda_ops._flash_route(dt, D, D * q.element_size() % 16 == 0)
     assert route == ("simt" if dt == _F64 or D > 128 or
                      D * q.element_size() % 16 else "mma")
     do = _rand(dev, 7, dt, *q.shape)
@@ -465,7 +473,8 @@ def test_general_flash_backward_matches_plain(dev, exact_fp32, case):
 
 
 # (S, H, Hkv, D, psz, P, MP, lens, dtype): rep 16 and 32, page sizes 1,
-# 7, 24 and 128, lengths of 0 and past the table, head_dim up to 256
+# 7, 24 and 128, lengths of 0 and past the table, head_dim up to 256; the
+# float32 page-7 rep-32 case's splits of 32 keys cross pages
 GENERAL_PAGED_CASES = [
     (3, 32, 2, 128, 16, 40, 8, [0, 100, 128], _BF16),
     (2, 32, 1, 64, 24, 20, 6, [1, 144], _F32),
@@ -473,6 +482,7 @@ GENERAL_PAGED_CASES = [
     (2, 8, 2, 256, 128, 6, 2, [200, 256], _BF16),
     (2, 8, 8, 96, 24, 12, 4, [60, 99], _F64),
     (3, 8, 4, 32, 7, 30, 5, [34, 5, 7], _F16),
+    (3, 32, 1, 64, 7, 130, 40, [0, 150, 300], _F32),
 ]
 
 
@@ -500,8 +510,8 @@ def test_general_paged_kernel_matches_plain(dev, exact_fp32, case):
 
 def test_general_kernels_train_a_float32_layer(dev, exact_fp32):
     """flash_attention's autograd on float32 CUDA tensors (head_dim 16,
-    GQA 4) runs the general forward and the tensor-core dq and dk/dv,
-    and gives the plain CPU path's gradients."""
+    GQA 4) runs the tensor-core forward, dq and dk/dv, and gives the
+    plain CPU path's gradients."""
     q, k, v = (_rand(torch.device("cpu"), s, _F32, *shape) for s, shape in
                ((1, (2, 8, 24, 16)), (2, (2, 2, 24, 16)), (3, (2, 2, 24, 16))))
     grads = []
@@ -511,7 +521,7 @@ def test_general_kernels_train_a_float32_layer(dev, exact_fp32):
         o, lse = cuda_ops.flash_attention_with_lse(*leaves, causal=True)
         ((o * o).sum() + lse.sum()).backward()
         grads.append([t.grad.cpu() for t in leaves])
-    for name in ("flash_fwd_general", "flash_bwd_dq_mma",
+    for name in ("flash_fwd_mma", "flash_bwd_dq_mma",
                  "flash_bwd_dkv_mma"):
         assert cuda_ops.LAUNCHES[name] == 1
     for g, w in zip(*grads):

@@ -1,0 +1,127 @@
+"""Time variants of one kernel source against each other on one card.
+
+    python3 tools/kernel_variants.py LIB VARIANT [VARIANT ...]
+
+``LIB`` names a source of ``mxnet_tpu_torch/csrc`` with a timing case
+here: ``flash_fwd_mma`` (BERT-base's float32 attention, q/k/v (16, 12,
+512, 64) non-causal, and a causal GQA case for the error) or
+``paged_general`` (the float32 serving shape: 8 slots, lengths 51-347,
+32/8 heads of 128, pages of 128).  Each ``VARIANT`` is a ``.cu`` file
+written in place of ``csrc/LIB.cu`` (a copy with text edits), optionally
+followed by ``@N`` to run it with ``cuda_ops.PAGED_TARGET_CTAS = N``.
+Every variant is compiled with ``_build``'s flags (all ``nvcc`` at once,
+into ``mxnet_tpu_torch/_build/variants``), loaded in place of the
+library, held against the plain version on the card, and timed through
+the public wrapper by ``chip_smoke.device_ms`` (own device time, L2
+flushed), in the order given, in one process: list a variant twice to
+see the spread.  It prints the card, each variant's registers, its
+time, its error and its kernels' times.
+"""
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from mxnet_tpu_torch.ops import _build, cuda_ops as co  # noqa: E402
+
+
+def _compile(files):
+    out = os.path.join(_build.BUILD, "variants")
+    os.makedirs(out, exist_ok=True)
+    jobs = {}
+    for i, f in enumerate(files):
+        so = os.path.join(out, "%d_%s.so" % (i, os.path.basename(f)))
+        jobs[f] = so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", so,
+             f], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for f, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            print("FAILED", f, log[-3000:])
+            continue
+        regs = [ln.split("Used ")[1] for ln in log.splitlines()
+                if "Used" in ln and "registers" in ln]
+        print(f, "regs:", " | ".join(regs)[:600], flush=True)
+        libs[f] = so
+    return libs
+
+
+def _case(lib_name, dev):
+    """(run, errors, kernel-name match) of the timing case of LIB."""
+    gen = torch.Generator().manual_seed(3)
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    if lib_name == "flash_fwd_mma":
+        B, H, Hkv, T, D, causal = cs.BERT_ATTN
+        q, k, v = (torch.randn(B, n, T, D, generator=gen).to(dev)
+                   for n in (H, Hkv, Hkv))
+        qc, kc, vc = (torch.randn(1, n, 700, 64, generator=gen).to(dev)
+                      for n in (32, 8, 8))
+        with cs.exact_fp32():
+            want = co._dense_with_lse(q, k, v, z, z, causal, D ** -0.5)[0]
+            want_c = co._dense_with_lse(qc, kc, vc, z, z, True, 0.125)[0]
+
+        def errors():
+            return (cs._rel_err(co.flash_attention(q, k, v), want)[1],
+                    cs._rel_err(co.flash_attention(qc, kc, vc, causal=True),
+                                want_c)[1])
+        return (lambda: co.flash_attention(q, k, v)), errors, "fwd_mma"
+    if lib_name == "paged_general":
+        S, H, Hkv, D, psz, MP = 8, 32, 8, 128, 128, 3
+        lens = torch.tensor([51, 90, 128, 129, 200, 256, 300, 347],
+                            dtype=torch.int32, device=dev)
+        P = S * MP + 1
+        q = torch.randn(S, H, D, generator=gen).to(dev)
+        kp, vp = (torch.randn(P, Hkv, psz, D, generator=gen).to(dev)
+                  for _ in range(2))
+        pt = (torch.randperm(P - 1, generator=gen) + 1).reshape(S, MP).to(
+            dev, torch.int32)
+
+        def run():
+            return co.paged_attention(q, kp, vp, pt, lens)
+
+        def errors():
+            with cs.exact_fp32():
+                want = co._paged_dense(q, kp, vp, pt, lens, D ** -0.5)
+            return (cs._rel_err(run(), want)[1],)
+        return run, errors, "paged_general"
+    raise SystemExit("no timing case for %r" % lib_name)
+
+
+def main(argv):
+    if len(argv) < 3 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    lib_name, specs = argv[1], argv[2:]
+    print(cs.card_line(), flush=True)
+    _build.build_all()
+    libs = _compile(list(dict.fromkeys(s.split("@")[0] for s in specs)))
+    run, errors, match = _case(lib_name, torch.device("cuda"))
+    target = co.PAGED_TARGET_CTAS
+    for spec in specs:
+        f, _, n = spec.partition("@")
+        if f not in libs:
+            continue
+        lib = ctypes.CDLL(libs[f])
+        _build._declare(lib_name, lib)
+        _build._libs[lib_name] = lib
+        co.PAGED_TARGET_CTAS = int(n) if n else target
+        errs = errors()
+        ms, per = cs.device_ms(run, match)
+        print("%-40s %.4f ms  err %s  kernels %s"
+              % (os.path.basename(spec), ms, ["%.2e" % e for e in errs],
+                 {k.replace("void (anonymous namespace)::", "")
+                  .split("(")[0]: round(v, 4) for k, v in per.items()}),
+              flush=True)
+    co.PAGED_TARGET_CTAS = target
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -22,7 +22,10 @@ head_dim 128) are held against their plain versions and timed at
 BERT's float32 shape; the float32 ``tiny_config`` and ``bert_tiny_config`` run on the
 card against the CPU; BERT-base trains at its default float32; and
 ``entry()`` runs in its MXNet spelling (``import mxnet_tpu_torch as
-mx``).  Each path that
+mx``).  The optimizer's multi-tensor kernels (SGD / NAG, Adam / AdamW,
+LAMB's two phases) are held against their plain versions at the edges
+of their design and at the BERT-base, ResNet-50 and LM parameter lists,
+and timed there; every training path updates through them.  Each path that
 runs kernels does so with the launch counts reset before it and read
 after it, and fails unless every kernel it goes through was launched.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
@@ -30,8 +33,11 @@ non-zero before it.  Without a CUDA device it exits non-zero at once.
 
 A kernel's time is its own device time, summed from a torch.profiler
 trace of its calls with the L2 cache flushed before each
-(:func:`device_ms`); the event time of the whole wrapper call is kept
-beside it as ``call_ms``.  ``python3 chip_smoke.py --kernel-timing``
+(:func:`device_ms`), or for the optimizer's kernels the replay of a
+CUDA graph of the call (:func:`graph_ms`: torch.profiler was seen to
+drop a device record from their traces); the event time of the whole
+wrapper call is kept beside it as ``call_ms``.  ``python3 chip_smoke.py
+--kernel-timing``
 runs only the forward, backward and paged kernels' timing; copied into
 another checkout's root, it times that tree's kernels the same way, so
 two trees compare in one call.
@@ -155,8 +161,9 @@ def device_ms(fn, match=None, iters=20, warmup=3, attempts=5):
             break
     else:
         raise SmokeFailure("%d profiler traces in a row lacked device "
-                           "events: %s" % (attempts,
-                                           sorted(e.key for e in events)))
+                           "events (%d calls; launches per kernel: %s)"
+                           % (attempts, iters, {e.key[:80]: e.count
+                                                for e in events}))
     per = {e.key: e.self_device_time_total / iters / 1e3
            for e in events if FLUSH_KERNEL not in e.key}
     ms = sum(v for k, v in per.items() if match is None or match in k)
@@ -891,6 +898,8 @@ def train_phase(mt, co, dev, card, B=2, T=1024):
         check(launches[name] == 4 * TRAIN_LAYERS,
               "train: %s launched %d times in 4 steps, want %d per step"
               % (name, launches[name], TRAIN_LAYERS))
+    opt_per = check_opt_launches("train", launches, "multi_adam", 4,
+                                 net.parameters())
     unchanged = [n for n, p in net.named_parameters()
                  if torch.equal(p.detach().cpu(), before[n])]
     check(not unchanged, "train: parameters did not change: %s" % unchanged)
@@ -903,8 +912,9 @@ def train_phase(mt, co, dev, card, B=2, T=1024):
     step = mt.parallel.TrainStep(net, None,
                                  mt.optimizer.AdamW(learning_rate=1e-3),
                                  forward_fn=fwd)
-    ms, dev_ms, top, counts, _ = device_busy(
+    ms, dev_ms, top, counts, per = device_busy(
         lambda: step(toks, labels).item(), reps=2)
+    opt_ms, opt_n = opt_cost(per)
     # useful model flops: 6 per matmul weight per token (the embedding
     # is a gather), attention 4 * D per visible pair forward, 8 * D back
     pairs = B * cfg.n_heads * T * (T + 1) // 2
@@ -919,11 +929,14 @@ def train_phase(mt, co, dev, card, B=2, T=1024):
              peak / 1e9, card, "; ".join("%s %.3f" % t for t in top)))
     print("train step: forward + backward alone %.1f ms host, %.1f ms of "
           "kernels; the rest of the step (AdamW over %.3f B params) %.1f ms "
-          "of kernels" % (fb_ms, fb_dev, net.num_params() / 1e9,
-                          dev_ms - fb_dev))
+          "of kernels, of which the multi_adam kernel %.2f ms in %g "
+          "launches (%d per step by the table) [%s]"
+          % (fb_ms, fb_dev, net.num_params() / 1e9, dev_ms - fb_dev, opt_ms,
+             opt_n, opt_per, card))
     print("train step: per step %s" % ", ".join("%s %.1f" % kv
                                                 for kv in counts.items()))
-    return launches
+    lm = lm_adamw_timing(co, net, step._states, dev, card)
+    return launches, lm
 
 
 # ----------------------------------------------------------------------
@@ -962,11 +975,12 @@ def _ohwi(params):
             if v.ndim == 4 else v for k, v in params.items()}
 
 
-def resnet_phase(mt, dev, card):
+def resnet_phase(mt, co, dev, card):
     """ResNet-50 inference at ``__graft_entry__.entry()``'s shape (B=32,
     3x224x224, every parameter bf16), eager and hybridized, NCHW and
     NHWC, on the same weights; a B=2 float32 forward on the card against
-    the CPU; then 3 training steps at B=128."""
+    the CPU; then 3 training steps at B=128 in each layout.  Returns the
+    launch counts of the training steps (both layouts)."""
     vision = mt.gluon.model_zoo.vision
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(RESNET_B, 3, 224, 224, generator=gen, device=dev).to(
@@ -1034,10 +1048,13 @@ def resnet_phase(mt, dev, card):
     torch.cuda.empty_cache()
     resnet_cpu_check(mt, dev, params, x[:2].float())
     del params
+    launches = {}
     for layout in ("NCHW", "NHWC"):
-        resnet_train(mt, dev, card, layout)
+        for k, v in resnet_train(mt, co, dev, card, layout).items():
+            launches[k] = launches.get(k, 0) + v
         gc.collect()
         torch.cuda.empty_cache()
+    return launches
 
 
 def resnet_cpu_check(mt, dev, params, x):
@@ -1063,7 +1080,7 @@ def resnet_cpu_check(mt, dev, params, x):
           "by %.3e" % rel)
 
 
-def resnet_train(mt, dev, card, layout):
+def resnet_train(mt, co, dev, card, layout):
     """3 SGD steps (lr 0.05, momentum 0.9, wd 1e-4) at B=128 in
     ``layout``, BatchNorm in training mode, the softmax CE, then the
     steps timed.  Convolution and dense weights are bf16; BatchNorm's
@@ -1099,10 +1116,16 @@ def resnet_train(mt, dev, card, layout):
         return loss.mean().item()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
     t0 = time.monotonic()
     losses = [step() for _ in range(RESNET_TRAIN_STEPS)]
+    torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    launches = dict(co.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    opt_per = check_opt_launches("resnet50 %s train" % layout, launches,
+                                 "multi_sgd", RESNET_TRAIN_STEPS,
+                                 net.parameters())
     check(all(math.isfinite(v) for v in losses), "resnet50 %s train: a loss "
           "is not finite: %s" % (layout, losses))
     unchanged = [n for n, p in net.named_parameters()
@@ -1111,18 +1134,21 @@ def resnet_train(mt, dev, card, layout):
           % (layout, unchanged))
     stats = sum("running" in n for n in before)
     del before
-    ms, dev_ms, top, counts, _ = device_busy(step, reps=2)
+    ms, dev_ms, top, counts, per = device_busy(step, reps=2)
+    opt_ms, opt_n = opt_cost(per)
     print("resnet50 train (B=%d, %s, SGD lr 0.05 momentum 0.9 wd 1e-4): "
           "losses %s;"
           " every one of %d trainable tensors and %d BatchNorm statistics "
           "changed; %d steps in %.2f s; step %.1f ms host, %.1f ms of "
           "kernels (device busy %.1f%%), %.0f images/s, peak memory %.2f GB "
-          "[%s]; top kernels (ms per step): %s"
+          "[%s]; the multi_sgd kernel %.3f ms in %g launches per step (%d by "
+          "the table); top kernels (ms per step): %s"
           % (B, layout, losses,
              sum(p.requires_grad for p in net.parameters()),
              stats, RESNET_TRAIN_STEPS, wall, ms, dev_ms, 100 * dev_ms / ms,
-             B / ms * 1e3, peak / 1e9, card,
+             B / ms * 1e3, peak / 1e9, card, opt_ms, opt_n, opt_per,
              "; ".join("%s %.3f" % t for t in top)))
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1235,17 +1261,23 @@ def bert_phase(mt, co, dev, card):
         check(launches[name] == cfg.num_layers * BERT_STEPS,
               "bert: %s launched %d times in %d steps, want %d per step"
               % (name, launches[name], BERT_STEPS, cfg.num_layers))
+    opt_per = check_opt_launches("bert", launches, "multi_adam", BERT_STEPS,
+                                 net.parameters())
     unchanged = [n for n, p in net.named_parameters()
                  if torch.equal(p.detach().cpu(), before[n])]
     check(not unchanged, "bert: parameters did not change: %s" % unchanged)
     del before
-    ms, dev_ms, top, counts, _ = device_busy(step, reps=2)
+    ms, dev_ms, top, counts, per = device_busy(step, reps=2)
+    opt_ms, opt_n = opt_cost(per)
     print("bert-base train step (%.1f M params, bf16, B=%d, T=%d, dropout "
           "0.1): %d steps in %.2f s; step %.1f ms host, %.1f ms of kernels "
           "(device busy %.1f%%), %.1f samples/s, peak memory %.2f GB [%s]; "
-          "top kernels (ms per step): %s"
+          "the multi_adam kernel %.3f ms in %g launches per step (%d by the "
+          "table); %s; top kernels (ms per step): %s"
           % (nparams / 1e6, BERT_B, BERT_T, BERT_STEPS, wall, ms, dev_ms,
-             100 * dev_ms / ms, BERT_B / ms * 1e3, peak / 1e9, card,
+             100 * dev_ms / ms, BERT_B / ms * 1e3, peak / 1e9, card, opt_ms,
+             opt_n, opt_per, ", ".join("%s %.1f" % kv
+                                       for kv in counts.items()),
              "; ".join("%s %.3f" % t for t in top)))
     return launches
 
@@ -1661,16 +1693,21 @@ def bert_fp32_phase(mt, co, dev, card):
         check(launches[name] == per_step * BERT_STEPS,
               "bert fp32: %s launched %d times in %d steps, want %d per step"
               % (name, launches[name], BERT_STEPS, per_step))
-    ms, dev_ms, top, counts, _ = device_busy(step, reps=2)
+    opt_per = check_opt_launches("bert fp32", launches, "multi_adam",
+                                 BERT_STEPS, net.parameters())
+    ms, dev_ms, top, counts, per = device_busy(step, reps=2)
+    opt_ms, opt_n = opt_cost(per)
     print("bert-base float32 train (%.1f M params, B=%d, T=%d, dropout 0.1, "
           "%d AdamW steps): losses %s; launches per step %s; step %.1f ms "
           "host (%d steps in %.2f s), %.1f ms of kernels (device busy "
-          "%.1f%%), %.1f samples/s, peak memory %.2f GB [%s]; top kernels "
-          "(ms per step): %s"
+          "%.1f%%), %.1f samples/s, peak memory %.2f GB [%s]; the "
+          "multi_adam kernel %.3f ms in %g launches per step (%d by the "
+          "table); top kernels (ms per step): %s"
           % (nparams / 1e6, BERT_B, BERT_T, BERT_STEPS, losses,
              {k: v / BERT_STEPS for k, v in launches.items() if v}, ms,
              BERT_STEPS, wall, dev_ms, 100 * dev_ms / ms, BERT_B / ms * 1e3,
-             peak / 1e9, card, "; ".join("%s %.3f" % t for t in top)))
+             peak / 1e9, card, opt_ms, opt_n, opt_per,
+             "; ".join("%s %.3f" % t for t in top)))
     return launches
 
 
@@ -1724,8 +1761,20 @@ def tiny_fp32_phase(mt, co, dev, card):
                 forward_fn=fwd)
             losses[name] = [step(toks.to(d), labels.to(d)).item()
                             for _ in range(3)]
+        # then 3 LAMB steps from there (the optimizer's two LAMB kernels)
+        lamb = {}
+        for name, d in (("cuda", dev), ("cpu", "cpu")):
+            step = mt.parallel.TrainStep(
+                nets[name], None, mt.optimizer.LAMB(learning_rate=1e-2),
+                forward_fn=fwd)
+            lamb[name] = [step(toks.to(d), labels.to(d)).item()
+                          for _ in range(3)]
         torch.cuda.synchronize()
         launches = dict(co.LAUNCHES)
+        for kernel in ("multi_adam", "multi_lamb_phase1",
+                       "multi_lamb_phase2"):
+            check_opt_launches("tiny", launches, kernel, 3,
+                               nets["cuda"].parameters())
         bcfg = mt.models.bert_tiny_config()
         check(bcfg.dtype == "float32", "bert_tiny_config is not float32")
         bnet = mt.models.BERTForPretrain(bcfg).initialize(
@@ -1746,20 +1795,22 @@ def tiny_fp32_phase(mt, co, dev, card):
         launches[k] += v - before[k]
     grel = max(_rel(g.grad.cpu(), p.grad) for g, p in
                zip(bnet.parameters(), bcpu.parameters()) if p.grad is not None)
-    lrel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
-                                                losses["cpu"])]
+    lrel = [abs(a - b) / abs(b) for a, b in zip(
+        losses["cuda"] + lamb["cuda"], losses["cpu"] + lamb["cpu"])]
     print("tiny_config float32 (head_dim 16) card vs CPU: served tokens "
-          "equal %s (%d requests, %d tokens); AdamW losses card %s cpu %s, "
-          "max rel diff %.2e (limit %.0e); bert_tiny_config float32 (head_dim "
-          "32): loss card %.8f cpu %.8f, max grad ||d||/||cpu|| %.2e (limit "
-          "%.0e); launches %s [%s]"
+          "equal %s (%d requests, %d tokens); AdamW then LAMB losses card %s "
+          "%s cpu %s %s, max rel diff %.2e (limit %.0e); bert_tiny_config "
+          "float32 (head_dim 32): loss card %.8f cpu %.8f, max grad "
+          "||d||/||cpu|| %.2e (limit %.0e); launches %s [%s]"
           % (served["cuda"] == served["cpu"], len(prompts),
-             sum(map(len, served["cpu"])), losses["cuda"], losses["cpu"],
-             max(lrel), TINY_LOSS_RTOL, blosses[0], blosses[1], grel,
-             TINY_GRAD_REL, {k: v for k, v in launches.items() if v}, card))
+             sum(map(len, served["cpu"])), losses["cuda"], lamb["cuda"],
+             losses["cpu"], lamb["cpu"], max(lrel), TINY_LOSS_RTOL,
+             blosses[0], blosses[1], grel, TINY_GRAD_REL,
+             {k: v for k, v in launches.items() if v}, card))
     check(served["cuda"] == served["cpu"], "tiny: served tokens differ: %s "
           "vs %s" % (served["cuda"], served["cpu"]))
-    check(max(lrel) <= TINY_LOSS_RTOL, "tiny: losses differ: %s" % losses)
+    check(max(lrel) <= TINY_LOSS_RTOL, "tiny: losses differ: %s %s"
+          % (losses, lamb))
     check(abs(blosses[0] - blosses[1]) <= TINY_GRAD_REL * abs(blosses[1])
           and grel <= TINY_GRAD_REL, "bert tiny: card and CPU differ: "
           "losses %s, grads %.2e" % (blosses, grel))
@@ -1842,12 +1893,15 @@ def entry_phase(mt, co, dev, card):
                                                "momentum": 0.9})
     loss_fn = mx.gluon.loss.SoftmaxCELoss()
     losses = []
+    co.reset_launch_counts()
     for _ in range(3):
         with mx.autograd.record():
             loss = loss_fn(net(xb).astype("float32"), labels)
         loss.backward()
         trainer.step(RESNET_B)
         losses.append(float(loss.mean()))
+    check_opt_launches("entry", co.LAUNCHES, "multi_sgd", 3,
+                       params.values())
     import numpy as onp
     changed = {k: not onp.array_equal(p.data().asnumpy(), before[k])
                for k, p in params.items()}
@@ -1896,6 +1950,458 @@ def entry_phase(mt, co, dev, card):
         check(launches[name] == 1, "entry: npx.flash_attention launched %s "
               "%d times, want 1" % (name, launches[name]))
     return launches
+
+
+# ----------------------------------------------------------------------
+# phase 15: the optimizer's multi-tensor kernels (csrc/multi_tensor.cu)
+# ----------------------------------------------------------------------
+# Each kernel against its plain version (ops/multi_tensor.py) on cloned
+# card inputs.  float32 weights and states: max|kernel - plain| per
+# tensor within OPT_REL of max|plain| -- the two differ only by FMA
+# contraction and the order of a few operations.  float16 / bfloat16
+# weights: every element within one step of its dtype (at the larger of
+# the two values), since each is the rounding of float32 values that
+# agree to OPT_REL; the share of unequal elements is printed.  LAMB's
+# trust ratios within OPT_REL (the kernel sums squares in float64 per
+# chunk, the plain version in float32).
+OPT_REL = 1e-6
+MANTISSA = {torch.float16: 10, torch.bfloat16: 7}
+OPT_KERNELS = {"multi_sgd": "sgd_kernel", "multi_adam": "adam_kernel",
+               "multi_lamb_phase1": "lamb1_kernel",
+               "multi_lamb_phase2": "lamb2_kernel"}
+OPT_REPLACES = {"multi_sgd": "mxnet_tpu/optimizer/optimizer.py:135",
+                "multi_adam": "mxnet_tpu/optimizer/optimizer.py:135",
+                "multi_lamb_phase1": "mxnet_tpu/ndarray/op_updates.py:268",
+                "multi_lamb_phase2": "mxnet_tpu/ndarray/op_updates.py:287"}
+RAGGED = [0, 1, 3, 4097, 16, 40000, 2 * 16384 + 5]
+RAGGED_UNALIGNED = 4        # a view offset by one element
+
+
+def opt_tables(params):
+    """Launches of one list update over ``params``: ceil(tensors / TABLE)
+    for each weight dtype (the optimizer's groups)."""
+    from mxnet_tpu_torch.ops import multi_tensor as mtk
+    counts = {}
+    for p in params:
+        if p.requires_grad:
+            counts[p.dtype] = counts.get(p.dtype, 0) + 1
+    return sum(-(-n // mtk.TABLE) for n in counts.values())
+
+
+def check_opt_launches(tag, launches, kernel, steps, params):
+    per = opt_tables(params)
+    check(launches[kernel] == steps * per, "%s: %s launched %d times in %d "
+          "steps, want %d per step (ceil(tensors / table) per dtype)"
+          % (tag, kernel, launches[kernel], steps, per))
+    return per
+
+
+def opt_cost(per_kernel):
+    """(ms, launches) per call of the optimizer kernels in a device_busy
+    per-kernel dict."""
+    rows = [v for k, v in per_kernel.items()
+            if any(n in k for n in OPT_KERNELS.values())]
+    return sum(ms for ms, _ in rows), sum(n for _, n in rows)
+
+
+def _opt_groups(dev, shapes, dtypes, n_states, gen, mp=False,
+                unaligned=None):
+    """Groups (w, g, states..., w32 or None) on the card: N(0, 1) weights,
+    N(0, 9) gradients, momentum / mean N(0, 0.01), variance U(0.1, 1.1);
+    ``dtypes[i]`` = (weight dtype, grad dtype)."""
+    def put(x, dtype, offset):
+        if offset:
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            buf[1:].copy_(x.reshape(-1))
+            return buf[1:].view(x.shape)
+        return x.to(dev, dtype)
+    out = []
+    for i, (shape, (wdt, gdt)) in enumerate(zip(shapes, dtypes)):
+        off = i == unaligned
+        w = torch.randn(shape, generator=gen)
+        states = [put(torch.randn(shape, generator=gen) * 0.1,
+                      torch.float32, off)]
+        if n_states == 2:
+            states.append(put(torch.rand(shape, generator=gen) + 0.1,
+                              torch.float32, off))
+        out.append((put(w, wdt, off),
+                    put(torch.randn(shape, generator=gen) * 3, gdt, off),
+                    *states, put(w, torch.float32, off) if mp else None))
+    return out
+
+
+def _clone_like(t):
+    """A copy of ``t`` at the same offset from a 16-byte boundary (the
+    kernels take the vector path only where every pointer is aligned,
+    and the two paths may contract their FMAs differently)."""
+    if t is None:
+        return None
+    off = t.data_ptr() % 16 // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    out = buf[off:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _opt_clone(groups):
+    return [tuple(_clone_like(t) for t in grp) for grp in groups]
+
+
+def _opt_compare(tag, got, want):
+    """Weights, states and masters of ``got`` (kernel) against ``want``
+    (plain): (max |d| and max |d| / max |plain| over float32 tensors,
+    the share of unequal 16-bit elements); fails past the limits."""
+    err = rel = 0.0
+    diff = total = 0
+    for grp_k, grp_p in zip(got, want):
+        for j, (a, b) in enumerate(zip(grp_k, grp_p)):
+            if a is None or j == 1 or not a.numel():
+                continue
+            if a.dtype in MANTISSA:
+                top = torch.maximum(a.float().abs(), b.float().abs())
+                step = torch.exp2(torch.floor(torch.log2(
+                    top.clamp(min=2.0 ** -14))) - MANTISSA[a.dtype])
+                d = (a.float() - b.float()).abs()
+                check(bool((d <= step).all()), "%s: a %s weight is more "
+                      "than one step from plain" % (tag, a.dtype))
+                diff += int((d > 0).sum())
+                total += a.numel()
+            else:
+                e, r = _rel_err(a, b)
+                err, rel = max(err, e), max(rel, r)
+    check(rel <= OPT_REL, "%s: kernel vs plain %.3e of max|plain| (limit "
+          "%.0e)" % (tag, rel, OPT_REL))
+    return err, rel, (diff / total if total else 0.0)
+
+
+def _opt_run(co, mtk, kind, groups, kw, tag):
+    """The kernel on ``groups`` and on a clone (the same bits twice), the
+    plain version on another clone, compared; LAMB's trust ratios too.
+    Returns (max |d|, max rel, share of unequal 16-bit elements)."""
+    again, plain = _opt_clone(groups), _opt_clone(groups)
+    fn = {"sgd": (mtk.multi_sgd, mtk.multi_sgd_plain),
+          "adam": (mtk.multi_adam, mtk.multi_adam_plain),
+          "lamb": (mtk.multi_lamb, mtk.multi_lamb_plain)}[kind]
+    kw = dict(kw)
+    ratios = None
+    if kind == "lamb":
+        ratios = [torch.ones(len(groups), device=groups[0][0].device)
+                  for _ in range(3)]
+    names = {"sgd": ["multi_sgd"], "adam": ["multi_adam"],
+             "lamb": ["multi_lamb_phase1", "multi_lamb_phase2"]}[kind]
+    before = [co.LAUNCHES[n] for n in names]
+    for k, (grps, f) in enumerate(((groups, fn[0]), (again, fn[0]),
+                                   (plain, fn[1]))):
+        if ratios is not None:
+            kw["ratios"] = ratios[k]
+        f(grps, **kw)
+    torch.cuda.synchronize()
+    check(all(co.LAUNCHES[n] > b for n, b in zip(names, before)),
+          "%s: the kernel did not launch" % tag)
+    same = all(torch.equal(a, b) for ga, gb in zip(groups, again)
+               for a, b in zip(ga, gb) if a is not None)
+    check(same, "%s: two kernel calls gave different bits" % tag)
+    out = _opt_compare(tag, groups, plain)
+    if ratios is not None:
+        check(torch.equal(ratios[0], ratios[1]), "%s: ratios differ" % tag)
+        r_rel = ((ratios[0] - ratios[2]).abs() / ratios[2].abs()).max()
+        check(r_rel.item() <= OPT_REL, "%s: trust ratio %.3e from plain "
+              "(limit %.0e)" % (tag, r_rel.item(), OPT_REL))
+    return out
+
+
+def _opt_edge_cases(co, mtk, dev):
+    """Ragged lists (0, 1, 3, 4097 elements, past a chunk, an offset
+    view off the vector path), float32 / bf16 / float16 under
+    multi_precision, per-tensor lr / wd / t, clip on and off, rescale
+    0.5; and 1500 tiny tensors, which need ceil(1500 / TABLE) launches."""
+    gen = torch.Generator().manual_seed(21)
+    n = len(RAGGED)
+    per = dict(lrs=[0.01 * (k + 1) for k in range(n)],
+               wds=[0.01 * k for k in range(n)])
+    steps = [1 + 3 * k for k in range(n)]
+    errs = {k: [0.0, 0.0, 0.0] for k in OPT_KERNELS}
+    for wdt, gdt, mp in ((torch.float32, torch.float32, False),
+                         (torch.bfloat16, torch.bfloat16, False),
+                         (torch.bfloat16, torch.float32, False),
+                         (torch.float16, torch.float16, True)):
+        dts = [(wdt, gdt)] * n
+        for clip in (None, 1.0):
+            cases = [
+                ("multi_sgd", "sgd", 1, dict(per, momentum=0.9,
+                                             nesterov=False)),
+                ("multi_sgd", "sgd", 1, dict(per, momentum=0.9,
+                                             nesterov=True)),
+                ("multi_sgd", "sgd", 0, dict(per)),
+                ("multi_adam", "adam", 2, dict(per, steps=steps,
+                                               decoupled=True)),
+                ("multi_adam", "adam", 2, dict(
+                    per, steps=steps, etas=[1.0 + k for k in range(n)],
+                    decoupled=False)),
+                ("multi_adam", "adam", 2, dict(per, decoupled=True,
+                                               bias_correction=False)),
+                ("multi_lamb_phase2", "lamb", 2, dict(per, steps=steps)),
+                ("multi_lamb_phase2", "lamb", 2, dict(
+                    per, steps=steps, lower_bound=0.5, upper_bound=4.0))]
+            for name, kind, n_states, kw in cases:
+                groups = _opt_groups(dev, [(x,) for x in RAGGED], dts,
+                                     max(n_states, 1), gen, mp,
+                                     RAGGED_UNALIGNED)
+                if n_states == 0:
+                    groups = [(w, g, None, w32) for w, g, _, w32 in groups]
+                tag = "%s %s/%s%s clip %s %s" % (
+                    name, str(wdt)[6:], str(gdt)[6:], " mp" if mp else "",
+                    clip, {k: v for k, v in kw.items()
+                           if k not in ("lrs", "wds", "steps", "etas")})
+                e = _opt_run(co, mtk, kind, groups,
+                             dict(kw, rescale=0.5, clip=clip), tag)
+                keys = [name] if kind != "lamb" else ["multi_lamb_phase1",
+                                                      "multi_lamb_phase2"]
+                for key in keys:
+                    errs[key] = [max(a, b) for a, b in zip(errs[key], e)]
+    tiny = [(1 + (k * 37) % 300,) for k in range(1500)]
+    for kind, name, n_states, kw in (
+            ("adam", "multi_adam", 2, dict(steps=[2] * 1500,
+                                           decoupled=True)),
+            ("sgd", "multi_sgd", 1, dict(momentum=0.9)),
+            ("lamb", "multi_lamb_phase1", 2, dict(steps=[2] * 1500))):
+        groups = _opt_groups(dev, tiny, [(torch.bfloat16,) * 2] * 1500,
+                             n_states, gen)
+        before = co.LAUNCHES[name]
+        e = _opt_run(co, mtk, kind, groups,
+                     dict(kw, lrs=[1e-3] * 1500, wds=[0.01] * 1500), "%s "
+                     "1500 tiny tensors" % name)
+        want = -(-1500 // mtk.TABLE)
+        check(co.LAUNCHES[name] - before == 2 * want, "%s: 1500 tensors "
+              "took %d launches a call, want %d" % (
+                  name, (co.LAUNCHES[name] - before) // 2, want))
+        errs[name] = [max(a, b) for a, b in zip(errs[name], e)]
+    print("optimizer kernels vs plain, edge cases (ragged %s, an offset "
+          "view, float32 / bf16 / float16-mp, clip on and off, rescale 0.5, "
+          "1500 tiny tensors in %d launches): %s; bitwise repeatable"
+          % (RAGGED, -(-1500 // mtk.TABLE), "; ".join(
+              "%s max|d| %.3e, %.3e of max|plain| (limit %.0e), 16-bit "
+              "elements unequal %.4f%%" % (k, e[0], e[1], OPT_REL,
+                                           100 * e[2])
+              for k, e in errs.items())))
+    return errs
+
+
+def _opt_bytes(groups, kind, phase=None):
+    """Bytes the update must move: each operand read once, each result
+    written once (a master replaces the weight's read)."""
+    total = 0
+    for grp in groups:
+        w, g, w32 = grp[0], grp[1], grp[-1]
+        n, ws, gs = w.numel(), w.element_size(), g.element_size()
+        wio = (8 + ws) if w32 is not None else 2 * ws   # read, write
+        states = sum(8 for s in grp[2:-1] if s is not None)
+        if kind == "lamb":
+            wr = 4 if w32 is not None else ws
+            total += n * ((wr + gs + states + 4) if phase == 1
+                          else (wio + 4))
+        else:
+            total += n * (wio + gs + states)
+    return total
+
+
+def graph_ms(fn, iters=20):
+    """Device ms of ``fn()`` captured once as a CUDA graph and replayed
+    (:func:`time_ms`: L2 flushed before each replay, events around it):
+    the kernels' own time with no host work between them; the capture
+    also shows that the call records no host synchronisation."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters, warmup=1)
+
+
+def opt_list_timing(co, mtk, kind, groups, kw, tag, card, library=None):
+    """One list's update timed: each kernel's own device time (CUDA graph
+    replay, L2 flushed: :func:`graph_ms`), the wrapper call's event time
+    (host preparation included), the plain version's, and one PyTorch
+    call (``library``) where there is one; the bound is the bytes over
+    3.35 TB/s."""
+    fn = {"sgd": (mtk.multi_sgd, mtk.multi_sgd_plain),
+          "adam": (mtk.multi_adam, mtk.multi_adam_plain),
+          "lamb": (mtk.multi_lamb, mtk.multi_lamb_plain)}[kind]
+    if kind == "lamb":     # each phase in a graph of its own
+        codes, dev, launches = mtk.lamb_launches(groups, **kw)
+        own = {name: graph_ms(lambda name=name: [
+            mtk._launch(name, tab, s, codes, dev) for tab, s, _ in launches])
+            for name in ("multi_lamb_phase1", "multi_lamb_phase2")}
+    else:
+        own = {"multi_" + kind: graph_ms(lambda: fn[0](groups, **kw))}
+    call_ms = time_ms(lambda: fn[0](groups, **kw))
+    plain_ms = time_ms(lambda: fn[1](groups, **kw), iters=3, warmup=1)
+    lib_ms = library() if library is not None else None
+    n = sum(g[0].numel() for g in groups)
+    out = {}
+    for i, (name, ms) in enumerate(own.items()):
+        nbytes = _opt_bytes(groups, kind, i + 1)
+        b_ms, b_by = bound_ms(nbytes, 20 * n, FP32_FLOPS_PER_S)
+        out[name] = {"shape": tag, "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                     "tensors": len(groups), "params": n}
+    print("optimizer timing %s (%d tensors, %.1f M params): %s; call %.4f "
+          "ms (events), plain %.4f ms%s [%s]" % (
+              tag, len(groups), n / 1e6, "; ".join(
+                  "%s %.4f ms (device) of bound %.4f (%.1f%%, %.2f GB)"
+                  % (k, v["ms"], v["bound_ms"], 100 * v["bound_ms"] / v["ms"],
+                     v["bytes"] / 1e9) for k, v in out.items()),
+              call_ms, plain_ms, "" if lib_ms is None
+              else ", library %.4f ms (device)" % lib_ms, card))
+    return out
+
+
+def _fused_adamw_ms(groups, lr, wd, beta1=0.9, beta2=0.999, eps=1e-8):
+    """Device ms (:func:`graph_ms`) of ``torch._fused_adamw_`` (PyTorch's
+    own fused AdamW, the same function up to rounding) on a float32
+    list: the library yardstick; the port never calls it."""
+    ps, gs, ms, vs = ([grp[i].clone() for grp in groups] for i in range(4))
+    steps = [torch.ones((), device=ps[0].device) for _ in ps]
+    try:     # the yardstick only: a torch without it leaves library_ms null
+        ms_ = graph_ms(lambda: torch._fused_adamw_(
+            ps, gs, ms, vs, [], steps, lr=lr, beta1=beta1, beta2=beta2,
+            weight_decay=wd, eps=eps, amsgrad=False, maximize=False))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        print("torch._fused_adamw_ not timed: %s" % e)
+        return None
+    return ms_
+
+
+def _param_list(params, grad_dtype=None):
+    """(shapes, (weight dtype, grad dtype)) of the trainable ``params``."""
+    ps = [p for p in params if p.requires_grad]
+    return ([tuple(p.shape) for p in ps],
+            [(p.dtype, grad_dtype or p.dtype) for p in ps])
+
+
+def optimizer_phase(mt, co, dev, card):
+    """The four multi-tensor kernels against their plain versions at the
+    edges of their design and at the main paths' parameter lists
+    (BERT-base in bf16 and float32 under AdamW, ResNet-50 under SGD with
+    momentum), then timed at those lists; returns their kernels-line
+    records (the LM list is timed in the training phase)."""
+    from mxnet_tpu_torch.ops import multi_tensor as mtk
+    errs = _opt_edge_cases(co, mtk, dev)
+    gen = torch.Generator().manual_seed(22)
+    lists = {}
+    for dt in ("bfloat16", "float32"):
+        net = mt.models.BERTForPretrain(mt.models.bert_base_config(
+            dtype=dt)).initialize(device=dev)
+        lists["bert-base %s" % dt] = _param_list(net.parameters())
+        del net
+    net = _resnet50(mt, dev).cast("bfloat16")
+    for m in net.modules():
+        if isinstance(m, mt.gluon.nn.BatchNorm):
+            m.cast("float32")
+    with mt.autograd.pause():
+        net(torch.zeros(1, 3, 64, 64, device=dev, dtype=torch.bfloat16))
+    lists["resnet-50 bf16 + float32 BatchNorm"] = _param_list(
+        net.parameters())
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = {k: [] for k in OPT_KERNELS}
+    profiled = False
+    for tag, (shapes, dts) in lists.items():
+        n = len(shapes)
+        lrs = [2e-5 * (1 + (k % 3)) for k in range(n)]
+        wds = [0.01 * (k % 2) for k in range(n)]
+        runs = [("adam", 2, dict(lrs=[1.0] * n, wds=wds, etas=lrs,
+                                 steps=[3] * n, decoupled=True,
+                                 rescale=1.0, f32_scalars=True))]
+        if tag.startswith("resnet"):
+            runs = [("sgd", 1, dict(lrs=lrs, wds=wds, momentum=0.9,
+                                    rescale=1 / 128))]
+        if tag == "bert-base float32":
+            runs.append(("lamb", 2, dict(lrs=lrs, wds=wds, steps=[3] * n,
+                                         rescale=1.0, f32_scalars=True)))
+        for kind, n_states, kw in runs:
+            # the optimizer's groups: one call per weight dtype
+            for dt in sorted({d for d, _ in dts}, key=str):
+                idx = [k for k, d in enumerate(dts) if d[0] == dt]
+                groups = _opt_groups(dev, [shapes[k] for k in idx],
+                                     [dts[k] for k in idx], n_states, gen)
+                sub = {k: ([v[i] for i in idx] if isinstance(v, list)
+                           else v) for k, v in kw.items()}
+                name = "%s %s list, %s weights" % (tag, kind, str(dt)[6:])
+                _opt_run(co, mtk, kind, groups, sub, name)
+                lib = None
+                if kind == "adam" and dt == torch.float32 and \
+                        tag == "bert-base float32":
+                    def lib():
+                        return _fused_adamw_ms(groups, 2e-5, 0.01)
+                for k, rec in opt_list_timing(co, mtk, kind, groups, sub,
+                                              name, card, lib).items():
+                    timing[k].append(rec)
+                if kind == "adam" and not profiled:
+                    # whether torch.profiler sees these launches (their
+                    # 22 KB parameter): the step lines' optimizer ms
+                    # come from its traces
+                    profiled = True
+                    try:
+                        ms, _ = device_ms(lambda: mtk.multi_adam(groups,
+                                                                 **sub),
+                                          "adam_kernel", attempts=2)
+                        print("optimizer profiler check %s: multi_adam "
+                              "%.4f ms by torch.profiler" % (name, ms))
+                    except SmokeFailure as e:
+                        print("optimizer profiler check %s: %s" % (name, e))
+                del groups
+                gc.collect()
+                torch.cuda.empty_cache()
+    records = []
+    for name, recs in timing.items():
+        # multi_adam's head: BERT-base float32, where a library call exists
+        head = next((r for r in recs if r["library_ms"] is not None),
+                    recs[0])
+        records.append({"name": name, "route": "cuda",
+                        "source": "mxnet_tpu_torch/csrc/multi_tensor.cu",
+                        "replaces": OPT_REPLACES[name],
+                        "max_abs_err": errs[name][0],
+                        "max_rel_err": errs[name][1],
+                        "unequal_16bit_share": errs[name][2],
+                        **{k: head[k] for k in ("ms", "call_ms", "plain_ms",
+                                                "bound_ms", "bound_by",
+                                                "library_ms")},
+                        "shapes": recs})
+    return records
+
+
+def lm_adamw_timing(co, net, states, dev, card):
+    """The LM's AdamW update timed in place over its 2.80 B parameters
+    (its weights, fresh gradients of their dtype, the TrainStep's
+    float32 m and v), one record per weight dtype (the optimizer's
+    groups): clones would not fit beside the model, so the kernel and
+    the plain version each run on the live list."""
+    from mxnet_tpu_torch.ops import multi_tensor as mtk
+    gen = torch.Generator(device=dev).manual_seed(23)
+    params = [(n, p) for n, p in net.collect_params().items()
+              if p.requires_grad]
+    recs = []
+    for dt in sorted({p.dtype for _, p in params}, key=str):
+        groups = [(p.detach(), torch.randn(p.shape, generator=gen,
+                                           device=dev, dtype=p.dtype),
+                   *states[n], None) for n, p in params if p.dtype == dt]
+        n = len(groups)
+        recs.append(opt_list_timing(
+            co, mtk, "adam", groups, dict(lrs=[1.0] * n, wds=[0.0] * n,
+                                          etas=[1e-3] * n, steps=[5] * n,
+                                          decoupled=True, f32_scalars=True),
+            "LM llama3_8b widths 8 layers AdamW list, %s weights"
+            % str(dt)[6:], card)["multi_adam"])
+        del groups
+    check(all(bool(torch.isfinite(p).all()) for _, p in params),
+          "LM AdamW timing: a weight is not finite")
+    return recs
 
 
 def _short_names(obj, width=48):
@@ -1954,6 +2460,7 @@ def main(argv):
     parity_phase(mt, co, dev, card)
     paged = paged_phase(co, dev)
     general = general_kernel_phase(co, dev, card)
+    optim = optimizer_phase(mt, co, dev, card)
     tiny_launches = tiny_fp32_phase(mt, co, dev, card)
 
     n_layers = 32
@@ -1967,10 +2474,10 @@ def main(argv):
     del srv, net                  # free the serving model for training
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = train_phase(mt, co, dev, card)
+    train_launches, lm_adamw = train_phase(mt, co, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    resnet_phase(mt, dev, card)
+    resnet_launches = resnet_phase(mt, co, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     bert_launches = bert_phase(mt, co, dev, card)
@@ -1981,10 +2488,14 @@ def main(argv):
     torch.cuda.empty_cache()
     entry_launches = entry_phase(mt, co, dev, card)
 
-    kernels = [flash] + flash_bwd + [paged] + general
+    for k in optim:
+        if k["name"] == "multi_adam":
+            k["shapes"] += lm_adamw
+    kernels = [flash] + flash_bwd + [paged] + general + optim
     paths = {"serve": serve_launches, "train": train_launches,
              "bert": bert_launches, "tiny_fp32": tiny_launches,
-             "bert_fp32": bert_fp32_launches, "entry": entry_launches}
+             "bert_fp32": bert_fp32_launches, "entry": entry_launches,
+             "resnet": resnet_launches}
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(by_path.values())

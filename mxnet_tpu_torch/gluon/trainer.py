@@ -4,8 +4,11 @@ device.
 Counterpart of ``mxnet_tpu/gluon/trainer.py:20-330`` for one worker.
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
 ``rescale_grad / batch_size`` (:274-286, without the AMP scaler) and
-updates every trainable parameter from its ``.grad``; the update runs
-on the parameters' own device.
+updates every trainable parameter from its ``.grad`` with one
+``update_multi_precision`` call over all of them (:385; states from
+``create_state_multi_precision``, :105-109), which runs each group of
+SGD / NAG / Adam / AdamW / LAMB as one multi-tensor kernel launch on the
+card; the update runs on the parameters' own device.
 
 MXNet's ``grad_req="write"`` is not torch's accumulate: a backward in
 MXNet overwrites the gradient, torch adds to it.  So after each update
@@ -117,10 +120,17 @@ class Trainer:
                 continue
             fresh.append(i)
         for i in fresh:
-            p = self._params[i]
             if self._states[i] is None:
-                self._states[i] = self._optimizer.create_state(i, p)
-            self._optimizer.update(i, p.data, p.grad, self._states[i])
+                self._states[i] = \
+                    self._optimizer.create_state_multi_precision(
+                        i, self._params[i].data)
+        if fresh:
+            self._optimizer.update_multi_precision(
+                fresh, [self._params[i].data for i in fresh],
+                [self._params[i].grad for i in fresh],
+                [self._states[i] for i in fresh])
+        for i in fresh:
+            p = self._params[i]
             if getattr(p, "grad_req", "write") != "add":
                 p.grad = None   # "write": the next backward writes
 

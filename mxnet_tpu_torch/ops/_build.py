@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_general",
-           "paged_general", "flash_bwd_mma", "flash_fwd_mma")
+           "paged_general", "flash_bwd_mma", "flash_fwd_mma", "multi_tensor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -153,6 +153,10 @@ def _signatures():
         # Hkv psz D MP nsplit kps
         "paged_general": {"mx_paged_decode_general": [p] * 8 + [i] * 8
                           + [d, i, p]},
+        # kind, table, its bytes, scalars, their bytes, weight and grad
+        # dtype codes, stream | the two sizes' out-pointers
+        "multi_tensor": {"mx_multi_tensor": [i, p, i, p, i, i, i, p],
+                         "mx_multi_tensor_sizes": [p, p]},
     }
 
 

@@ -59,7 +59,10 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode": 0, "flash_fwd_general": 0,
             "flash_bwd_dq_general": 0, "flash_bwd_dkv_general": 0,
             "paged_decode_general": 0, "flash_bwd_dq_mma": 0,
-            "flash_bwd_dkv_mma": 0, "flash_fwd_mma": 0}
+            "flash_bwd_dkv_mma": 0, "flash_fwd_mma": 0,
+            # the optimizer's multi-tensor kernels (ops/multi_tensor.py)
+            "multi_sgd": 0, "multi_adam": 0, "multi_lamb_phase1": 0,
+            "multi_lamb_phase2": 0}
 
 #: dtype codes of the general kernels' C interface (csrc/general.cuh)
 GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,

@@ -1,6 +1,8 @@
-"""Optimizers of the port (``SGD``, ``Adam``, ``AdamW``) and their
-registry."""
-from .optimizer import (SGD, Adam, AdamW, Optimizer, create,  # noqa: F401
-                        register)
+"""``mx.optimizer`` -- the seventeen optimizers of the JAX package, the
+registry, ``Updater`` and ``get_updater``."""
+from .optimizer import (DCASGD, FTML, LAMB, LANS, LARS, NAG,  # noqa: F401
+                        SGD, SGLD, AdaDelta, AdaGrad, Adam, Adamax, AdamW,
+                        Ftrl, Nadam, Optimizer, RMSProp, Signum, Updater,
+                        create, get_updater, register)
 
 opt_registry = Optimizer.opt_registry

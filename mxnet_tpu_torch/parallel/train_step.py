@@ -8,16 +8,19 @@ arithmetic:
 
 * the forward runs with grad on and the training flag set:
   ``forward_fn(net, *batch)``, or else ``loss_fn(net(x), y).mean()``;
-* each trainable parameter's gradient is cast to float32 and clipped by
-  the optimizer's ``clip_gradient`` (:176-197) -- ``rescale_grad`` is
-  NOT applied here, unlike ``Optimizer.update``;
-* the optimizer's pure ``_rule`` runs with the step's own counter ``t``
-  (:254-255), the optimizer's ``learning_rate`` (its scheduler at
-  ``num_update = t``) times the parameter's ``lr_mult``, and its wd.
+* the update is one list-form call over every trainable parameter
+  (the optimizer's ``_run``: each group of SGD / NAG / Adam / AdamW /
+  LAMB one multi-tensor kernel launch on the card, which reads each
+  gradient in its own dtype; the other optimizers' ``_rule`` per
+  tensor), with the step's own counter ``t`` (:254-255), the
+  optimizer's ``learning_rate`` (its scheduler at ``num_update = t``)
+  times the parameter's ``lr_mult``, and its wd;
+* each gradient is clipped by the optimizer's ``clip_gradient`` inside
+  that call (:176-197) -- ``rescale_grad`` is NOT applied here, unlike
+  ``Optimizer.update``.
 
-Under ``torch.no_grad()`` each weight is updated in place (the
-parameter stays the same tensor) and its optimizer state is replaced by
-the rule's new float32 tensors, on the parameter's device.  Not ported
+Each weight and its optimizer state are updated in place (the parameter
+stays the same tensor), on the parameter's device.  Not ported
 yet, and refused with ``NotImplementedError``: ``mesh``, ``zero1``,
 ``aot``, ``remat=True``, ``save_checkpoint``, ``load_checkpoint`` and
 ``resize`` (ROADMAP queue 3).  The JAX step's ``param_rules`` and
@@ -88,14 +91,12 @@ class TrainStep:
                 loss = self.loss_fn(self.net(batch[0]), batch[1]).mean()
         grads = torch.autograd.grad(loss, [p for _, _, p in self._trainable])
         with torch.no_grad():
-            for (i, name, p), g in zip(self._trainable, grads):
-                g = g.float()
-                if opt.clip_gradient is not None:
-                    g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
-                new_w, self._states[name] = opt._rule(
-                    p, g, lr * getattr(p, "lr_mult", 1.0), opt._get_wd(i),
-                    self._t, opt._scalar_args(i), self._states[name])
-                p.copy_(new_w)
+            opt._run([(i, p.detach(), g, self._states[name], None)
+                      for (i, name, p), g in zip(self._trainable, grads)],
+                     [lr * getattr(p, "lr_mult", 1.0)
+                      for _, _, p in self._trainable],
+                     [opt._get_wd(i) for i, _, _ in self._trainable],
+                     [self._t] * len(self._trainable), rescale=1.0)
         return loss.detach()
 
     def save_checkpoint(self, path):

@@ -111,7 +111,9 @@ def test_cpu_path_launches_no_kernel():
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
     assert cuda_ops.LAUNCHES == dict.fromkeys(
         [name for k in kernels for name in (k, k + "_general")]
-        + ["flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"], 0)
+        + ["flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+           "multi_sgd", "multi_adam", "multi_lamb_phase1",
+           "multi_lamb_phase2"], 0)
 
 
 def test_gqa_head_mismatch_raises():

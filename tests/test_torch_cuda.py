@@ -718,3 +718,207 @@ def test_bert_layer_head_dim_64_runs_the_flash_kernels(dev):
             got = grads[0][k]
         rel = ((got - want).norm() / want.norm()).item()
         assert rel <= 3e-2, (k, rel)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's multi-tensor kernels (csrc/multi_tensor.cu)
+# ---------------------------------------------------------------------------
+# A ragged list: empty, single, odd and past-a-chunk tensors, one more
+# that is a view offset by one element (its pointers are not 16-byte
+# aligned: the scalar path), and a few ordinary ones.
+MT_NUMELS = [0, 1, 3, 4097, 16, 40000, 2 * 16384 + 5]
+MT_UNALIGNED = 4           # index of the offset view
+# (weight dtype, grad dtype, float32 master weights)
+MT_DTYPES = [(torch.float32, torch.float32, False),
+             (torch.bfloat16, torch.bfloat16, False),
+             (torch.bfloat16, torch.float32, False),
+             (torch.float16, torch.float16, True),
+             (torch.float16, torch.float32, False)]
+MANTISSA = {torch.float16: 10, torch.bfloat16: 7}
+
+
+def _mt_groups(dev, wdt, gdt, mp, n_states, seed, numels=MT_NUMELS):
+    """Groups (w, g, states..., w32 or None) on the card, from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def put(x, dtype, offset=False):
+        if offset:
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            buf[1:].copy_(x)
+            return buf[1:]
+        return x.to(dev, dtype)
+    groups = []
+    for k, n in enumerate(numels):
+        off = k == MT_UNALIGNED
+        w = torch.randn(n, generator=gen)
+        states = [put(torch.randn(n, generator=gen) * 0.1, torch.float32,
+                      off)]
+        if n_states == 2:
+            states.append(put(torch.rand(n, generator=gen) + 0.1,
+                              torch.float32, off))
+        groups.append((put(w, wdt, off),
+                       put(torch.randn(n, generator=gen) * 3, gdt, off),
+                       *states, put(w, torch.float32, off) if mp else None))
+    return groups
+
+
+def _clone(groups):
+    return [tuple(None if t is None else t.clone() for t in grp)
+            for grp in groups]
+
+
+def _mt_check(got, want):
+    for gi, (gg, wg) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(gg, wg)):
+            if a is None or not a.numel() or j == 1:
+                continue
+            if a.dtype in MANTISSA:
+                top = torch.maximum(a.float().abs(), b.float().abs())
+                step = torch.exp2(torch.floor(torch.log2(
+                    top.clamp(min=2.0 ** -14))) - MANTISSA[a.dtype])
+                assert bool(((a.float() - b.float()).abs() <= step).all()), \
+                    (gi, j)
+            else:
+                d = (a - b).abs().max().item()
+                assert d <= 1e-6 * b.abs().max().item(), (gi, j, d)
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("mom", [False, True])
+@pytest.mark.parametrize("dtypes", MT_DTYPES)
+def test_multi_sgd_kernel_matches_plain(dev, dtypes, mom, nesterov):
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+    wdt, gdt, mp = dtypes
+    groups = _mt_groups(dev, wdt, gdt, mp, 1, 1)
+    if not mom:
+        groups = [(w, g, None, w32) for w, g, _, w32 in groups]
+    plain = _clone(groups)
+    n = len(groups)
+    kw = dict(lrs=[0.1 * (k + 1) for k in range(n)],
+              wds=[0.01 * k for k in range(n)], momentum=0.9,
+              nesterov=nesterov, rescale=0.5, clip=1.0)
+    before = cuda_ops.LAUNCHES["multi_sgd"]
+    mt.multi_sgd(groups, **kw)
+    mt.multi_sgd_plain(plain, **kw)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["multi_sgd"] == before + 1
+    _mt_check(groups, plain)
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+@pytest.mark.parametrize("decoupled,bias", [(False, True), (True, True),
+                                            (True, False)])
+@pytest.mark.parametrize("dtypes", MT_DTYPES)
+def test_multi_adam_kernel_matches_plain(dev, dtypes, decoupled, bias, clip):
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+    wdt, gdt, mp = dtypes
+    groups = _mt_groups(dev, wdt, gdt, mp, 2, 2)
+    plain = _clone(groups)
+    n = len(groups)
+    kw = dict(lrs=[1e-3 * (k + 1) for k in range(n)],
+              wds=[0.01 * k for k in range(n)],
+              etas=[1.0 + k for k in range(n)],
+              steps=[1 + 3 * k for k in range(n)], decoupled=decoupled,
+              bias_correction=bias, rescale=0.5, clip=clip)
+    before = cuda_ops.LAUNCHES["multi_adam"]
+    mt.multi_adam(groups, **kw)
+    mt.multi_adam_plain(plain, **kw)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["multi_adam"] == before + 1
+    _mt_check(groups, plain)
+
+
+@pytest.mark.parametrize("bounds", [(None, None), (0.5, 4.0)])
+@pytest.mark.parametrize("dtypes", MT_DTYPES)
+def test_multi_lamb_kernels_match_plain(dev, dtypes, bounds):
+    """Both LAMB phases: weights and states as the other kernels', and
+    each tensor's trust ratio within 1e-6 of the plain one's."""
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+    wdt, gdt, mp = dtypes
+    groups = _mt_groups(dev, wdt, gdt, mp, 2, 3)
+    plain = _clone(groups)
+    n = len(groups)
+    kw = dict(lrs=[1e-2 * (k + 1) for k in range(n)],
+              wds=[0.01 * k for k in range(n)],
+              steps=[1 + k for k in range(n)], lower_bound=bounds[0],
+              upper_bound=bounds[1], rescale=0.5, clip=1.0)
+    ratios, want = (torch.full((n,), -1.0, device=dev) for _ in range(2))
+    before = [cuda_ops.LAUNCHES[k] for k in ("multi_lamb_phase1",
+                                             "multi_lamb_phase2")]
+    mt.multi_lamb(groups, ratios=ratios, **kw)
+    mt.multi_lamb_plain(plain, ratios=want, **kw)
+    torch.cuda.synchronize()
+    assert [cuda_ops.LAUNCHES[k] for k in ("multi_lamb_phase1",
+                                           "multi_lamb_phase2")] == [
+        b + 1 for b in before]
+    _mt_check(groups, plain)
+    assert ratios[0].item() == want[0].item() == -1.0    # the empty tensor
+    rel = ((ratios - want).abs() / want.abs()).max().item()
+    assert rel <= 1e-6, (ratios, want)
+
+
+def test_multi_tensor_kernels_give_the_same_bits_and_cut_tables(dev):
+    """1500 tiny tensors take ceil(1500 / TABLE) launches; two runs from
+    the same inputs give the same bits."""
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+    numels = [1 + (k * 37) % 300 for k in range(1500)]
+    runs = []
+    for _ in range(2):
+        groups = _mt_groups(dev, torch.bfloat16, torch.bfloat16, False, 2,
+                            4, numels)
+        before = cuda_ops.LAUNCHES["multi_adam"]
+        mt.multi_adam(groups, [1e-3] * 1500, [0.01] * 1500,
+                      steps=[2] * 1500, decoupled=True)
+        assert cuda_ops.LAUNCHES["multi_adam"] == before + -(-1500 //
+                                                             mt.TABLE)
+        lamb = _mt_groups(dev, torch.float32, torch.float32, False, 2, 5,
+                          MT_NUMELS)
+        mt.multi_lamb(lamb, [1e-2] * len(lamb), [0.01] * len(lamb),
+                      steps=[3] * len(lamb))
+        torch.cuda.synchronize()
+        runs.append([t for grp in groups + lamb for t in grp
+                     if t is not None])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_multi_tensor_kernels_refuse(dev):
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+    w = torch.zeros(8, device=dev)
+    with pytest.raises(TypeError):
+        mt.multi_sgd([(w.double(), w.double(), None, None)], [0.1], [0.0])
+    with pytest.raises(ValueError):
+        mt.multi_adam([(w, w.cpu(), w, w, None)], [0.1], [0.0], steps=[1])
+    with pytest.raises(ValueError):
+        mt.multi_adam([(w, torch.zeros(4, 2, device=dev).t(), w, w, None)],
+                      [0.1], [0.0], steps=[1])
+
+
+@pytest.mark.parametrize("name,kw,kernel", [
+    ("sgd", {"momentum": 0.9}, "multi_sgd"), ("nag", {"momentum": 0.9},
+                                               "multi_sgd"),
+    ("adam", {}, "multi_adam"), ("adamw", {}, "multi_adam"),
+    ("lamb", {}, "multi_lamb_phase2")])
+def test_optimizers_launch_one_kernel_per_group_and_match_cpu(dev, name, kw,
+                                                              kernel):
+    """An optimizer's list update on the card: one launch per dtype group
+    (bf16 weights and float32 ones here), the weights within the kernels'
+    limits of the same update on the CPU."""
+    from mxnet_tpu_torch import optimizer
+    gen = torch.Generator().manual_seed(6)
+    ws = [torch.randn(n, generator=gen) for n in (300, 17, 5000, 64)]
+    gs = [torch.randn(w.shape, generator=gen) for w in ws]
+    out = {}
+    for d in (dev, "cpu"):
+        opt = optimizer.create(name, learning_rate=0.01, wd=0.01,
+                               rescale_grad=0.5, clip_gradient=1.0, **kw)
+        w = [x.to(d, torch.bfloat16 if k % 2 else torch.float32)
+             for k, x in enumerate(ws)]
+        st = [opt.create_state(k, x) for k, x in enumerate(w)]
+        before = cuda_ops.LAUNCHES[kernel]
+        opt.update(list(range(4)), w, [g.to(d, x.dtype) for g, x in
+                                       zip(gs, w)], st)
+        launched = cuda_ops.LAUNCHES[kernel] - before
+        assert launched == (2 if d == dev else 0)
+        out[str(d)] = w
+    _mt_check([(a,) for a in out[str(dev)]],
+              [(b.to(dev),) for b in out["cpu"]])

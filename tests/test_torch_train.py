@@ -307,10 +307,14 @@ def test_unported_training_options_raise():
         gluon.Trainer(params, "sgd", update_on_kvstore=True)
     with pytest.raises(NotImplementedError, match="queue 4"):
         gluon.Trainer(params, "sgd").step(1, skip_nonfinite=True)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        optimizer.Adam(multi_precision=True)
+    # multi_precision and LAMB, refused until the optimizer slice, now work
+    opt = optimizer.Adam(multi_precision=True)
+    w16 = torch.ones(3, dtype=torch.float16)
+    w32, (m, v) = opt.create_state_multi_precision(0, w16)
+    assert w32.dtype == m.dtype == v.dtype == torch.float32
+    assert isinstance(optimizer.create("lamb"), optimizer.LAMB)
     with pytest.raises(ValueError, match="Cannot find optimizer"):
-        optimizer.create("lamb")
+        optimizer.create("lamb_not_an_optimizer")
 
 
 @pytest.mark.parametrize("make", [
@@ -318,18 +322,49 @@ def test_unported_training_options_raise():
     lambda net: TrainStep(net, None, optimizer.AdamW(), batch_spec=None),
     lambda net: TrainStep(net, None, optimizer.AdamW(), donate=False),
     lambda net: TrainStep(net, None, optimizer.AdamW(), None, None),
-    lambda net: optimizer.AdamW(aggregate_num=4),
-    lambda net: optimizer.SGD(use_fused_step=False),
     lambda net: optimizer.SGD(lazy_update=True),
     lambda net: gluon.Trainer(net.collect_params(), "adam",
                               {"learning_rate": 0.1, "lazy_update": True}),
-], ids=["param_rules", "batch_spec", "donate", "positional", "aggregate_num",
-        "use_fused_step", "lazy_update", "trainer_optimizer_params"])
+], ids=["param_rules", "batch_spec", "donate", "positional", "lazy_update",
+        "trainer_optimizer_params"])
 def test_options_the_port_lacks_are_refused(make):
     """An option of the JAX package that the port does not have is an
     error, never silently dropped."""
     with pytest.raises(TypeError):
         make(TransformerLM(tiny_config(n_layers=1), device="cpu"))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("adamw", {"aggregate_num": 4}), ("sgd", {"use_fused_step": False}),
+    ("sgd", {"aggregate_num": 1, "use_fused_step": False,
+             "momentum": 0.9}),
+    ("lamb", {"aggregate_num": 2})],
+    ids=["aggregate_num", "use_fused_step", "both", "lamb_aggregate_num"])
+def test_aggregate_num_and_use_fused_step_change_no_result(name, kw):
+    """``aggregate_num`` and ``use_fused_step`` (refused before the
+    optimizer slice) are taken and, as in the JAX package, change no
+    result: three list-form updates equal the defaults' bit for bit."""
+    rng = onp.random.RandomState(5)
+    shapes = [(4, 3), (7,), (2, 2, 2)]
+    w0 = [rng.randn(*s).astype(onp.float32) for s in shapes]
+    grads = [[rng.randn(*s).astype(onp.float32) for s in shapes]
+             for _ in range(3)]
+    out = []
+    for opts in ({}, kw):
+        args = {k: v for k, v in kw.items()
+                if k not in ("aggregate_num", "use_fused_step")}
+        opt = optimizer.create(name, learning_rate=0.1, wd=0.01,
+                               **dict(args, **opts))
+        assert opt.aggregate_num == opts.get("aggregate_num", 0)
+        assert opt.use_fused_step == opts.get("use_fused_step", True)
+        ws = [torch.from_numpy(w.copy()) for w in w0]
+        sts = [opt.create_state(i, w) for i, w in enumerate(ws)]
+        for gs in grads:
+            opt.update(list(range(3)), ws, [torch.from_numpy(g) for g in gs],
+                       sts)
+        out.append([w.numpy() for w in ws])
+    for a, b in zip(*out):
+        assert onp.array_equal(a, b)
 
 
 def test_collect_params_names_select_and_num_params():

@@ -10,8 +10,12 @@ serialised its wgmma pipeline), holds each against its plain PyTorch
 version on the card, checks one training step of a small bf16 model
 on the card against the CPU, serves a Llama-3-8B-width
 ``TransformerLM`` (random weights from a seed)
-through the port's ``Server`` and checks the served tokens against a
-full-sequence forward, trains an 8-layer Llama-3-8B-width model
+through the port's ``Server`` -- its decode, prefill and chunk programs
+CUDA graphs captured at start-up, each replay held bit for bit against
+an eager call of the captured function -- in bf16 and through the int8
+weight path (the W8A16 ``int8_linear`` kernel, held against its plain
+version at the decode's shapes), checks the served tokens against a
+full-sequence forward (of the dequantized model for int8), trains an 8-layer Llama-3-8B-width model
 through ``TrainStep`` and the Gluon ``Trainer``, runs ResNet-50 from
 the Gluon zoo (inference at ``__graft_entry__.entry()``'s shape, eager and
 hybridized, NCHW and NHWC, then training) and trains BERT-base through
@@ -681,20 +685,49 @@ def make_requests(vocab, seed=3):
     return reqs
 
 
-def serve_phase(mt, co, net, dev, card, max_new=32):
+def serve_phase(mt, co, net, dev, card, max_new=32, int8=False):
+    """16 requests through the port's ``Server`` (bf16 weights, or the
+    int8 path with ``int8=True``), whose warm pool serves them from CUDA
+    graphs captured at start-up; returns (server, requests, results,
+    launches of the serving run, counted per replay)."""
+    tag = "serve int8" if int8 else "serve"
     scfg = mt.serve.ServeConfig(slots=8, page_size=128, pages=64,
-                                ladder=(128, 256, 512), max_new=max_new)
+                                ladder=(128, 256, 512), max_new=max_new,
+                                int8=int8)
+    torch.cuda.reset_peak_memory_stats()
     srv = mt.serve.Server(net, scfg)
-    print("KV pool %.3f GB on %s" % (srv.pool.stats["pool_bytes"] / 1e9,
-                                     dev))
+    pool = srv.pool
+    check(pool.stats["int8"] is int8, "%s: int8 %r" % (tag, pool.stats))
+    check(pool.stats["programs"] == 1 + 2 * len(scfg.ladder),
+          "%s: %d graphs captured, want %d" % (
+              tag, pool.stats["programs"], 1 + 2 * len(scfg.ladder)))
+    per_replay = {"decode": pool._decode.launches,
+                  **{"prefill %d" % T: p.launches
+                     for T, p in pool._prefill.items()},
+                  **{"chunk %d" % T: p.launches
+                     for T, p in pool._chunk.items()}}
+    want = {"paged_decode": net.cfg.n_layers}
+    want_pre = {"flash_fwd": net.cfg.n_layers}
+    if int8:
+        want["int8_linear"] = want_pre["int8_dequant"] = \
+            7 * net.cfg.n_layers + 1
+    check(per_replay["decode"] == want, "%s: the decode graph holds %s, "
+          "want %s" % (tag, per_replay["decode"], want))
+    check(per_replay["prefill 512"] == want_pre, "%s: a prefill graph "
+          "holds %s, want %s" % (tag, per_replay["prefill 512"], want_pre))
+    print("%s: KV pool %.3f GB; %d CUDA graphs captured in %.3f s; peak "
+          "memory after capture %.2f GB; launches per replay %s [%s]"
+          % (tag, pool.stats["pool_bytes"] / 1e9, pool.stats["programs"],
+             pool.stats["capture_s"], torch.cuda.max_memory_allocated()
+             / 1e9, per_replay, card))
     copies = []
-    copy_page = srv.pool.copy_page
+    copy_page = pool.copy_page
 
     def counting_copy(src, dst):
         copies.append((src, dst))
         copy_page(src, dst)
 
-    srv.pool.copy_page = counting_copy
+    pool.copy_page = counting_copy
     reqs = make_requests(net.cfg.vocab_size)
     torch.cuda.synchronize()
     co.reset_launch_counts()
@@ -714,19 +747,85 @@ def serve_phase(mt, co, net, dev, card, max_new=32):
     check(srv.sched.check_refcounts() == [], "prefix refcounts broken")
     check(srv.sched.stats()["prefix_hits"] >= 2, "prefix cache never hit")
     check(len(copies) >= 1, "the COW page copy never ran")
-    for name in ("flash_fwd", "paged_decode"):
+    for name in ("flash_fwd", "paged_decode") + (
+            ("int8_linear", "int8_dequant") if int8 else ()):
         check(launches[name] > 0, "kernel %s was not launched on the "
-              "serve path" % name)
+              "%s path" % (name, tag))
+    steps = launches["paged_decode"] // net.cfg.n_layers
+    if int8:
+        check(launches["int8_linear"] == steps * want["int8_linear"],
+              "%s: %d int8_linear launches over %d decode steps"
+              % (tag, launches["int8_linear"], steps))
     ntok = sum(len(r["tokens"]) for r in res)
     ttft = sorted(r["t_first"] - r["t_submit"] for r in res)
-    steps = launches["paged_decode"] // net.cfg.n_layers
-    print("serve: %d requests, %d tokens in %.3f s = %.1f tokens/s; TTFT "
-          "p50 %.1f ms; %d decode steps; launches %s; COW copies %d; "
-          "prefix hits %d [%s]"
-          % (len(res), ntok, wall, ntok / wall, 1e3 * ttft[len(ttft) // 2],
-             steps, launches, len(copies),
-             srv.sched.stats()["prefix_hits"], card))
+    print("%s: %d requests, %d tokens in %.3f s = %.1f tokens/s; TTFT "
+          "p50 %.1f ms; %d decode steps; launches (counted per replay) %s; "
+          "COW copies %d; prefix hits %d; peak memory %.2f GB [%s]"
+          % (tag, len(res), ntok, wall, ntok / wall,
+             1e3 * ttft[len(ttft) // 2], steps, launches, len(copies),
+             srv.sched.stats()["prefix_hits"],
+             torch.cuda.max_memory_allocated() / 1e9, card))
     return srv, reqs, res, launches
+
+
+def _replay_vs_eager(pool, program, run):
+    """``run()`` (fill the static inputs, replay ``program``) against an
+    eager call of the very function that was captured, from the same
+    pools: whether the tokens and the K/V written are the same bits."""
+    k0, v0 = pool.k_pages.clone(), pool.v_pages.clone()
+    run()
+    torch.cuda.synchronize()
+    # page 0 is the trash page: padding tokens past true_len write there,
+    # several to one slot where a chunk's padding outruns a page, in no
+    # fixed order; no attended position reads it
+    graphed = [t.clone() for t in (pool._dec_out, pool._pre_out,
+                                   pool.k_pages[:, 1:], pool.v_pages[:, 1:])]
+    pool.k_pages.copy_(k0)
+    pool.v_pages.copy_(v0)
+    with torch.no_grad():
+        program.fn()
+    torch.cuda.synchronize()
+    eager = (pool._dec_out, pool._pre_out, pool.k_pages[:, 1:],
+             pool.v_pages[:, 1:])
+    check(not torch.equal(graphed[2], k0[:, 1:]), "the program wrote no K")
+    return all(torch.equal(a, b) for a, b in zip(graphed, eager))
+
+
+def graph_phase(srv, reqs, res, tag):
+    """One decode replay, one prefill rung (512, a 500-token prompt) and
+    one chunk rung (256: 44 tokens after 256 cached ones) against an
+    eager call of the captured function on the same inputs, bit for
+    bit: tokens and the K/V written into the pools."""
+    import numpy as onp
+    pool = srv.pool
+    S, MP = pool.spec.slots, pool.spec.max_pages_per_slot
+    table = onp.arange(1, 1 + S * MP, dtype=onp.int32).reshape(S, MP)
+    lengths = onp.array([len(p) + 20 for p, _ in reqs[:S]], onp.int32)
+    tokens = onp.array([r["tokens"][-1] for r in res[:S]], onp.int32)
+    active = onp.ones(S, bool)
+    sampling = [None] * S
+    sampling[1] = {"seed": 7, "step": 5, "temperature": 0.8, "top_k": 50,
+                   "top_p": 0.9}
+    row = onp.arange(41, 41 + MP, dtype=onp.int32)
+    prompt = onp.asarray(reqs[14][0], onp.int32)          # 500 tokens
+    padded = onp.zeros(512, onp.int32)
+    padded[:len(prompt)] = prompt
+    chunk = onp.zeros(256, onp.int32)
+    chunk[:44] = reqs[0][0][256:]
+    cases = [
+        ("decode", pool._decode, lambda: pool.run_decode(
+            table, lengths, tokens, active, sampling=sampling)),
+        ("prefill 512", pool._prefill[512], lambda: pool.run_prefill(
+            padded, row, len(prompt))),
+        ("chunk 256", pool._chunk[256], lambda: pool.run_prefill(
+            chunk, row, 44, start=256,
+            sampling={"seed": 3, "temperature": 0.7}))]
+    for name, program, run in cases:
+        check(_replay_vs_eager(pool, program, run), "%s: the %s graph's "
+              "replay differs from the eager captured function"
+              % (tag, name))
+    print("%s: decode, prefill 512 and chunk 256 graph replays equal the "
+          "eager captured functions bit for bit (tokens, K/V pools)" % tag)
 
 
 def device_busy(fn, reps=5):
@@ -766,11 +865,13 @@ def device_busy(fn, reps=5):
          for e in kernels}
 
 
-def step_timing(srv, reqs, res, card):
+def step_timing(srv, reqs, res, card, tag="serve"):
     """Host time of one decode step (8 active slots at the lengths the
     served requests reached) and of one solo 500-token prefill (ladder
-    rung 512), each synchronized, beside the device time of their
-    kernels from a profiler trace."""
+    rung 512) through the pool's CUDA graphs, each synchronized, beside
+    the device time of their kernels from a profiler trace; then the
+    same for an eager call of each captured function on the same
+    inputs (what the graphs take off the host)."""
     import numpy as onp
     pool = srv.pool
     S, MP = pool.spec.slots, pool.spec.max_pages_per_slot
@@ -783,21 +884,33 @@ def step_timing(srv, reqs, res, card):
     padded = onp.zeros(512, onp.int32)
     padded[:len(prompt)] = prompt
     row = onp.arange(41, 41 + MP, dtype=onp.int32)
+
+    def eager(program, out):
+        with torch.no_grad():
+            program.fn()
+        return out.cpu()
+
     out = {}
     for name, fn in (
             ("decode step", lambda: pool.run_decode(
                 table, lengths, tokens, active).cpu()),
+            ("decode step, eager", lambda: eager(pool._decode,
+                                                 pool._dec_out)),
             ("prefill T=512", lambda: pool.run_prefill(
-                padded, row, len(prompt)))):
+                padded, row, len(prompt))),
+            ("prefill T=512, eager", lambda: eager(pool._prefill[512],
+                                                   pool._pre_out))):
         ms, dev_ms, top, counts, _ = device_busy(fn)
-        out[name] = ms
-        print("%s: %.2f ms host, %.2f ms of kernels (device busy %.1f%%) "
-              "[%s]; top kernels (ms per call): %s"
-              % (name, ms, dev_ms, 100 * dev_ms / ms, card,
-                 "; ".join("%s %.3f" % t for t in top)))
+        out[name] = (ms, dev_ms)
+        print("%s %s: %.2f ms host, %.2f ms of kernels (device busy "
+              "%.1f%%, host / kernels %.3f) [%s]; top kernels (ms per "
+              "call): %s"
+              % (tag, name, ms, dev_ms, 100 * dev_ms / ms, ms / dev_ms,
+                 card, "; ".join("%s %.3f" % t for t in top)))
         ops = counts["top-level aten ops"]
-        print("%s: per call %s; host us per top-level op %.2f"
-              % (name, ", ".join("%s %.1f" % kv for kv in counts.items()),
+        print("%s %s: per call %s; host us per top-level op %.2f"
+              % (tag, name, ", ".join("%s %.1f" % kv
+                                      for kv in counts.items()),
                  1e3 * ms / ops if ops else float("nan")))
     return out
 
@@ -805,14 +918,18 @@ def step_timing(srv, reqs, res, card):
 # ----------------------------------------------------------------------
 # phase 7: served tokens vs a full-sequence forward (teacher forced)
 # ----------------------------------------------------------------------
-def consistency_phase(net, reqs, res, dev):
+def consistency_phase(net, reqs, res, dev, int8_layers=None):
     """Every greedy request's served tokens against a teacher-forced full
     forward of the same sequence: at every position the served token's
     logit is within SERVED_LOGIT_TOL of the full forward's largest, and
-    at least SERVED_EXACT_MIN of the positions are its argmax."""
+    at least SERVED_EXACT_MIN of the positions are its argmax.  With
+    ``int8_layers`` (an int8 server's ``pool.int8``) the forward is the
+    dequantized model's."""
+    from mxnet_tpu_torch.contrib.quantization import int8_weights
+    tag = "consistency int8" if int8_layers else "consistency"
     exact = checked = 0
     worst = (0.0, None)
-    with torch.no_grad():
+    with torch.no_grad(), int8_weights(int8_layers or {}, "prefill"):
         for i, (prompt, sp) in enumerate(reqs):
             if sp is not None:
                 continue
@@ -829,13 +946,144 @@ def consistency_phase(net, reqs, res, dev):
                 check(d <= SERVED_LOGIT_TOL, "request %d position %d: the "
                       "served token is %.4f below the full forward's top "
                       "logit (limit %.2f)" % (i, pos, d, SERVED_LOGIT_TOL))
-    print("consistency: %d positions of %d greedy requests; served token "
+    print("%s: %d positions of %d greedy requests; served token "
           "= full-forward argmax at %d (%.1f%%); largest shortfall %.4f "
           "(request, position %s), limit %.2f"
-          % (checked, sum(sp is None for _, sp in reqs), exact,
+          % (tag, checked, sum(sp is None for _, sp in reqs), exact,
              100 * exact / checked, worst[0], worst[1], SERVED_LOGIT_TOL))
-    check(exact >= SERVED_EXACT_MIN * checked, "consistency: only %d of %d "
-          "served tokens are the full forward's argmax" % (exact, checked))
+    check(exact >= SERVED_EXACT_MIN * checked, "%s: only %d of %d "
+          "served tokens are the full forward's argmax"
+          % (tag, exact, checked))
+
+
+# ----------------------------------------------------------------------
+# the int8 decode product (W8A16) vs its plain version
+# ----------------------------------------------------------------------
+# limit on max|kernel - plain| / max|plain|: bf16 output rounding (one
+# step is 2^-8 of the value) against cuBLAS's rounding and order;
+# float32 summation order only
+INT8_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# the decode's products at Llama-3-8B width: (name, K, N, launches per
+# decode step of 32 layers)
+INT8_SHAPES = [("wq, wo", 4096, 4096, 64), ("wk, wv", 4096, 1024, 64),
+               ("w1, w3", 4096, 14336, 64), ("w2", 14336, 4096, 32),
+               ("output", 4096, 128256, 1)]
+
+
+def int8_kernel_phase(co, dev, card):
+    """The int8 weight path's two kernels against their plain versions at
+    the decode's five shapes and at an odd K and N, in bf16 and float32,
+    each twice (same bits): ``int8_linear`` (``F.linear`` of the
+    dequantized weight; at M = 1, 8 and 17 rows, limit INT8_TOL) and
+    ``int8_dequant`` (``q * scale``, bit for bit).  Then, in bf16, each
+    one's own device time (:func:`graph_ms`, a CUDA graph of the call
+    replayed: torch.profiler dropped device records from traces of
+    these kernels) beside its bound (bytes over 3.35 TB/s) and the plain
+    version's event time.  Library: for ``int8_linear`` (M = 8) the
+    dequantize + ``torch.matmul`` (no single PyTorch call computes it:
+    the two calls, replayed as one graph), with a bf16 weight's product
+    at the same shape (cuBLAS) for the record; for ``int8_dequant`` the
+    one PyTorch call ``q * scale``.  Returns their kernels-line
+    records."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.int8 import (dequantize, dequantize_plain,
+                                          int8_linear, int8_linear_plain)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    scale = 8e-4                   # N(0, 0.02) weights: max ~0.1 / 127
+    errs, shapes, deq_shapes = {}, [], []
+    for name, K, N, per_step in INT8_SHAPES + [("odd K, N", 4099, 1001,
+                                                0)]:
+        q = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        for dt in INT8_TOL:
+            check(torch.equal(dequantize(q, scale, dt),
+                              dequantize_plain(q, scale, dt)),
+                  "int8_dequant %s %s differs from plain" % (name, dt))
+            for M in (1, 8, 17):
+                x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+                got = int8_linear(x, q, scale)
+                want = int8_linear_plain(x, q, scale)
+                err = (got.float() - want.float()).abs().max().item()
+                ref = want.float().abs().max().item()
+                check(err <= INT8_TOL[dt] * ref, "int8_linear %s M=%d %s: "
+                      "max|d| %.3e over %.0e * max|plain| %.3e"
+                      % (name, M, dt, err, INT8_TOL[dt], ref))
+                check(torch.equal(got, int8_linear(x, q, scale)),
+                      "int8_linear %s M=%d %s: two calls differ"
+                      % (name, M, dt))
+                old = errs.get(dt, (0.0, 0.0))
+                errs[dt] = (max(old[0], err), max(old[1], err / ref))
+        if per_step:
+            bf16 = torch.bfloat16
+            x = torch.randn(8, K, generator=gen, device=dev).to(bf16)
+            ms = graph_ms(lambda: int8_linear(x, q, scale))
+            call_ms = time_ms(lambda: int8_linear(x, q, scale))
+            plain_ms = time_ms(lambda: int8_linear_plain(x, q, scale),
+                               iters=5)
+            # the plain dequantize's product, with its scale made once
+            # (a host-to-device copy cannot be captured)
+            st = torch.tensor(scale, dtype=bf16, device=dev)
+            lib_ms = graph_ms(lambda: torch.matmul(x, (q * st).t()))
+            w16 = q * st
+            bf16_ms = graph_ms(lambda: F.linear(x, w16))
+            del w16
+            b_ms, b_by = bound_ms(N * K + 2 * 8 * K + 2 * 8 * N,
+                                  2 * 8 * N * K)
+            print("int8_linear %s (M=8, K=%d, N=%d, bf16): kernel %.4f ms "
+                  "(device), call %.4f ms, plain %.4f ms, bound %.4f ms "
+                  "(%s), %.1f%% of it; library (dequantize + matmul) "
+                  "%.4f ms; a bf16 weight's product %.4f ms [%s]"
+                  % (name, K, N, ms, call_ms, plain_ms, b_ms, b_by,
+                     100 * b_ms / ms, lib_ms, bf16_ms, card))
+            shapes.append({"shape": name, "M": 8, "K": K, "N": N,
+                           "per_decode_step": per_step, "ms": ms,
+                           "call_ms": call_ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": lib_ms, "bf16_weight_ms": bf16_ms})
+            d_ms = graph_ms(lambda: dequantize(q, scale, bf16))
+            d_call = time_ms(lambda: dequantize(q, scale, bf16))
+            d_plain = time_ms(lambda: dequantize_plain(q, scale, bf16))
+            d_lib = graph_ms(lambda: q * st)
+            d_bound, d_by = bound_ms(3 * N * K, N * K)
+            print("int8_dequant %s (%d x %d, bf16): kernel %.4f ms "
+                  "(device), call %.4f ms, plain %.4f ms, bound %.4f ms "
+                  "(%s), %.1f%% of it; library (q * scale) %.4f ms [%s]"
+                  % (name, N, K, d_ms, d_call, d_plain, d_bound, d_by,
+                     100 * d_bound / d_ms, d_lib, card))
+            deq_shapes.append({"shape": name, "N": N, "K": K,
+                               "per_prefill": per_step, "ms": d_ms,
+                               "call_ms": d_call, "plain_ms": d_plain,
+                               "bound_ms": d_bound, "bound_by": d_by,
+                               "library_ms": d_lib})
+        del q
+        torch.cuda.empty_cache()
+    step = {k: sum(sh[k] * sh["per_decode_step"] for sh in shapes)
+            for k in ("ms", "bound_ms", "library_ms", "bf16_weight_ms")}
+    pre = {k: sum(sh[k] * sh["per_prefill"] for sh in deq_shapes)
+           for k in ("ms", "bound_ms", "library_ms")}
+    print("int8_linear: max|d| / max|plain| %s (limits %s); a decode "
+          "step's 225 products %.3f ms of kernel, bound %.3f ms, library "
+          "%.3f ms, bf16 weights %.3f ms; int8_dequant bit for bit, a "
+          "prefill's 225 %.3f ms, bound %.3f ms, library %.3f ms [%s]"
+          % ({str(k)[6:]: "%.2e" % v[1] for k, v in errs.items()},
+             {str(k)[6:]: v for k, v in INT8_TOL.items()}, step["ms"],
+             step["bound_ms"], step["library_ms"], step["bf16_weight_ms"],
+             pre["ms"], pre["bound_ms"], pre["library_ms"], card))
+    head, dhead = shapes[2], deq_shapes[2]          # w1, w3: the largest
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [{"name": "int8_linear", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/int8_linear.cu",
+             "replaces": "mxnet_tpu/serve.py:930",
+             "max_abs_err": max(e[0] for e in errs.values()),
+             **{k: head[k] for k in keys}, "decode_step": step,
+             "shapes": shapes},
+            {"name": "int8_dequant", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/int8_linear.cu",
+             "replaces": "mxnet_tpu/serve.py:930", "max_abs_err": 0.0,
+             **{k: dhead[k] for k in keys}, "prefill": pre,
+             "shapes": deq_shapes}]
 
 
 # ----------------------------------------------------------------------
@@ -2209,15 +2457,11 @@ def graph_ms(fn, iters=20):
     """Device ms of ``fn()`` captured once as a CUDA graph and replayed
     (:func:`time_ms`: L2 flushed before each replay, events around it):
     the kernels' own time with no host work between them; the capture
-    also shows that the call records no host synchronisation."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    also shows that the call records no host synchronisation.  The
+    port's capture helper warms it up on the one shared side stream
+    (a fresh stream per call would keep a cuBLAS workspace each)."""
+    from mxnet_tpu_torch.ops import cuda_ops
+    graph, _, _ = cuda_ops.capture_graph(fn, warmup=1)
     return time_ms(graph.replay, iters, warmup=1)
 
 
@@ -2461,6 +2705,7 @@ def main(argv):
     paged = paged_phase(co, dev)
     general = general_kernel_phase(co, dev, card)
     optim = optimizer_phase(mt, co, dev, card)
+    int8 = int8_kernel_phase(co, dev, card)
     tiny_launches = tiny_fp32_phase(mt, co, dev, card)
 
     n_layers = 32
@@ -2470,7 +2715,16 @@ def main(argv):
                        * 2 / 1e9))
     srv, reqs, res, serve_launches = serve_phase(mt, co, net, dev, card)
     consistency_phase(net, reqs, res, dev)
+    graph_phase(srv, reqs, res, "serve")
     step_timing(srv, reqs, res, card)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv, reqs, res, serve_int8_launches = serve_phase(mt, co, net, dev, card,
+                                                      int8=True)
+    consistency_phase(net, reqs, res, dev, srv.pool.int8)
+    graph_phase(srv, reqs, res, "serve int8")
+    step_timing(srv, reqs, res, card, "serve int8")
     del srv, net                  # free the serving model for training
     gc.collect()
     torch.cuda.empty_cache()
@@ -2491,8 +2745,9 @@ def main(argv):
     for k in optim:
         if k["name"] == "multi_adam":
             k["shapes"] += lm_adamw
-    kernels = [flash] + flash_bwd + [paged] + general + optim
-    paths = {"serve": serve_launches, "train": train_launches,
+    kernels = [flash] + flash_bwd + [paged] + general + optim + int8
+    paths = {"serve": serve_launches, "serve_int8": serve_int8_launches,
+             "train": train_launches,
              "bert": bert_launches, "tiny_fp32": tiny_launches,
              "bert_fp32": bert_fp32_launches, "entry": entry_launches,
              "resnet": resnet_launches}

@@ -297,6 +297,26 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
+typedef CUresult (*CtxGetCurrent)(CUcontext*);
+
+CtxGetCurrent ctx_get_current_fn() {
+  static CtxGetCurrent fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuCtxGetCurrent", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuCtxGetCurrent", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<CtxGetCurrent>(p);
+  }
+  return fn;
+}
+
 // A 3-D map over (heads, rows, D) of bf16, boxes of 64 rows x 64
 // columns in the 128-byte swizzle; out-of-range rows read as zeros.
 bool make_map(CUtensorMap* map, const void* base, int heads, int rows,
@@ -306,8 +326,13 @@ bool make_map(CUtensorMap* map, const void* base, int heads, int rows,
   // The encoder checks `base` against this thread's current context.  A
   // thread that has made no runtime call needing one (PyTorch's autograd
   // worker, whose allocations came from the cache) has none bound yet:
-  // cudaFree(nullptr) binds the current device's primary context.
-  if (cudaFree(nullptr) != cudaSuccess) return false;
+  // cudaFree(nullptr) binds the current device's primary context.  Only
+  // then: a thread capturing a CUDA graph has its context, and a
+  // cudaFree there would invalidate the capture.
+  CtxGetCurrent get = ctx_get_current_fn();
+  CUcontext ctx = nullptr;
+  if (get == nullptr || get(&ctx) != CUDA_SUCCESS) return false;
+  if (ctx == nullptr && cudaFree(nullptr) != cudaSuccess) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2,

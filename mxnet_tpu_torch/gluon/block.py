@@ -29,6 +29,7 @@ from .. import autograd
 from .. import initializer as init_mod
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
+from ..ops import cuda_ops
 from . import parameter as param_mod
 
 __all__ = ["Block", "HybridBlock"]
@@ -205,8 +206,9 @@ class _CachedGraph:
     graph reads, ``out`` the static output it writes, ``ptrs`` the
     storage of every parameter at capture."""
 
-    def __init__(self, graph, inputs, out, ptrs):
+    def __init__(self, graph, inputs, out, ptrs, launches):
         self.graph, self.inputs, self.out, self.ptrs = graph, inputs, out, ptrs
+        self.launches = launches    # kernel launches per replay
 
 
 class HybridBlock(Block):
@@ -279,7 +281,7 @@ class HybridBlock(Block):
             return out
         for buf, t in zip(g.inputs, _tensors((args, kwargs))):
             buf.copy_(t)
-        g.graph.replay()
+        cuda_ops.replay_graph(g.graph, g.launches)
         return _map(torch.clone, g.out)
 
     def _capture(self, args, kwargs):
@@ -288,17 +290,11 @@ class HybridBlock(Block):
             if autograd.is_training() else []
         saved = [p.detach().clone() for p in aux]
         s_args, s_kwargs = _map(torch.clone, (args, kwargs))
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                super().__call__(*s_args, **s_kwargs)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            s_out = super().__call__(*s_args, **s_kwargs)
+        graph, s_out, launches = cuda_ops.capture_graph(
+            functools.partial(super().__call__, *s_args, **s_kwargs))
         for p, v in zip(aux, saved):
             p.detach().copy_(v)
         return out, _CachedGraph(graph, list(_tensors((s_args, s_kwargs))),
                                  s_out, [p.data_ptr()
-                                         for p in self.parameters()])
+                                         for p in self.parameters()],
+                                 launches)

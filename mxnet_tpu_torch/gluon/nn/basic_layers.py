@@ -23,6 +23,7 @@ import math
 import torch
 
 from ... import autograd
+from ...contrib.quantization import int8_forward
 from ...ops import nn as F
 from ..block import Block, HybridBlock
 from ..parameter import Parameter, finish_deferred_init
@@ -76,7 +77,10 @@ class HybridSequential(_Stack, HybridBlock):
 class Dense(HybridBlock):
     """``y = act(x W^T + b)``; ``flatten=True`` collapses every axis after
     the first.  The input is cast to the weight's dtype, so a bf16 layer
-    runs a bf16 matmul (fp32 accumulation) on float32 activations."""
+    runs a bf16 matmul (fp32 accumulation) on float32 activations.
+    Inside ``contrib.quantization.int8_weights`` a layer given an int8
+    weight computes with it instead, its input cast to the compute
+    dtype."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
@@ -94,8 +98,10 @@ class Dense(HybridBlock):
         finish_deferred_init(self.weight, (self._units, in_units))
         if self.bias is not None:
             finish_deferred_init(self.bias, (self._units,))
-        out = F.fully_connected(x.to(self.weight.dtype), self.weight,
-                                self.bias, self._flatten)
+        out = int8_forward(self, x, self.bias, self._flatten)
+        if out is None:
+            out = F.fully_connected(x.to(self.weight.dtype), self.weight,
+                                    self.bias, self._flatten)
         if self._activation is not None:
             out = F.activation(out, self._activation)
         return out

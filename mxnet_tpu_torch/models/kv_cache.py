@@ -28,7 +28,8 @@ import torch
 from ..context import resolve_device
 
 __all__ = ["TRASH_PAGE", "CacheSpec", "init_pools", "write_prompt",
-           "write_chunk", "write_token", "CacheView"]
+           "write_chunk", "write_token", "prompt_index", "chunk_index",
+           "token_index", "scatter", "CacheView"]
 
 #: page id every masked (padding / inactive-slot) write is routed to
 TRASH_PAGE = 0
@@ -67,54 +68,79 @@ def init_pools(spec: CacheSpec, device=None):
             torch.zeros(shape, dtype=dt, device=device))
 
 
-def _scatter(pages, layer, dest, offset, kv):
-    """pages[layer, dest[t], :, offset[t]] = kv[t] for every t, in place."""
+def _index(pages, dest, offset):
+    """The ``index_put_`` index of a write: token t -> page ``dest[t]``,
+    every kv head, offset ``offset[t]``."""
     heads = torch.arange(pages.shape[2], device=pages.device)
-    pages[layer].index_put_((dest[:, None], heads[None, :], offset[:, None]),
-                            kv.to(pages.dtype))
+    return dest[:, None], heads[None, :], offset[:, None]
+
+
+def scatter(pages, layer, index, kv):
+    """pages[layer, dest[t], :, offset[t]] = kv[t] for every t, in place;
+    ``index`` from :func:`prompt_index`, :func:`chunk_index` or
+    :func:`token_index` (the K and V pools of a call share one)."""
+    pages[layer].index_put_(index, kv.to(pages.dtype))
+
+
+def prompt_index(pages, page_row, T, true_len, page_size):
+    """Where a T-token prompt's K / V go: token t to page
+    ``page_row[t // psz]`` at offset ``t % psz``, tokens at or past
+    ``true_len`` (ladder padding) to the trash page."""
+    t = torch.arange(T, device=pages.device)
+    trash = torch.full_like(t, TRASH_PAGE)
+    dest = torch.where(t < true_len, page_row.long()[t // page_size], trash)
+    return _index(pages, dest, t % page_size)
+
+
+def chunk_index(pages, page_row, T, true_len, page_size, start):
+    """Where a prompt SUFFIX's K / V go: chunk token t is absolute
+    position ``start + t``, in page ``page_row[(start + t) // psz]`` at
+    offset ``(start + t) % psz``; tokens at or past ``true_len`` go to
+    the trash page."""
+    t = torch.arange(T, device=pages.device)
+    pos = start + t
+    idx = (pos // page_size).clamp(0, page_row.shape[0] - 1)
+    trash = torch.full_like(t, TRASH_PAGE)
+    dest = torch.where(t < true_len, page_row.long()[idx], trash)
+    return _index(pages, dest, pos % page_size)
+
+
+def token_index(pages, page_table, lengths, active, page_size):
+    """Where one decode step's K / V go: slot s's token at cache position
+    ``lengths[s]`` (page ``page_table[s, lengths[s] // psz]``); inactive
+    slots to the trash page -- their page-table rows may be stale (freed
+    and reassigned), so routing by ``active`` is a correctness rule, not
+    an optimization."""
+    pos = lengths.long()
+    idx = (pos // page_size).clamp(0, page_table.shape[1] - 1)
+    own = page_table.long().gather(1, idx[:, None])[:, 0]
+    dest = torch.where(active, own, torch.full_like(own, TRASH_PAGE))
+    return _index(pages, dest, pos % page_size)
 
 
 def write_prompt(pages, layer, page_row, kv, true_len, page_size):
     """Scatter one prompt's per-layer K (or V) into its slot's pages.
 
     page_row: (MP,) page ids of the slot; kv: (T, Hkv, D), post-RoPE and
-    un-repeated; token t lands in page ``page_row[t // psz]`` at offset
-    ``t % psz``.  Tokens at or past ``true_len`` (ladder padding) go to
-    the trash page."""
-    T = kv.shape[0]
-    t = torch.arange(T, device=pages.device)
-    trash = torch.full_like(t, TRASH_PAGE)
-    dest = torch.where(t < true_len, page_row.long()[t // page_size], trash)
-    _scatter(pages, layer, dest, t % page_size, kv)
+    un-repeated; placed by :func:`prompt_index`.  ``true_len`` is a
+    0-dim int tensor or an int."""
+    scatter(pages, layer, prompt_index(pages, page_row, kv.shape[0],
+                                       true_len, page_size), kv)
 
 
 def write_chunk(pages, layer, page_row, kv, true_len, page_size, start):
-    """Scatter a prompt SUFFIX (chunk prefill, the prefix-cache path):
-    chunk token t is absolute position ``start + t`` and lands in page
-    ``page_row[(start + t) // psz]`` at offset ``(start + t) % psz``;
-    tokens at or past ``true_len`` go to the trash page."""
-    T = kv.shape[0]
-    t = torch.arange(T, device=pages.device)
-    pos = start + t
-    idx = (pos // page_size).clamp(0, page_row.shape[0] - 1)
-    trash = torch.full_like(t, TRASH_PAGE)
-    dest = torch.where(t < true_len, page_row.long()[idx], trash)
-    _scatter(pages, layer, dest, pos % page_size, kv)
+    """Scatter a prompt SUFFIX (chunk prefill, the prefix-cache path),
+    placed by :func:`chunk_index`.  ``true_len`` and ``start`` are 0-dim
+    int tensors or ints."""
+    scatter(pages, layer, chunk_index(pages, page_row, kv.shape[0],
+                                      true_len, page_size, start), kv)
 
 
 def write_token(pages, layer, page_table, lengths, kv, active, page_size):
-    """Scatter one decode step's per-layer K (or V), one token per slot.
-
-    kv: (S, Hkv, D); slot s's token lands at cache position
-    ``lengths[s]`` (page ``page_table[s, lengths[s] // psz]``).  Inactive
-    slots write to the trash page -- their page-table rows may be stale
-    (freed and reassigned), so routing by ``active`` is a correctness
-    rule, not an optimization."""
-    pos = lengths.long()
-    idx = (pos // page_size).clamp(0, page_table.shape[1] - 1)
-    own = page_table.long().gather(1, idx[:, None])[:, 0]
-    dest = torch.where(active, own, torch.full_like(own, TRASH_PAGE))
-    _scatter(pages, layer, dest, pos % page_size, kv)
+    """Scatter one decode step's per-layer K (or V), one token per slot
+    (kv: (S, Hkv, D)), placed by :func:`token_index`."""
+    scatter(pages, layer, token_index(pages, page_table, lengths, active,
+                                      page_size), kv)
 
 
 class CacheView:
@@ -129,7 +155,9 @@ class CacheView:
     "decode": one token per slot, ``x`` is (S, 1, dim); ``page_table``
     (S, MP), ``lengths`` (S,) and ``active`` (S,) bool drive the per-slot
     RoPE offsets, the paged write and the paged attention read.
-    ``true_len`` and ``start`` are Python ints.
+    ``true_len`` and ``start`` are 0-dim int32 tensors on the pools'
+    device, so a captured serving program reads them there (Python ints
+    work too).
     """
 
     def __init__(self, mode, k, v, page_size, page_row=None,
@@ -148,3 +176,12 @@ class CacheView:
         self.lengths = lengths
         self.active = active
         self.start = start
+        self._memo = {}
+
+    def memo(self, key, fn):
+        """``fn()``, computed once per view: what every layer of one call
+        shares (the RoPE angles, the write index, the attended lengths),
+        so a decode step or a prefill launches it once, not per layer."""
+        if key not in self._memo:
+            self._memo[key] = fn()
+        return self._memo[key]

@@ -7,7 +7,11 @@ module tree and parameter names (``layer0.attention.wq.weight``,
 the port's kernels: the full-sequence forward and the serving prefill
 through the flash forward, the serving decode through the paged decode
 kernel; the chunk (prefix-cache) prefill is plain PyTorch, as it is
-plain XLA in the JAX package.  The full-sequence forward is
+plain XLA in the JAX package.  ``attn_impl="dense"`` runs the
+full-sequence attention as the plain causal product over repeated KV
+heads (``ops.nn.dot_product_attention``), as the JAX dense path does;
+the cached paths stay flash / paged whatever ``attn_impl`` says, as
+there.  The full-sequence forward is
 differentiable end to end on both devices: on CUDA its attention
 backward runs the flash backward kernels (``cuda_ops._FlashAttention``).
 
@@ -17,9 +21,8 @@ between matmuls -- the residual stream, the norms -- is float32 there,
 while each matmul takes bf16 operands (``Dense`` casts its input) with
 fp32 accumulation, and the attention kernels take bf16 q/k/v.
 
-Not ported yet: the switch-MoE FFN (``moe_num_experts > 0``), the dense
-and ring attention (``attn_impl`` other than ``"flash"``; on the CPU the
-flash wrapper already runs the plain dense version) and the sharding
+Not ported yet: the switch-MoE FFN (``moe_num_experts > 0``), the ring
+attention (``attn_impl="ring"``, with ROADMAP queue 3) and the sharding
 hints.
 """
 from __future__ import annotations
@@ -53,7 +56,7 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    attn_impl: str = "flash"  # the only one ported
+    attn_impl: str = "flash"  # flash | dense (ring: ROADMAP queue 3)
     moe_num_experts: int = 0
 
 
@@ -74,22 +77,31 @@ def tiny_config(**over):
     return cfg
 
 
-def _rope(x, positions, theta):
-    """Rotary embedding on (B, T, H, D), split-half form (the first and
-    second halves of D are the pair, not even/odd lanes).
-    ``positions`` is (T,) shared across the batch or (B, T) per row --
-    the decode path passes each slot's own cache length."""
-    d = x.shape[-1]
+def _rope_angles(positions, d, theta, device):
+    """(cos, sin) of the rotary angles, each (B, T, 1, d/2), at
+    ``positions``: (T,) shared across the batch or (B, T) per row -- the
+    decode path passes each slot's own cache length."""
     freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
-                                          device=x.device) / d))
+                                          device=device) / d))
     if positions.dim() == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs      # (B, T, d/2)
-    cos = angles.cos()[:, :, None, :]
-    sin = angles.sin()[:, :, None, :]
+    return angles.cos()[:, :, None, :], angles.sin()[:, :, None, :]
+
+
+def _rope_apply(x, cos, sin):
+    """Rotary embedding on (B, T, H, D), split-half form (the first and
+    second halves of D are the pair, not even/odd lanes)."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _rope(x, positions, theta):
+    """Rotary embedding on (B, T, H, D) at ``positions``
+    (:func:`_rope_angles`, :func:`_rope_apply`)."""
+    return _rope_apply(x, *_rope_angles(positions, x.shape[-1], theta,
+                                        x.device))
 
 
 def _heads_first(x):
@@ -100,10 +112,13 @@ def _heads_first(x):
 class Attention(Block):
     def __init__(self, cfg: LlamaConfig, layer_idx=0):
         super().__init__()
-        if cfg.attn_impl != "flash":
-            raise NotImplementedError("mxnet_tpu_torch: attn_impl=%r is "
-                                      "not ported (flash only)"
-                                      % cfg.attn_impl)
+        if cfg.attn_impl == "ring":
+            raise NotImplementedError("mxnet_tpu_torch: attn_impl='ring' "
+                                      "is not ported yet (ring attention "
+                                      "comes with ROADMAP queue 3)")
+        if cfg.attn_impl not in ("flash", "dense"):
+            raise ValueError("attn_impl must be 'flash' or 'dense', got %r"
+                             % (cfg.attn_impl,))
         self.cfg = cfg
         self.layer_idx = layer_idx
         hd = cfg.dim // cfg.n_heads
@@ -118,6 +133,10 @@ class Attention(Block):
         cfg = self.cfg
         B, T, _ = x.shape
         hd, nh, nkv = self.head_dim, cfg.n_heads, cfg.n_kv_heads
+        if cache is not None:
+            # serving (no gradient): one cast for the three products, whose
+            # own casts are then no-ops
+            x = x.to(self.wq.weight.dtype)
         q = self.wq(x).view(B, T, nh, hd)
         k = self.wk(x).view(B, T, nkv, hd)
         v = self.wv(x).view(B, T, nkv, hd)
@@ -126,9 +145,15 @@ class Attention(Block):
         pos = torch.arange(T, device=x.device)
         q = _rope(q, pos, cfg.rope_theta)
         k = _rope(k, pos, cfg.rope_theta)
-        # the kernel reads kv groups natively: no repeated heads
-        o = flash_attention(_heads_first(q), _heads_first(k),
-                            _heads_first(v), causal=True)
+        if cfg.attn_impl == "dense":
+            rep = nh // nkv
+            o = F.dot_product_attention(
+                _heads_first(q), _heads_first(k.repeat_interleave(rep, 2)),
+                _heads_first(v.repeat_interleave(rep, 2)), causal=True)
+        else:
+            # the kernel reads kv groups natively: no repeated heads
+            o = flash_attention(_heads_first(q), _heads_first(k),
+                                _heads_first(v), causal=True)
         return self.wo(o.transpose(1, 2).reshape(B, T, nh * hd))
 
     def _forward_cached(self, q, k, v, cache):
@@ -141,30 +166,43 @@ class Attention(Block):
         itself (plain PyTorch).  Decode: one new token per slot, RoPE at
         each slot's own cache length, its K/V scattered at that
         position, then the paged decode kernel reads the slot's whole
-        cache.  The pools on ``cache`` are updated in place."""
+        cache.  The pools on ``cache`` are updated in place.  ``true_len``
+        and ``start`` may be 0-dim int32 tensors on the pools' device (a
+        serving program reads them there) or Python ints; the last
+        logit row is then read with a device index by the caller."""
         cfg = self.cfg
         B, T = q.shape[0], q.shape[1]
         hd, nh, nkv = self.head_dim, cfg.n_heads, cfg.n_kv_heads
         theta, layer, psz = cfg.rope_theta, self.layer_idx, cache.page_size
         dev = q.device
+        if cache.mode == "decode":
+            lengths = cache.lengths
+            # shared by every layer of the call: computed once (memo)
+            angles = cache.memo("rope", lambda: _rope_angles(
+                lengths.long()[:, None], hd, theta, dev))
+            index = cache.memo("index", lambda: _kvc.token_index(
+                cache.k, cache.page_table, lengths, cache.active, psz))
+        else:
+            start = cache.start if cache.mode == "chunk" else 0
+            angles = cache.memo("rope", lambda: _rope_angles(
+                start + torch.arange(T, device=dev), hd, theta, dev))
+            index = cache.memo("index", lambda: (
+                _kvc.chunk_index(cache.k, cache.page_row, T, cache.true_len,
+                                 psz, start) if cache.mode == "chunk" else
+                _kvc.prompt_index(cache.k, cache.page_row, T,
+                                  cache.true_len, psz)))
+        # q and k rotate together: one set of launches for both
+        qk = _rope_apply(torch.cat([q, k], dim=2), *angles)
+        q, k = qk[:, :, :nh], qk[:, :, nh:]
         if cache.mode == "prefill":
-            pos = torch.arange(T, device=dev)
-            q, k = _rope(q, pos, theta), _rope(k, pos, theta)
-            _kvc.write_prompt(cache.k, layer, cache.page_row, k[0],
-                              cache.true_len, psz)
-            _kvc.write_prompt(cache.v, layer, cache.page_row, v[0],
-                              cache.true_len, psz)
+            _kvc.scatter(cache.k, layer, index, k[0])
+            _kvc.scatter(cache.v, layer, index, v[0])
             o = flash_attention(_heads_first(q), _heads_first(k),
                                 _heads_first(v), causal=True)
             return o.transpose(1, 2).reshape(B, T, nh * hd)
         if cache.mode == "chunk":
-            start = cache.start
-            pos = start + torch.arange(T, device=dev)
-            q, k = _rope(q, pos, theta), _rope(k, pos, theta)
-            _kvc.write_chunk(cache.k, layer, cache.page_row, k[0],
-                             cache.true_len, psz, start)
-            _kvc.write_chunk(cache.v, layer, cache.page_row, v[0],
-                             cache.true_len, psz, start)
+            _kvc.scatter(cache.k, layer, index, k[0])
+            _kvc.scatter(cache.v, layer, index, v[0])
             row = cache.page_row.long()
             MP = row.shape[0]
             # row i of the gathered pages covers absolute positions
@@ -179,22 +217,22 @@ class Attention(Block):
             vv = torch.cat([vpre, v[0]], 0).repeat_interleave(rep, 1)
             scores = torch.einsum("tnd,snd->nts", q[0].float(),
                                   kk.float()) / math.sqrt(hd)
-            kpos = torch.arange(MP * psz, device=dev)
-            pmask = (kpos[None, :] < start).expand(T, MP * psz)
-            cmask = pos[None, :] <= pos[:, None]      # causal over chunk
-            mask = torch.cat([pmask, cmask], 1)
+
+            def chunk_mask():
+                pos = start + torch.arange(T, device=dev)
+                kpos = torch.arange(MP * psz, device=dev)
+                pmask = (kpos[None, :] < start).expand(T, MP * psz)
+                cmask = pos[None, :] <= pos[:, None]  # causal over chunk
+                return torch.cat([pmask, cmask], 1)
+            mask = cache.memo("mask", chunk_mask)
             scores = scores.masked_fill(~mask[None], -1e30)
             probs = torch.softmax(scores, dim=-1)
             o = torch.einsum("nts,snd->tnd", probs, vv.float())
             return o.to(v.dtype).reshape(B, T, nh * hd)
-        lengths = cache.lengths
-        pos = lengths.long()[:, None]                 # (S, 1)
-        q, k = _rope(q, pos, theta), _rope(k, pos, theta)
-        _kvc.write_token(cache.k, layer, cache.page_table, lengths, k[:, 0],
-                         cache.active, psz)
-        _kvc.write_token(cache.v, layer, cache.page_table, lengths, v[:, 0],
-                         cache.active, psz)
-        ctx = torch.where(cache.active, lengths + 1, lengths)
+        _kvc.scatter(cache.k, layer, index, k[:, 0])
+        _kvc.scatter(cache.v, layer, index, v[:, 0])
+        ctx = cache.memo("ctx", lambda: torch.where(
+            cache.active, lengths + 1, lengths))
         o = paged_attention(q[:, 0].contiguous(), cache.k[layer],
                             cache.v[layer], cache.page_table, ctx)
         return o.reshape(B, T, nh * hd)
@@ -210,8 +248,9 @@ class FeedForward(Block):
 
     def forward(self, x):
         # the gate product in float32, as the JAX bf16 model computes it
+        # (the product promotes w3's output to float32)
         return self.w2(F.activation(self.w1(x).float(), "silu")
-                       * self.w3(x).float())
+                       * self.w3(x))
 
 
 class TransformerBlock(Block):
@@ -226,9 +265,10 @@ class TransformerBlock(Block):
         self.feed_forward = FeedForward(cfg)
 
     def forward(self, x, cache=None):
-        """``x`` is the float32 residual stream."""
-        x = x + self.attention(self.attention_norm(x), cache=cache).float()
-        return x + self.feed_forward(self.ffn_norm(x)).float()
+        """``x`` is the float32 residual stream (each sum promotes the
+        branch's output to float32)."""
+        x = x + self.attention(self.attention_norm(x), cache=cache)
+        return x + self.feed_forward(self.ffn_norm(x))
 
 
 class TransformerLM(Block):

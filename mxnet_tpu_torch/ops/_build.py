@@ -23,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_general",
-           "paged_general", "flash_bwd_mma", "flash_fwd_mma", "multi_tensor")
+           "paged_general", "flash_bwd_mma", "flash_fwd_mma", "multi_tensor",
+           "int8_linear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -157,6 +158,11 @@ def _signatures():
         # dtype codes, stream | the two sizes' out-pointers
         "multi_tensor": {"mx_multi_tensor": [i, p, i, p, i, i, i, p],
                          "mx_multi_tensor_sizes": [p, p]},
+        # x q y, M N K, the scale rounded to the dtype, dtype code, stream
+        # | q out, n, the scale rounded to the dtype, dtype code, stream
+        "int8_linear": {"mx_int8_linear": [p, p, p, i, i, i, d, i, p],
+                        "mx_int8_dequant": [p, p, ctypes.c_longlong, d, i,
+                                            p]},
     }
 
 

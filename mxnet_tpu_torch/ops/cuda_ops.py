@@ -40,6 +40,9 @@ from the card to the plain path.
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one
 where it launches and nowhere else, so a run can show which kernels its
 main path went through (:func:`reset_launch_counts` before, read after).
+A CUDA graph (:func:`capture_graph`) records the counts its capture
+added and adds them again on every replay (:func:`replay_graph`), so the
+count keeps its meaning when a path runs as graphs.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from . import _build
 __all__ = ["flash_attention_with_lse", "flash_attention",
            "flash_attention_block_bwd", "paged_attention",
            "paged_split_plan", "paged_general_plan", "LAUNCHES",
-           "reset_launch_counts"]
+           "reset_launch_counts", "capture_graph", "replay_graph"]
 
 NEG_INF = float("-inf")
 
@@ -62,7 +65,10 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_bwd_dkv_mma": 0, "flash_fwd_mma": 0,
             # the optimizer's multi-tensor kernels (ops/multi_tensor.py)
             "multi_sgd": 0, "multi_adam": 0, "multi_lamb_phase1": 0,
-            "multi_lamb_phase2": 0}
+            "multi_lamb_phase2": 0,
+            # the int8 weight path (ops/int8.py): the decode product, the
+            # prefill's dequantize
+            "int8_linear": 0, "int8_dequant": 0}
 
 #: dtype codes of the general kernels' C interface (csrc/general.cuh)
 GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
@@ -80,6 +86,56 @@ BWD_ROUTES = {"mma": ("flash_bwd_mma", "mma"),
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_SIDE_STREAMS = {}
+
+
+def _side_stream():
+    """The current device's warm-up stream, one for every capture: cuBLAS
+    keeps a workspace for each stream it has run on, for the life of
+    the process, so a fresh stream per capture would leak one each."""
+    dev = torch.cuda.current_device()
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[dev]
+
+
+def capture_graph(fn, pool=None, warmup=2):
+    """``(graph, out, launches)``: ``fn()`` run ``warmup`` times on a side
+    stream (first uses build kernels, fill lazy caches and let the
+    libraries pick their algorithms, all outside the capture), then
+    captured once into a CUDA graph on memory pool ``pool``; ``out`` is
+    what the captured call returned (static tensors the graph writes).
+    ``launches`` maps each kernel to the count its capture added: the
+    capture ran nothing, so they are taken off ``LAUNCHES`` here and
+    added per replay by :func:`replay_graph`.  Anything that cannot be
+    captured (a host sync, a pageable copy) raises.  The capture checks
+    this thread only, so another thread's work on the card (a serving
+    replica's engine reading its tokens) neither fails nor breaks it."""
+    side = _side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
+        out = fn()
+    launches = {k: n - before[k] for k, n in LAUNCHES.items()
+                if n != before[k]}
+    for k, n in launches.items():
+        LAUNCHES[k] -= n
+    return graph, out, launches
+
+
+def replay_graph(graph, launches):
+    """Replay ``graph`` and count the kernel launches it holds."""
+    graph.replay()
+    for k, n in launches.items():
+        LAUNCHES[k] += n
 
 
 def _is_cuda(*ts):

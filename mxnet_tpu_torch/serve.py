@@ -13,21 +13,32 @@ kernels.  Three layers, as there:
    KV pages of common prompt prefixes (copy-on-write where a write would
    land in a shared page), and every slot assignment carries an epoch so
    a result computed for a slot's previous occupant is dropped.
-3. **Warm pool** (:class:`WarmPool`): parameters and KV pools live on
-   the device for the replica's lifetime; prefill, decode and the COW
-   page copy are methods on it.  PyTorch runs eagerly, so there is no
-   compile step and no compile cache.
+3. **Warm pool** (:class:`WarmPool`): parameters, their int8 copies
+   (``ServeConfig(int8=True)``) and the KV pools live on the device for
+   the replica's lifetime; the decode step, one prefill per ladder rung
+   and one chunk prefill per rung are programs fixed at start-up -- on
+   the card CUDA graphs, captured once and replayed with no per-op host
+   dispatch (the JAX package's AOT-compiled programs); the COW page copy
+   is one eager indexed copy.  PyTorch keeps no compile cache, so there
+   is no ``cache_dir``.
 
-Sampling: every slot carries (seed, step, temperature, top_k, top_p).
-The noise for a token comes from a ``torch.Generator`` seeded from
-(seed, step), ``step`` = tokens generated so far, so the same seed gives
-the same tokens, a batched slot samples exactly as it would alone, and a
-preempted request resumes at the same step indices.
-``temperature <= 0`` is the argmax.
+Sampling runs inside the programs: every slot carries (seed, step,
+temperature, top_k, top_p) as device tensors, and the noise for a token
+is a counter-based hash of (seed, step, rank) in tensor ops, ``step`` =
+tokens generated so far, so the same seed gives the same tokens, a
+batched slot samples exactly as it would alone, and a preempted request
+resumes at the same step indices.  ``temperature <= 0`` is the argmax.
+The streams are the port's own: no RNG matches across packages.
 
-Not ported yet: the int8 weight path, ``mesh=`` (tensor-parallel
-decode), the telemetry / flight-recorder / fault-injection hooks and
-CUDA-graph capture of the decode step.
+The int8 path (``quantize_weights``, per-tensor minmax, as the JAX
+package's): the decode's products read int8 weights from HBM through
+the W8A16 kernel (``ops.int8``), the prefill and chunk programs
+dequantize each weight into a transient and run one plain product.
+
+Not ported yet: ``mesh=`` (tensor-parallel decode, with ROADMAP queue
+3), the telemetry / flight-recorder / fault-injection hooks (queue 4)
+and ``lower_decode_program`` (an XLA HLO seam, with no PyTorch
+counterpart).
 
 Knobs (environment, all optional)::
 
@@ -36,6 +47,7 @@ Knobs (environment, all optional)::
     MXNET_SERVE_PAGES        page-pool budget incl. trash    (64)
     MXNET_SERVE_LADDER       prefill pad lengths, csv        (64,128,256)
     MXNET_SERVE_MAX_NEW      default per-request output cap  (64)
+    MXNET_SERVE_INT8         int8 weight path                (0)
     MXNET_SERVE_TEMP         default sampling temperature    (0 = greedy)
     MXNET_SERVE_TOP_K        default top-k cutoff            (0 = off)
     MXNET_SERVE_TOP_P        default nucleus mass            (1.0 = off)
@@ -44,6 +56,7 @@ Knobs (environment, all optional)::
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import threading
@@ -52,12 +65,16 @@ import time
 import numpy as onp
 import torch
 
+from .contrib.quantization import Int8Weight, _minmax_scale, int8_weights
+from .gluon.nn import Dense
 from .models.kv_cache import TRASH_PAGE, CacheSpec, CacheView, init_pools
+from .ops.cuda_ops import capture_graph, replay_graph
+from .ops.int8 import dequantize
 
 log = logging.getLogger("mxnet_tpu_torch.serve")
 
 __all__ = ["ServeConfig", "SlotScheduler", "WarmPool", "Server",
-           "DeadlineExceededError"]
+           "DeadlineExceededError", "quantize_weights"]
 
 
 class DeadlineExceededError(TimeoutError):
@@ -91,9 +108,9 @@ class ServeConfig:
     ladder.  Fixed at startup."""
 
     def __init__(self, slots=None, page_size=None, pages=None,
-                 ladder=None, max_new=None, eos_id=None, temperature=None,
-                 top_k=None, top_p=None, prefix_cache=None,
-                 deadline_ms=None):
+                 ladder=None, max_new=None, eos_id=None, int8=None,
+                 temperature=None, top_k=None, top_p=None,
+                 prefix_cache=None, deadline_ms=None):
         env = os.environ
         self.slots = _env_int("MXNET_SERVE_SLOTS", 8) if slots is None \
             else int(slots)
@@ -108,6 +125,8 @@ class ServeConfig:
         self.max_new = _env_int("MXNET_SERVE_MAX_NEW", 64) \
             if max_new is None else int(max_new)
         self.eos_id = eos_id
+        self.int8 = _env_on("MXNET_SERVE_INT8", "0") if int8 is None \
+            else bool(int8)
         self.temperature = float(env.get("MXNET_SERVE_TEMP", "0")) \
             if temperature is None else float(temperature)
         self.top_k = _env_int("MXNET_SERVE_TOP_K", 0) if top_k is None \
@@ -709,79 +728,228 @@ class SlotScheduler:
 
 
 # ----------------------------------------------------------------------
-# sampling
+# int8 weight path
 # ----------------------------------------------------------------------
-_MASK64 = (1 << 64) - 1
+def quantize_weights(params, exclude=("tok_embeddings", "gamma")):
+    """Per-tensor int8 weights for memory-bound decode (the JAX
+    ``quantize_weights``, minmax as ``contrib.quantization``): returns
+    (params with every 2-D weight whose name holds no ``exclude`` entry
+    as int8, {name: Python-float scale}).  scale = max|w| / 127 and
+    q = clip(round(w / scale), -127, 127), in float32.  The decode reads
+    the int8 weights from HBM and dequantizes them in registers, so its
+    weight bytes -- the decode bottleneck -- halve against bf16.
+    Embeddings and norm gains stay in the compute dtype."""
+    q, scales = {}, {}
+    for name, w in params.items():
+        if w.dim() != 2 or any(t in name for t in exclude):
+            q[name] = w
+            continue
+        w32 = w.detach().float()
+        scale = _minmax_scale(w32)
+        div = torch.tensor(scale, dtype=torch.float32).to(w32.device)
+        q[name] = torch.clamp(torch.round(w32 / div), -127, 127) \
+            .to(torch.int8)
+        scales[name] = float(scale)
+    return q, scales
 
 
-def _noise_seed(seed, step):
-    """A 63-bit generator seed from (seed, step): splitmix64 of the pair,
-    so neighbouring seeds and steps give unrelated streams."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(step) + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+def _dequant(params, scales, dtype):
+    """Every quantized weight of ``params`` as ``q.to(dtype) * scale``,
+    rounded in ``dtype`` (the JAX ``_dequant``)."""
+    if not scales:
+        return params
+    return {k: (dequantize(v, scales[k], dtype) if k in scales else v)
+            for k, v in params.items()}
 
 
-def _sample_one(logits, seed, step, temp, top_k, top_p):
-    """Sample ONE token from (V,) float32 logits.
+def _int8_layers(net):
+    """``{Dense: Int8Weight}`` of ``net``'s quantized weights: each comes
+    from :func:`quantize_weights` and computes in its weight's own dtype.
+    The net's parameters stay as they are."""
+    params = {k: p.detach() for k, p in net.collect_params().items()}
+    q, scales = quantize_weights(params)
+    modules = dict(net.named_modules())
+    layers = {}
+    for name, scale in scales.items():
+        owner, leaf = name.rsplit(".", 1)
+        layer = modules.get(owner)
+        if not isinstance(layer, Dense) or leaf != "weight":
+            raise NotImplementedError("int8 path: %s is not the weight of "
+                                      "a Dense layer" % name)
+        layers[layer] = Int8Weight(q[name], scale, params[name].dtype)
+    return layers
 
-    The gumbel noise is drawn from a ``torch.Generator`` seeded from
-    (seed, step), so the stream is a pure function of (seed, logits
-    history).  ``temp <= 0`` returns the argmax; ``top_k <= 0`` disables
-    the rank cutoff; ``top_p >= 1`` keeps all mass.  Top-p masks on
-    cumulative mass EXCLUDING self, so the top-1 token always survives.
-    Returns a 0-dim int64 tensor on the logits' device."""
-    if temp <= 0.0:
-        return logits.argmax()
+
+# ----------------------------------------------------------------------
+# sampling on device tensors (inside the serving programs)
+# ----------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit avalanche of an int64 tensor of values in [0, 2^32):
+    xor-shift and multiply rounds whose constants are below 2^31, so no
+    product leaves int64, masked back to 32 bits after each."""
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _M32
+    x = ((x ^ (x >> 15)) * 0x46CA68B5) & _M32
+    return x ^ (x >> 16)
+
+
+def _uniforms(seeds, steps, n):
+    """(S, n) float32 uniforms in (0, 1), a counter-based hash of (seed,
+    step, index) in integer tensor ops: no generator object and no host
+    integer, so it runs inside a captured program.  The top 23 bits of
+    each hash, centred: (b + 0.5) / 2^23."""
+    key = _mix32((seeds.long() & _M32) ^ 0x2545F491)
+    key = _mix32(key ^ (steps.long() & _M32))
+    idx = (torch.arange(n, device=seeds.device) * 0x61C88647) & _M32
+    bits = _mix32(_mix32(idx[None, :] ^ key[:, None]) ^ 0x5BD1E995)
+    return ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def _sample_batch(logits, seeds, steps, temps, top_ks, top_ps):
+    """Sample one token per row of (S, V) float32 logits, as the JAX
+    ``_sample_batch`` (vmapped ``_sample_one``) does, on (S,) device
+    tensors: seeds and steps (int), temps (float32), top_ks (int),
+    top_ps (float32).  ``step`` = tokens generated so far, so the same
+    seed gives the same tokens and a preempted request resumes at the
+    same step indices.  Greedy and sampled are both computed and
+    ``temp <= 0`` picks the argmax.  The sampled token is gumbel-max over
+    the stably sorted row scaled by 1 / max(temp, 1e-6), masked to the
+    top_k ranks (``top_k <= 0``: all) and to the ranks whose cumulative
+    mass EXCLUDING self is below top_p (the top-1 always survives); the
+    noise is a hash of (seed, step, rank).  Rows are independent, so a
+    batched slot samples as it would alone.  Returns (S,) int64."""
     V = logits.shape[-1]
-    order = torch.argsort(-logits, stable=True)     # descending
-    sl = logits[order] / max(temp, 1e-6)
-    keep = torch.ones(V, dtype=torch.bool, device=logits.device)
-    if top_k > 0:
-        keep[top_k:] = False
-    probs = torch.softmax(sl, dim=-1)
-    keep &= (torch.cumsum(probs, dim=-1) - probs) < top_p
-    masked = sl.masked_fill(~keep, float("-inf"))
-    gen = torch.Generator(device=logits.device)
-    gen.manual_seed(_noise_seed(seed, step))
-    u = torch.rand(V, generator=gen, device=logits.device,
-                   dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-    return order[(masked + gumbel).argmax()]
-
-
-def _sample_batch(logits, sampling):
-    """Per-slot :func:`_sample_one` over (S, V) logits -- lanes are
-    independent (own generator, own mask), so a batched slot samples
-    exactly as it would alone.  ``sampling`` is a list of per-slot
-    dicts (seed, step, temperature, top_k, top_p) or None (greedy).
-    Returns an (S,) int64 tensor on the logits' device."""
     greedy = logits.argmax(dim=-1)
-    for i, sp in enumerate(sampling):
-        if sp is not None and sp["temperature"] > 0.0:
-            greedy[i] = _sample_one(logits[i], sp["seed"], sp["step"],
-                                    sp["temperature"], sp["top_k"],
-                                    sp["top_p"])
-    return greedy
+    order = torch.argsort(-logits, dim=-1, stable=True)     # descending
+    sl = logits.gather(1, order) / temps.clamp_min(1e-6)[:, None]
+    rank = torch.arange(V, device=logits.device)
+    keep = (top_ks[:, None] <= 0) | (rank[None, :] < top_ks[:, None])
+    probs = torch.softmax(sl, dim=-1)
+    keep &= (torch.cumsum(probs, dim=-1) - probs) < top_ps[:, None]
+    gumbel = -torch.log(-torch.log(_uniforms(seeds, steps, V)))
+    pick = (sl.masked_fill(~keep, float("-inf")) + gumbel).argmax(dim=-1)
+    sampled = order.gather(1, pick[:, None])[:, 0]
+    return torch.where(temps <= 0, greedy, sampled)
+
+
+# ----------------------------------------------------------------------
+# the warm pool: the serving programs, captured at start-up
+# ----------------------------------------------------------------------
+class _Inputs:
+    """A program's static device inputs and their host staging.
+    :meth:`fill` writes values into the (pinned, on CUDA) host tensors
+    and queues non-blocking copies into the device buffers, which a
+    captured program reads; it first waits until the previous fill's
+    copies have read the staging."""
+
+    def __init__(self, device, **specs):
+        self._cuda = device.type == "cuda"
+        self.dev = {n: torch.zeros(shape, dtype=dt, device=device)
+                    for n, (shape, dt) in specs.items()}
+        self._host = {n: torch.zeros(shape, dtype=dt, pin_memory=self._cuda)
+                      for n, (shape, dt) in specs.items()}
+        self._copied = None
+
+    def fill(self, **values):
+        if self._copied is not None:
+            self._copied.synchronize()
+        for n, v in values.items():
+            self._host[n].numpy()[...] = v
+            self.dev[n].copy_(self._host[n], non_blocking=True)
+        if self._cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+
+class _Program:
+    """One serving program: a function of the pool's static buffers.  On
+    the card it is captured into a CUDA graph once, at start-up, and
+    replayed; on the CPU, which has no graphs, it runs eagerly."""
+
+    def __init__(self, fn, device, pool=None):
+        self.fn = fn
+        self.graph, self.launches = None, {}
+        if device.type == "cuda":
+            self.graph, _, self.launches = capture_graph(fn, pool=pool)
+
+    def __call__(self):
+        if self.graph is None:
+            with torch.no_grad():
+                self.fn()
+        else:
+            replay_graph(self.graph, self.launches)
 
 
 class WarmPool:
-    """The replica's device state: the model's parameters and the paged
-    KV pools, allocated once on the model's device, and the three
-    operations the engine runs on them -- :meth:`run_prefill`,
-    :meth:`run_decode` and :meth:`copy_page`.  PyTorch runs eagerly, so
-    unlike the JAX warm pool there is nothing to compile up front."""
+    """The replica's device state and its programs, fixed at start-up:
+    the model's parameters (and, with ``ServeConfig(int8=True)``, their
+    int8 copies), the paged KV pools, and one decode program (S slots x
+    MP pages), one prefill program per ladder rung and, with the prefix
+    cache, one chunk program per rung.  On the card each program is a
+    CUDA graph captured here (``stats``: ``programs`` graphs in
+    ``capture_s``), so a step replays with no per-op host dispatch; a
+    failed capture raises.  On the CPU the same functions run eagerly.
+
+    Every program reads only static device buffers (page table, lengths,
+    tokens, active, the sampling vectors; the padded tokens, the page
+    row, ``true_len`` and ``start``), which :meth:`run_decode` and
+    :meth:`run_prefill` fill from host staging before a replay, and
+    writes its tokens into buffers outside every graph pool.  Sampling
+    runs inside the programs.  The decode graph has its own memory pool;
+    the prefill and chunk graphs, which run one at a time on the engine
+    thread, share one.  The COW page copy is one indexed copy and stays
+    eager."""
 
     def __init__(self, net, serve_cfg: ServeConfig):
+        t0 = time.monotonic()
         self.net = net
         self.cfg = net.cfg
         self.serve_cfg = serve_cfg
-        self.spec = serve_cfg.cache_spec(net.cfg)
-        self.device = net.output.weight.device
-        self.k_pages, self.v_pages = init_pools(self.spec, self.device)
-        self.stats = {"pool_bytes": 2 * self.k_pages.numel()
-                      * self.k_pages.element_size()}
+        spec = self.spec = serve_cfg.cache_spec(net.cfg)
+        dev = self.device = net.output.weight.device
+        self.k_pages, self.v_pages = init_pools(spec, dev)
+        self.int8 = _int8_layers(net) if serve_cfg.int8 else {}
+        S, MP = spec.slots, spec.max_pages_per_slot
+        i32, i64, f32 = torch.int32, torch.int64, torch.float32
+
+        def samp(n):        # the sampler's knobs for n rows
+            return {"seeds": ((n,), i64), "steps": ((n,), i64),
+                    "temps": ((n,), f32), "top_ks": ((n,), i32),
+                    "top_ps": ((n,), f32)}
+        self._dec = _Inputs(dev, page_table=((S, MP), i32),
+                            lengths=((S,), i32), tokens=((S,), i32),
+                            active=((S,), torch.bool), **samp(S))
+        self._pre = _Inputs(dev, tokens=((1, max(serve_cfg.ladder)), i32),
+                            page_row=((MP,), i32), true_len=((), i32),
+                            start=((), i32), **samp(1))
+        # a prompt length whose last row exists, for the warm-up and
+        # capture calls (a real prefill always sets its own)
+        self._pre.fill(true_len=1)
+        self._dec_out = torch.zeros(S, dtype=i64, device=dev)
+        self._pre_out = torch.zeros(1, dtype=i64, device=dev)
+        cuda = dev.type == "cuda"
+        with torch.no_grad():
+            self._decode = _Program(self._decode_step, dev, pool=(
+                torch.cuda.graph_pool_handle() if cuda else None))
+            shared = torch.cuda.graph_pool_handle() if cuda else None
+            self._prefill = {T: _Program(functools.partial(
+                self._prefill_step, T, False), dev, shared)
+                for T in serve_cfg.ladder}
+            self._chunk = {T: _Program(functools.partial(
+                self._prefill_step, T, True), dev, shared)
+                for T in serve_cfg.ladder} if serve_cfg.prefix_cache else {}
+        self.stats = {
+            "pool_bytes": 2 * self.k_pages.numel()
+            * self.k_pages.element_size(),
+            "programs": (1 + len(self._prefill) + len(self._chunk))
+            if cuda else 0,
+            "capture_s": round(time.monotonic() - t0, 3),
+            "int8": bool(self.int8)}
+        log.info("serve warm pool ready: %d graphs in %.2fs%s",
+                 self.stats["programs"], self.stats["capture_s"],
+                 " (int8 weights)" if self.int8 else "")
 
     def ladder_fit(self, n):
         """Smallest ladder length holding an n-token prompt (None when
@@ -791,45 +959,80 @@ class WarmPool:
                 return T
         return None
 
-    def _i32(self, x):
-        return torch.as_tensor(onp.asarray(x, onp.int32)).to(self.device)
+    # -- the captured functions (read static buffers, write static out) --
+    def _decode_step(self):
+        b = self._dec.dev
+        view = CacheView("decode", self.k_pages, self.v_pages,
+                         self.spec.page_size, page_table=b["page_table"],
+                         lengths=b["lengths"], active=b["active"])
+        with int8_weights(self.int8, "decode"):
+            logits = self.net(b["tokens"][:, None], cache=view)
+        self._dec_out.copy_(_sample_batch(
+            logits[:, -1].float(), b["seeds"], b["steps"], b["temps"],
+            b["top_ks"], b["top_ps"]))
 
-    @torch.no_grad()
+    def _prefill_step(self, T, chunk):
+        b = self._pre.dev
+        view = CacheView("chunk" if chunk else "prefill", self.k_pages,
+                         self.v_pages, self.spec.page_size,
+                         page_row=b["page_row"], true_len=b["true_len"],
+                         start=b["start"] if chunk else None)
+        with int8_weights(self.int8, "prefill"):
+            logits = self.net(b["tokens"][:, :T], cache=view)
+        last = logits[0].index_select(
+            0, (b["true_len"] - 1).long().reshape(1)).float()
+        self._pre_out.copy_(_sample_batch(
+            last, b["seeds"], b["steps"], b["temps"], b["top_ks"],
+            b["top_ps"]))
+
+    # -- program invocations --------------------------------------------
     def run_prefill(self, tokens_padded, page_row, true_len, start=0,
                     sampling=None, step=0):
         """Prefill ``true_len`` real tokens (ladder-padded input) and
         return the first generated token as an int.  ``start > 0`` runs
-        the chunk prefill: the tokens are the prompt SUFFIX from
+        the chunk program: the tokens are the prompt SUFFIX from
         absolute position ``start``, earlier positions read from cached
         pages."""
-        T = int(onp.asarray(tokens_padded).shape[-1])
-        toks = self._i32(tokens_padded).reshape(1, T)
-        row = self._i32(page_row)
-        view = CacheView("chunk" if start else "prefill", self.k_pages,
-                         self.v_pages, self.spec.page_size, page_row=row,
-                         true_len=int(true_len), start=int(start))
-        logits = self.net(toks, cache=view)
-        last = logits[0, int(true_len) - 1].float()
+        tokens_padded = onp.asarray(tokens_padded, onp.int32).reshape(-1)
+        T = tokens_padded.shape[0]
+        programs = self._chunk if start else self._prefill
+        if T not in programs:
+            raise ValueError("no %s program for %d tokens (ladder %s%s)"
+                             % ("chunk" if start else "prefill", T,
+                                self.serve_cfg.ladder, "" if programs
+                                else ", prefix cache off"))
         sp = _norm_sampling(sampling, 0)
-        return int(_sample_one(last, sp["seed"], step, sp["temperature"],
-                               sp["top_k"], sp["top_p"]))
+        toks = onp.zeros((1, max(self.serve_cfg.ladder)), onp.int32)
+        toks[0, :T] = tokens_padded
+        self._pre.fill(tokens=toks, page_row=page_row, true_len=true_len,
+                       start=start, seeds=sp["seed"] & _M32, steps=step,
+                       temps=sp["temperature"], top_ks=sp["top_k"],
+                       top_ps=sp["top_p"])
+        programs[T]()
+        return int(self._pre_out[0])
 
-    @torch.no_grad()
     def run_decode(self, page_table, lengths, tokens, active,
                    sampling=None):
         """One decode step over every slot.  ``sampling`` is a list of
-        per-slot dicts or None (greedy).  Returns the (S,) next tokens
-        as a device tensor -- the caller reads it after queueing other
-        work, so the host does not wait on the step here."""
+        per-slot dicts (seed, step, temperature, top_k, top_p) or None
+        (greedy).  Returns the (S,) next tokens as a device tensor of its
+        own -- the caller reads it after queueing other work, so the
+        host does not wait on the step here."""
         S = self.spec.slots
-        view = CacheView("decode", self.k_pages, self.v_pages,
-                         self.spec.page_size,
-                         page_table=self._i32(page_table),
-                         lengths=self._i32(lengths),
-                         active=torch.as_tensor(
-                             onp.asarray(active, bool)).to(self.device))
-        logits = self.net(self._i32(tokens).reshape(S, 1), cache=view)
-        return _sample_batch(logits[:, -1].float(), sampling or [None] * S)
+        seeds, steps = onp.zeros(S, onp.int64), onp.zeros(S, onp.int64)
+        temps, top_ks = onp.zeros(S, onp.float32), onp.zeros(S, onp.int32)
+        top_ps = onp.ones(S, onp.float32)
+        for i, sp in enumerate(sampling or ()):
+            if sp is not None:
+                seeds[i], steps[i] = sp["seed"] & _M32, sp["step"]
+                temps[i], top_ks[i] = sp["temperature"], sp["top_k"]
+                top_ps[i] = sp["top_p"]
+        self._dec.fill(page_table=page_table, lengths=lengths,
+                       tokens=tokens, active=active, seeds=seeds,
+                       steps=steps, temps=temps, top_ks=top_ks,
+                       top_ps=top_ps)
+        self._decode()
+        return self._dec_out.clone()
 
     @torch.no_grad()
     def copy_page(self, src, dst):

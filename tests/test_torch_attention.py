@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from mxnet_tpu.ops import pallas_ops
 from mxnet_tpu_torch.ops import cuda_ops
+from mxnet_tpu_torch.ops.int8 import dequantize, int8_linear
 
 ATOL = 2e-5
 
@@ -108,12 +109,14 @@ def test_cpu_path_launches_no_kernel():
     cuda_ops.paged_attention(q, kp, vp, pt, lens)
     qq, kk, vv = (torch.from_numpy(a) for a in _qkv(3, 1, 4, 2, 16, 16, 64))
     cuda_ops.flash_attention(qq, kk, vv, causal=True)
+    int8_linear(qq[0, 0], torch.ones(5, 64, dtype=torch.int8), 0.5)
+    dequantize(torch.ones(5, 64, dtype=torch.int8), 0.5, torch.float32)
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
     assert cuda_ops.LAUNCHES == dict.fromkeys(
         [name for k in kernels for name in (k, k + "_general")]
         + ["flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
            "multi_sgd", "multi_adam", "multi_lamb_phase1",
-           "multi_lamb_phase2"], 0)
+           "multi_lamb_phase2", "int8_linear", "int8_dequant"], 0)
 
 
 def test_gqa_head_mismatch_raises():

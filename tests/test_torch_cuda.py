@@ -922,3 +922,200 @@ def test_optimizers_launch_one_kernel_per_group_and_match_cpu(dev, name, kw,
         out[str(d)] = w
     _mt_check([(a,) for a in out[str(dev)]],
               [(b.to(dev),) for b in out["cpu"]])
+
+
+# ----------------------------------------------------------------------
+# the int8 decode product and the serving programs as CUDA graphs
+# ----------------------------------------------------------------------
+# (dtype, limit on max|kernel - plain| / max|plain|): bf16 / fp16 output
+# rounding (one step is 2^-8 / 2^-11 of the value) against cuBLAS's own
+# rounding and summation order; float32 / float64 summation order only
+INT8_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5,
+            torch.float64: 1e-12}
+# (M, N, K): decode-like rows of 1, 8 and 17 slots (a second row tile),
+# odd N and K (the scalar path), K below one staged tile, K = 0
+INT8_SHAPES = [(1, 96, 4096), (8, 1024, 4096), (17, 33, 4096),
+               (8, 31, 100), (3, 17, 1), (5, 64, 528), (2, 9, 0)]
+
+
+def _int8_weight(dev, seed, N, K):
+    from mxnet_tpu_torch.serve import quantize_weights
+    if K == 0:          # no scale of an empty weight: any one will do
+        return torch.zeros((N, 0), dtype=torch.int8, device=dev), 1.0
+    w = torch.from_numpy(onp.random.RandomState(seed).randn(N, K)
+                         .astype(onp.float32)).to(dev)
+    q, scales = quantize_weights({"w": w})
+    return q["w"], scales["w"]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+@pytest.mark.parametrize("dtype", list(INT8_TOL))
+def test_int8_linear_matches_plain(dev, dtype, shape):
+    """The W8A16 kernel against ``F.linear(x, dequantize(q))`` on the same
+    card inputs; two calls give the same bits."""
+    from mxnet_tpu_torch.ops.int8 import int8_linear, int8_linear_plain
+    M, N, K = shape
+    q, scale = _int8_weight(dev, N + K, N, K)
+    x = torch.from_numpy(onp.random.RandomState(M).randn(M, K).astype(
+        onp.float32)).to(dev, dtype)
+    before = cuda_ops.LAUNCHES["int8_linear"]
+    got = int8_linear(x, q, scale)
+    again = int8_linear(x, q, scale)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["int8_linear"] == before + 2
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, again)
+    want = int8_linear_plain(x, q, scale)
+    scale_ = max(want.abs().max().item(), 1e-30)
+    assert _max_err(got, want) <= INT8_TOL[dtype] * scale_
+
+
+@pytest.mark.parametrize("n", [4096 * 33, 16 * 5 + 7, 3, 0])
+@pytest.mark.parametrize("dtype", list(INT8_TOL))
+def test_int8_dequant_matches_plain_bit_for_bit(dev, dtype, n):
+    """The prefill's dequantize against ``q * scale``: the same bits, on
+    the vector path, its scalar tail, an unaligned view and no data."""
+    from mxnet_tpu_torch.ops.int8 import dequantize, dequantize_plain
+    q = torch.randint(-127, 128, (n + 1,), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(n)).to(dev)
+    for view in (q[:n], q[1:]):
+        before = cuda_ops.LAUNCHES["int8_dequant"]
+        got = dequantize(view, 3.7e-3, dtype)
+        assert cuda_ops.LAUNCHES["int8_dequant"] == before + (n > 0)
+        assert got.dtype == dtype
+        assert torch.equal(got, dequantize_plain(view, 3.7e-3, dtype))
+
+
+def test_int8_linear_refuses_what_it_does_not_take(dev):
+    from mxnet_tpu_torch.ops.int8 import int8_linear
+    q, scale = _int8_weight(dev, 0, 16, 64)
+    x = torch.zeros(2, 64, device=dev, dtype=torch.bfloat16)
+    base = torch.zeros(16 * 64 + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        int8_linear(x, base[1:].view(16, 64), scale)    # unaligned rows
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_linear(torch.zeros(64, 2, device=dev).t(), q, scale)
+    with pytest.raises(TypeError):
+        int8_linear(x.int(), q, scale)
+    with pytest.raises(ValueError):
+        int8_linear(x, q.cpu(), scale)
+
+
+def _graph_pool(dev, int8=False, layers=2):
+    from mxnet_tpu_torch.models import TransformerLM, tiny_config
+    from mxnet_tpu_torch.serve import ServeConfig, WarmPool
+    cfg = tiny_config(dim=256, n_heads=4, n_kv_heads=2, n_layers=layers,
+                      dtype="bfloat16")
+    net = TransformerLM(cfg).initialize(
+        torch.Generator(device=dev).manual_seed(0))
+    return WarmPool(net, ServeConfig(slots=4, page_size=16, pages=32,
+                                     ladder=(32, 64), max_new=8, int8=int8))
+
+
+def _replay_vs_eager(pool, program, run):
+    """``run()`` (fill the static inputs, replay ``program``) against an
+    eager call of the very function captured, from the same pools:
+    the tokens and the K/V written must be the same bits."""
+    k0, v0 = pool.k_pages.clone(), pool.v_pages.clone()
+    run()
+    torch.cuda.synchronize()
+    # page 0 is the trash page: padding tokens past true_len write there,
+    # several to one slot where a chunk's padding outruns a page, in no
+    # fixed order; no attended position reads it
+    graphed = [t.clone() for t in (pool._dec_out, pool._pre_out,
+                                   pool.k_pages[:, 1:], pool.v_pages[:, 1:])]
+    pool.k_pages.copy_(k0)
+    pool.v_pages.copy_(v0)
+    with torch.no_grad():
+        program.fn()
+    torch.cuda.synchronize()
+    eager = (pool._dec_out, pool._pre_out, pool.k_pages[:, 1:],
+             pool.v_pages[:, 1:])
+    assert not torch.equal(graphed[2], k0[:, 1:])   # it wrote the cache
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_serving_graph_replays_equal_the_eager_function(dev, int8):
+    pool = _graph_pool(dev, int8=int8)
+    assert pool.stats["programs"] == 1 + 2 + 2
+    assert pool.stats["int8"] is int8
+    row = onp.arange(1, 1 + pool.spec.max_pages_per_slot, dtype=onp.int32)
+    padded = onp.zeros(64, onp.int32)
+    padded[:50] = onp.arange(3, 53)
+    _replay_vs_eager(pool, pool._prefill[64], lambda: pool.run_prefill(
+        padded, row, 50, sampling={"seed": 4, "temperature": 0.7}))
+    _replay_vs_eager(pool, pool._chunk[32], lambda: pool.run_prefill(
+        padded[:32], row, 20, start=40))
+    S, MP = 4, pool.spec.max_pages_per_slot
+    table = onp.arange(1, 1 + S * MP, dtype=onp.int32).reshape(S, MP)
+    table[1] = row
+    lengths = onp.array([5, 50, 0, 17], onp.int32)
+    sampling = [None, {"seed": 1, "step": 3, "temperature": 0.9,
+                       "top_k": 20, "top_p": 0.9}, None, None]
+    _replay_vs_eager(pool, pool._decode, lambda: pool.run_decode(
+        table, lengths, onp.array([7, 8, 9, 10], onp.int32),
+        onp.array([True, True, False, True]), sampling=sampling))
+
+
+def test_graph_replays_count_their_launches(dev):
+    """Each replay adds the launches its capture recorded: the decode
+    graph one paged decode per layer (and one int8 product per Dense
+    with int8 weights), a prefill graph one flash forward per layer."""
+    pool = _graph_pool(dev, int8=True, layers=3)
+    assert pool._decode.launches == {"paged_decode": 3,
+                                     "int8_linear": 7 * 3 + 1}
+    assert pool._prefill[32].launches == {"flash_fwd": 3,
+                                          "int8_dequant": 7 * 3 + 1}
+    cuda_ops.reset_launch_counts()
+    S, MP = 4, pool.spec.max_pages_per_slot
+    for n in range(1, 4):
+        pool.run_decode(onp.ones((S, MP), onp.int32),
+                        onp.full(S, n, onp.int32), onp.ones(S, onp.int32),
+                        onp.ones(S, bool))
+        assert cuda_ops.LAUNCHES["paged_decode"] == 3 * n
+        assert cuda_ops.LAUNCHES["int8_linear"] == 22 * n
+    pool.run_prefill(onp.ones(32, onp.int32), onp.ones(MP, onp.int32), 9)
+    assert cuda_ops.LAUNCHES["flash_fwd"] == 3
+
+
+def test_bf16_and_int8_replicas_of_one_net_serve_at_once(dev):
+    """One net, two replicas: the int8 one captures its graphs while the
+    bf16 one's engine thread decodes (and syncs to read its tokens);
+    both serve, and the net's own weights stay as they were."""
+    from mxnet_tpu_torch.serve import ServeConfig, Server
+    pool = _graph_pool(dev)
+    net = pool.net
+    before = {k: p.detach().clone() for k, p in net.collect_params().items()}
+    kw = dict(slots=4, page_size=16, pages=32, ladder=(32, 64), max_new=24)
+    prompts = [list(range(1, 9 + 5 * i)) for i in range(6)]
+    with Server(net, ServeConfig(**kw)) as a:
+        rids = [a.submit(p) for p in prompts]
+        b = Server(net, ServeConfig(int8=True, **kw))
+        with b:
+            got_b = [b.generate(p, timeout=300) for p in prompts[:3]]
+        got_a = [a.result(r, timeout=300) for r in rids]
+    assert b.pool.stats["int8"] and b.pool.stats["programs"] == 5
+    for r in got_a + got_b:
+        assert r["state"] == "done" and len(r["tokens"]) == 24
+    for k, p in net.collect_params().items():
+        assert torch.equal(p.detach(), before[k]), k
+
+
+def test_server_raises_when_a_program_cannot_be_captured(dev,
+                                                         monkeypatch):
+    """A step that syncs with the host (``.item()``) cannot be captured:
+    the Server raises at start-up and never runs it eagerly instead."""
+    from mxnet_tpu_torch import serve
+    sample = serve._sample_batch
+
+    def syncing(logits, *args):
+        out = sample(logits, *args)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(serve, "_sample_batch", syncing)
+    with pytest.raises(RuntimeError):
+        _graph_pool(dev, layers=1)
+    torch.cuda.synchronize()

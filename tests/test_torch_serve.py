@@ -144,14 +144,24 @@ def test_temperature_zero_is_greedy_and_seeds_decorrelate():
     assert ta != tb, "distinct seeds produced identical streams"
 
 
+def _sample_one(logits, seed, step, temp, top_k, top_p):
+    """One row through the sampler, its knobs as (1,) tensors."""
+    def one(v, dt):
+        return torch.tensor([v], dtype=dt)
+    return int(serve._sample_batch(
+        logits[None], one(seed, torch.int64), one(step, torch.int64),
+        one(temp, torch.float32), one(top_k, torch.int32),
+        one(top_p, torch.float32))[0])
+
+
 def test_sample_one_respects_top_k_and_top_p():
     logits = torch.tensor([0.0, 5.0, 4.9, -3.0, 1.0])
     for step in range(20):
-        tok = int(serve._sample_one(logits, 7, step, 1.0, 2, 1.0))
+        tok = _sample_one(logits, 7, step, 1.0, 2, 1.0)
         assert tok in (1, 2)                     # top-2 only
-        tok = int(serve._sample_one(logits, 7, step, 1.0, 0, 1e-6))
+        tok = _sample_one(logits, 7, step, 1.0, 0, 1e-6)
         assert tok == 1                          # top-1 always survives
-    assert int(serve._sample_one(logits, 7, 0, 0.0, 0, 1.0)) == 1
+    assert _sample_one(logits, 7, 0, 0.0, 0, 1.0) == 1
 
 
 def test_server_prefix_cache_transparent():

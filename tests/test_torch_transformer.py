@@ -16,7 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
-import mxnet_tpu as mx  # noqa: F401 -- namespace init
+import mxnet_tpu as mx
 from mxnet_tpu import _tape
 from mxnet_tpu.models import CacheSpec as JCacheSpec
 from mxnet_tpu.models import CacheView as JCacheView
@@ -306,11 +306,58 @@ def test_load_params_takes_bf16_jax_weights_exactly():
 
 
 @pytest.mark.parametrize("over", [dict(moe_num_experts=4),
-                                  dict(attn_impl="ring"),
-                                  dict(attn_impl="dense")])
+                                  dict(attn_impl="ring")])
 def test_unported_options_raise(over):
     with pytest.raises(NotImplementedError):
         TransformerLM(tiny_config(**over), device="cpu")
+
+
+def test_unknown_attn_impl_is_refused():
+    with pytest.raises(ValueError, match="attn_impl"):
+        TransformerLM(tiny_config(attn_impl="sparse"), device="cpu")
+
+
+def test_dense_attention_logits_and_grads_match_jax_dense_model():
+    """``attn_impl="dense"``: the plain causal attention over repeated KV
+    heads (GQA 4 / 2), logits and every parameter's grad of a random
+    projection of the logits against the JAX dense model, to 1e-5."""
+    jnet, tnet, _ = _pair(30, attn_impl="dense")
+    toks = onp.random.RandomState(30).randint(0, 256, (2, 12)).astype(
+        onp.int32)
+    w = onp.random.RandomState(31).randn(2, 12, 256).astype(onp.float32)
+    with mx.autograd.record():
+        jlogits = jnet(NDArray(jnp.asarray(toks)))
+        jloss = (jlogits * NDArray(jnp.asarray(w))).mean()
+    jloss.backward()
+    tlogits = tnet(torch.from_numpy(toks))
+    (tlogits * torch.from_numpy(w)).mean().backward()
+    onp.testing.assert_allclose(tlogits.detach().numpy(),
+                                onp.asarray(jlogits._data), rtol=1e-5,
+                                atol=1e-5)
+    jparams = jnet.collect_params()
+    for name, p in tnet.collect_params().items():
+        onp.testing.assert_allclose(
+            p.grad.numpy(), onp.asarray(jparams[name].grad()._data),
+            rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_dense_and_flash_models_agree_and_cache_paths_ignore_attn_impl():
+    """The dense and flash models compute one function (the CPU's flash
+    wrapper runs the plain attention), and a dense model's serving
+    prefill, which stays on the flash path, equals the flash model's."""
+    _, tdense, params = _pair(32, attn_impl="dense")
+    tflash = load_params(TransformerLM(tiny_config(), device="cpu"),
+                         params)
+    toks = onp.random.RandomState(32).randint(0, 256, (1, 9)).astype(
+        onp.int32)
+    onp.testing.assert_allclose(_t_forward(tdense, toks),
+                                _t_forward(tflash, toks), rtol=1e-5,
+                                atol=1e-5)
+    cfg = tiny_config()
+    outs = [_prefill_decode(None, net, cfg, toks, 6, 4, [1, 2, 3], 8)
+            for net in (tdense, tflash)]
+    for (_, a), (_, b) in zip(*outs):
+        assert onp.array_equal(a, b)
 
 
 def test_default_device_is_cuda_and_raises_without_card():

@@ -4,9 +4,11 @@
 
 ``LIB`` names a source of ``mxnet_tpu_torch/csrc`` with a timing case
 here: ``flash_fwd_mma`` (BERT-base's float32 attention, q/k/v (16, 12,
-512, 64) non-causal, and a causal GQA case for the error) or
+512, 64) non-causal, and a causal GQA case for the error),
 ``paged_general`` (the float32 serving shape: 8 slots, lengths 51-347,
-32/8 heads of 128, pages of 128).  Each ``VARIANT`` is a ``.cu`` file
+32/8 heads of 128, pages of 128) or ``int8_linear`` (the bf16 decode's
+five products at M = 8, ``chip_smoke.INT8_SHAPES``, each timed by
+``chip_smoke.graph_ms`` and summed as a decode step's 225 launches).  Each ``VARIANT`` is a ``.cu`` file
 written in place of ``csrc/LIB.cu`` (a copy with text edits), optionally
 followed by ``@N`` to run it with ``cuda_ops.PAGED_TARGET_CTAS = N``.
 Every variant is compiled with ``_build``'s flags (all ``nvcc`` at once,
@@ -91,6 +93,25 @@ def _case(lib_name, dev):
                 want = co._paged_dense(q, kp, vp, pt, lens, D ** -0.5)
             return (cs._rel_err(run(), want)[1],)
         return run, errors, "paged_general"
+    if lib_name == "int8_linear":
+        from mxnet_tpu_torch.ops.int8 import int8_linear, int8_linear_plain
+        cases = []
+        for name, K, N, per_step in cs.INT8_SHAPES:
+            q = torch.randint(-127, 128, (N, K), dtype=torch.int8,
+                              generator=gen).to(dev)
+            x = torch.randn(8, K, generator=gen).to(dev, torch.bfloat16)
+            cases.append((name, per_step, q, x,
+                          int8_linear_plain(x, q, 8e-4).float()))
+
+        def run():
+            return {name: (per, cs.graph_ms(lambda: int8_linear(x, q, 8e-4)))
+                    for name, per, q, x, _ in cases}
+
+        def errors():
+            return tuple((int8_linear(x, q, 8e-4).float() - want).abs().max()
+                         .item() / want.abs().max().item()
+                         for _, _, q, x, want in cases)
+        return run, errors, None
     raise SystemExit("no timing case for %r" % lib_name)
 
 
@@ -113,6 +134,15 @@ def main(argv):
         _build._libs[lib_name] = lib
         co.PAGED_TARGET_CTAS = int(n) if n else target
         errs = errors()
+        if lib_name == "int8_linear":
+            times = run()
+            print("%-40s step %.4f ms  err %s  per shape %s"
+                  % (os.path.basename(spec),
+                     sum(n * ms for n, ms in times.values()),
+                     ["%.2e" % e for e in errs],
+                     {k: round(ms, 4) for k, (_, ms) in times.items()}),
+                  flush=True)
+            continue
         ms, per = cs.device_ms(run, match)
         print("%-40s %.4f ms  err %s  kernels %s"
               % (os.path.basename(spec), ms, ["%.2e" % e for e in errs],

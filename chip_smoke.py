@@ -29,7 +29,17 @@ card against the CPU; BERT-base trains at its default float32; and
 mx``).  The optimizer's multi-tensor kernels (SGD / NAG, Adam / AdamW,
 LAMB's two phases) are held against their plain versions at the edges
 of their design and at the BERT-base, ResNet-50 and LM parameter lists,
-and timed there; every training path updates through them.  Each path that
+and timed there; every training path updates through them.  Then four
+ranks on the one card (children of this script: ``--ring-rank R DIR``,
+gloo through a ``FileStore``, started once every kernel is built) run
+the ring attention at Llama-3-8B attention widths over 4*8192 tokens,
+flat and two-level, striped, round-robin and non-causal, forward and
+backward, against one flash call over the whole sequence (and against
+plain at 4*1024), and one full-width MoE layer with its experts over
+``ep=4`` against the unsharded call; a 4-layer, 8-expert MoE LM of
+Llama-3-8B widths trains 3 steps, a float32 tiny MoE runs card against
+CPU, the 8-layer step with ``remat=True`` runs against the plain one,
+and a checkpoint resumes bit for bit.  Each path that
 runs kernels does so with the launch counts reset before it and read
 after it, and fails unless every kernel it goes through was launched.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
@@ -2648,6 +2658,560 @@ def lm_adamw_timing(co, net, states, dev, card):
     return recs
 
 
+# ----------------------------------------------------------------------
+# phase 15: context and expert parallelism, 4 ranks on the one card
+# ----------------------------------------------------------------------
+# Llama-3-8B attention widths in bf16, long context: q (1, 32, 4*8192,
+# 128), k/v (1, 8, 4*8192, 128), 8192 tokens a rank.  Held against plain
+# only at 4*1024 (the plain scores at 32k would be 137 GB).
+RING_WORLD, RING_H, RING_HKV, RING_D = 4, 32, 8, 128
+RING_T_LOCAL, RING_PLAIN_T_LOCAL = 8192, 1024
+# (mesh, axis, causal, layout)
+RING_CASES = [("flat", "cp", True, "striped"),
+              ("flat", "cp", True, "roundrobin"),
+              ("flat", "cp", False, "roundrobin"),
+              ("2level", ("dcn", "cp"), True, "striped"),
+              ("2level", ("dcn", "cp"), True, "roundrobin"),
+              ("2level", ("dcn", "cp"), False, "roundrobin")]
+# The ring against one flash call (or plain) over the whole sequence.
+# Both round P to bf16 per block, the ring merges its blocks' bf16
+# outputs in float32 and rounds once more; so twice the kernel's own
+# limits against plain: O absolute, each grad max|d| / max|ref|.
+# Measured on an H100: O 1.56e-2 (one bf16 step of an |O| in [2, 4)),
+# grads at most 6.9e-3, at both lengths.
+RING_O_ATOL = 2 * FLASH_O_ATOL
+RING_GRAD_REL = 2 * FLASH_BWD_TOL
+# One full-width MoE layer over ep=4: x (2048, 4096) bf16, 8 experts of
+# 4096 -> 14336; against the unsharded call, max|d| / max|ref|.  Each
+# token takes one expert, so the partial sums add zeros, and only the
+# per-expert products' cuBLAS kernels may differ (bf16 output).
+# Measured on an H100: bitwise equal.
+EP_T, EP_D, EP_H, EP_E = 2048, 4096, 14336, 8
+EP_REL = 1e-2
+RING_TIMEOUT_S = 600
+
+
+def ring_rank_modules():
+    """What a rank child imports: the port, its parallel layer and its
+    kernels' wrappers (no JAX)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.ops import cuda_ops
+    from mxnet_tpu_torch.parallel import _compat
+    return mt, parallel, cuda_ops, _compat
+
+
+def _ring_inputs(T, dev):
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(h):
+        return torch.randn(1, h, T, RING_D, device=dev, generator=gen,
+                           dtype=torch.bfloat16)
+    return rnd(RING_H), rnd(RING_HKV), rnd(RING_HKV), rnd(RING_H)
+
+
+def _ring_reference(co, q, k, v, do, causal, plain):
+    """(o, dq, dk, dv) over the whole sequence in one process: the plain
+    version (float32), or one flash call and its backward kernels."""
+    if plain:
+        zero = torch.zeros(1, dtype=torch.int32, device=q.device)
+        scale = RING_D ** -0.5
+        o, lse = co._dense_with_lse(q, k, v, zero, zero, causal, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        return (o,) + tuple(co._flash_bwd_dense(q, k, v, do, lse, delta,
+                                                zero, zero, causal, scale))
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    o = co.flash_attention(qq, kk, vv, causal=causal)
+    return (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv), do)
+
+
+def _ring_call(parallel, mesh, axis, causal, layout, q, k, v, do):
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    o = parallel.ring_attention_sharded(qq, kk, vv, mesh, axis_name=axis,
+                                        causal=causal, layout=layout)
+    return (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv), do)
+
+
+def _kernel_ms(fn):
+    """(flash kernels' device ms, all kernels' device ms) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return (sum(e.self_device_time_total for e in ev if "flash" in e.key)
+            / 1e3, sum(e.self_device_time_total for e in ev) / 1e3)
+
+
+def ring_rank(rank, out_dir, backend="gloo"):
+    """One rank of the ring phase (``chip_smoke.py --ring-rank R DIR
+    [BACKEND]``): the ring cases at 4*1024 (rank 0 holds them against
+    plain) and at 4*8192 (against one flash call), then the ep MoE layer
+    (against the unsharded call); a JSON report into DIR.  Rank r runs
+    on card r % device_count."""
+    import torch.distributed as dist
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(out_dir, "store"),
+                                      RING_WORLD),
+        rank=rank, world_size=RING_WORLD)
+    mt, parallel, co, comm = ring_rank_modules()
+    meshes = {"flat": parallel.create_mesh(cp=RING_WORLD),
+              "2level": parallel.create_mesh(dcn=2, cp=RING_WORLD // 2)}
+    dev = meshes["flat"].device
+    report = {"rank": rank, "device": str(dev),
+              "backend": meshes["flat"].backend, "cases": [],
+              "launches": dict.fromkeys(co.LAUNCHES, 0)}
+    for t_local in (RING_PLAIN_T_LOCAL, RING_T_LOCAL):
+        plain = t_local == RING_PLAIN_T_LOCAL
+        q, k, v, do = _ring_inputs(RING_WORLD * t_local, dev)
+        refs = {}
+        # one untimed call first: the first collectives and host buffers
+        # cost seconds once (3.8 s of the first case's timing without it)
+        _ring_call(parallel, meshes["flat"], "cp", True, "striped", q, k, v,
+                   do)
+        for mesh_name, axis, causal, layout in RING_CASES:
+            dist.barrier()
+            torch.cuda.synchronize()
+            co.reset_launch_counts()
+            comm.reset_transport()
+            t0 = time.perf_counter()
+            got = _ring_call(parallel, meshes[mesh_name], axis, causal,
+                             layout, q, k, v, do)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(co.LAUNCHES)
+            transport = dict(comm.TRANSPORT)
+            for name, n in launches.items():
+                report["launches"][name] += n
+            dist.barrier()
+            flash_ms, dev_ms = _kernel_ms(lambda: _ring_call(
+                parallel, meshes[mesh_name], axis, causal, layout, q, k, v,
+                do))
+            case = {"T": RING_WORLD * t_local, "mesh": mesh_name,
+                    "causal": causal, "layout": layout, "ring_ms": ms,
+                    "flash_kernels_ms": flash_ms, "device_ms": dev_ms,
+                    "launches": {n: launches[n] for n in
+                                 ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv")},
+                    "staged_calls": transport["staged_calls"],
+                    "staged_bytes": transport["staged_bytes"],
+                    "staged_ms": transport["staged_ms"],
+                    "device_calls": transport["device_calls"]}
+            if rank == 0:
+                if causal not in refs:
+                    refs[causal] = _ring_reference(co, q, k, v, do, causal,
+                                                   plain)
+                ref = refs[causal]
+                case["against"] = "plain" if plain else "kernel"
+                case["o_err"] = (got[0].float() - ref[0].float()).abs() \
+                    .max().item()
+                case["grad_rel"] = [
+                    ((g.float() - r.float()).abs().max() /
+                     r.float().abs().max()).item()
+                    for g, r in zip(got[1:], ref[1:])]
+            report["cases"].append(case)
+            del got
+        del q, k, v, do, refs
+        torch.cuda.empty_cache()
+    # expert parallelism: one full-width MoE layer over ep
+    ep = parallel.create_mesh(ep=RING_WORLD)
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * std).to(
+            torch.bfloat16)
+    x = rnd(EP_T, EP_D)
+    gate = rnd(EP_D, EP_E, std=0.02)
+    w1 = rnd(EP_E, EP_D, EP_H, std=0.02)
+    w2 = rnd(EP_E, EP_H, EP_D, std=0.02)
+    mine = slice(rank * EP_E // RING_WORLD, (rank + 1) * EP_E // RING_WORLD)
+    parallel.switch_moe(x, gate, w1[mine], w2[mine], mesh=ep)   # warm-up
+    dist.barrier()
+    comm.reset_transport()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, aux = parallel.switch_moe(x, gate, w1[mine], w2[mine], mesh=ep)
+    torch.cuda.synchronize()
+    ep_case = {"ms": (time.perf_counter() - t0) * 1e3,
+               "staged_bytes": comm.TRANSPORT["staged_bytes"],
+               "staged_ms": comm.TRANSPORT["staged_ms"],
+               "finite": bool(torch.isfinite(out).all())}
+    if rank == 0:
+        want, aux_w = parallel.switch_moe(x, gate, w1, w2)
+        ep_case["rel_err"] = ((out.float() - want.float()).abs().max() /
+                              want.float().abs().max()).item()
+        ep_case["aux_err"] = abs(aux.item() - aux_w.item())
+    report["ep"] = ep_case
+    report["imported_jax"] = any(m.split(".")[0] in ("jax", "jaxlib",
+                                                     "mxnet_tpu")
+                                 for m in sys.modules)
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def ring_block_check(co, dev):
+    """The flash forward and the block backward at one ring step's
+    shape, q (1, 32, 8192, 128) over k/v (1, 8, 8192, 128) bf16, at the
+    offsets the ring gives them, against plain: a later rank's block in
+    the striped layout (keys shifted by one), an earlier rank's block in
+    the round-robin one (all visible) and a later rank's (all masked).
+    Returns the largest errors: O, lse absolute; dq / dk / dv relative
+    (max|d| / max|plain|) and absolute."""
+    T, scale = RING_T_LOCAL, RING_D ** -0.5
+    q, k, v, do = _ring_inputs(T, dev)
+    worst = {"o": 0.0, "lse": 0.0, "rel": 0.0, "abs": 0.0}
+    for qo, ko in ((0, 1), (2 * T, T), (T, 2 * T)):
+        o, lse = co.flash_attention_with_lse(q, k, v, causal=True,
+                                             q_offset=qo, k_offset=ko)
+        offs = [torch.tensor([x], dtype=torch.int32, device=dev)
+                for x in (qo, ko)]
+        o_p, lse_p = co._dense_with_lse(q, k, v, *offs, True, scale)
+        masked = torch.isneginf(lse_p)
+        check(torch.equal(torch.isneginf(lse), masked),
+              "ring block: -inf lse rows differ (offsets %d, %d)" % (qo, ko))
+        eo = (o.float() - o_p.float()).abs().max().item()
+        el = (lse[~masked] - lse_p[~masked]).abs().max().item() \
+            if (~masked).any() else 0.0
+        del o_p, lse_p
+        delta = (do.float() * o.float()).sum(-1)
+        got = co.flash_attention_block_bwd(q, k, v, do, lse, delta,
+                                           causal=True, q_offset=qo,
+                                           k_offset=ko)
+        want = co._flash_bwd_dense(q, k, v, do, lse, delta, *offs, True,
+                                   scale)
+        errs = [((g - w).abs().max().item(), w.abs().max().item())
+                for g, w in zip(got, want)]
+        del got, want
+        rel = max(e / m if m else e for e, m in errs)
+        print("ring block q(1,%d,%d,%d) over kv(1,%d,%d,%d) causal, q_off "
+              "%d k_off %d: O err %.3e, lse err %.3e, backward max|d|/"
+              "max|plain| %.3e (max |d| %.3e); masked rows %d"
+              % (RING_H, T, RING_D, RING_HKV, T, RING_D, qo, ko, eo, el,
+                 rel, max(e for e, _ in errs), int(masked.sum())))
+        check(eo <= FLASH_O_ATOL and el <= FLASH_LSE_ATOL and
+              rel <= FLASH_BWD_TOL, "ring block disagrees with plain")
+        worst = {"o": max(worst["o"], eo), "lse": max(worst["lse"], el),
+                 "rel": max(worst["rel"], rel),
+                 "abs": max(worst["abs"], max(e for e, _ in errs))}
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _run_ranks(out_dir, backend):
+    """Start the rank children and wait; stop them all when one fails or
+    the time runs out."""
+    procs, logs = [], []
+    for r in range(RING_WORLD):
+        log = open(os.path.join(out_dir, "rank%d.log" % r), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ring-rank",
+             str(r), out_dir, backend], stdout=log,
+            stderr=subprocess.STDOUT))
+    t0 = time.monotonic()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() - t0 > RING_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, "rank%d.log" % r)) as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure("ring: rank %d exited %s:\n%s"
+                               % (r, p.returncode, tail))
+    return time.monotonic() - t0
+
+
+def ring_phase(co, dev, card, backend="gloo"):
+    """Context and expert parallelism over 4 ranks, after one ring
+    step's kernels are held against plain here: gloo ranks sharing the
+    one card (NCCL refuses two ranks on one device), or with ``backend=
+    "nccl"`` one rank a card on 4 cards (``--ring-nccl``).  The kernels
+    are built already (``main``), so the ranks only load them.  Returns
+    rank 0's launch counts over its ring calls and the ring block's
+    errors."""
+    import tempfile
+    block = ring_block_check(co, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mx_ring_") as out_dir:
+        wall = _run_ranks(out_dir, backend)
+        reports = []
+        for r in range(RING_WORLD):
+            with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+                reports.append(json.load(f))
+    check(not any(rep["imported_jax"] for rep in reports),
+          "ring: a rank child imported JAX")
+    print("ring: %d ranks on %s, backend %s (%s); %.1f s in all [%s]"
+          % (RING_WORLD, ", ".join(sorted({r["device"] for r in reports})),
+             reports[0]["backend"], "every CUDA tensor staged through "
+             "pinned host memory" if reports[0]["backend"] == "gloo" else
+             "collectives on the cards", wall, card))
+    for i, case in enumerate(reports[0]["cases"]):
+        per = [rep["cases"][i] for rep in reports]
+        tag = "T=%d %s %s %s" % (case["T"], case["mesh"],
+                                 "causal" if case["causal"] else
+                                 "non-causal", case["layout"])
+        for rep, c in zip(reports, per):
+            check(c["launches"] == {"flash_fwd": RING_WORLD,
+                                    "flash_bwd_dq": RING_WORLD,
+                                    "flash_bwd_dkv": RING_WORLD},
+                  "ring %s: rank %d launched %s, want %d of each per call"
+                  % (tag, rep["rank"], c["launches"], RING_WORLD))
+        print("ring %s vs %s: O err %.3e (limit %.0e), max|d|/max|ref| "
+              "dq %.3e dk %.3e dv %.3e (limit %.0e); per rank: ring ms "
+              "(forward + backward) %s, flash kernels' device ms %s, all "
+              "device events' (staging copies included) %s, host-staged "
+              "transport %s MB in %s ms (%d calls; %d on the device); "
+              "launches per rank %s"
+              % (tag, case["against"], case["o_err"], RING_O_ATOL,
+                 *case["grad_rel"], RING_GRAD_REL,
+                 ["%.1f" % c["ring_ms"] for c in per],
+                 ["%.2f" % c["flash_kernels_ms"] for c in per],
+                 ["%.2f" % c["device_ms"] for c in per],
+                 ["%.1f" % (c["staged_bytes"] / 1e6) for c in per],
+                 ["%.1f" % c["staged_ms"] for c in per],
+                 case["staged_calls"], case["device_calls"],
+                 case["launches"]))
+        check(case["o_err"] <= RING_O_ATOL and
+              max(case["grad_rel"]) <= RING_GRAD_REL,
+              "ring %s disagrees with %s: O %.3e, grads %s"
+              % (tag, case["against"], case["o_err"], case["grad_rel"]))
+    ep = reports[0]["ep"]
+    print("ep: one MoE layer, x (%d, %d) bf16, %d experts of %d -> %d over "
+          "ep=%d: max|d|/max|unsharded| %.3e (limit %.0e), aux err %.3e; "
+          "per rank ms %s, host-staged %s MB in %s ms [%s]"
+          % (EP_T, EP_D, EP_E, EP_D, EP_H, RING_WORLD, ep["rel_err"],
+             EP_REL, ep["aux_err"], ["%.1f" % r["ep"]["ms"] for r in reports],
+             ["%.1f" % (r["ep"]["staged_bytes"] / 1e6) for r in reports],
+             ["%.1f" % r["ep"]["staged_ms"] for r in reports], card))
+    check(all(r["ep"]["finite"] for r in reports), "ep: output not finite")
+    check(ep["rel_err"] <= EP_REL and ep["aux_err"] <= 1e-5,
+          "ep: the sharded MoE layer disagrees with the unsharded call")
+    return reports[0]["launches"], block
+
+
+# ----------------------------------------------------------------------
+# phase 16: the MoE LM at full width, remat, checkpoints
+# ----------------------------------------------------------------------
+MOE_LAYERS, MOE_EXPERTS = 4, 8
+MOE_AUX_WEIGHT = 0.01
+# remat recomputes the same forward kernels; the backward's sums may
+# run in another order, so the losses of steps 2-3 to 1e-3 relative
+# (measured on an H100: bitwise equal; the kernels have no atomics)
+REMAT_LOSS_RTOL = 1e-3
+
+
+def _lm_loss(mt, net, V, aux_weight=0.0):
+    loss_fn = mt.gluon.loss.SoftmaxCELoss()
+
+    def fwd(model, tokens, lab):
+        logits = model(tokens).float()
+        loss = loss_fn(logits.reshape(-1, V), lab.reshape(-1)).mean()
+        return loss + aux_weight * model.moe_aux_loss() if aux_weight \
+            else loss
+    return fwd
+
+
+def _router_margins(mt, net, tokens):
+    """The top-1 router margin of every token at each MoE block."""
+    seen = []
+
+    def hook(mod, args):
+        x = args[0].detach().reshape(-1, args[0].shape[-1]).double()
+        top = (x @ mod.gate.detach().double()).sort(-1).values
+        seen.append(top[:, -1] - top[:, -2])
+    hooks = [blk.feed_forward.register_forward_pre_hook(hook)
+             for blk in net.layers
+             if isinstance(blk.feed_forward, mt.models.MoEFeedForward)]
+    with torch.no_grad():
+        net(tokens)
+    for h in hooks:
+        h.remove()
+    return torch.cat(seen)
+
+
+def moe_phase(mt, co, dev, card, B=2, T=1024):
+    """``llama3_8b_config(n_layers=4, moe_num_experts=8, moe_every=2)``:
+    3 AdamW ``TrainStep`` steps at B=2, T=1024 of CE + 0.01 x the aux
+    loss; then a float32 ``tiny_config`` MoE, card against CPU."""
+    cfg = mt.models.llama3_8b_config(dtype="bfloat16", n_layers=MOE_LAYERS,
+                                     moe_num_experts=MOE_EXPERTS, moe_every=2)
+    net = mt.models.TransformerLM(cfg, device=dev)
+    net.initialize(torch.Generator(device=dev).manual_seed(0), std=0.02)
+    V = cfg.vocab_size
+    print("moe model: llama3_8b_config widths, %d layers, %d experts every "
+          "2nd layer (layers 0, 2), %.3f B params"
+          % (MOE_LAYERS, MOE_EXPERTS, net.num_params() / 1e9))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    toks, labels = (torch.randint(0, V, (B, T), device=dev, generator=gen)
+                    for _ in range(2))
+    fwd = _lm_loss(mt, net, V, MOE_AUX_WEIGHT)
+    step = mt.parallel.TrainStep(net, None,
+                                 mt.optimizer.AdamW(learning_rate=1e-3),
+                                 forward_fn=fwd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
+    t0 = time.monotonic()
+    losses = [step(toks, labels).item() for _ in range(3)]
+    torch.cuda.synchronize()
+    wall3 = time.monotonic() - t0
+    launches = dict(co.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    aux = net.moe_aux_loss().item()
+    check(all(math.isfinite(x) for x in losses) and math.isfinite(aux),
+          "moe: a loss is not finite: %s, aux %s" % (losses, aux))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == 3 * MOE_LAYERS,
+              "moe: %s launched %d times in 3 steps, want %d per step"
+              % (name, launches[name], MOE_LAYERS))
+    check_opt_launches("moe", launches, "multi_adam", 3, net.parameters())
+    ms, dev_ms, top, _, _ = device_busy(lambda: step(toks, labels).item(),
+                                        reps=1)
+    print("moe train (B=%d, T=%d): losses %s (CE + %.2f x aux; aux %.4f), "
+          "%.1f ms a step host (3 in %.2f s), %.1f ms of kernels (device "
+          "busy %.1f%%), %.0f tokens/s, peak memory %.2f GB; top kernels "
+          "(ms a step): %s [%s]"
+          % (B, T, losses, MOE_AUX_WEIGHT, aux, ms, wall3, dev_ms,
+             100 * dev_ms / ms, B * T / ms * 1e3, peak / 1e9,
+             "; ".join("%s %.3f" % t for t in top), card))
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the float32 tiny MoE, card against CPU: logits, aux and grads
+    tcfg = mt.models.tiny_config(moe_num_experts=4, n_layers=3)
+    nets = {"cuda": mt.models.TransformerLM(tcfg, device=dev).initialize(
+        torch.Generator(device=dev).manual_seed(1), std=0.1)}
+    nets["cpu"] = mt.convert.load_params(
+        mt.models.TransformerLM(tcfg, device="cpu"),
+        mt.convert.export_params(nets["cuda"]))
+    t = torch.randint(0, tcfg.vocab_size, (2, 48),
+                      generator=torch.Generator().manual_seed(9))
+    margin = _router_margins(mt, nets["cpu"], t).min().item()
+    check(margin > 1e-4, "moe tiny: a token's router margin is %.2e: "
+          "routing could flip between devices" % margin)
+    out = {}
+    with exact_fp32():
+        for name, d in (("cuda", dev), ("cpu", "cpu")):
+            n = nets[name]
+            logits = n(t.to(d))
+            aux_t = n.moe_aux_loss()
+            (logits.float().square().mean() + aux_t).backward()
+            out[name] = (logits.detach().cpu(), aux_t.item(),
+                         [p.grad.cpu() for p in n.parameters()])
+    lrel = _rel(out["cuda"][0], out["cpu"][0])
+    grel = max(_rel(a, b) for a, b in zip(out["cuda"][2], out["cpu"][2]))
+    arel = abs(out["cuda"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+    print("moe tiny_config float32 card vs CPU: logits ||d||/||cpu|| %.2e, "
+          "aux %.2e, max grad %.2e (limit %.0e); min router margin %.3e"
+          % (lrel, arel, grel, TINY_GRAD_REL, margin))
+    check(max(lrel, arel, grel) <= TINY_GRAD_REL,
+          "moe tiny: card and CPU differ")
+    return launches
+
+
+def remat_phase(mt, co, dev, card, B=2, T=1024):
+    """The 8-layer LM step with ``remat=True`` against ``remat=False``,
+    on the same weights: 3 AdamW steps each, losses, peak memory and
+    step time."""
+    runs = {}
+    for remat in (False, True):
+        net = build_model(mt, dev, TRAIN_LAYERS)
+        V = net.cfg.vocab_size
+        gen = torch.Generator(device=dev).manual_seed(7)
+        toks, labels = (torch.randint(0, V, (B, T), device=dev,
+                                      generator=gen) for _ in range(2))
+        step = mt.parallel.TrainStep(net, None,
+                                     mt.optimizer.AdamW(learning_rate=1e-3),
+                                     forward_fn=_lm_loss(mt, net, V),
+                                     remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        co.reset_launch_counts()
+        losses = []
+        t0 = time.monotonic()
+        for _ in range(3):
+            losses.append(step(toks, labels).item())
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3 / 3
+        runs[remat] = (losses, ms, torch.cuda.max_memory_allocated(),
+                       dict(co.LAUNCHES))
+        del step, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, ms0, p0, _), (l1, ms1, p1, launches) = runs[False], runs[True]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+    print("remat: %d layers B=%d T=%d, losses plain %s remat %s (max rel "
+          "diff %.2e, limit %.0e); step %.1f ms -> %.1f ms, peak memory "
+          "%.2f GB -> %.2f GB [%s]" % (TRAIN_LAYERS, B, T, l0, l1, rel,
+                                       REMAT_LOSS_RTOL, ms0, ms1, p0 / 1e9,
+                                       p1 / 1e9, card))
+    check(l0[0] == l1[0] and rel <= REMAT_LOSS_RTOL,
+          "remat: the losses differ from the plain step's")
+    # the forward runs twice a step: once, then again in the backward
+    check(launches["flash_fwd"] == 2 * 3 * TRAIN_LAYERS and
+          launches["flash_bwd_dq"] == 3 * TRAIN_LAYERS,
+          "remat: launches %s" % launches)
+    return launches
+
+
+def checkpoint_phase(mt, co, dev, card):
+    """A small MoE model on the card: save at step 2, restore into a
+    fresh step over other weights; steps 3-4 equal the uninterrupted
+    run's bit for bit, and so do the weights."""
+    import tempfile
+    cfg = mt.models.tiny_config(moe_num_experts=4, n_layers=3, dim=256,
+                                n_heads=4, n_kv_heads=2, hidden_dim=512,
+                                dtype="bfloat16")
+    gen = torch.Generator().manual_seed(10)
+    toks, labels = (torch.randint(0, cfg.vocab_size, (2, 64),
+                                  generator=gen).to(dev) for _ in range(2))
+
+    def make(seed):
+        net = mt.models.TransformerLM(cfg, device=dev).initialize(
+            torch.Generator(device=dev).manual_seed(seed), std=0.05)
+        return net, mt.parallel.TrainStep(
+            net, None, mt.optimizer.AdamW(learning_rate=1e-2),
+            forward_fn=_lm_loss(mt, net, cfg.vocab_size, MOE_AUX_WEIGHT))
+    co.reset_launch_counts()
+    net, step = make(0)
+    whole = [step(toks, labels).item() for _ in range(4)]
+    with tempfile.TemporaryDirectory(prefix="mx_ckpt_") as d:
+        net_a, step_a = make(0)
+        for _ in range(2):
+            step_a(toks, labels)
+        step_a.save_checkpoint(d)
+        net_b, step_b = make(1)
+        step_b.load_checkpoint(d)
+        resumed = [step_b(toks, labels).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = dict(co.LAUNCHES)
+    same = all(torch.equal(a, b) for a, b in zip(net.parameters(),
+                                                   net_b.parameters()))
+    print("checkpoint: losses uninterrupted %s, resumed at step 2 %s; "
+          "weights after step 4 equal: %s [%s]"
+          % (whole, resumed, same, card))
+    check(resumed == whole[2:] and same,
+          "checkpoint: the resumed run differs from the uninterrupted one")
+    return launches
+
+
 def _short_names(obj, width=48):
     """``obj`` with every dict key cut to ``width`` characters (the times
     of kernels whose names then coincide summed): the kernels line keeps
@@ -2673,6 +3237,8 @@ def main(argv):
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    if argv[1:2] == ["--ring-rank"]:      # a child of ring_phase
+        return ring_rank(int(argv[2]), *argv[3:5])
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import cuda_ops as co
@@ -2696,7 +3262,14 @@ def main(argv):
                           for shape in (TRAIN_ATTN, BERT_ATTN)],
             "paged_decode": paged_timing(co, dev)}}))
         return 0
-    check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing]")
+    if argv[1:] == ["--ring-nccl"]:
+        # only the ring and ep phase, one NCCL rank a card (needs 4)
+        check(torch.cuda.device_count() >= RING_WORLD,
+              "--ring-nccl needs %d cards" % RING_WORLD)
+        ring_phase(co, dev, card, "nccl")
+        return 0
+    check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing | "
+          "--ring-nccl | --ring-rank RANK DIR [BACKEND]]")
     ptxas_report(_build)
 
     flash = flash_phase(co, dev)
@@ -2741,16 +3314,33 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     entry_launches = entry_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_launches, ring_block = ring_phase(co, dev, card)
+    moe_launches = moe_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_launches = remat_phase(mt, co, dev, card)
+    ckpt_launches = checkpoint_phase(mt, co, dev, card)
 
     for k in optim:
         if k["name"] == "multi_adam":
             k["shapes"] += lm_adamw
+    # the ring's step shape and offsets, held against plain above
+    flash["max_abs_err"] = max(flash["max_abs_err"], ring_block["o"])
+    flash["max_abs_err_lse"] = max(flash["max_abs_err_lse"],
+                                   ring_block["lse"])
+    for k in flash_bwd:
+        k["max_abs_err"] = max(k["max_abs_err"], ring_block["abs"])
+        k["max_rel_err"] = max(k["max_rel_err"], ring_block["rel"])
     kernels = [flash] + flash_bwd + [paged] + general + optim + int8
     paths = {"serve": serve_launches, "serve_int8": serve_int8_launches,
              "train": train_launches,
              "bert": bert_launches, "tiny_fp32": tiny_launches,
              "bert_fp32": bert_fp32_launches, "entry": entry_launches,
-             "resnet": resnet_launches}
+             "resnet": resnet_launches, "ring": ring_launches,
+             "moe": moe_launches, "remat": remat_launches,
+             "checkpoint": ckpt_launches}
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(by_path.values())

@@ -2,8 +2,9 @@
 
 The JAX side exports ``{name: onp.asarray(p.data()._data)}`` over
 ``net.collect_params()``; the port's modules use the same names
-(``layer0.attention.wq.weight``, ``norm.gamma``, ...) and shapes, so
-the dict loads by name; :func:`export_params` is the way back, so
+(``layer0.attention.wq.weight``, ``norm.gamma``, the MoE blocks'
+``layer0.feed_forward.gate`` / ``experts_w1`` / ``experts_w2``, ...)
+and shapes, so the dict loads by name; :func:`export_params` is the way back, so
 weights after training compare by name.  Only numpy crosses over: this
 module imports nothing of the JAX package.
 """

@@ -23,15 +23,23 @@ in MXNet: the caller zeroes it (``zero_grad``).
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: a kvstore with more than one worker, ``update_on_kvstore``
 and gradient compression (ROADMAP queue 3), and ``skip_nonfinite``
-(ROADMAP queue 4).  ``save_states``/``load_states`` wait with the
-checkpoints (ROADMAP queue 3).  The port has no AMP loss scaler, fault
-guard or profiler hook to attach yet (ROADMAP queues 2 and 4).
+(ROADMAP queue 4).  The port has no AMP loss scaler, fault guard or
+profiler hook to attach yet (ROADMAP queues 2 and 4).
+
+``save_states`` / ``load_states`` (:403, :428) write and read the
+optimizer states as one npz with the JAX Trainer's keys: ``s<i>_<j>``
+for item ``j`` of parameter ``i``'s state, ``s<i>_<j>_<k>`` inside a
+nested tuple (the state beside a ``multi_precision`` master copy), and
+``__meta_num_update__``; a file either Trainer writes loads into the
+other.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .. import optimizer as opt_mod
+from ..utils import serialization
 
 __all__ = ["Trainer"]
 
@@ -133,6 +141,46 @@ class Trainer:
             p = self._params[i]
             if getattr(p, "grad_req", "write") != "add":
                 p.grad = None   # "write": the next backward writes
+
+    def _init_states(self):
+        for i, p in enumerate(self._params):
+            if p.requires_grad and self._states[i] is None:
+                self._states[i] = \
+                    self._optimizer.create_state_multi_precision(i, p.data)
+
+    def _flat_states(self):
+        """``{key: tensor}`` of every state, by the JAX Trainer's keys."""
+        flat = {}
+        for i, st in enumerate(self._states):
+            items = st if isinstance(st, tuple) else (st,)
+            for j, s in enumerate(items):
+                if isinstance(s, torch.Tensor):
+                    flat["s%d_%d" % (i, j)] = s
+                elif isinstance(s, tuple):
+                    for k, ss in enumerate(s):
+                        flat["s%d_%d_%d" % (i, j, k)] = ss
+        return flat
+
+    def save_states(self, fname):
+        """The optimizer states and its update count, as one npz."""
+        flat = self._flat_states()
+        flat["__meta_num_update__"] = torch.tensor(
+            self._optimizer.num_update, dtype=torch.int32)
+        serialization.savez(fname, **flat)
+
+    def load_states(self, fname):
+        """Fill the optimizer states (made first where missing) and the
+        update count from a :meth:`save_states` file; a state the file
+        does not hold keeps its value."""
+        loaded = serialization.load(fname, device="cpu")
+        meta = loaded.pop("__meta_num_update__", None)
+        if meta is not None:
+            self._optimizer.num_update = int(meta._data.item())
+        self._init_states()
+        with torch.no_grad():
+            for key, s in self._flat_states().items():
+                if key in loaded:
+                    s.copy_(loaded[key]._data)
 
     @staticmethod
     def _stale_msg(name):

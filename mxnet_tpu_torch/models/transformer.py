@@ -11,7 +11,11 @@ plain XLA in the JAX package.  ``attn_impl="dense"`` runs the
 full-sequence attention as the plain causal product over repeated KV
 heads (``ops.nn.dot_product_attention``), as the JAX dense path does;
 the cached paths stay flash / paged whatever ``attn_impl`` says, as
-there.  The full-sequence forward is
+there.  ``attn_impl="ring"`` runs that same dense path: the JAX
+``Attention`` computes dense causal attention over repeated KV heads in
+both of its ring branches and never calls the ring (ROADMAP section 3,
+quirks); the ring is reached through ``parallel.ring_attention_sharded``
+/ ``ring_attention_local``.  The full-sequence forward is
 differentiable end to end on both devices: on CUDA its attention
 backward runs the flash backward kernels (``cuda_ops._FlashAttention``).
 
@@ -21,9 +25,11 @@ between matmuls -- the residual stream, the norms -- is float32 there,
 while each matmul takes bf16 operands (``Dense`` casts its input) with
 fp32 accumulation, and the attention kernels take bf16 q/k/v.
 
-Not ported yet: the switch-MoE FFN (``moe_num_experts > 0``), the ring
-attention (``attn_impl="ring"``, with ROADMAP queue 3) and the sharding
-hints.
+Every ``moe_every``-th block (``layer_idx % moe_every == 0``) of a model
+with ``moe_num_experts > 0`` has the switch-MoE FFN
+(:class:`MoEFeedForward`, ``parallel.switch_moe``); the load-balance aux
+losses of the last forward sum in :meth:`TransformerLM.moe_aux_loss`.
+Not ported yet: the sharding hints (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -36,12 +42,15 @@ from .. import initializer as init_mod
 from ..context import resolve_device
 from ..gluon.block import Block
 from ..gluon.nn import Dense, Embedding, RMSNorm
+from ..gluon.parameter import Parameter
 from ..ops import nn as F
 from ..ops.cuda_ops import flash_attention, paged_attention
+from ..parallel.moe import switch_moe
 from . import kv_cache as _kvc
 
 __all__ = ["LlamaConfig", "llama3_8b_config", "tiny_config", "Attention",
-           "FeedForward", "TransformerBlock", "TransformerLM"]
+           "FeedForward", "MoEFeedForward", "TransformerBlock",
+           "TransformerLM"]
 
 
 @dataclass
@@ -56,8 +65,11 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    attn_impl: str = "flash"  # flash | dense (ring: ROADMAP queue 3)
+    attn_impl: str = "flash"  # flash | dense | ring (ring runs dense)
+    # every moe_every-th block has a switch-MoE FFN of this many experts
     moe_num_experts: int = 0
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
 
 
 def llama3_8b_config(**over):
@@ -112,13 +124,9 @@ def _heads_first(x):
 class Attention(Block):
     def __init__(self, cfg: LlamaConfig, layer_idx=0):
         super().__init__()
-        if cfg.attn_impl == "ring":
-            raise NotImplementedError("mxnet_tpu_torch: attn_impl='ring' "
-                                      "is not ported yet (ring attention "
-                                      "comes with ROADMAP queue 3)")
-        if cfg.attn_impl not in ("flash", "dense"):
-            raise ValueError("attn_impl must be 'flash' or 'dense', got %r"
-                             % (cfg.attn_impl,))
+        if cfg.attn_impl not in ("flash", "dense", "ring"):
+            raise ValueError("attn_impl must be 'flash', 'dense' or 'ring', "
+                             "got %r" % (cfg.attn_impl,))
         self.cfg = cfg
         self.layer_idx = layer_idx
         hd = cfg.dim // cfg.n_heads
@@ -145,7 +153,7 @@ class Attention(Block):
         pos = torch.arange(T, device=x.device)
         q = _rope(q, pos, cfg.rope_theta)
         k = _rope(k, pos, cfg.rope_theta)
-        if cfg.attn_impl == "dense":
+        if cfg.attn_impl in ("dense", "ring"):
             rep = nh // nkv
             o = F.dot_product_attention(
                 _heads_first(q), _heads_first(k.repeat_interleave(rep, 2)),
@@ -253,16 +261,44 @@ class FeedForward(Block):
                        * self.w3(x))
 
 
+class MoEFeedForward(Block):
+    """Switch-MoE FFN (reference ``models/transformer.py:317-350``):
+    top-1 routing with a static capacity and ReLU experts
+    (``parallel.switch_moe``), parameters ``gate`` (D, E),
+    ``experts_w1`` (E, D, H) and ``experts_w2`` (E, H, D).  The aux loss
+    of the last forward is kept in ``last_aux_loss`` (float32), for the
+    training loss to add.  The tokens enter the experts in the weights'
+    dtype, as ``Dense`` casts its input."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        E, D, H = cfg.moe_num_experts, cfg.dim, cfg.hidden_dim
+        self.gate = Parameter((D, E), cfg.dtype)
+        self.experts_w1 = Parameter((E, D, H), cfg.dtype)
+        self.experts_w2 = Parameter((E, H, D), cfg.dtype)
+        self._capacity = cfg.moe_capacity_factor
+        self.last_aux_loss = None
+
+    def forward(self, x):
+        B, T, D = x.shape
+        w = self.experts_w1
+        out, aux = switch_moe(x.reshape(B * T, D).to(w.dtype), self.gate, w,
+                              self.experts_w2,
+                              capacity_factor=self._capacity)
+        self.last_aux_loss = aux
+        return out.reshape(B, T, D)
+
+
 class TransformerBlock(Block):
     def __init__(self, cfg: LlamaConfig, layer_idx=0):
         super().__init__()
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError("mxnet_tpu_torch: the MoE FFN is "
-                                      "not ported yet")
         self.attention_norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
         self.attention = Attention(cfg, layer_idx=layer_idx)
         self.ffn_norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
-        self.feed_forward = FeedForward(cfg)
+        use_moe = (cfg.moe_num_experts > 0
+                   and layer_idx % max(1, cfg.moe_every) == 0)
+        self.feed_forward = MoEFeedForward(cfg) if use_moe \
+            else FeedForward(cfg)
 
     def forward(self, x, cache=None):
         """``x`` is the float32 residual stream (each sum promotes the
@@ -312,7 +348,20 @@ class TransformerLM(Block):
         serving path: with a :class:`~.kv_cache.CacheView` the call is a
         prefill / chunk prefill (write the prompt's K/V into the view's
         pages) or a decode step (one token per slot)."""
+        for blk in self.layers:           # no aux loss of an older call
+            if isinstance(blk.feed_forward, MoEFeedForward):
+                blk.feed_forward.last_aux_loss = None
         h = self.tok_embeddings(tokens).float()   # the residual stream
         for blk in self.layers:
             h = blk(h, cache=cache)
         return self.output(self.norm(h))
+
+    def moe_aux_loss(self):
+        """Sum of the MoE blocks' load-balance aux losses of the last
+        forward (float32, differentiable); 0.0 without MoE blocks."""
+        aux = [blk.feed_forward.last_aux_loss for blk in self.layers
+               if isinstance(blk.feed_forward, MoEFeedForward)
+               and blk.feed_forward.last_aux_loss is not None]
+        if not aux:
+            return torch.zeros((), device=self._device)
+        return torch.stack(aux).sum()

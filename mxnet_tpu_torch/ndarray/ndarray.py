@@ -143,6 +143,49 @@ def _np():
     return mnp
 
 
+def _negative_steps(key):
+    items = key if isinstance(key, tuple) else (key,)
+    return any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in items)
+
+
+def _index(x, key):
+    """``x[key]`` with numpy's negative slice steps, which torch refuses:
+    each such slice is read as the positive-step slice over the same
+    positions, flipped, and the rest of the key is applied after."""
+    if not _negative_steps(key):
+        return x[key]
+    items = key if isinstance(key, tuple) else (key,)
+    used = sum(k.dim() if isinstance(k, torch.Tensor) and
+               k.dtype == torch.bool else 0 if k is None or k is Ellipsis
+               else 1 for k in items)
+    first, rest, flip, dim = [], [], [], 0
+    for k in items:
+        if k is Ellipsis:
+            first.append(k)
+            rest.append(k)
+            dim += x.dim() - used
+        elif k is None:
+            rest.append(k)
+        elif isinstance(k, slice):
+            start, stop, step = k.indices(x.shape[dim])
+            if step < 0:
+                n = len(range(start, stop, step))
+                last = start + (n - 1) * step
+                k = slice(last, start + 1, -step) if n else slice(0, 0)
+                flip.append(dim)
+            first.append(k)
+            rest.append(slice(None))
+            dim += 1
+        else:
+            width = k.dim() if isinstance(k, torch.Tensor) and \
+                k.dtype == torch.bool else 1
+            first += [slice(None)] * width
+            rest.append(k)
+            dim += width
+    return x[tuple(first)].flip(flip)[tuple(rest)]
+
+
 class NDArray:
     """An n-dimensional array on a device: ``NDArray(data, ctx=None,
     dtype=None)`` over a tensor (kept as is), another NDArray (sharing
@@ -494,7 +537,7 @@ class NDArray:
 
     def __getitem__(self, key):
         key = self._key(key, self._data.device)
-        return apply_op(lambda x: x[key], [self], "getitem")
+        return apply_op(lambda x: _index(x, key), [self], "getitem")
 
     def __setitem__(self, key, value):
         key = self._key(key, self._data.device)
@@ -503,6 +546,15 @@ class NDArray:
             v = as_tensor(v, self._data.dtype, self._data.device)
         if isinstance(v, torch.Tensor):
             v = v.to(self._data.dtype)
+        if _negative_steps(key):
+            # torch slices take no negative step: write through the
+            # positions the read of ``key`` gives
+            pos = _index(torch.arange(self._data.numel(),
+                                      device=self._data.device)
+                         .view(self._data.shape), key)
+            key = torch.unravel_index(pos, self._data.shape)
+            if isinstance(v, torch.Tensor):
+                v = v.expand(pos.shape)
         from .. import autograd
         if autograd.is_recording() and (self._data.requires_grad or (
                 isinstance(v, torch.Tensor) and v.requires_grad)):

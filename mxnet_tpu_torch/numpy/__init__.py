@@ -232,6 +232,10 @@ cross = _binary(lambda a, b: torch.linalg.cross(a, b, dim=-1), "cross")
 def _reduce(fn, name):
     def f(a, axis=None, dtype=None, out=None, keepdims=False, **kw):
         dt = _dt(dtype)
+        initial = kw.pop("initial", None)
+        if initial is not None and name not in _WITH_INITIAL:
+            raise TypeError("%s() got an unexpected keyword argument "
+                            "'initial'" % name)
 
         def g(x):
             if dt is not None:
@@ -242,11 +246,23 @@ def _reduce(fn, name):
             else:
                 r = fn(x, _axes(axis), keepdim=keepdims, **kw)
             # torch widens integer sums and products to int64
-            return r.to(torch.int32) if r.dtype == torch.int64 and \
+            r = r.to(torch.int32) if r.dtype == torch.int64 and \
                 x.dtype != torch.int64 else r
+            if initial is not None:   # folded in as one more element
+                r = _WITH_INITIAL[name](r, torch.as_tensor(
+                    initial, dtype=r.dtype, device=r.device))
+            return r
         return apply_op(g, [a], name, out)
     f.__name__ = name
     return f
+
+
+#: the reductions that take numpy's ``initial=``, and how it folds in
+_WITH_INITIAL = dict(
+    {n: torch.add for n in ("sum", "nansum")},
+    **{n: torch.mul for n in ("prod", "nanprod")},
+    **{n: torch.maximum for n in ("max", "amax", "nanmax")},
+    **{n: torch.minimum for n in ("min", "amin", "nanmin")})
 
 
 def _sum(x, dim, keepdim=False):
@@ -567,11 +583,25 @@ def tri(N, M=None, k=0, dtype=None, ctx=None, device=None):
     return NDArray((j <= i + k).to(_dt(dtype, torch.float32)))
 
 
-def meshgrid(*xi, indexing="xy", **kw):
+def meshgrid(*xi, indexing="xy", sparse=False, copy=True):
+    if indexing not in ("xy", "ij"):
+        raise ValueError("Valid values for indexing are 'xy' and 'ij'.")
+
     def g(*ts):          # each grid keeps its own input's dtype
+        n = len(ts)
+        shapes = [[1] * n for _ in ts]
+        for i, t in enumerate(ts):
+            shapes[i][i] = -1
+        if indexing == "xy" and n > 1:
+            for s in shapes:
+                s[0], s[1] = s[1], s[0]
+        grids = [t.reshape(-1).reshape(s) for t, s in zip(ts, shapes)]
+        if sparse:
+            return grids
         dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
-        grids = torch.meshgrid(*(t.to(dt) for t in ts), indexing=indexing)
-        return [gr.to(t.dtype) for gr, t in zip(grids, ts)]
+        full = torch.broadcast_shapes(*(gr.shape for gr in grids))
+        return [gr.to(dt).expand(full).to(t.dtype).clone()
+                for gr, t in zip(grids, ts)]
     outs = apply_op(g, list(xi), "meshgrid")
     return list(outs)
 
@@ -792,34 +822,140 @@ def rot90(a, k=1, axes=(0, 1)):
     return apply_op(lambda x: torch.rot90(x, k, axes), [a], "rot90")
 
 
-def _pad_index(n, lo, hi, mode, device):
-    """Source positions of an axis of ``n`` padded by (lo, hi)."""
-    i = torch.arange(-lo, n + hi, device=device)
+def _pairs(vals, nd, name):
+    """numpy's per-axis (before, after) pairs from a scalar, a pair or
+    one pair per axis (``jnp.pad``'s ``_broadcast_to_pairs``)."""
+    a = onp.asarray(vals)
+    if a.shape == (nd, 2):
+        return a
+    if a.shape in ((1, 2), (2,)):
+        return onp.broadcast_to(a.reshape(1, 2), (nd, 2))
+    if a.shape in ((1,), ()):
+        return onp.full((nd, 2), a.reshape(-1)[0])
+    raise ValueError("pad: %s with nd=%d has unsupported shape %s"
+                     % (name, nd, a.shape))
+
+
+def _pad_reflect(x, i, lo, hi, mode, odd):
+    """One axis of ``symmetric`` / ``reflect`` padding, chunk by chunk
+    as ``jnp.pad`` builds it: a pad wider than the axis reflects the
+    array padded so far, and the odd type reflects about the edge."""
+    n = x.shape[i]
+    off = 1 if mode == "reflect" and n > 1 else 0
+    for padding, before in ((lo, True), (hi, False)):
+        edge = x.narrow(i, 0 if before else x.shape[i] - 1, 1)
+        while padding > 0:
+            cur = builtins.min(padding, n - off)
+            padding -= cur
+            if before:
+                start = off
+            else:
+                start = x.shape[i] - cur - (0 if mode == "symmetric" or
+                                            n == 1 else 1)
+            c = x.narrow(i, start, cur).flip(i)
+            if odd:
+                c = 2 * edge - c
+                if n > 1:
+                    edge = c.narrow(i, 0 if before else cur - 1, 1)
+            x = torch.cat([c, x] if before else [x, c], i)
+    return x
+
+
+_PAD_STATS = {"maximum": lambda x, i: x.amax(i, keepdim=True),
+              "minimum": lambda x, i: x.amin(i, keepdim=True),
+              "mean": lambda x, i: _float(x).mean(i, keepdim=True),
+              "median": lambda x, i: torch.quantile(_float(x), 0.5, dim=i,
+                                                    keepdim=True)}
+
+
+def _pad_axis(x, i, lo, hi, mode, kw):
+    n = x.shape[i]
     if mode == "edge":
-        return i.clamp(0, n - 1)
-    if mode == "wrap":
-        return torch.remainder(i, n)
-    if n == 1:                                   # reflect
-        return torch.zeros_like(i)
-    i = torch.remainder(i, 2 * (n - 1))
-    return torch.where(i >= n, 2 * (n - 1) - i, i)
+        parts = [x.narrow(i, 0, 1).repeat_interleave(lo, i), x,
+                 x.narrow(i, n - 1, 1).repeat_interleave(hi, i)]
+    elif mode == "wrap":
+        reps, rl = divmod(lo, n)
+        reps_r, rr = divmod(hi, n)
+        parts = [x.narrow(i, n - rl, rl)] + [x] * (reps + reps_r + 1) + \
+            [x.narrow(i, 0, rr)]
+    elif mode in ("symmetric", "reflect"):
+        return _pad_reflect(x, i, lo, hi, mode,
+                            kw.get("reflect_type", "even") == "odd")
+    elif mode in _PAD_STATS:
+        st = kw.get("stat_length")
+        if st is None:
+            before = after = _PAD_STATS[mode](x, i)
+        else:
+            lb, la = (int(v) for v in _pairs(st, x.dim(), "stat_length")[i])
+            if lb == 0 or la == 0:
+                raise ValueError("stat_length of 0 yields no value for "
+                                 "padding")
+            before = _PAD_STATS[mode](x.narrow(i, 0, builtins.min(lb, n)), i)
+            after = _PAD_STATS[mode](x.narrow(i, n - builtins.min(la, n),
+                                              builtins.min(la, n)), i)
+        if not x.is_floating_point():
+            before, after = before.round(), after.round()
+        parts = [before.to(x.dtype).repeat_interleave(lo, i), x,
+                 after.to(x.dtype).repeat_interleave(hi, i)]
+    elif mode == "linear_ramp":
+        ev = _pairs(kw.get("end_values", 0), x.dim(), "end_values")[i]
+
+        def ramp(end, edge, num):
+            t = torch.arange(num, device=x.device, dtype=torch.float64) / \
+                builtins.max(num, 1)
+            shape = [1] * x.dim()
+            shape[i] = num
+            r = float(end) + (edge.double() - float(end)) * t.view(shape)
+            return (r if x.is_floating_point() else r.floor()).to(x.dtype)
+        parts = [ramp(ev[0], x.narrow(i, 0, 1), lo), x,
+                 ramp(ev[1], x.narrow(i, n - 1, 1), hi).flip(i)]
+    else:                                              # empty: zeros
+        sb, sa = list(x.shape), list(x.shape)
+        sb[i], sa[i] = lo, hi
+        parts = [x.new_zeros(sb), x, x.new_zeros(sa)]
+    return torch.cat(parts, i)
+
+
+_PAD_MODES = ("constant", "edge", "wrap", "reflect", "symmetric", "maximum",
+              "minimum", "mean", "median", "linear_ramp", "empty")
 
 
 def pad(a, pad_width, mode="constant", **kw):
-    """numpy's ``pad`` in the modes ``constant`` (``constant_values``),
-    ``edge``, ``reflect`` and ``wrap``."""
-    if mode not in ("constant", "edge", "reflect", "wrap"):
-        raise NotImplementedError("pad mode %r" % (mode,))
+    """numpy's ``pad`` as ``jnp.pad`` computes it: the modes of
+    ``_PAD_MODES``, with ``constant_values`` / ``stat_length`` /
+    ``end_values`` a scalar, a pair or a pair per axis, and
+    ``reflect_type="odd"``; ``empty`` pads with zeros, as JAX does."""
+    if mode not in _PAD_MODES:
+        raise ValueError("Unimplemented padding mode '%s' for np.pad."
+                         % (mode,))
 
     def g(x):
-        pw = onp.broadcast_to(onp.asarray(pad_width), (x.dim(), 2))
+        if x.dim() == 0:
+            return x
+        pw = _pairs(pad_width, x.dim(), "pad_width").astype(onp.int64)
+        if (pw < 0).any():
+            raise ValueError("index can't contain negative values")
         if mode == "constant":
-            return F.pad(x, [int(v) for pair in pw[::-1] for v in pair],
-                         value=kw.get("constant_values", 0))
-        for ax, (lo, hi) in enumerate(pw):
+            cv = _pairs(kw.get("constant_values", 0), x.dim(),
+                        "constant_values")
+            for i, (lo, hi) in enumerate(pw):
+                for width, val, before in ((lo, cv[i][0], True),
+                                           (hi, cv[i][1], False)):
+                    if width:
+                        shape = list(x.shape)
+                        shape[i] = int(width)
+                        c = torch.full(shape, float(val), device=x.device
+                                       ).to(x.dtype)
+                        x = torch.cat([c, x] if before else [x, c], i)
+            return x
+        for i, (lo, hi) in enumerate(pw):
+            if x.shape[i] == 0:
+                if lo or hi:
+                    raise ValueError("Cannot apply '%s' padding to empty "
+                                     "axis" % mode)
+                continue
             if lo or hi:
-                x = torch.index_select(x, ax, _pad_index(
-                    x.shape[ax], int(lo), int(hi), mode, x.device))
+                x = _pad_axis(x, i, int(lo), int(hi), mode, kw)
         return x
     return apply_op(g, [a], "pad")
 

@@ -260,8 +260,12 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
 
 
 def one_hot(data, depth, on_value=1.0, off_value=0.0, dtype="float32"):
-    return apply_op(lambda i: F.one_hot(i.long(), depth).to(_dt(dtype))
-                    * (on_value - off_value) + off_value, [data], "one_hot")
+    """An index outside [0, depth) gives a row of ``off_value``, as
+    ``jax.nn.one_hot`` and MXNet do."""
+    def f(i):
+        hot = i.long()[..., None] == torch.arange(depth, device=i.device)
+        return hot.to(_dt(dtype)) * (on_value - off_value) + off_value
+    return apply_op(f, [data], "one_hot")
 
 
 def pick(data, index, axis=-1, keepdims=False, mode="clip"):

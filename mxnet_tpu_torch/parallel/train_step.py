@@ -20,20 +20,32 @@ arithmetic:
   ``Optimizer.update``.
 
 Each weight and its optimizer state are updated in place (the parameter
-stays the same tensor), on the parameter's device.  Not ported
-yet, and refused with ``NotImplementedError``: ``mesh``, ``zero1``,
-``aot``, ``remat=True``, ``save_checkpoint``, ``load_checkpoint`` and
-``resize`` (ROADMAP queue 3).  The JAX step's ``param_rules`` and
-``batch_spec`` shard over a mesh and come with it; its ``donate`` is
-what the port always does (weights updated in place).  None of the
-three is a parameter here, so passing one is a ``TypeError``; the
-arguments after ``mesh`` are keyword-only.
+stays the same tensor), on the parameter's device.
+
+``remat=True`` runs the forward under ``torch.utils.checkpoint``
+(non-reentrant): its activations are recomputed in the backward, as
+``jax.checkpoint`` does (:166-167).  ``save_checkpoint(path)`` /
+``load_checkpoint(path)`` (:267, :288) write and read the parameters,
+the optimizer states and the step counter ``t`` as one npz
+(``utils/serialization.py``) in the directory ``path``, atomically and
+overwriting, as the JAX step's ``force=True`` does.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh``,
+``zero1``, ``aot`` and ``resize`` (ROADMAP queue 3).  The JAX step's
+``param_rules`` and ``batch_spec`` shard over a mesh and come with it;
+its ``donate`` is what the port always does (weights updated in place).
+None of the three is a parameter here, so passing one is a
+``TypeError``; the arguments after ``mesh`` are keyword-only.
 """
 from __future__ import annotations
 
+import os
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import autograd
+from ..utils import serialization
 
 __all__ = ["TrainStep"]
 
@@ -54,18 +66,20 @@ class TrainStep:
     optimizer : Optimizer instance (its ``_rule`` is applied)
     forward_fn : optional callable(net, *batch) -> scalar loss,
         overriding ``loss_fn(net(x), y).mean()``
+    remat : recompute the forward's activations in the backward
     """
 
     def __init__(self, net, loss_fn, optimizer, mesh=None, *, zero1=False,
                  forward_fn=None, remat=False, aot=False):
         for what, on in (("mesh", mesh is not None), ("zero1", zero1),
-                         ("aot", aot), ("remat", remat)):
+                         ("aot", aot)):
             if on:
                 raise _not_ported("%s=" % what)
         self.net = net
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.forward_fn = forward_fn
+        self.remat = remat
         self._params = list(net.collect_params().items())
         self._trainable = [(i, name, p) for i, (name, p)
                            in enumerate(self._params) if p.requires_grad]
@@ -78,6 +92,13 @@ class TrainStep:
         return [b if isinstance(b, torch.Tensor)
                 else torch.as_tensor(b, device=dev) for b in batch]
 
+    def _forward(self, *batch):
+        # the scope again inside: remat's recompute runs in the backward
+        with autograd.record(train_mode=True):
+            if self.forward_fn is not None:
+                return self.forward_fn(self.net, *batch)
+            return self.loss_fn(self.net(batch[0]), batch[1]).mean()
+
     def __call__(self, *batch):
         batch = self._batch(batch)
         self._t += 1
@@ -85,10 +106,10 @@ class TrainStep:
         opt.num_update = self._t
         lr = opt.learning_rate
         with autograd.record(train_mode=True):
-            if self.forward_fn is not None:
-                loss = self.forward_fn(self.net, *batch)
+            if self.remat:
+                loss = checkpoint(self._forward, *batch, use_reentrant=False)
             else:
-                loss = self.loss_fn(self.net(batch[0]), batch[1]).mean()
+                loss = self._forward(*batch)
         grads = torch.autograd.grad(loss, [p for _, _, p in self._trainable])
         with torch.no_grad():
             opt._run([(i, p.detach(), g, self._states[name], None)
@@ -99,11 +120,44 @@ class TrainStep:
                      [self._t] * len(self._trainable), rescale=1.0)
         return loss.detach()
 
+    _FILE = "train_state.npz"
+
+    def _tree(self):
+        """``{key: tensor}`` of the whole training state, by name."""
+        tree = {"param/" + name: p for name, p in self._params}
+        for name, st in self._states.items():
+            for j, s in enumerate(st):
+                if isinstance(s, tuple):
+                    for k, ss in enumerate(s):
+                        tree["state/%s/%d/%d" % (name, j, k)] = ss
+                else:
+                    tree["state/%s/%d" % (name, j)] = s
+        return tree
+
     def save_checkpoint(self, path):
-        raise _not_ported("save_checkpoint")
+        """The parameters, optimizer states and step counter into the
+        directory ``path`` (made if missing; an earlier checkpoint there
+        is replaced atomically)."""
+        os.makedirs(path, exist_ok=True)
+        tree = self._tree()
+        tree["t"] = torch.tensor(self._t, dtype=torch.int64)
+        serialization.savez(os.path.join(path, self._FILE), **tree)
 
     def load_checkpoint(self, path):
-        raise _not_ported("load_checkpoint")
+        """Restore a :meth:`save_checkpoint` directory into this step's
+        parameters and states, in place, on their own devices."""
+        loaded = serialization.load(os.path.join(path, self._FILE),
+                                    device="cpu")
+        tree = self._tree()
+        missing = sorted(set(tree) - set(loaded))
+        if missing:
+            raise KeyError("load_checkpoint: %s lacks %s" % (path, missing))
+        with torch.no_grad():
+            for key, t in tree.items():
+                t.copy_(loaded[key]._data)
+        self._t = int(loaded["t"]._data.item())
+        self.optimizer.num_update = self._t
+        return self
 
     def resize(self, mesh, checkpoint=None):
         raise _not_ported("resize")

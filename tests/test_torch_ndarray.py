@@ -336,3 +336,57 @@ def test_engine_naive_mode_and_bulk():
         tmx.engine.set_engine_type("NoSuchEngine")
     with tmx.engine.bulk(30):
         assert tmx.engine.set_bulk_size(30) == 30
+
+
+# F4: basic indexing with a negative slice step (ROADMAP section 3)
+NEG_STEP_READS = {
+    "reverse": lambda a: a.reshape(-1)[::-1],
+    "step_minus_2": lambda a: a.reshape(-1)[8:2:-2],
+    "two_axes": lambda a: a[::-1, 3:0:-2],
+    "with_int_and_newaxis": lambda a: a[None, 1, ::-3],
+    "ellipsis": lambda a: a[..., ::-2],
+    "empty": lambda a: a[1:2:-1],
+    "with_index_array": lambda a: a[type(a)(IDX), ::-1],
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEG_STEP_READS))
+def test_negative_slice_step_reads_match_jax(name):
+    _close(*_pair(NEG_STEP_READS[name], X))
+
+
+NEG_STEP_WRITES = {
+    "scalar": lambda a: a.__setitem__((slice(None), slice(None, None, -2)),
+                                      0.0),
+    "array": lambda a: a.__setitem__(
+        (slice(None, None, -1), 1), type(a)(onp.arange(3, dtype="f4"))),
+    "broadcast_row": lambda a: a.__setitem__(
+        (slice(2, 0, -1),), type(a)(onp.arange(4, dtype="f4"))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEG_STEP_WRITES))
+def test_negative_slice_step_writes_match_jax(name):
+    with tmx.cpu():
+        t = NDArray(X.copy())
+        NEG_STEP_WRITES[name](t)
+    j = jmx.nd.array(X.copy())
+    NEG_STEP_WRITES[name](j)
+    _close(t.asnumpy(), j.asnumpy())
+
+
+def test_negative_slice_step_write_records_a_gradient():
+    """A write through a negative step under ``record`` is out of place
+    and keeps the gradient of what it did not overwrite, as in JAX."""
+    def run(mx, arr):
+        x = arr(X.copy())
+        x.attach_grad()
+        with mx.autograd.record():
+            y = x * 2
+            y[::-1, 0] = 0.0
+            z = (y * y).sum()
+        z.backward()
+        return x.grad.asnumpy()
+    with tmx.cpu():
+        got = run(tmx, NDArray)
+    _close(got, run(jmx, jmx.nd.array))

@@ -110,6 +110,16 @@ NN = {
     "batch_dot": lambda mx, x: mx.npx.batch_dot(x[0], x[1],
                                                 transpose_b=True),
     "multi_sum_sq": lambda mx, x: mx.npx.multi_sum_sq(x, x[0]),
+    # F4 and F7 (ROADMAP section 3): a negative slice step, and one_hot
+    # of indices outside [0, depth)
+    "slice_negative_step": lambda mx, x: mx.npx.slice(
+        x.reshape(-1), begin=(8,), end=(2,), step=(-2,)),
+    "slice_negative_step_2d": lambda mx, x: mx.npx.slice(
+        x[0, 0], begin=(5, None), end=(None, 1), step=(-2, -1)),
+    "one_hot_out_of_range": lambda mx, x: mx.npx.one_hot(
+        mx.np.array([7, 1, -1, 3, 2]), 3),
+    "one_hot_out_of_range_values": lambda mx, x: mx.npx.one_hot(
+        mx.np.array([[0, 5], [-2, 2]]), 4, on_value=3.0, off_value=-1.0),
 }
 
 

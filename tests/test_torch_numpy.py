@@ -123,6 +123,13 @@ REDUCE = [("sum", {}), ("sum", {"axis": 1}), ("sum", {"axis": (0, 1),
           ("nanvar", {}), ("nanprod", {"axis": 1}), ("nanmin", {"axis": 0})]
 
 
+# F7 (ROADMAP section 3): numpy's initial= on the reductions that take it
+REDUCE += [("sum", {"initial": 5.0}), ("max", {"axis": 1, "initial": 20.0}),
+           ("min", {"axis": 0, "initial": -3.0}), ("prod", {"initial": 2.0}),
+           ("amax", {"initial": 0.5, "keepdims": True}),
+           ("nansum", {"axis": 1, "initial": 1.5})]
+
+
 @pytest.mark.parametrize("name,kw", REDUCE,
                          ids=["%s%s" % (n, sorted(k.items()))
                               for n, k in REDUCE])
@@ -479,3 +486,60 @@ def test_histogram_counts_and_edges_match_jax(name):
     """Counts in the reference's float dtype (float32, not int), edges
     to float32 rounding."""
     _close(*_both(HIST_CASES[name], DISTINCT))
+
+
+# F5 and F6 (ROADMAP section 3): np.pad's modes as jnp.pad computes them,
+# and meshgrid's sparse= / indexing=
+PAD_ARG = onp.arange(12.0, dtype=onp.float32).reshape(3, 4)
+PAD = {
+    "reflect_odd": (1, dict(mode="reflect", reflect_type="odd")),
+    "reflect_odd_wide": (((5, 2), (7, 1)),
+                         dict(mode="reflect", reflect_type="odd")),
+    "symmetric": (1, dict(mode="symmetric")),
+    "symmetric_odd_wide": (6, dict(mode="symmetric", reflect_type="odd")),
+    "maximum": (1, dict(mode="maximum")),
+    "minimum": (((1, 2), (0, 3)), dict(mode="minimum")),
+    "mean": (2, dict(mode="mean")),
+    "mean_stat_length": (2, dict(mode="mean", stat_length=((1, 2), (3, 1)))),
+    "median": (1, dict(mode="median")),
+    "linear_ramp": (((2, 3), (1, 4)), dict(mode="linear_ramp")),
+    "linear_ramp_end_values": (2, dict(mode="linear_ramp",
+                                       end_values=((1, 2), (3, 4)))),
+    "constant_pairs": (1, dict(constant_values=((1, 2), (3, 4)))),
+    "constant_one_pair": (((2, 1), (1, 2)), dict(constant_values=(7, 8))),
+    "wrap_wide": (5, dict(mode="wrap")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAD))
+def test_pad_modes_match_jax(name):
+    width, kw = PAD[name]
+    _close(*_both(lambda np, a: np.pad(a, width, **kw), PAD_ARG), SUM_RTOL,
+           SUM_ATOL)
+
+
+def test_pad_empty_matches_jax_in_shape_and_dtype():
+    got, want = _both(lambda np, a: np.pad(a, ((1, 2), (3, 0)),
+                                           mode="empty"), PAD_ARG)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    onp.testing.assert_array_equal(got[1:4, 3:], PAD_ARG)
+
+
+MESHGRID = {
+    "sparse_xy": dict(sparse=True),
+    "sparse_ij": dict(sparse=True, indexing="ij"),
+    "dense_ij": dict(indexing="ij"),
+    "dense_xy": dict(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MESHGRID))
+def test_meshgrid_sparse_and_indexing_match_jax(name):
+    kw = MESHGRID[name]
+    for arrays in ((onp.arange(3.0, dtype=onp.float32),
+                    onp.arange(2, dtype=onp.int32)),
+                   (onp.arange(3.0, dtype=onp.float32),
+                    onp.arange(2.0, dtype=onp.float32),
+                    onp.arange(4.0, dtype=onp.float32))):
+        got, want = _both(lambda np, *a: np.meshgrid(*a, **kw), *arrays)
+        _close(got, want)

@@ -461,7 +461,13 @@ def test_package_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.gluon.loss, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.lr_scheduler, "
-            "mxnet_tpu_torch.parallel.train_step; "
+            "mxnet_tpu_torch.parallel.train_step, "
+            "mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel._compat, "
+            "mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.moe, "
+            "mxnet_tpu_torch.parallel.seq_data, "
+            "mxnet_tpu_torch.utils.serialization; "
+            # chip_smoke.py and what its ring phase's rank children import
+            "import chip_smoke; chip_smoke.ring_rank_modules(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -305,13 +305,6 @@ def test_load_params_takes_bf16_jax_weights_exactly():
         assert onp.array_equal(p.detach().float().numpy(), want), name
 
 
-@pytest.mark.parametrize("over", [dict(moe_num_experts=4),
-                                  dict(attn_impl="ring")])
-def test_unported_options_raise(over):
-    with pytest.raises(NotImplementedError):
-        TransformerLM(tiny_config(**over), device="cpu")
-
-
 def test_unknown_attn_impl_is_refused():
     with pytest.raises(ValueError, match="attn_impl"):
         TransformerLM(tiny_config(attn_impl="sparse"), device="cpu")

@@ -7,41 +7,49 @@ Run from the root of a checkout, on a machine with a CUDA card:
 It builds the hand-written CUDA kernels from ``mxnet_tpu_torch/csrc``
 (printing each kernel's registers and spills, and failing where ptxas
 serialised its wgmma pipeline), holds each against its plain PyTorch
-version on the card, checks one training step of a small bf16 model
-on the card against the CPU, serves a Llama-3-8B-width
-``TransformerLM`` (random weights from a seed)
-through the port's ``Server`` -- its decode, prefill and chunk programs
-CUDA graphs captured at start-up, each replay held bit for bit against
-an eager call of the captured function -- in bf16 and through the int8
-weight path (the W8A16 ``int8_linear`` kernel, held against its plain
-version at the decode's shapes), checks the served tokens against a
-full-sequence forward (of the dequantized model for int8), trains an 8-layer Llama-3-8B-width model
-through ``TrainStep`` and the Gluon ``Trainer``, runs ResNet-50 from
-the Gluon zoo (inference at ``__graft_entry__.entry()``'s shape, eager and
-hybridized, NCHW and NHWC, then training) and trains BERT-base through
-the flash kernels at head_dim 64.  The general kernels (every dtype,
-head_dim and GQA ratio the Hopper ones do not take) and the
+version on the card, checks one training step of a small bf16 model on
+the card against the CPU, serves a Llama-3-8B-width ``TransformerLM``
+(random weights from a seed) through the port's ``Server`` -- its
+decode, prefill and chunk programs CUDA graphs captured at start-up,
+each replay held bit for bit against an eager call of the captured
+function -- in bf16 and through the int8 weight path (the W8A16
+``int8_linear`` kernel, held against its plain version at the decode's
+shapes), checks the served tokens against a full-sequence forward (of
+the dequantized model for int8), trains an 8-layer Llama-3-8B-width
+model through ``TrainStep`` and the Gluon ``Trainer``, runs ResNet-50
+from the Gluon zoo (inference at ``__graft_entry__.entry()``'s shape,
+eager and hybridized, NCHW and NHWC, then training) and trains BERT-base
+through the flash kernels at head_dim 64. The general kernels (every
+dtype, head_dim and GQA ratio the Hopper ones do not take) and the
 tensor-core forward and backward (float16 / bfloat16 / float32 up to
-head_dim 128) are held against their plain versions and timed at
-BERT's float32 shape; the float32 ``tiny_config`` and ``bert_tiny_config`` run on the
-card against the CPU; BERT-base trains at its default float32; and
-``entry()`` runs in its MXNet spelling (``import mxnet_tpu_torch as
-mx``).  The optimizer's multi-tensor kernels (SGD / NAG, Adam / AdamW,
-LAMB's two phases) are held against their plain versions at the edges
-of their design and at the BERT-base, ResNet-50 and LM parameter lists,
-and timed there; every training path updates through them.  Then four
-ranks on the one card (children of this script: ``--ring-rank R DIR``,
-gloo through a ``FileStore``, started once every kernel is built) run
-the ring attention at Llama-3-8B attention widths over 4*8192 tokens,
-flat and two-level, striped, round-robin and non-causal, forward and
+head_dim 128) are held against their plain versions and timed at BERT's
+float32 shape; the float32 ``tiny_config`` and ``bert_tiny_config`` run
+on the card against the CPU; BERT-base trains at its default float32;
+and ``entry()`` runs in its MXNet spelling (``import mxnet_tpu_torch as
+mx``). The optimizer's multi-tensor kernels (SGD / NAG, Adam / AdamW,
+LAMB's two phases) are held against their plain versions at the edges of
+their design and at the BERT-base, ResNet-50 and LM parameter lists, and
+timed there; every training path updates through them. Then four ranks
+on the one card (children of this script: ``--ring-rank R DIR``, gloo
+through a ``FileStore``, started once every kernel is built) run the
+ring attention at Llama-3-8B attention widths over 4*8192 tokens, flat
+and two-level, striped, round-robin and non-causal, forward and
 backward, against one flash call over the whole sequence (and against
 plain at 4*1024), and one full-width MoE layer with its experts over
-``ep=4`` against the unsharded call; a 4-layer, 8-expert MoE LM of
-Llama-3-8B widths trains 3 steps, a float32 tiny MoE runs card against
-CPU, the 8-layer step with ``remat=True`` runs against the plain one,
-and a checkpoint resumes bit for bit.  Each path that
-runs kernels does so with the launch counts reset before it and read
-after it, and fails unless every kernel it goes through was launched.
+``ep=4`` against the unsharded call; the same children then train a
+2-layer Llama-3-8B-width model 3 AdamW steps on ``dp=2, tp=2`` with
+ZeRO-1 and on ``tp=4`` against the unsharded step (the flash kernels on
+each rank's local heads, ``multi_adam`` on the shards), run
+``pipeline_vjp`` over ``pp=4`` with one full-width block a stage under
+1f1b and interleaved against the blocks in sequence, and drive a
+``dist_sync`` kvstore (exact pushpull sums, and a Trainer with
+``update_on_kvstore`` against one process on the whole batch); a
+4-layer, 8-expert MoE LM of Llama-3-8B widths trains 3 steps, a float32
+tiny MoE runs card against CPU, the 8-layer step with ``remat=True``
+runs against the plain one, and a checkpoint resumes bit for bit. Each
+path that runs kernels does so with the launch counts reset before it
+and read after it, and fails unless every kernel it goes through was
+launched.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without a CUDA device it exits non-zero at once.
 
@@ -2692,12 +2700,14 @@ RING_TIMEOUT_S = 600
 
 
 def ring_rank_modules():
-    """What a rank child imports: the port, its parallel layer and its
+    """What a rank child imports: the port, its parallel layer (the
+    pipeline and the sharding rules included), the kvstore and its
     kernels' wrappers (no JAX)."""
     import mxnet_tpu_torch as mt
-    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch import kvstore, parallel  # noqa: F401
     from mxnet_tpu_torch.ops import cuda_ops
-    from mxnet_tpu_torch.parallel import _compat
+    from mxnet_tpu_torch.parallel import _compat, pipeline  # noqa: F401
+    from mxnet_tpu_torch.parallel import sharding  # noqa: F401
     return mt, parallel, cuda_ops, _compat
 
 
@@ -2844,6 +2854,12 @@ def ring_rank(rank, out_dir, backend="gloo"):
                               want.float().abs().max()).item()
         ep_case["aux_err"] = abs(aux.item() - aux_w.item())
     report["ep"] = ep_case
+    del x, gate, w1, w2, out
+    torch.cuda.empty_cache()
+    # phase 17 in the same children: dp x tp, the pipeline, the kvstore
+    report["dp_tp"] = dp_tp_rank(mt, parallel, co, comm, dev, rank)
+    report["pipeline"] = pipeline_rank(mt, parallel, co, comm, dev, rank)
+    report["kvstore"] = kvstore_rank(mt, co, dev, rank, RING_WORLD)
     report["imported_jax"] = any(m.split(".")[0] in ("jax", "jaxlib",
                                                      "mxnet_tpu")
                                  for m in sys.modules)
@@ -3002,7 +3018,394 @@ def ring_phase(co, dev, card, backend="gloo"):
     check(all(r["ep"]["finite"] for r in reports), "ep: output not finite")
     check(ep["rel_err"] <= EP_REL and ep["aux_err"] <= 1e-5,
           "ep: the sharded MoE layer disagrees with the unsharded call")
-    return reports[0]["launches"], block
+    return (reports[0]["launches"], block, dp_tp_report(reports, card),
+            pipeline_report(reports, card), kvstore_report(reports, card))
+
+
+def dp_tp_report(reports, card):
+    """Check and print the dp x tp runs; rank 0's launches."""
+    want = reports[0]["dp_tp"]["unsharded"]
+    for name, _, zero1, local in DPTP_MESHES:
+        per = [rep["dp_tp"]["meshes"][name] for rep in reports]
+        losses = [[r["loss"] for r in m["runs"]] for m in per]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[0], want))
+        for rep, m in zip(reports, per):
+            for i, r in enumerate(m["runs"]):
+                tag = "dp_tp %s: rank %d step %d" % (name, rep["rank"], i)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                    check(r["launches"][k] == DPTP_LAYERS,
+                          "%s launched %s %d times, want %d (one a layer)"
+                          % (tag, k, r["launches"][k], DPTP_LAYERS))
+                check(r["launches"]["multi_adam"] == m["groups"],
+                      "%s launched multi_adam %d times, want %d (one a "
+                      "dtype group)" % (tag, r["launches"]["multi_adam"],
+                                        m["groups"]))
+                check(r["heads"] == [list(local)] and
+                      r["calls"] == DPTP_LAYERS,
+                      "%s: flash called on heads %s (%d calls), want %s"
+                      % (tag, r["heads"], r["calls"], local))
+            check(all(math.isfinite(x) for x in losses[0]) and
+                  all(lo == losses[0] for lo in losses),
+                  "dp_tp %s: the ranks' losses differ: %s" % (name, losses))
+        run0 = [m["runs"] for m in per]
+        print("dp_tp %s (zero1 %s; Llama-3-8B widths, %d layers, B=%d T=%d, "
+              "%.3f B params, %d local a rank): losses %s vs unsharded %s "
+              "(max rel %.2e, limit %.0e); flash on %d/%d local heads, %d "
+              "zero1-split tensors; per step and rank: ms %s, staged MB %s "
+              "in ms %s (%s calls) [%s]"
+              % (name, zero1, DPTP_LAYERS, DPTP_B, DPTP_T,
+                 reports[0]["dp_tp"]["params"] / 1e9,
+                 per[0]["local_params"], losses[0], want, rel,
+                 DPTP_LOSS_RTOL, local[0], local[1], per[0]["zero1_rows"],
+                 [["%.0f" % r["ms"] for r in rr] for rr in run0],
+                 [["%.0f" % (r["transport"]["staged_bytes"] / 1e6)
+                   for r in rr] for rr in run0],
+                 [["%.0f" % r["transport"]["staged_ms"] for r in rr]
+                  for rr in run0],
+                 [r["transport"]["staged_calls"] for r in run0[0]], card))
+        check(rel <= DPTP_LOSS_RTOL,
+              "dp_tp %s: the losses differ from the unsharded step's" % name)
+    return reports[0]["dp_tp"]["launches"]
+
+
+def pipeline_report(reports, card):
+    """Check and print the pipeline runs; rank 0's launches."""
+    for sched, v in PIPE_SCHEDULES:
+        per = [rep["pipeline"]["schedules"][sched] for rep in reports]
+        r0 = per[0]
+        check(all(r["finite"] for r in per) and
+              len({r["y_sum"] for r in per}) == 1,
+              "pipeline %s: outputs not finite or not replicated" % sched)
+        for rep, r in zip(reports, per):
+            n = PIPE_M * v
+            check(r["launches"]["flash_fwd"] == 2 * n and
+                  r["launches"]["flash_bwd_dq"] == n and
+                  r["launches"]["flash_bwd_dkv"] == n,
+                  "pipeline %s: rank %d launched %s, want %d forwards and "
+                  "%d backwards (each stage-microbatch's, recomputed)"
+                  % (sched, rep["rank"], r["launches"], 2 * n, n))
+        stash = [r["max_live_stash"] for r in per]
+        print("pipeline %s (pp=%d, v=%d, %d full-width blocks, B=%d T=%d, "
+              "M=%d; %d slots): y %.3e dx %.3e dparams %.3e max|d|/max|ref| "
+              "(limit %.0e) vs the blocks in sequence; stage inputs held at "
+              "once per rank %s; per rank ms %s, staged MB %s in ms %s "
+              "[%s]" % (sched, RING_WORLD, v, RING_WORLD * v, PIPE_B, PIPE_T,
+                        PIPE_M, r0["slots"], r0["y_rel"], r0["dx_rel"],
+                        r0["dp_rel"], PIPE_REL, stash,
+                        ["%.0f" % r["ms"] for r in per],
+                        ["%.0f" % (r["transport"]["staged_bytes"] / 1e6)
+                         for r in per],
+                        ["%.0f" % r["transport"]["staged_ms"] for r in per],
+                        card))
+        check(max(r0["y_rel"], r0["dx_rel"], r0["dp_rel"]) <= PIPE_REL,
+              "pipeline %s disagrees with the blocks in sequence" % sched)
+        if sched == "1f1b":
+            check(stash == [RING_WORLD - d for d in range(RING_WORLD)],
+                  "pipeline 1f1b: stage inputs held %s" % stash)
+    return reports[0]["pipeline"]["launches"]
+
+
+def kvstore_report(reports, card):
+    """Check and print the kvstore runs; rank 0's launches."""
+    kv0 = reports[0]["kvstore"]
+    check(all(rep["kvstore"]["workers"] == [rep["rank"], RING_WORLD]
+              for rep in reports), "kvstore: rank / num_workers wrong")
+    check(all(all(rep["kvstore"]["pushpull"].values()) for rep in reports),
+          "kvstore: a dist_sync pushpull is not the exact sum: %s"
+          % [rep["kvstore"]["pushpull"] for rep in reports])
+    check(len({rep["kvstore"]["w_sum"] for rep in reports}) == 1,
+          "kvstore: the replicas' weights differ after update_on_kvstore")
+    check(kv0["w0_equal"], "kvstore: worker 0's weights were not broadcast")
+    print("kvstore: dist_sync over %d ranks, pushpull exact (float32, "
+          "bf16): %s; Trainer(update_on_kvstore=True) on a full-width FFN, "
+          "%d SGD steps, each rank on %d of %d rows: weight change vs one "
+          "process on the whole batch ||d||/||ref|| %.3e (limit %.0e); "
+          "launches %s; per rank ms %s [%s]"
+          % (RING_WORLD, kv0["pushpull"], KV_STEPS, KV_ROWS,
+             KV_ROWS * RING_WORLD, kv0["rel"], KV_REL,
+             {k: n for k, n in kv0["launches"].items() if n},
+             ["%.0f" % rep["kvstore"]["ms"] for rep in reports], card))
+    check(kv0["rel"] <= KV_REL, "kvstore: the dist_sync Trainer differs")
+    return kv0["launches"]
+
+
+# ----------------------------------------------------------------------
+# phase 17: data, tensor and pipeline parallelism and the kvstore, in
+# the ring's rank children (the ranks start once)
+# ----------------------------------------------------------------------
+# Llama-3-8B widths, depth cut to 2 of 32 layers (each rank first makes
+# the whole model from the seed, then keeps its blocks), B=2, T=512.
+DPTP_LAYERS, DPTP_B, DPTP_T, DPTP_STEPS = 2, 2, 512, 3
+# (name, mesh, zero1, local query / KV heads of the flash calls)
+DPTP_MESHES = [("dp2_tp2_zero1", {"dp": 2, "tp": 2}, True, (16, 4)),
+               ("tp4", {"tp": 4}, True, (8, 2))]
+# The sharded losses against the unsharded step on the same weights:
+# the row-parallel products sum bf16 partials over tp (the unsharded
+# product rounds once), and dp sums bf16 gradients; 3 AdamW steps
+# at lr 1e-4.  1e-2 relative, PARITY_LOSS_RTOL.
+DPTP_LOSS_RTOL = PARITY_LOSS_RTOL
+# pp=4, one full-width block a stage (v=2 under interleaved: 8 blocks),
+# B=4 rows of T=512 in M=4 microbatches; y / dx / dparams against the
+# blocks run in sequence on one rank, max|d| / max|ref|: bf16 weights,
+# per-microbatch products and bf16 gradient sums over the microbatches.
+PIPE_B, PIPE_T, PIPE_M = 4, 512, 4
+PIPE_SCHEDULES = [("1f1b", 1), ("interleaved", 2)]
+PIPE_REL = GRAD_REL_TOL
+# the kvstore: a dist_sync pushpull of exact small integers (every rank
+# of the children's world), then a full-width FFN (4096 -> 14336 -> 4096)
+# trained 2 SGD steps through a Trainer(update_on_kvstore=True) over
+# dist_sync, each rank on its quarter of the batch, against one
+# process's Trainer on the whole batch: ||dw - dw_ref|| / ||dw_ref|| of
+# the weights' change.  float32 weights: a bf16 weight's change at this
+# learning rate is mostly its rounding, which differs between the two
+# sums of the same gradient; in float32 only the order of the sums does.
+KV_ROWS, KV_T, KV_STEPS = 8, 64, 2
+KV_REL = 1e-3
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _record_heads(mt):
+    """Wrap the transformer's flash call to record (query heads, KV
+    heads) of each call; returns (list, undo)."""
+    from mxnet_tpu_torch.models import transformer
+    seen, flash = [], transformer.flash_attention
+
+    def recording(q, k, v, **kw):
+        seen.append((q.shape[1], k.shape[1]))
+        return flash(q, k, v, **kw)
+    transformer.flash_attention = recording
+
+    def undo():
+        transformer.flash_attention = flash
+    return seen, undo
+
+
+def _dtype_groups(params):
+    return len({(p.dtype, p.device) for p in params if p.requires_grad})
+
+
+def dp_tp_rank(mt, parallel, co, comm, dev, rank, cfg=None, B=DPTP_B,
+               T=DPTP_T, steps=DPTP_STEPS, meshes=DPTP_MESHES):
+    """One rank's dp x tp runs: each mesh's 3 AdamW ``TrainStep(mesh=,
+    zero1=)`` steps, every step's loss, launches, flash heads and staged
+    bytes; rank 0 then runs the unsharded step on the same weights."""
+    import torch.distributed as dist
+    cfg = cfg or mt.models.llama3_8b_config(dtype="bfloat16",
+                                            n_layers=DPTP_LAYERS)
+    V = cfg.vocab_size
+    gen = torch.Generator().manual_seed(31)
+    toks, labels = (torch.randint(0, V, (B, T), generator=gen).to(dev)
+                    for _ in range(2))
+
+    def make():
+        net = mt.models.TransformerLM(cfg, device=dev)
+        return net.initialize(torch.Generator(device=dev).manual_seed(5),
+                              std=0.02)
+    heads, undo = _record_heads(mt)
+    out = {"meshes": {}, "launches": dict.fromkeys(co.LAUNCHES, 0)}
+    for name, sizes, zero1, _ in meshes:
+        mesh = parallel.create_mesh(sizes)
+        net = make()
+        step = parallel.TrainStep(net, None,
+                                  mt.optimizer.AdamW(learning_rate=1e-4),
+                                  mesh, forward_fn=_lm_loss(mt, net, V),
+                                  zero1=zero1)
+        runs = []
+        for _ in range(steps):
+            dist.barrier()
+            _sync(dev)
+            co.reset_launch_counts()
+            comm.reset_transport()
+            heads.clear()
+            t0 = time.perf_counter()
+            loss = step(toks, labels).item()
+            _sync(dev)
+            runs.append({"loss": loss,
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": dict(co.LAUNCHES),
+                         "heads": sorted(set(heads)), "calls": len(heads),
+                         "transport": dict(comm.TRANSPORT)})
+            for k, n in co.LAUNCHES.items():
+                out["launches"][k] += n
+        out["meshes"][name] = {
+            "runs": runs, "groups": _dtype_groups(net.parameters()),
+            "local_params": sum(p.numel() for p in net.parameters()),
+            "zero1_rows": sum(1 for r in step._zero.values() if r)}
+        del step, net
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    undo()
+    dist.barrier()
+    if rank == 0:
+        net = make()
+        step = parallel.TrainStep(net, None,
+                                  mt.optimizer.AdamW(learning_rate=1e-4),
+                                  forward_fn=_lm_loss(mt, net, V))
+        out["unsharded"] = [step(toks, labels).item() for _ in range(steps)]
+        out["params"] = net.num_params()
+        del step, net
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _stacked_block_params(mt, cfg, L, dev, seed):
+    """A template TransformerBlock and ``L`` stages of its parameters,
+    stacked (leading dimension the stage): weights N(0, 0.02), gains 1."""
+    blk = mt.models.TransformerBlock(cfg)
+    blk.initialize(mt.init.Zero(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    stacked = {}
+    for name, p in blk.named_parameters():
+        if name.endswith("gamma"):
+            stacked[name] = torch.ones((L,) + tuple(p.shape), dtype=p.dtype,
+                                       device=dev)
+        else:
+            stacked[name] = (torch.randn((L,) + tuple(p.shape), device=dev,
+                                         generator=gen) * 0.02).to(p.dtype)
+    return blk, stacked
+
+
+def pipeline_rank(mt, parallel, co, comm, dev, rank, cfg=None, B=PIPE_B,
+                  T=PIPE_T, M=PIPE_M, schedules=PIPE_SCHEDULES):
+    """One rank's ``pipeline_vjp`` over pp=4 for each schedule, one
+    transformer block a stage; rank 0 holds y / dx / dparams against the
+    blocks in sequence."""
+    import torch.distributed as dist
+    from torch.func import functional_call
+    from mxnet_tpu_torch.parallel import pipeline
+    cfg = cfg or mt.models.llama3_8b_config(dtype="bfloat16")
+    mesh = parallel.create_mesh(pp=RING_WORLD)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn(B, T, cfg.dim, device=dev, generator=gen)
+    gy = torch.randn(B, T, cfg.dim, device=dev, generator=gen)
+    out = {"schedules": {}, "launches": dict.fromkeys(co.LAUNCHES, 0)}
+    for sched, v in schedules:
+        blk, stacked = _stacked_block_params(mt, cfg, RING_WORLD * v, dev,
+                                             43 + v)
+
+        def stage(p, a):
+            return functional_call(blk, p, (a,))
+        dist.barrier()
+        _sync(dev)
+        co.reset_launch_counts()
+        comm.reset_transport()
+        t0 = time.perf_counter()
+        y, dx, dps = parallel.pipeline_vjp(stage, stacked, x, gy, mesh, M,
+                                           schedule=sched, virtual_stages=v)
+        _sync(dev)
+        rec = {"v": v, "ms": (time.perf_counter() - t0) * 1e3,
+               "launches": dict(co.LAUNCHES),
+               "transport": dict(comm.TRANSPORT),
+               "max_live_stash": pipeline.LAST["max_live_stash"],
+               "slots": pipeline.LAST["slots"],
+               "y_sum": y.double().sum().item(),
+               "finite": bool(torch.isfinite(y).all() and
+                              torch.isfinite(dx).all())}
+        for k, n in co.LAUNCHES.items():
+            out["launches"][k] += n
+        if rank == 0:
+            params = {k: t.detach().requires_grad_()
+                      for k, t in stacked.items()}
+            xr = x.detach().requires_grad_()
+            h = xr
+            for s in range(RING_WORLD * v):
+                h = stage({k: t[s] for k, t in params.items()}, h)
+            grads = torch.autograd.grad(h, [xr] + list(params.values()), gy)
+
+            def rel(a, b):
+                return ((a.float() - b.float()).abs().max() /
+                        b.float().abs().max()).item()
+            rec["y_rel"] = rel(y, h.detach())
+            rec["dx_rel"] = rel(dx, grads[0])
+            rec["dp_rel"] = max(rel(dps[k], g) for k, g in
+                                zip(params, grads[1:]))
+            del params, xr, h, grads
+        out["schedules"][sched] = rec
+        del blk, stacked, y, dx, dps
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def kvstore_rank(mt, co, dev, rank, world, cfg=None, rows=KV_ROWS, T=KV_T,
+                 steps=KV_STEPS):
+    """One rank's kvstore run: dist_sync pushpulls of exact integers,
+    then a full-width FFN trained through ``Trainer(update_on_kvstore=
+    True)`` over dist_sync; rank 0 trains the same FFN in one process on
+    the whole batch."""
+    import torch.distributed as dist
+    cfg = cfg or mt.models.llama3_8b_config()
+    cfg = mt.models.LlamaConfig(**dict(vars(cfg), dtype="float32"))
+    out = {"launches": dict.fromkeys(co.LAUNCHES, 0), "pushpull": {}}
+    kv = mt.kv.create("dist_sync")
+    out["workers"] = [kv.rank, kv.num_workers]
+    base = torch.arange(4096 * 3, device=dev).reshape(3, 4096) % 7
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt)
+        kv.init(key, mt.nd.NDArray(torch.zeros(3, 4096, dtype=dt,
+                                               device=dev)))
+        o = mt.nd.NDArray(torch.zeros(3, 4096, dtype=dt, device=dev))
+        kv.pushpull(key, mt.nd.NDArray((base + rank).to(dt)), out=o)
+        want = (base * world + sum(range(world))).to(dt)
+        out["pushpull"][key] = bool(torch.equal(o._data, want))
+    gen = torch.Generator().manual_seed(51)
+    x = torch.randn(rows * world, T, cfg.dim, generator=gen).to(dev)
+    n_total = x.shape[0] * T * cfg.dim
+
+    def ffn(seed):
+        f = mt.models.transformer.FeedForward(cfg)
+        return f.initialize(mt.init.Normal(0.02), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+
+    def train(f, kvstore, xs):
+        tr = mt.gluon.Trainer(f.collect_params(), "sgd",
+                              {"learning_rate": 0.5, "momentum": 0.9},
+                              kvstore=kvstore,
+                              update_on_kvstore=kvstore is not None)
+        if kvstore is not None:
+            tr._init_kvstore()      # worker 0's weights to every rank
+        w0 = {k: p.detach().float().clone()
+              for k, p in f.collect_params().items()}
+        for _ in range(steps):
+            with mt.autograd.record():
+                loss = f(xs).float().square().sum() / n_total
+            loss.backward()
+            tr.step(1)
+        return {k: p.detach().float() - w0[k]
+                for k, p in f.collect_params().items()}, w0
+    dist.barrier()
+    _sync(dev)
+    co.reset_launch_counts()
+    t0 = time.perf_counter()
+    f = ffn(60 + rank)              # other weights on every rank
+    delta, w0 = train(f, "dist_sync", x[rank * rows:(rank + 1) * rows])
+    _sync(dev)
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = dict(co.LAUNCHES)
+    out["w_sum"] = sum(p.detach().double().sum().item()
+                       for p in f.parameters())
+    if rank == 0:
+        ref = ffn(60)
+        ref_delta, ref_w0 = train(ref, None, x)
+        out["w0_equal"] = all(torch.equal(w0[k], ref_w0[k]) for k in w0)
+        out["rel"] = max(((delta[k] - ref_delta[k]).norm() /
+                          ref_delta[k].norm()).item() for k in delta)
+        del ref
+    del f
+    gc.collect()
+    dist.barrier()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -3263,7 +3666,8 @@ def main(argv):
             "paged_decode": paged_timing(co, dev)}}))
         return 0
     if argv[1:] == ["--ring-nccl"]:
-        # only the ring and ep phase, one NCCL rank a card (needs 4)
+        # only the rank children's phases (ring, ep, dp_tp, pipeline,
+        # kvstore), one NCCL rank a card (needs 4)
         check(torch.cuda.device_count() >= RING_WORLD,
               "--ring-nccl needs %d cards" % RING_WORLD)
         ring_phase(co, dev, card, "nccl")
@@ -3316,7 +3720,8 @@ def main(argv):
     entry_launches = entry_phase(mt, co, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    ring_launches, ring_block = ring_phase(co, dev, card)
+    (ring_launches, ring_block, dp_tp_launches, pipe_launches,
+     kv_launches) = ring_phase(co, dev, card)
     moe_launches = moe_phase(mt, co, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3340,7 +3745,16 @@ def main(argv):
              "bert_fp32": bert_fp32_launches, "entry": entry_launches,
              "resnet": resnet_launches, "ring": ring_launches,
              "moe": moe_launches, "remat": remat_launches,
-             "checkpoint": ckpt_launches}
+             "checkpoint": ckpt_launches, "dp_tp": dp_tp_launches,
+             "pipeline": pipe_launches, "kvstore": kv_launches}
+    for path, kernels_of_path in (
+            ("dp_tp", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                       "multi_adam")),
+            ("pipeline", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+            ("kvstore", ("multi_sgd",))):
+        check(all(paths[path][k] > 0 for k in kernels_of_path),
+              "%s: a kernel of the path was not launched: %s"
+              % (path, paths[path]))
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(by_path.values())

@@ -5,8 +5,10 @@ A second package beside the JAX one, with its module layout and names:
 attention kernels under ``csrc/``), ``autograd`` (record/pause scopes
 over torch autograd), ``initializer`` (also ``init``), ``gluon``
 (``Block`` / ``HybridBlock``, ``Parameter``, ``nn`` layers, the vision
-``model_zoo``, ``loss``, ``Trainer``), ``optimizer``, ``lr_scheduler``,
-``parallel`` (``TrainStep``), ``models`` (the Llama-class
+``model_zoo``, ``loss``, ``Trainer``, ``utils``), ``optimizer``,
+``lr_scheduler``, ``kvstore`` (also ``kv``), ``parallel`` (meshes of
+ranks, parameter sharding, ``TrainStep``, the pipeline, ring attention,
+the MoE), ``models`` (the Llama-class
 ``TransformerLM`` and its paged KV cache, BERT), ``serve`` (the
 continuous-batching server) and ``convert`` (weights to and from the
 JAX package, as numpy), and the imperative MXNet surface: ``nd``
@@ -24,13 +26,14 @@ version.
 from __future__ import annotations
 
 from . import (autograd, context, convert, engine, gluon,  # noqa: F401
-               initializer, lr_scheduler, models, ndarray, numpy,
+               initializer, kvstore, lr_scheduler, models, ndarray, numpy,
                numpy_extension, ops, optimizer, parallel, serve)
 from .context import (Context, Device, cpu, current_context,  # noqa: F401
                       current_device, gpu, num_gpus, resolve_device, tpu)
 from .ndarray import NDArray, waitall  # noqa: F401
 
 init = initializer
+kv = kvstore
 nd = ndarray
 np = numpy
 npx = numpy_extension

@@ -1,6 +1,6 @@
 """Gluon of the port: ``Block`` / ``HybridBlock``, ``Parameter``, layers
-(``nn``), the vision model zoo, losses and the ``Trainer``."""
-from . import loss, model_zoo, nn, parameter  # noqa: F401
+(``nn``), the vision model zoo, losses, the ``Trainer`` and ``utils``."""
+from . import loss, model_zoo, nn, parameter, utils  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
 from .parameter import DeferredInitializationError, Parameter  # noqa: F401
 from .trainer import Trainer  # noqa: F401

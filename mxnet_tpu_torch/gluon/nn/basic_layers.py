@@ -13,6 +13,13 @@ as 0 (``in_units=0``, ``in_channels=0``) is taken from the first input.
 A layer's parameters get storage from ``initialize(device=...)`` or
 ``convert.load_params``.
 
+A ``Dense`` or ``Embedding`` whose weight ``parallel.shard_params``
+sharded computes with this rank's block and returns the replicated
+result (``parallel.sharding.linear`` / ``embedding``).  ``BatchNorm``
+inside a ``TrainStep(mesh=)`` whose batch is split over data-parallel
+axes reduces its moments over the whole global batch
+(``parallel.sharding.batch_moments``), as GSPMD does.
+
 Not ported yet (ROADMAP queue 2): ``SyncBatchNorm``, ``Lambda``,
 ``HybridLambda``, ``Concatenate`` and ``HybridConcatenate``.
 """
@@ -25,6 +32,7 @@ import torch
 from ... import autograd
 from ...contrib.quantization import int8_forward
 from ...ops import nn as F
+from ...parallel import sharding as _sharding
 from ..block import Block, HybridBlock
 from ..parameter import Parameter, finish_deferred_init
 
@@ -98,6 +106,10 @@ class Dense(HybridBlock):
         finish_deferred_init(self.weight, (self._units, in_units))
         if self.bias is not None:
             finish_deferred_init(self.bias, (self._units,))
+        if _sharding.placement(self.weight) is not None:
+            out = _sharding.linear(x, self.weight, self.bias, self._flatten)
+            return out if self._activation is None else \
+                F.activation(out, self._activation)
         out = int8_forward(self, x, self.bias, self._flatten)
         if out is None:
             out = F.fully_connected(x.to(self.weight.dtype), self.weight,
@@ -131,6 +143,8 @@ class Embedding(HybridBlock):
                                 weight_initializer)
 
     def forward(self, x):
+        if _sharding.placement(self.weight) is not None:
+            return _sharding.embedding(x, self.weight)
         return F.embedding(x, self.weight)
 
 
@@ -190,8 +204,12 @@ class BatchNorm(HybridBlock):
             finish_deferred_init(p, (ch,))
         gamma = self.gamma if self._scale else None
         if autograd.is_training() and not self._use_global_stats:
-            out, mean, var = F.batch_norm_train(x, gamma, self.beta,
-                                                self._epsilon, self._axis)
+            batch = _sharding.current_batch()
+            if batch is not None and batch[1]:
+                out, mean, var = self._global_batch(x, gamma, *batch)
+            else:
+                out, mean, var = F.batch_norm_train(
+                    x, gamma, self.beta, self._epsilon, self._axis)
             m = self._momentum
             with torch.no_grad():
                 self.running_mean.mul_(m).add_(mean, alpha=1 - m)
@@ -200,6 +218,19 @@ class BatchNorm(HybridBlock):
         return F.batch_norm_inference(x, gamma, self.beta, self.running_mean,
                                       self.running_var, self._epsilon,
                                       self._axis)
+
+    def _global_batch(self, x, gamma, mesh, axes):
+        """Training batch norm over the global batch of a data-parallel
+        step: (out, mean, var), the moments float32."""
+        mean, var = _sharding.batch_moments(x, self._axis, mesh, axes)
+        shape = [1] * x.dim()
+        shape[self._axis % x.dim()] = -1
+        out = (x.float() - mean.view(shape)) * torch.rsqrt(
+            var.view(shape) + self._epsilon)
+        if gamma is not None:
+            out = out * gamma.view(shape)
+        out = out + self.beta.view(shape)
+        return out.to(x.dtype), mean.detach(), var.detach()
 
 
 class LayerNorm(HybridBlock):

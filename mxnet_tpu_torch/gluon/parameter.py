@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/gluon/parameter.py`` (``Parameter`` :26,
 ``lr_mult`` / ``wd_mult`` :27-35, ``grad_req`` :84, ``initialize``
 :104, ``_finish_deferred_init`` :145, the accessors ``data`` /
 ``list_data`` / ``grad`` / ``set_data`` :176-215, ``cast`` :266,
-``Constant`` :290).  The port's parameter is a ``torch.nn.Parameter``
-(the subclass :class:`TorchParameter`), so ``collect_params``,
+``Constant`` :290, ``shard`` / ``sharding_spec`` :278-287).  The
+port's parameter is a ``torch.nn.Parameter`` (the subclass
+:class:`TorchParameter`), so ``collect_params``,
 ``convert.load_params``, the optimizers and the ``Trainer`` see torch
 parameters.  :func:`Parameter` makes one and hangs the MXNet metadata on
 it as ``p._mx`` (a :class:`ParamSpec`):
@@ -51,8 +52,8 @@ from .. import initializer as init_mod
 
 __all__ = ["Parameter", "Constant", "TorchParameter", "ParamSpec",
            "DeferredInitializationError", "initialize",
-           "finish_deferred_init", "is_deferred", "mark_initialized",
-           "set_grad_req", "cast"]
+           "finish_deferred_init", "global_shape", "is_deferred",
+           "mark_initialized", "set_grad_req", "cast"]
 
 _GET_DATA = torch._C.TensorBase.data.__get__
 _SET_DATA = torch._C.TensorBase.data.__set__
@@ -91,6 +92,9 @@ class ParamSpec:
     grad_req: str = "write"
     lr_mult: float = 1.0
     wd_mult: float = 1.0
+    sharding_spec: tuple = None
+    placement: object = None
+    global_shape: tuple = None
 
 
 class _Accessor(torch.Tensor):
@@ -198,6 +202,30 @@ class _MXParameterMixin:
     def wd_mult(self, value):
         _spec(self).wd_mult = value
 
+    # -- sharding (reference :278-287) ------------------------------------
+    def shard(self, spec):
+        """Annotate with a PartitionSpec-like tuple, e.g. ``('tp',
+        None)``, for ``parallel.shard_params`` / ``TrainStep(mesh=)``."""
+        _spec(self).sharding_spec = tuple(spec)
+        return self
+
+    @property
+    def sharding_spec(self):
+        return _spec(self).sharding_spec
+
+    @property
+    def sharding(self):
+        """The placement ``parallel.shard_params`` gave the parameter
+        (``.mesh``, ``.spec``): its data is then this rank's block of
+        the global array; None when it holds the whole array."""
+        return _spec(self).placement
+
+    @property
+    def global_shape(self):
+        """The shape of the whole parameter (``shape`` is this rank's
+        block once sharded)."""
+        return global_shape(self)
+
 
 class TorchParameter(_MXParameterMixin, torch.nn.Parameter):
     """A materialised port parameter: a ``torch.nn.Parameter`` with the
@@ -234,6 +262,15 @@ def _spec(p):
     if spec is None:        # a plain torch parameter: known shape, no init
         spec = p._mx = ParamSpec(tuple(p.shape), p.dtype)
     return spec
+
+
+def global_shape(p):
+    """The whole parameter's shape: its own, or what it was before
+    ``parallel.shard_params`` gave this rank a block of it."""
+    meta = getattr(p, "_mx", None)
+    if meta is not None and meta.global_shape is not None:
+        return tuple(meta.global_shape)
+    return tuple(p.shape)
 
 
 def is_deferred(p):
@@ -280,9 +317,10 @@ def finish_deferred_init(p, shape):
     has storage only checks that ``shape`` fits it."""
     shape = tuple(shape)
     if not is_deferred(p):
-        if tuple(p.shape) != shape:
+        have = global_shape(p)
+        if have != shape:
             raise ValueError("Expected shape %s is incompatible with given "
-                             "shape %s" % (tuple(p.shape), shape))
+                             "shape %s" % (have, shape))
         return
     spec = _spec(p)
     if len(shape) != len(spec.shape) or any(

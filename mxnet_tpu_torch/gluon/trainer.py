@@ -1,7 +1,6 @@
-"""Gluon ``Trainer``: applies an optimizer to a set of parameters on one
-device.
+"""Gluon ``Trainer``: applies an optimizer to a set of parameters.
 
-Counterpart of ``mxnet_tpu/gluon/trainer.py:20-330`` for one worker.
+Counterpart of ``mxnet_tpu/gluon/trainer.py:20-453``.
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
 ``rescale_grad / batch_size`` (:274-286, without the AMP scaler) and
 updates every trainable parameter from its ``.grad`` with one
@@ -20,11 +19,22 @@ the last step has ``.grad is None`` and raises the stale-gradient
 A parameter with ``grad_req="add"`` keeps its gradient across steps, as
 in MXNet: the caller zeroes it (``zero_grad``).
 
+The kvstore (``kvstore=``: a type name of ``mx.kv.create`` or a store;
+:mod:`mxnet_tpu_torch.kvstore`) is made at the first step (:70-90).  A
+store with more than one worker first broadcasts every parameter from
+worker 0, and ``step`` sums the gradients over the workers
+(``pushpull``) before the update; ``compression_params`` set its
+gradient compression.  ``update_on_kvstore=True`` keeps the weights in
+the store and runs the optimizer there: ``step`` pushes each fresh
+gradient and pulls the updated weight back, after the stale-gradient
+check, so a raising step leaves every weight as it was; ``update`` and
+``allreduce_grads`` then raise ``ValueError``, and ``save_states`` /
+``load_states`` go through the store.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: a kvstore with more than one worker, ``update_on_kvstore``
-and gradient compression (ROADMAP queue 3), and ``skip_nonfinite``
-(ROADMAP queue 4).  The port has no AMP loss scaler, fault guard or
-profiler hook to attach yet (ROADMAP queues 2 and 4).
+ignored: ``skip_nonfinite`` (ROADMAP queue 4).  The port has no AMP
+loss scaler, fault guard or profiler hook to attach yet (ROADMAP queues
+2 and 4), nor the elastic ``reset_kvstore`` (queue 4).
 
 ``save_states`` / ``load_states`` (:403, :428) write and read the
 optimizer states as one npz with the JAX Trainer's keys: ``s<i>_<j>``
@@ -42,8 +52,6 @@ from .. import optimizer as opt_mod
 from ..utils import serialization
 
 __all__ = ["Trainer"]
-
-_LOCAL_KVSTORES = (None, "local", "device")
 
 
 def _not_ported(what, queue):
@@ -67,15 +75,12 @@ class Trainer:
         for p in params:
             if not isinstance(p, nn.Parameter):
                 raise ValueError("Invalid parameter %r" % (p,))
-        if update_on_kvstore:
-            raise _not_ported("update_on_kvstore", 3)
-        if compression_params:
-            raise _not_ported("gradient compression", 3)
-        if kvstore not in _LOCAL_KVSTORES and \
-                getattr(kvstore, "num_workers", 2) > 1:
-            raise _not_ported("a kvstore with more than one worker "
-                              "(%r)" % (kvstore,), 3)
         self._params = params
+        self._compression_params = compression_params
+        self._kvstore_type = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
+        self._update_on_kvstore = update_on_kvstore
         optimizer_params = optimizer_params or {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         param_dict = dict(enumerate(params))
@@ -103,21 +108,73 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _init_kvstore(self):
+        from .. import kvstore as kv_mod
+        if self._kvstore_type is None:
+            self._kvstore = None
+        elif isinstance(self._kvstore_type, str):
+            self._kvstore = kv_mod.create(self._kvstore_type)
+        else:
+            self._kvstore = self._kvstore_type
+        kv = self._kvstore
+        if kv is not None and self._compression_params:
+            kv.set_gradient_compression(self._compression_params)
+        self._kv_initialized = True
+        if kv is not None and kv.num_workers > 1:
+            # the replicas start from worker 0's parameters
+            for i, p in enumerate(self._params):
+                kv.broadcast(i, p.data(), p.data())
+        if kv is not None and self._update_on_kvstore:
+            for i, p in enumerate(self._params):
+                kv.init(i, p.data())
+            kv.set_optimizer(self._optimizer)
+
+    def _on_kvstore(self):
+        return bool(self._update_on_kvstore) and self._kvstore is not None
+
     def allreduce_grads(self):
-        """One worker: the gradients are already the total."""
+        """Sum the gradients over the kvstore's workers (nothing with one
+        worker)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._on_kvstore():
+            raise ValueError(
+                "allreduce_grads() is not supported when "
+                "update_on_kvstore=True: aggregation and update are one "
+                "server-side push")
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        kv = self._kvstore
+        if kv is None or kv.num_workers <= 1:
+            return
+        for i, p in enumerate(self._params):
+            if p.requires_grad and p.grad is not None:
+                g = p.grad()
+                kv.pushpull(i, g, out=g, priority=-i)
 
     def step(self, batch_size, ignore_stale_grad=False,
              skip_nonfinite=False):
-        """Update every trainable parameter from its gradient, rescaled
-        by ``rescale_grad / batch_size``."""
-        self.update(batch_size, ignore_stale_grad, skip_nonfinite)
-
-    def update(self, batch_size, ignore_stale_grad=False,
-               skip_nonfinite=False):
+        """Sum the gradients over the workers, then update every
+        trainable parameter from its gradient, rescaled by
+        ``rescale_grad / batch_size`` (on the kvstore with
+        ``update_on_kvstore``)."""
         if skip_nonfinite:
             raise _not_ported("skip_nonfinite (the non-finite-step guard)",
                               4)
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._on_kvstore():
+            self._step_on_kvstore(ignore_stale_grad)
+            return
+        self._allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    def _fresh(self, ignore_stale_grad):
+        """Indices of the trainable parameters with a fresh gradient;
+        a stale one raises (before anything is updated) unless
+        ``ignore_stale_grad``."""
         fresh = []
         for i, p in enumerate(self._params):
             if not p.requires_grad:
@@ -127,6 +184,42 @@ class Trainer:
                     raise UserWarning(self._stale_msg(self._param_names[i]))
                 continue
             fresh.append(i)
+        return fresh
+
+    def _consume(self, fresh):
+        for i in fresh:
+            p = self._params[i]
+            if getattr(p, "grad_req", "write") != "add":
+                p.grad = None   # "write": the next backward writes
+
+    def _step_on_kvstore(self, ignore_stale_grad):
+        """push(grad) runs the store's optimizer on its weight, pull
+        brings the weight back."""
+        kv = self._kvstore
+        fresh = self._fresh(ignore_stale_grad)
+        for i in fresh:
+            p = self._params[i]
+            kv.push(i, p.grad(), priority=-i)
+            kv.pull(i, out=p.data(), priority=-i)
+        self._consume(fresh)
+
+    def update(self, batch_size, ignore_stale_grad=False,
+               skip_nonfinite=False):
+        if skip_nonfinite:
+            raise _not_ported("skip_nonfinite (the non-finite-step guard)",
+                              4)
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._on_kvstore():
+            raise ValueError(
+                "update() is not supported when update_on_kvstore=True: "
+                "a local update would diverge from the store's weights; "
+                "call step()")
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad):
+        fresh = self._fresh(ignore_stale_grad)
         for i in fresh:
             if self._states[i] is None:
                 self._states[i] = \
@@ -137,10 +230,7 @@ class Trainer:
                 fresh, [self._params[i].data for i in fresh],
                 [self._params[i].grad for i in fresh],
                 [self._states[i] for i in fresh])
-        for i in fresh:
-            p = self._params[i]
-            if getattr(p, "grad_req", "write") != "add":
-                p.grad = None   # "write": the next backward writes
+        self._consume(fresh)
 
     def _init_states(self):
         for i, p in enumerate(self._params):
@@ -162,7 +252,11 @@ class Trainer:
         return flat
 
     def save_states(self, fname):
-        """The optimizer states and its update count, as one npz."""
+        """The optimizer states and its update count, as one npz (with
+        ``update_on_kvstore``, the store's states, its own format)."""
+        if self._on_kvstore():
+            self._kvstore.save_optimizer_states(fname)
+            return
         flat = self._flat_states()
         flat["__meta_num_update__"] = torch.tensor(
             self._optimizer.num_update, dtype=torch.int32)
@@ -172,6 +266,11 @@ class Trainer:
         """Fill the optimizer states (made first where missing) and the
         update count from a :meth:`save_states` file; a state the file
         does not hold keeps its value."""
+        if self._update_on_kvstore and self._kvstore_type is not None:
+            if not self._kv_initialized:
+                self._init_kvstore()
+            self._kvstore.load_optimizer_states(fname)
+            return
         loaded = serialization.load(fname, device="cpu")
         meta = loaded.pop("__meta_num_update__", None)
         if meta is not None:

@@ -29,7 +29,27 @@ Every ``moe_every``-th block (``layer_idx % moe_every == 0``) of a model
 with ``moe_num_experts > 0`` has the switch-MoE FFN
 (:class:`MoEFeedForward`, ``parallel.switch_moe``); the load-balance aux
 losses of the last forward sum in :meth:`TransformerLM.moe_aux_loss`.
-Not ported yet: the sharding hints (ROADMAP queue 3).
+
+Tensor parallelism.  The layers carry the reference's Megatron
+annotations (``mxnet_tpu/models/transformer.py:125-128,309-311,382,
+391``): q / k / v and w1 / w3 column-parallel ``("tp", None)``, wo and w2
+row-parallel ``(None, "tp")``, the embedding's width and the output's
+vocabulary over ``tp``.  Once ``parallel.shard_params`` (or
+``TrainStep(mesh=)``) has given each rank its blocks, a block whose
+attention and FFN weights are in that layout over one axis that divides
+``n_heads`` runs the fast path GSPMD's program amounts to: the input
+enters through one ``psum_grad``, the column-parallel products give the
+rank's local heads (and hidden units), attention runs through the flash
+kernel on those local heads, and each row-parallel product ends in one
+``psum``, with no gather between a pair.  When the axis does not divide
+``n_kv_heads`` (``n_kv_heads=2`` at ``tp=4``: each rank holds half a KV
+head's projection), K and V are ``all_gather``-ed over the axis and each
+rank keeps the KV heads its local query heads read; the gather's
+gradient is the rank's own slice, summed over the ranks that read it.
+Any other placement runs the generic path of the sharded ``Dense`` /
+``Embedding`` (``parallel.sharding``).  The reference's
+``("dp", "sp", None)`` activation hint (``_sp_constraint``) only
+changes GSPMD's layout; in the port it is a no-op and is not kept.
 """
 from __future__ import annotations
 
@@ -45,7 +65,9 @@ from ..gluon.nn import Dense, Embedding, RMSNorm
 from ..gluon.parameter import Parameter
 from ..ops import nn as F
 from ..ops.cuda_ops import flash_attention, paged_attention
+from ..parallel import _compat
 from ..parallel.moe import switch_moe
+from ..parallel.sharding import _batch_axes, global_shape, placement
 from . import kv_cache as _kvc
 
 __all__ = ["LlamaConfig", "llama3_8b_config", "tiny_config", "Attention",
@@ -121,6 +143,38 @@ def _heads_first(x):
     return x.transpose(1, 2).contiguous()
 
 
+def _megatron_axis(col, row, n_split=1):
+    """(mesh, axis, size) when every weight of ``col`` is sharded
+    ``(axis, None)`` and every one of ``row`` ``(None, axis)`` over one
+    mesh axis of more than one rank that divides ``n_split``, and no
+    batch axis of a running step is involved; else None."""
+    sh = placement(col[0])
+    if sh is None:
+        return None
+    mesh, ax = sh.mesh, sh.spec[0] if len(sh.spec) else None
+    if ax is None or isinstance(ax, tuple) or mesh.axis_size(ax) < 2 \
+            or n_split % mesh.axis_size(ax) or ax in _batch_axes(mesh):
+        return None
+    for w, want in [(c, (ax, None)) for c in col] + \
+            [(r, (None, ax)) for r in row]:
+        p = placement(w)
+        if p is None or p.mesh is not mesh or tuple(p.spec) != want:
+            return None
+    return mesh, ax, mesh.axis_size(ax)
+
+
+def _kv_heads_read(rank, hq, rep):
+    """The KV heads that query heads ``rank*hq ..`` read, in the order
+    the flash kernel's GQA grouping maps them: the distinct heads when
+    the local mapping is a grouping of its own, else one a query head."""
+    idx = [(rank * hq + i) // rep for i in range(hq)]
+    uniq = sorted(set(idx))
+    g = hq // len(uniq)
+    if hq % len(uniq) == 0 and idx == [uniq[i // g] for i in range(hq)]:
+        return uniq
+    return idx
+
+
 class Attention(Block):
     def __init__(self, cfg: LlamaConfig, layer_idx=0):
         super().__init__()
@@ -136,11 +190,20 @@ class Attention(Block):
         self.wk = Dense(cfg.n_kv_heads * hd, in_units=cfg.dim, **kw)
         self.wv = Dense(cfg.n_kv_heads * hd, in_units=cfg.dim, **kw)
         self.wo = Dense(cfg.dim, in_units=cfg.n_heads * hd, **kw)
+        # Megatron TP: qkv column-parallel, out row-parallel
+        for w in (self.wq, self.wk, self.wv):
+            w.weight.shard(("tp", None))
+        self.wo.weight.shard((None, "tp"))
 
     def forward(self, x, cache=None):
         cfg = self.cfg
         B, T, _ = x.shape
         hd, nh, nkv = self.head_dim, cfg.n_heads, cfg.n_kv_heads
+        if cache is None:
+            tp = _megatron_axis([self.wq.weight, self.wk.weight,
+                                 self.wv.weight], [self.wo.weight], nh)
+            if tp is not None:
+                return self._forward_tp(x, *tp)
         if cache is not None:
             # serving (no gradient): one cast for the three products, whose
             # own casts are then no-ops
@@ -163,6 +226,38 @@ class Attention(Block):
             o = flash_attention(_heads_first(q), _heads_first(k),
                                 _heads_first(v), causal=True)
         return self.wo(o.transpose(1, 2).reshape(B, T, nh * hd))
+
+    def _forward_tp(self, x, mesh, ax, n):
+        """The Megatron fast path on this rank's ``n_heads / n`` local
+        query heads (module docstring)."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        hd, nh, nkv = self.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hq, rank = nh // n, mesh.axis_index(ax)
+        wq, wk, wv = self.wq.weight, self.wk.weight, self.wv.weight
+        x = _compat.psum_grad(x.to(wq.dtype), ax, mesh)
+        q = F.dense(x, wq).view(B, T, hq, hd)
+        k, v = F.dense(x, wk), F.dense(x, wv)
+        if nkv % n == 0:
+            k, v = (t.view(B, T, nkv // n, hd) for t in (k, v))
+        else:
+            heads = _kv_heads_read(rank, hq, nh // nkv)
+            k, v = (_compat.all_gather(t, -1, ax, mesh).view(
+                B, T, nkv, hd)[:, :, heads] for t in (k, v))
+        pos = torch.arange(T, device=x.device)
+        q = _rope(q, pos, cfg.rope_theta)
+        k = _rope(k, pos, cfg.rope_theta)
+        if cfg.attn_impl in ("dense", "ring"):
+            rep = hq // k.shape[2]
+            o = F.dot_product_attention(
+                _heads_first(q), _heads_first(k.repeat_interleave(rep, 2)),
+                _heads_first(v.repeat_interleave(rep, 2)), causal=True)
+        else:
+            o = flash_attention(_heads_first(q), _heads_first(k),
+                                _heads_first(v), causal=True)
+        o = o.transpose(1, 2).reshape(B, T, hq * hd)
+        return _compat.psum(F.dense(o.to(self.wo.weight.dtype),
+                                    self.wo.weight), ax, mesh)
 
     def _forward_cached(self, q, k, v, cache):
         """Prefill / chunk / decode through a paged KV cache (``serve``).
@@ -253,8 +348,20 @@ class FeedForward(Block):
         self.w1 = Dense(cfg.hidden_dim, in_units=cfg.dim, **kw)   # gate
         self.w3 = Dense(cfg.hidden_dim, in_units=cfg.dim, **kw)   # up
         self.w2 = Dense(cfg.dim, in_units=cfg.hidden_dim, **kw)   # down
+        self.w1.weight.shard(("tp", None))
+        self.w3.weight.shard(("tp", None))
+        self.w2.weight.shard((None, "tp"))
 
     def forward(self, x):
+        tp = _megatron_axis([self.w1.weight, self.w3.weight],
+                            [self.w2.weight],
+                            global_shape(self.w1.weight)[0])
+        if tp is not None:
+            mesh, ax, _ = tp
+            w1, w3, w2 = self.w1.weight, self.w3.weight, self.w2.weight
+            x = _compat.psum_grad(x.to(w1.dtype), ax, mesh)
+            h = F.activation(F.dense(x, w1).float(), "silu") * F.dense(x, w3)
+            return _compat.psum(F.dense(h.to(w2.dtype), w2), ax, mesh)
         # the gate product in float32, as the JAX bf16 model computes it
         # (the product promotes w3's output to float32)
         return self.w2(F.activation(self.w1(x).float(), "silu")
@@ -322,6 +429,7 @@ class TransformerLM(Block):
         self.cfg = cfg
         self.tok_embeddings = Embedding(cfg.vocab_size, cfg.dim,
                                         dtype=cfg.dtype)
+        self.tok_embeddings.weight.shard((None, "tp"))
         blocks = []
         for i in range(cfg.n_layers):
             blk = TransformerBlock(cfg, layer_idx=i)
@@ -331,6 +439,7 @@ class TransformerLM(Block):
         self.norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
         self.output = Dense(cfg.vocab_size, in_units=cfg.dim, use_bias=False,
                             flatten=False, dtype=cfg.dtype)
+        self.output.weight.shard(("tp", None))
         self._device = resolve_device(device)
         super().initialize(init_mod.Zero(), device=self._device)
 

@@ -2,10 +2,29 @@
 
 Counterpart of ``mxnet_tpu/parallel/_compat.py`` (``axis_size`` :14,
 ``shard_map`` :25) and of the ``lax`` collectives its callers use:
-``axis_index``, ``ppermute`` and ``psum``.  Each takes the mesh, or
-reads the current one (:func:`~.mesh.mesh_scope`; :func:`shard_map`
-sets it around its body).  An axis may be one name or a tuple of names,
-read outer-major.
+``axis_index``, ``ppermute``, ``psum``, ``psum_scatter`` and
+``all_gather``.  Each takes the mesh, or reads the current one
+(:func:`~.mesh.mesh_scope`; :func:`shard_map` sets it around its body).
+An axis may be one name or a tuple of names, read outer-major.
+
+The collectives are explicit, each a ``torch.autograd.Function`` whose
+backward is the conjugate collective (GSPMD would insert them from
+sharding specs; the port's kernels take plain local tensors, so the
+callers place them by hand):
+
+* ``psum`` / ``psum_grad`` for ranks that hold the same loss (tensor
+  parallelism): the sum's gradient is the cotangent itself, and the
+  entry of a replicated tensor into partial work sums its gradient;
+* :func:`psum_partial` for ranks that each hold part of the loss (data
+  parallelism: BatchNorm's batch moments): sum forward and backward;
+* ``all_gather`` (backward: ``psum_scatter``, the rank's own slice of
+  the cotangents summed over the ranks that read it) and
+  ``psum_scatter`` (backward: ``all_gather``).  gloo has no
+  ``reduce_scatter``: there ``psum_scatter`` is an ``all_reduce`` and
+  the rank's own slice; NCCL runs ``reduce_scatter_tensor``;
+* :func:`gather` / :func:`split` for replicated activations (a
+  column-parallel output): the gather's gradient is the rank's own
+  slice of a cotangent every rank holds whole, the split's the gather.
 
 Transport is chosen by the backend of the process group:
 
@@ -37,8 +56,9 @@ import torch.distributed as dist
 from .mesh import current_mesh, mesh_scope
 
 __all__ = ["axis_size", "axis_index", "ppermute", "ppermute_start", "psum",
-           "psum_grad", "all_gather", "shard_map", "TRANSPORT",
-           "reset_transport"]
+           "psum_grad", "psum_partial", "psum_scatter", "all_gather",
+           "gather", "split", "broadcast", "exchange", "barrier", "shard_map",
+           "TRANSPORT", "reset_transport"]
 
 #: calls, bytes and host ms of the collectives staged through pinned
 #: host memory (gloo with CUDA tensors); ``device_calls`` counts those
@@ -209,10 +229,27 @@ def psum_grad(x, axis, mesh=None):
     return _PSumGrad.apply(x, axis, _mesh(mesh))
 
 
-def all_gather(x, dim, axis, mesh=None):
+class _PSumPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return _all_reduce(x.contiguous(), axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.axis, ctx.mesh), None, None
+
+
+def psum_partial(x, axis, mesh=None):
+    """Sum of ``x`` over ``axis`` where each rank holds part of the
+    loss (data parallelism): the gradient is the sum of the ranks'
+    cotangents."""
+    return _PSumPartial.apply(x, axis, _mesh(mesh))
+
+
+def _gather_raw(x, dim, axis, mesh):
     """The blocks of ``x`` on the ranks of ``axis``, concatenated along
     ``dim`` in axis order (outer-major over a tuple of axes)."""
-    mesh = _mesh(mesh)
     x = x.contiguous()
     for a in reversed(_axes(axis)):        # inner axis first
         group = mesh.groups[a]
@@ -227,6 +264,158 @@ def all_gather(x, dim, axis, mesh=None):
         x = torch.cat(parts, dim).to(device)
         _count(mesh, x, t0 if staged else None)
     return x
+
+
+def _scatter_raw(x, dim, axis, mesh):
+    """Sum over ``axis`` and this rank's block of it along ``dim``."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError("dimension %d of size %d does not split over %r "
+                         "(%d ranks)" % (dim, x.shape[dim], axis, n))
+    axes = _axes(axis)
+    if mesh.backend == "nccl" and len(axes) == 1:
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // n,) + src.shape[1:],
+                          dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=mesh.groups[axes[0]])
+        _count(mesh, out, None)
+        return out.movedim(0, dim).contiguous()
+    size = x.shape[dim] // n
+    total = _all_reduce(x.contiguous(), axis, mesh)
+    return total.narrow(dim, mesh.axis_index(axis) * size, size).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, mesh):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        return _gather_raw(x, dim, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_raw(g, ctx.dim, ctx.axis, ctx.mesh), None, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, mesh):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        return _scatter_raw(x, dim, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_raw(g, ctx.dim, ctx.axis, ctx.mesh), None, None, None
+
+
+def all_gather(x, dim, axis, mesh=None):
+    """The blocks of ``x`` on the ranks of ``axis``, concatenated along
+    ``dim`` in axis order (outer-major over a tuple of axes).  Its
+    gradient is :func:`psum_scatter` of the cotangent: the rank's own
+    slice, summed over the ranks that read the gathered tensor."""
+    return _AllGather.apply(x, dim, axis, _mesh(mesh))
+
+
+def psum_scatter(x, dim, axis, mesh=None):
+    """The sum of ``x`` over ``axis``, and this rank's block of it along
+    ``dim`` (``lax.psum_scatter(..., tiled=True)``); its gradient is the
+    :func:`all_gather` of the cotangent.  Under gloo an ``all_reduce``
+    and the rank's slice, under NCCL ``reduce_scatter_tensor``."""
+    return _PSumScatter.apply(x, dim, axis, _mesh(mesh))
+
+
+def _spec_at(dim, ndim, axis):
+    spec = [None] * ndim
+    spec[dim % ndim] = axis
+    return tuple(spec)
+
+
+def gather(x, dim, axis, mesh=None):
+    """:func:`all_gather` of a block of a tensor every rank then holds
+    whole (a column-parallel product's output): its gradient is the
+    rank's own slice of the cotangent, which every rank holds whole."""
+    return _Gather.apply(x, _spec_at(dim, x.dim(), axis), _mesh(mesh))
+
+
+def split(x, dim, axis, mesh=None):
+    """This rank's block along ``dim`` of a tensor every rank holds
+    whole (a row-parallel product's input): its gradient is the gather
+    of the ranks' blocks."""
+    return _Shard.apply(x, _spec_at(dim, x.dim(), axis), _mesh(mesh))
+
+
+def broadcast(x, src=0, axis=None, mesh=None):
+    """``x`` of the rank at index ``src`` along ``axis`` (``axis=None``:
+    the ``src``-th rank of the whole mesh), on every rank of the axis
+    (not differentiable)."""
+    mesh = _mesh(mesh)
+    if axis is None:
+        group, root = mesh.group, mesh.member_ranks()[src]
+    else:
+        axes = _axes(axis)
+        if len(axes) != 1:
+            raise ValueError("broadcast runs along one mesh axis, got %r"
+                             % (axis,))
+        group = mesh.groups.get(axes[0])
+        root = mesh.line[axes[0]][src] if group is not None else None
+    if group is None:
+        return x
+    t0 = time.perf_counter()
+    staged = _staged(mesh, x)
+    buf = _host(x) if staged else x.contiguous().clone()
+    dist.broadcast(buf, root, group=group)
+    out = buf.to(x.device)
+    _count(mesh, out, t0 if staged else None)
+    return out
+
+
+def exchange(sends, recvs, axis, mesh=None):
+    """Point-to-point along ``axis``: ``sends`` are ``(tensor, dst,
+    tag)``, ``recvs`` are ``(like, src, tag)`` (``like``: a tensor whose
+    shape, dtype and device the received one takes), ``dst`` / ``src``
+    axis indices.  Returns the received tensors, in order.  Both sides
+    list the matching pairs (the pipeline's slot tables give them)."""
+    mesh = _mesh(mesh)
+    axis = _axes(axis)[0]
+    line, group = mesh.line[axis], mesh.groups[axis]
+    if not sends and not recvs:
+        return []
+    t0 = time.perf_counter()
+    staged = mesh.backend == "gloo" and any(
+        t.is_cuda for t, _, _ in list(sends) + list(recvs))
+    ops, bufs, nbytes = [], [], 0
+    for t, dst, tag in sends:
+        buf = _host(t.contiguous()) if staged else t.contiguous()
+        nbytes += buf.numel() * buf.element_size()
+        ops.append(dist.P2POp(dist.isend, buf, line[dst], group, tag))
+    for like, src, tag in recvs:
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          pin_memory=True) if staged else \
+            torch.empty_like(like)
+        nbytes += buf.numel() * buf.element_size()
+        bufs.append((buf, like.device))
+        ops.append(dist.P2POp(dist.irecv, buf, line[src], group, tag))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    out = [b.to(dev) for b, dev in bufs]
+    if staged:
+        TRANSPORT["staged_calls"] += 1
+        TRANSPORT["staged_bytes"] += nbytes
+        TRANSPORT["staged_ms"] += (time.perf_counter() - t0) * 1e3
+    else:
+        TRANSPORT["device_calls"] += 1
+    return out
+
+
+def barrier(mesh=None):
+    """Wait for every rank of the mesh (nothing on one rank)."""
+    mesh = _mesh(mesh)
+    if mesh.group is not None:
+        if mesh.backend == "nccl":
+            dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
+        else:
+            dist.barrier(group=mesh.group)
 
 
 def _shard_slice(x, spec, mesh):
@@ -246,7 +435,7 @@ def _shard_slice(x, spec, mesh):
 def _gather_global(x, spec, mesh):
     for dim, axis in enumerate(spec):
         if axis is not None:
-            x = all_gather(x, dim, axis, mesh)
+            x = _gather_raw(x, dim, axis, mesh)
     return x
 
 

@@ -1,11 +1,16 @@
 """Meshes over ``torch.distributed`` ranks.
 
 Counterpart of ``mxnet_tpu/parallel/mesh.py`` (``create_mesh`` :21,
-``local_mesh`` :108, ``current_mesh`` :118, ``mesh_scope`` :123).  A
-JAX mesh is the devices reshaped to named axes; here it is the ranks of
-the default process group reshaped to named axes, in row-major order
-(the last axis varies fastest), with one process subgroup per axis line
-through this rank, which the collectives of :mod:`._compat` run over.
+``shrink_mesh`` :47, ``grow_mesh`` :77, ``local_mesh`` :108,
+``current_mesh`` :118, ``mesh_scope`` :123).  A JAX mesh is devices
+reshaped to named axes; here it is ranks of the default process group
+(all of them, or the ``ranks=`` given) reshaped to named axes, in
+row-major order (the last axis varies fastest), with one process
+subgroup per axis line through this rank, which the collectives of
+:mod:`._compat` run over.  A rank outside the mesh takes no part in it
+(``mesh.is_member`` is False, it has no coordinates), but it must still
+build the mesh: ``torch.distributed.new_group`` is called by every live
+process, members or not, in the same order.
 
 Whoever launches the job picks the backend (NCCL or gloo) in
 ``torch.distributed.init_process_group``; the mesh uses the default
@@ -28,7 +33,8 @@ import torch.distributed as dist
 
 from ..context import current_context, resolve_device
 
-__all__ = ["Mesh", "create_mesh", "local_mesh", "current_mesh", "mesh_scope"]
+__all__ = ["Mesh", "create_mesh", "shrink_mesh", "grow_mesh", "local_mesh",
+           "current_mesh", "mesh_scope"]
 
 _STATE = threading.local()
 
@@ -48,22 +54,27 @@ class Mesh:
     the array of global ranks in that shape; ``coords`` is this rank's
     index along each axis; ``groups[axis]`` is the process group of the
     axis line through this rank (None on a one-rank mesh) and
-    ``line[axis]`` its global ranks in axis order."""
+    ``line[axis]`` its global ranks in axis order; ``group`` is the
+    process group of the whole mesh (None on one rank).  On a rank
+    outside the mesh ``is_member`` is False and ``coords`` / ``groups``
+    / ``line`` are empty."""
 
-    def __init__(self, names, sizes, device):
+    def __init__(self, names, sizes, device, ranks=None):
         rank, world = _world()
         self.axis_names = tuple(names)
         self.shape = dict(zip(names, sizes))
         self.size = int(onp.prod(sizes)) if sizes else 1
-        self.ranks = onp.arange(self.size).reshape(sizes)
+        members = list(range(self.size)) if ranks is None \
+            else [int(r) for r in ranks]
+        self.ranks = onp.asarray(members).reshape(sizes)
         self.rank = rank
         self.device = device
         self.backend = dist.get_backend() if world > 1 else None
+        self.is_member = rank in members
         here = onp.argwhere(self.ranks == rank)
-        if not len(here):
-            raise ValueError("rank %d is outside mesh %s" % (rank,
-                                                            self.shape))
-        self.coords = dict(zip(names, (int(c) for c in here[0])))
+        self.coords = dict(zip(names, (int(c) for c in here[0]))) \
+            if self.is_member else {}
+        self.group = self._new_group(members, world)
         self.groups, self.line = {}, {}
         for i, name in enumerate(names):
             # every rank makes every line's group, in one order, as
@@ -73,12 +84,17 @@ class Mesh:
                 key = list(idx)
                 key.insert(i, slice(None))
                 line = [int(r) for r in self.ranks[tuple(key)]]
-                group = None
-                if len(line) > 1:
-                    group = dist.group.WORLD if len(line) == world \
-                        else dist.new_group(line)
+                group = self._new_group(line, world)
                 if rank in line:
                     self.groups[name], self.line[name] = group, line
+
+    @staticmethod
+    def _new_group(line, world):
+        if len(line) <= 1:
+            return None
+        if sorted(line) == list(range(world)):
+            return dist.group.WORLD
+        return dist.new_group(line)
 
     def axis_size(self, axis):
         """Size of one axis, or the product over a tuple of axes."""
@@ -96,9 +112,14 @@ class Mesh:
             return idx
         return self.coords[axis]
 
+    def member_ranks(self):
+        """The mesh's global ranks in row-major order."""
+        return [int(r) for r in self.ranks.reshape(-1)]
+
     def __repr__(self):
-        return "Mesh(%s, rank=%d, device=%s)" % (self.shape, self.rank,
-                                                 self.device)
+        return "Mesh(%s, rank=%d, device=%s%s)" % (
+            self.shape, self.rank, self.device,
+            "" if self.is_member else ", not a member")
 
 
 def _mesh_device(device, rank):
@@ -110,27 +131,70 @@ def _mesh_device(device, rank):
     return torch.device(dev.type, rank % torch.cuda.device_count())
 
 
-def create_mesh(axes=None, device=None, **axis_sizes):
-    """A :class:`Mesh` over the default process group's ranks.
+def create_mesh(axes=None, ranks=None, device=None, **axis_sizes):
+    """A :class:`Mesh` over ranks of the default process group.
 
     ``create_mesh(dp=2, tp=4)`` or ``create_mesh({'dp': 2, 'tp': 4})``.
-    An axis size of -1 absorbs the remaining ranks.  The sizes must
-    multiply to the world size."""
+    ``ranks`` (default: every rank) are the global ranks to lay out; an
+    axis size of -1 absorbs the remaining ones, and the mesh takes the
+    first ``prod(sizes)`` of them, as the JAX mesh takes the first
+    devices.  Every rank of the world calls this, in the same order,
+    members or not."""
     if isinstance(axes, dict):
         axis_sizes = axes
     elif axes is not None and not axis_sizes:
         axis_sizes = dict(axes)
     rank, world = _world()
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    bad = [r for r in ranks if not 0 <= r < world]
+    if bad or len(set(ranks)) != len(ranks):
+        raise ValueError("ranks %s: each must be a distinct rank of the "
+                         "%d-rank process group" % (ranks, world))
     names = list(axis_sizes)
     sizes = [int(s) for s in axis_sizes.values()]
     if -1 in sizes:
         known = int(onp.prod([s for s in sizes if s != -1]))
-        sizes[sizes.index(-1)] = world // known
-    if int(onp.prod(sizes)) != world:
-        raise ValueError("mesh %s needs %d ranks, the process group has %d"
-                         % (dict(zip(names, sizes)), int(onp.prod(sizes)),
-                            world))
-    return Mesh(names, sizes, _mesh_device(device, rank))
+        sizes[sizes.index(-1)] = len(ranks) // known
+    total = int(onp.prod(sizes))
+    if total > len(ranks):
+        raise ValueError("mesh %s needs %d ranks, have %d"
+                         % (dict(zip(names, sizes)), total, len(ranks)))
+    return Mesh(names, sizes, _mesh_device(device, rank), ranks[:total])
+
+
+def _resized(mesh, ranks, axis, what):
+    """``mesh``'s axes over ``ranks``, ``axis`` (default the first)
+    taking up the change, the others keeping their sizes."""
+    rank, world = _world()
+    ranks = list(range(world)) if ranks is None else list(ranks)
+    sizes = dict(mesh.shape)
+    axis = mesh.axis_names[0] if axis is None else axis
+    if axis not in sizes:
+        raise ValueError("mesh has no axis %r (axes: %s)"
+                         % (axis, list(mesh.axis_names)))
+    fixed = int(onp.prod([s for a, s in sizes.items() if a != axis]))
+    if len(ranks) < fixed:
+        raise ValueError("cannot %s mesh %s onto %d rank(s): the non-%s "
+                         "axes alone need %d" % (what, sizes, len(ranks),
+                                                 axis, fixed))
+    sizes[axis] = len(ranks) // fixed
+    return create_mesh(sizes, ranks=ranks, device=mesh.device)
+
+
+def shrink_mesh(mesh, ranks=None, axis=None):
+    """``mesh``'s layout over a smaller set of surviving ``ranks``
+    (default every rank of the world): the named axis (default the
+    first, by convention the data-parallel one) absorbs the change, the
+    other axes keep their sizes, and ranks beyond the largest multiple
+    of the fixed axes' product idle (outside the new mesh).  Every rank
+    of the world calls it, members of the result or not."""
+    return _resized(mesh, ranks, axis, "shrink")
+
+
+def grow_mesh(mesh, ranks=None, axis=None):
+    """:func:`shrink_mesh`'s counterpart, over a larger set of ``ranks``
+    (ranks that joined the mesh again); the same recompute."""
+    return _resized(mesh, ranks, axis, "grow")
 
 
 def local_mesh(*names, device=None):

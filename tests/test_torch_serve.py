@@ -465,6 +465,12 @@ def test_package_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel._compat, "
             "mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.moe, "
             "mxnet_tpu_torch.parallel.seq_data, "
+            "mxnet_tpu_torch.parallel.sharding, "
+            "mxnet_tpu_torch.parallel.pipeline, "
+            "mxnet_tpu_torch.kvstore, mxnet_tpu_torch.kvstore.base, "
+            "mxnet_tpu_torch.kvstore.kvstore, "
+            "mxnet_tpu_torch.kvstore.compression, "
+            "mxnet_tpu_torch.gluon.utils, "
             "mxnet_tpu_torch.utils.serialization; "
             # chip_smoke.py and what its ring phase's rank children import
             "import chip_smoke; chip_smoke.ring_rank_modules(); "

@@ -46,7 +46,15 @@ each rank's local heads, ``multi_adam`` on the shards), run
 ``update_on_kvstore`` against one process on the whole batch); a
 4-layer, 8-expert MoE LM of Llama-3-8B widths trains 3 steps, a float32
 tiny MoE runs card against CPU, the 8-layer step with ``remat=True``
-runs against the plain one, and a checkpoint resumes bit for bit. Each
+runs against the plain one, and a checkpoint resumes bit for bit.
+Between the serve phases and training, the serving control plane runs
+on the bf16 server (its telemetry gauges and SLO sketches, a transient
+decode fault replayed bit for bit, an elastic drain, a two-replica
+``ReplicaGroup`` failing over from a killed engine, the flight
+recorder), and ``Server(mesh=create_mesh(tp=2))`` serves 8 requests
+in bf16 and int8 on 2 gloo ranks sharing the card (``--serve-tp-rank R
+DIR BACKEND WORLD`` children), its tokens held against the one-rank
+server's and a teacher-forced forward. Each
 path that runs kernels does so with the launch counts reset before it
 and read after it, and fails unless every kernel it goes through was
 launched.
@@ -58,11 +66,14 @@ trace of its calls with the L2 cache flushed before each
 (:func:`device_ms`), or for the optimizer's kernels the replay of a
 CUDA graph of the call (:func:`graph_ms`: torch.profiler was seen to
 drop a device record from their traces); the event time of the whole
-wrapper call is kept beside it as ``call_ms``.  ``python3 chip_smoke.py
---kernel-timing``
-runs only the forward, backward and paged kernels' timing; copied into
-another checkout's root, it times that tree's kernels the same way, so
-two trees compare in one call.
+wrapper call is kept beside it as ``call_ms``.  ``python3
+chip_smoke.py --ring-nccl`` (4 cards) runs only the rank children's
+phases with one NCCL rank a card, then the tensor-parallel server at
+tp=2 and tp=4 with its collectives inside the captured graphs.
+``python3 chip_smoke.py --kernel-timing`` runs only the forward,
+backward and paged kernels' timing; copied into another checkout's
+root, it times that tree's kernels the same way, so two trees compare
+in one call.
 """
 from __future__ import annotations
 
@@ -783,7 +794,7 @@ def serve_phase(mt, co, net, dev, card, max_new=32, int8=False):
              1e3 * ttft[len(ttft) // 2], steps, launches, len(copies),
              srv.sched.stats()["prefix_hits"],
              torch.cuda.max_memory_allocated() / 1e9, card))
-    return srv, reqs, res, launches
+    return srv, reqs, res, launches, wall
 
 
 def _replay_vs_eager(pool, program, run):
@@ -936,7 +947,7 @@ def step_timing(srv, reqs, res, card, tag="serve"):
 # ----------------------------------------------------------------------
 # phase 7: served tokens vs a full-sequence forward (teacher forced)
 # ----------------------------------------------------------------------
-def consistency_phase(net, reqs, res, dev, int8_layers=None):
+def consistency_phase(net, reqs, res, dev, int8_layers=None, tag=None):
     """Every greedy request's served tokens against a teacher-forced full
     forward of the same sequence: at every position the served token's
     logit is within SERVED_LOGIT_TOL of the full forward's largest, and
@@ -944,7 +955,7 @@ def consistency_phase(net, reqs, res, dev, int8_layers=None):
     ``int8_layers`` (an int8 server's ``pool.int8``) the forward is the
     dequantized model's."""
     from mxnet_tpu_torch.contrib.quantization import int8_weights
-    tag = "consistency int8" if int8_layers else "consistency"
+    tag = tag or ("consistency int8" if int8_layers else "consistency")
     exact = checked = 0
     worst = (0.0, None)
     with torch.no_grad(), int8_weights(int8_layers or {}, "prefill"):
@@ -2918,17 +2929,19 @@ def ring_block_check(co, dev):
     return worst
 
 
-def _run_ranks(out_dir, backend):
-    """Start the rank children and wait; stop them all when one fails or
-    the time runs out."""
+def _run_ranks(out_dir, backend, world=RING_WORLD, mode="--ring-rank"):
+    """Start the rank children (``mode``: ``--ring-rank`` or
+    ``--serve-tp-rank``) and wait; stop them all when one fails or the
+    time runs out."""
     procs, logs = [], []
-    for r in range(RING_WORLD):
+    for r in range(world):
         log = open(os.path.join(out_dir, "rank%d.log" % r), "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--ring-rank",
-             str(r), out_dir, backend], stdout=log,
-            stderr=subprocess.STDOUT))
+            [sys.executable, os.path.abspath(__file__), mode,
+             str(r), out_dir, backend]
+            + ([str(world)] if mode == "--serve-tp-rank" else []),
+            stdout=log, stderr=subprocess.STDOUT))
     t0 = time.monotonic()
     try:
         while any(p.poll() is None for p in procs):
@@ -2947,8 +2960,8 @@ def _run_ranks(out_dir, backend):
         if p.returncode != 0:
             with open(os.path.join(out_dir, "rank%d.log" % r)) as f:
                 tail = f.read()[-3000:]
-            raise SmokeFailure("ring: rank %d exited %s:\n%s"
-                               % (r, p.returncode, tail))
+            raise SmokeFailure("%s: rank %d exited %s:\n%s"
+                               % (mode, r, p.returncode, tail))
     return time.monotonic() - t0
 
 
@@ -3615,6 +3628,484 @@ def checkpoint_phase(mt, co, dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 18: the serving control plane on the full-width server
+# ----------------------------------------------------------------------
+TP_MAX_NEW = 16
+# a greedy token of two bf16 paths may differ from the exact one by up
+# to SERVED_LOGIT_TOL each, so a flip between the tensor-parallel and the
+# one-rank server is allowed only where the one-rank run's top-2 logit
+# gap is at most twice that
+TP_TIE_MARGIN = 2 * SERVED_LOGIT_TOL
+
+
+def make_tp_requests(vocab, seed=5):
+    """8 greedy requests, prompts of 20..500 tokens."""
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randint(1, vocab, (n,), generator=gen).tolist(), None)
+            for n in (20, 48, 97, 130, 200, 255, 380, 500)]
+
+
+def serve_requests(srv, reqs, max_new, timeout=600):
+    """Every request through a started-and-stopped ``srv``: (results,
+    wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with srv:
+        rids = [srv.submit(p, max_new=max_new, sampling=sp) for p, sp in reqs]
+        res = [srv.result(r, timeout=timeout) for r in rids]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for r in res:
+        check(r is not None and r["state"] == "done"
+              and len(r["tokens"]) == max_new,
+              "request did not complete: %r" % (r and r.get("state"),))
+    return res, wall
+
+
+def _ttft_p50(res):
+    ttft = sorted(r["t_first"] - r["t_submit"] for r in res)
+    return 1e3 * ttft[len(ttft) // 2]
+
+
+def _cold_scheduler(mt, srv):
+    """A fresh scheduler (an empty prefix cache) on ``srv``'s warm pool:
+    the same prompts served twice would otherwise hit the cache the
+    first run filled and prefill through the chunk program the second
+    time, so two runs compare prefill for prefill."""
+    spec = srv.pool.spec
+    srv.sched = mt.serve.SlotScheduler(
+        spec.slots, spec.pages, spec.page_size, spec.max_pages_per_slot,
+        prefix_cache=srv.cfg.prefix_cache, ladder=srv.cfg.ladder)
+
+
+def control_plane_phase(mt, co, net, srv, reqs, res, wall, card):
+    """The control plane on the bf16 Llama-3-8B-width server of
+    ``serve_phase``: its telemetry gauges and SLO sketches, a transient
+    decode fault, an elastic drain, a two-replica ``ReplicaGroup`` with
+    one engine killed, the flight recorder; returns the tensor-parallel
+    phase's requests and their one-rank greedy tokens (the fault-free
+    control run)."""
+    import types
+    from mxnet_tpu_torch import fault, flightrec, profiler, telemetry
+    from mxnet_tpu_torch.serve_router import ReplicaGroup
+    fault.clear()
+    # room for every event of the phase (the default ring keeps 4096)
+    flightrec.configure(capacity=1 << 16)
+    sess = srv.attach_telemetry(telemetry.TelemetrySession())
+    gauges = {k: v for k, v in sess.payload()["full"].items()
+              if k in ("serve::queue_depth", "serve::running",
+                       "serve::free_pages")}
+    check(len(gauges) == 3, "control: gauges %s" % gauges)
+    slo = srv.slo_snapshot()
+    check(slo["latency_ms"]["count"] == len(res), "control: SLO counted "
+          "%d of %d requests" % (slo["latency_ms"]["count"], len(res)))
+    print("control: gauges %s; SLO over %d requests: latency p50/p95/p99 "
+          "%.1f/%.1f/%.1f ms, TTFT p50/p95/p99 %.1f/%.1f/%.1f ms, queued "
+          "p50/p95/p99 %.1f/%.1f/%.1f ms (sketch buckets: 12%% wide), "
+          "tokens/s in decode %.1f; serve phase's own TTFT p50 %.1f ms [%s]"
+          % (gauges, slo["latency_ms"]["count"],
+             *(slo[k][p] for k in ("latency_ms", "ttft_ms", "queued_ms")
+               for p in ("p50", "p95", "p99")), slo["tokens_per_s"],
+             _ttft_p50(res), card))
+    # the hooks cost: the same 16 requests again, gauges and an elastic
+    # runner attached (never fired), profiler off
+    runner = types.SimpleNamespace(on_resize=None)
+    srv.attach_elastic(runner)
+    hooked, hwall = serve_requests(srv, [(p, sp) for p, sp in reqs], 32)
+    ntok = sum(len(r["tokens"]) for r in res)
+    print("control: %d requests, %d tokens: %.1f tokens/s with the gauges "
+          "and the elastic hook attached, against %.1f tokens/s of the "
+          "serve phase in this run (the scheduler's flight-recorder and "
+          "counter hooks are on in both; every hook is host Python "
+          "between graph replays) [%s]"
+          % (len(reqs), ntok, ntok / hwall, ntok / wall, card))
+    # the fault-free control run of the tensor-parallel requests
+    tp_reqs = make_tp_requests(net.cfg.vocab_size)
+    _cold_scheduler(mt, srv)
+    control, _ = serve_requests(srv, tp_reqs, TP_MAX_NEW)
+    want = [list(r["tokens"]) for r in control]
+    # a transient decode failure mid-run: the step is dropped and replayed
+    _cold_scheduler(mt, srv)
+    before = profiler.get_counter("serve::decode_retries")
+    fault.inject("serve_decode_fail", at=6)
+    faulted, _ = serve_requests(srv, tp_reqs, TP_MAX_NEW)
+    fault.clear()
+    retries = profiler.get_counter("serve::decode_retries") - before
+    check(retries == 1, "control: %d decode retries, want 1" % retries)
+    check([list(r["tokens"]) for r in faulted] == want, "control: the "
+          "tokens after a transient decode fault differ from the "
+          "fault-free run")
+    print("control: serve_decode_fail at the 6th decode commit: 1 retry "
+          "(serve::decode_retries), the 8 requests' %d tokens equal the "
+          "fault-free run's bit for bit" % sum(map(len, want)))
+    # an elastic resize fired mid-decode: every slot drained and
+    # re-prefilled
+    fired = {"n": 0}
+
+    def on_decode(info):
+        fired["n"] += 1
+    runner = types.SimpleNamespace(on_resize=on_decode)
+    _cold_scheduler(mt, srv)
+    srv.attach_elastic(runner)
+    torch.cuda.synchronize()
+    with srv:
+        rids = [srv.submit(p, max_new=TP_MAX_NEW) for p, _ in tp_reqs]
+        t0 = time.monotonic()
+        while srv.sched.stats()["running"] < 4 \
+                and time.monotonic() - t0 < 60:
+            time.sleep(0.001)
+        drained_before = profiler.get_counter("serve::elastic_drains")
+        runner.on_resize(types.SimpleNamespace(gen=2, world=2))
+        drained = profiler.get_counter("serve::elastic_drains") \
+            - drained_before
+        mid = (srv.sched.check_conservation(), srv.sched.check_refcounts())
+        elastic = [srv.result(r, timeout=600) for r in rids]
+    check(fired["n"] == 1 and drained >= 1, "control: the elastic hook "
+          "drained %d slot(s), chained hook fired %d" % (drained,
+                                                          fired["n"]))
+    check(mid == ([], []) and srv.sched.check_conservation() == []
+          and srv.sched.check_refcounts() == [],
+          "control: conservation / refcounts after the drain %s" % (mid,))
+    check(all(r["state"] == "done" and len(r["tokens"]) == TP_MAX_NEW
+              for r in elastic), "control: a drained request did not "
+          "complete with its budget")
+    same = sum(list(r["tokens"]) == w for r, w in zip(elastic, want))
+    print("control: elastic drain mid-decode: %d slot(s) drained, every "
+          "request completed with its %d tokens, conservation and "
+          "refcounts clean; %d of %d requests' tokens equal the fault-free "
+          "run's bit for bit (a drained request re-prefills its tail "
+          "through the flash forward, not the decode's products)"
+          % (drained, TP_MAX_NEW, same, len(want)))
+    consistency_phase(net, tp_reqs, elastic, net.output.weight.device,
+                      tag="consistency elastic")
+    # two replicas over the same net (own pools and graphs), one killed
+    group = ReplicaGroup.build(net, serve_cfg=srv.cfg, replicas=2)
+    with group:
+        gids = [group.submit(p, max_new=TP_MAX_NEW) for p, _ in tp_reqs]
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 60:
+            live = {r["replica"] for r in group.requests().values()
+                    if r["state"] == "inflight"}
+            if {0, 1} <= live:
+                break
+            time.sleep(0.001)
+        fault.inject("serve_engine_kill", at=1)
+        routed = [group.result(g, timeout=600) for g in gids]
+    fault.clear()
+    ledger = group.delivery_log()
+    stats = group.stats()
+    check(len(ledger) == len(gids) and len({g for g, _ in ledger})
+          == len(gids), "control: delivery ledger %s" % (ledger,))
+    check([list(r["tokens"]) for r in routed] == want, "control: the "
+          "failed-over tokens differ from the fault-free run")
+    check(len(stats["dead"]) == 1, "control: replicas dead %s"
+          % (stats["dead"],))
+    print("control: ReplicaGroup of 2 replicas, serve_engine_kill on one: "
+          "dead %s, %d failover(s), %d deliveries for %d requests (each "
+          "once), tokens equal the fault-free run's bit for bit"
+          % (stats["dead"], stats["failovers"], len(ledger), len(gids)))
+    del group
+    gc.collect()
+    torch.cuda.empty_cache()
+    import tempfile
+    events = flightrec.events()
+    kinds = sorted({e["kind"] for e in events})
+    with tempfile.TemporaryDirectory(prefix="mx_flightrec_") as d:
+        path = flightrec.dump(os.path.join(d, "flightrec.rank0.json"),
+                              reason="chip_smoke")
+        with open(path) as f:
+            dumped = json.load(f)
+    check(dumped["flightrec"]["seq"] >= len(events) and "serve.decode_retry"
+          in kinds and "router.failover" in kinds, "control: flight "
+          "recorder kinds %s" % kinds)
+    print("control: flight recorder holds %d events (%d recorded, ring of "
+          "%d), kinds %s; its dump parses (%d events, %d counters)"
+          % (len(events), dumped["flightrec"]["seq"],
+             dumped["flightrec"]["capacity"], kinds,
+             len(dumped["flightrec"]["events"]), len(dumped["counters"])))
+    return tp_reqs, want
+
+
+# ----------------------------------------------------------------------
+# phase 19: tensor-parallel serving over ranks
+# ----------------------------------------------------------------------
+SERVE_TP_LAYERS = 32
+SERVE_TP_TIMEOUT_S = 600
+
+
+def _eager_program(pool, which):
+    """Run a pool program's captured function eagerly (both ranks of a
+    tensor-parallel replica, as a plan)."""
+    program = pool._decode if which == "decode" else pool._prefill[512]
+    with torch.no_grad():
+        program.fn()
+    return (pool._dec_out if which == "decode" else pool._pre_out).cpu()
+
+
+def _tp_step_inputs(pool, reqs, res):
+    import numpy as onp
+    S, MP = pool.spec.slots, pool.spec.max_pages_per_slot
+    table = onp.arange(1, 1 + S * MP, dtype=onp.int32).reshape(S, MP)
+    lengths = onp.array([min(len(p) + TP_MAX_NEW, MP * 128 - 1)
+                         for p, _ in reqs[:S]], onp.int32)
+    tokens = onp.array([r["tokens"][-1] for r in res[:S]], onp.int32)
+    prompt = onp.asarray(reqs[-1][0], onp.int32)          # 500 tokens
+    padded = onp.zeros(512, onp.int32)
+    padded[:len(prompt)] = prompt
+    row = onp.arange(41, 41 + MP, dtype=onp.int32)
+    return ({"page_table": table, "lengths": lengths, "tokens": tokens,
+             "active": onp.ones(S, bool)},
+            {"tokens_padded": padded, "page_row": row,
+             "true_len": len(prompt)})
+
+
+def serve_tp_rank(rank, out_dir, backend, world):
+    """One rank of the tensor-parallel serving phase (``chip_smoke.py
+    --serve-tp-rank R DIR BACKEND WORLD``): the Llama-3-8B-width model
+    from ``build_model``'s seed, a ``Server(mesh=create_mesh(tp=WORLD))``
+    in bf16 and int8 serving the 8 requests; rank 0, the leader, times
+    the decode and prefill programs and (NCCL: graphs) holds each
+    graph's replay against its eager function; a JSON report into DIR.
+    Rank r runs on card r % device_count."""
+    import torch.distributed as dist
+    if backend == "nccl":
+        # a collective's buffers are pool allocations of the graph that
+        # holds it: no cross-stream record on them
+        os.environ.setdefault("TORCH_NCCL_AVOID_RECORD_STREAMS", "1")
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(out_dir, "store"),
+                                      world), rank=rank, world_size=world)
+    mt, parallel, co, comm = ring_rank_modules()
+    from mxnet_tpu_torch import serve
+    mesh = parallel.create_mesh(tp=world)
+    dev = mesh.device
+    net = build_model(mt, dev, SERVE_TP_LAYERS)
+    report = {"rank": rank, "device": str(dev), "backend": mesh.backend,
+              "weights_sum": float(net.output.weight.detach().double()
+                                   .sum()),
+              "runs": {}}
+    reqs = make_tp_requests(net.cfg.vocab_size)
+    checks = []
+
+    def replay_vs_eager(pool, which, args):
+        program = {"decode": pool._decode, "prefill": pool._prefill[512],
+                   "chunk": pool._chunk[256]}[which]
+        run = (lambda: pool.run_decode(**args)) if which == "decode" \
+            else (lambda: pool.run_prefill(**args))
+        ok = _replay_vs_eager(pool, program, run)
+        checks.append((which, ok))
+        return ok
+    serve._RUN["replay_vs_eager"] = replay_vs_eager
+    serve._RUN["eager"] = _eager_program
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        scfg = mt.serve.ServeConfig(slots=8, page_size=128, pages=64,
+                                    ladder=(128, 256, 512),
+                                    max_new=TP_MAX_NEW, int8=int8)
+        dist.barrier()
+        t0 = time.monotonic()
+        srv = serve.Server(net, scfg, mesh=mesh)
+        run = {"init_s": time.monotonic() - t0,
+               "stats": dict(srv.pool.stats),
+               "pool_heads": int(srv.pool.k_pages.shape[2]),
+               "local_params": sum(p.numel() for p in net.parameters())}
+        checks.clear()
+        co.reset_launch_counts()
+        comm.reset_transport()
+        if srv.leader:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            srv.start()
+            rids = [srv.submit(p, max_new=TP_MAX_NEW) for p, _ in reqs]
+            res = [srv.result(r, timeout=SERVE_TP_TIMEOUT_S) for r in rids]
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            run["launches"] = dict(co.LAUNCHES)
+            run["transport"] = dict(comm.TRANSPORT)
+            run["tokens"] = [list(r["tokens"]) for r in res]
+            run["states"] = [r["state"] for r in res]
+            run["wall_s"] = wall
+            run["ttft_p50_ms"] = _ttft_p50(res)
+            dec, pre = _tp_step_inputs(srv.pool, reqs, res)
+            if srv.pool.stats["programs"]:
+                # each graph against its eager function first: the timed
+                # runs below rewrite the same K / V into the same pages
+                chunk = dict(pre, tokens_padded=pre["tokens_padded"][:256]
+                             .copy(), true_len=44, start=256)
+                # another prompt's tokens after the 256 cached ones, so
+                # the chunk writes K / V the prefill did not
+                chunk["tokens_padded"][:] = 0
+                chunk["tokens_padded"][:44] = reqs[-2][0][:44]
+                for which, args in (("decode", dec), ("prefill", pre),
+                                    ("chunk", chunk)):
+                    srv._run("replay_vs_eager", which=which, args=args)
+            # the programs one at a time, plans to the followers first
+            for name, kind, args, reps in (
+                    ("decode", "decode", dec, 5),
+                    ("decode eager", "eager", {"which": "decode"}, 5),
+                    ("prefill 512", "prefill", pre, 2),
+                    ("prefill 512 eager", "eager", {"which": "prefill"},
+                     2)):
+                out = srv._run(kind, **args)
+                torch.cuda.synchronize()
+                comm.reset_transport()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    out = srv._run(kind, **args)
+                    if isinstance(out, torch.Tensor):
+                        out = out.cpu()
+                torch.cuda.synchronize()
+                run[name] = {"ms": (time.perf_counter() - t0) * 1e3 / reps,
+                             "staged_bytes": comm.TRANSPORT["staged_bytes"]
+                             / reps,
+                             "staged_calls": comm.TRANSPORT["staged_calls"]
+                             / reps,
+                             "device_calls": comm.TRANSPORT["device_calls"]
+                             / reps}
+            srv.stop()
+        else:
+            srv.start()
+            srv.stop()          # returns at the leader's stop plan
+            run["launches"] = dict(co.LAUNCHES)
+            run["transport"] = dict(comm.TRANSPORT)
+        run["replay_vs_eager"] = list(checks)
+        report["runs"][tag] = run
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["imported_jax"] = any(m.split(".")[0] in ("jax", "jaxlib",
+                                                     "mxnet_tpu")
+                                 for m in sys.modules)
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _tp_gaps(net, reqs, tokens, dev, int8_layers=None):
+    """The one-rank teacher-forced top-2 logit gap at every generated
+    position of each request."""
+    from mxnet_tpu_torch.contrib.quantization import int8_weights
+    gaps = []
+    with torch.no_grad(), int8_weights(int8_layers or {}, "prefill"):
+        for (prompt, _), toks in zip(reqs, tokens):
+            seq = torch.tensor([prompt + toks[:-1]], device=dev)
+            logits = net(seq)[0, len(prompt) - 1:].float()
+            top2 = logits.topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).tolist())
+    return gaps
+
+
+def serve_tp_phase(mt, co, net, dev, card, reqs, one_rank, backend="gloo",
+                   world=2):
+    """Tensor-parallel serving over ``world`` ranks (gloo ranks sharing
+    the one card, or NCCL ranks one a card with ``--ring-nccl``): the
+    leader's tokens against the one-rank server's (``one_rank``: {"bf16":
+    tokens, "int8": tokens}) wherever the one-rank top-2 gap exceeds
+    TP_TIE_MARGIN, and through the teacher-forced forward
+    (``consistency_phase``); per-rank figures; returns rank 0's serving
+    launches {"bf16": ..., "int8": ...}."""
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mx_serve_tp_") as out_dir:
+        wall = _run_ranks(out_dir, backend, world, "--serve-tp-rank")
+        reports = []
+        for r in range(world):
+            with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+                reports.append(json.load(f))
+    tag0 = "serve_tp %s tp=%d" % (backend, world)
+    check(not any(rep["imported_jax"] for rep in reports),
+          "%s: a rank child imported JAX" % tag0)
+    ref_sum = float(net.output.weight.detach().double().sum())
+    check(all(rep["weights_sum"] == ref_sum for rep in reports),
+          "%s: the ranks' weights differ from this process's" % tag0)
+    print("%s: %d ranks on %s, %d layers of Llama-3-8B width; %.1f s in "
+          "all, model build and rank start-up included [%s]"
+          % (tag0, world, ", ".join(sorted({r["device"] for r in reports})),
+             SERVE_TP_LAYERS, wall, card))
+    out = {}
+    int8_layers = None
+    for tag in ("bf16", "int8"):
+        lead = reports[0]["runs"][tag]
+        tokens = lead["tokens"]
+        check(all(s == "done" for s in lead["states"])
+              and all(len(t) == TP_MAX_NEW for t in tokens),
+              "%s %s: requests did not complete" % (tag0, tag))
+        stats = lead["stats"]
+        graphs = backend == "nccl"
+        on_card = reports[0]["device"].startswith("cuda")
+        check(stats["programs"] == (1 + 2 * 3 if graphs else 0)
+              and (stats["eager"] is not None) == (on_card and not graphs),
+              "%s %s: programs %s" % (tag0, tag, stats))
+        for rep in reports:
+            run = rep["runs"][tag]
+            kernels = ("flash_fwd", "paged_decode") + (
+                ("int8_linear", "int8_dequant") if tag == "int8" else ())
+            check(all(run["launches"][k] > 0 for k in kernels),
+                  "%s %s rank %d: a kernel of the path was not launched: %s"
+                  % (tag0, tag, rep["rank"], run["launches"]))
+            check(len(run["replay_vs_eager"]) == (3 if graphs else 0)
+                  and all(ok for _, ok in run["replay_vs_eager"]),
+                  "%s %s rank %d: a graph's replay differs from its eager "
+                  "function" % (tag0, tag, rep["rank"]))
+        if tag == "int8":
+            int8_layers = mt.serve._int8_layers(net)
+        gaps = _tp_gaps(net, reqs, one_rank[tag], dev, int8_layers)
+        equal = flips = 0
+        for i, (got, want) in enumerate(zip(tokens, one_rank[tag])):
+            for pos, (a, b) in enumerate(zip(got, want)):
+                if a != b:
+                    flips += 1
+                    check(gaps[i][pos] <= TP_TIE_MARGIN,
+                          "%s %s request %d position %d: token %d against "
+                          "the one-rank %d where its top-2 gap is %.4f "
+                          "(margin %.2f)" % (tag0, tag, i, pos, a, b,
+                                             gaps[i][pos], TP_TIE_MARGIN))
+                    break
+                equal += 1
+        consistency_phase(net, reqs, [{"tokens": t} for t in tokens], dev,
+                          int8_layers if tag == "int8" else None,
+                          tag="consistency %s %s" % (tag0, tag))
+        ntok = sum(map(len, tokens))
+        print("%s %s: %d requests, %d tokens in %.3f s = %.1f tokens/s, "
+              "TTFT p50 %.1f ms; programs %d%s%s; %d positions equal the "
+              "one-rank server's, %d request(s) part at a near-tie (top-2 "
+              "gap <= %.2f) [%s]"
+              % (tag0, tag, len(tokens), ntok, lead["wall_s"],
+                 ntok / lead["wall_s"], lead["ttft_p50_ms"],
+                 stats["programs"], " (eager: %s)" % stats["eager"]
+                 if stats["eager"] else "", "; every rank's decode, "
+                 "prefill 512 and chunk 256 replays equal their eager "
+                 "functions bit for bit" if graphs else "", equal, flips,
+                 TP_TIE_MARGIN,
+                 card))
+        for name in ("decode", "decode eager", "prefill 512",
+                     "prefill 512 eager"):
+            t = lead[name]
+            print("%s %s %s: %.2f ms (leader, plans to the followers "
+                  "included), staged %.2f MB in %.1f calls, %.1f device "
+                  "calls a step [%s]"
+                  % (tag0, tag, name, t["ms"], t["staged_bytes"] / 1e6,
+                     t["staged_calls"], t["device_calls"], card))
+        for rep in reports:
+            run = rep["runs"][tag]
+            print("%s %s rank %d: KV heads %d, %.3f G local params, pool "
+                  "init %.2f s; launches %s %s; transport %s"
+                  % (tag0, tag, rep["rank"], run["pool_heads"],
+                     run["local_params"] / 1e9, run["init_s"],
+                     "of the serving run" if rep["rank"] == 0 else
+                     "of the serving run and the timed plans",
+                     {k: v for k, v in run["launches"].items() if v},
+                     {k: (round(v, 1) if isinstance(v, float) else v)
+                      for k, v in run["transport"].items()}))
+        out[tag] = lead["launches"]
+    return out
+
+
 def _short_names(obj, width=48):
     """``obj`` with every dict key cut to ``width`` characters (the times
     of kernels whose names then coincide summed): the kernels line keeps
@@ -3642,6 +4133,8 @@ def main(argv):
     sys.path.insert(0, root)
     if argv[1:2] == ["--ring-rank"]:      # a child of ring_phase
         return ring_rank(int(argv[2]), *argv[3:5])
+    if argv[1:2] == ["--serve-tp-rank"]:  # a child of serve_tp_phase
+        return serve_tp_rank(int(argv[2]), argv[3], argv[4], int(argv[5]))
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import cuda_ops as co
@@ -3667,13 +4160,39 @@ def main(argv):
         return 0
     if argv[1:] == ["--ring-nccl"]:
         # only the rank children's phases (ring, ep, dp_tp, pipeline,
-        # kvstore), one NCCL rank a card (needs 4)
+        # kvstore), one NCCL rank a card (needs 4), then the
+        # tensor-parallel server at tp=2 and tp=4 with its collectives
+        # inside the captured graphs
         check(torch.cuda.device_count() >= RING_WORLD,
               "--ring-nccl needs %d cards" % RING_WORLD)
         ring_phase(co, dev, card, "nccl")
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = build_model(mt, dev, SERVE_TP_LAYERS)
+        tp_reqs = make_tp_requests(net.cfg.vocab_size)
+        one = {}
+        for int8 in (False, True):
+            srv = mt.serve.Server(net, mt.serve.ServeConfig(
+                slots=8, page_size=128, pages=64, ladder=(128, 256, 512),
+                max_new=TP_MAX_NEW, int8=int8))
+            res, wall = serve_requests(srv, tp_reqs, TP_MAX_NEW)
+            one["int8" if int8 else "bf16"] = [list(r["tokens"])
+                                               for r in res]
+            print("serve_tp one-rank %s: %.1f tokens/s, TTFT p50 %.1f ms "
+                  "[%s]" % ("int8" if int8 else "bf16",
+                            sum(len(r["tokens"]) for r in res) / wall,
+                            _ttft_p50(res), card))
+            del srv
+            gc.collect()
+            torch.cuda.empty_cache()
+        for world in (2, 4):
+            serve_tp_phase(mt, co, net, dev, card, tp_reqs, one, "nccl",
+                           world)
+        print(card)
         return 0
     check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing | "
-          "--ring-nccl | --ring-rank RANK DIR [BACKEND]]")
+          "--ring-nccl | --ring-rank RANK DIR [BACKEND] | --serve-tp-rank "
+          "RANK DIR BACKEND WORLD]")
     ptxas_report(_build)
 
     flash = flash_phase(co, dev)
@@ -3690,19 +4209,29 @@ def main(argv):
     print("model: llama3_8b_config widths, %d layers, %.2f GB of bf16 "
           "weights" % (n_layers, sum(p.numel() for p in net.parameters())
                        * 2 / 1e9))
-    srv, reqs, res, serve_launches = serve_phase(mt, co, net, dev, card)
+    srv, reqs, res, serve_launches, wall = serve_phase(mt, co, net, dev,
+                                                       card)
     consistency_phase(net, reqs, res, dev)
     graph_phase(srv, reqs, res, "serve")
     step_timing(srv, reqs, res, card)
+    tp_reqs, one_bf16 = control_plane_phase(mt, co, net, srv, reqs, res,
+                                            wall, card)
     del srv
     gc.collect()
     torch.cuda.empty_cache()
-    srv, reqs, res, serve_int8_launches = serve_phase(mt, co, net, dev, card,
-                                                      int8=True)
+    srv, reqs, res, serve_int8_launches, _ = serve_phase(mt, co, net, dev,
+                                                         card, int8=True)
     consistency_phase(net, reqs, res, dev, srv.pool.int8)
     graph_phase(srv, reqs, res, "serve int8")
     step_timing(srv, reqs, res, card, "serve int8")
-    del srv, net                  # free the serving model for training
+    one_int8 = [list(r["tokens"]) for r in
+                serve_requests(srv, tp_reqs, TP_MAX_NEW)[0]]
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tp = serve_tp_phase(mt, co, net, dev, card, tp_reqs,
+                              {"bf16": one_bf16, "int8": one_int8})
+    del net                       # free the serving model for training
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, lm_adamw = train_phase(mt, co, dev, card)
@@ -3746,8 +4275,12 @@ def main(argv):
              "resnet": resnet_launches, "ring": ring_launches,
              "moe": moe_launches, "remat": remat_launches,
              "checkpoint": ckpt_launches, "dp_tp": dp_tp_launches,
-             "pipeline": pipe_launches, "kvstore": kv_launches}
+             "pipeline": pipe_launches, "kvstore": kv_launches,
+             "serve_tp": serve_tp["bf16"], "serve_tp_int8": serve_tp["int8"]}
     for path, kernels_of_path in (
+            ("serve_tp", ("flash_fwd", "paged_decode")),
+            ("serve_tp_int8", ("flash_fwd", "paged_decode", "int8_linear",
+                               "int8_dequant")),
             ("dp_tp", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                        "multi_adam")),
             ("pipeline", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),

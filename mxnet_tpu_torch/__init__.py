@@ -10,8 +10,12 @@ over torch autograd), ``initializer`` (also ``init``), ``gluon``
 ranks, parameter sharding, ``TrainStep``, the pipeline, ring attention,
 the MoE), ``models`` (the Llama-class
 ``TransformerLM`` and its paged KV cache, BERT), ``serve`` (the
-continuous-batching server) and ``convert`` (weights to and from the
-JAX package, as numpy), and the imperative MXNet surface: ``nd``
+continuous-batching server, tensor-parallel over a mesh) and
+``convert`` (weights to and from the JAX package, as numpy); the control
+plane ``profiler``, ``telemetry``, ``flightrec`` and ``fault`` (loaded on
+first use, as the JAX package's lazy table loads them; ``serve_router``
+is imported as ``mxnet_tpu_torch.serve_router``, as there); and the
+imperative MXNet surface: ``nd``
 (``NDArray``), ``np`` (with ``np.random``), ``npx``, ``engine`` and the
 contexts ``cpu()`` / ``gpu()``.  ``import mxnet_tpu_torch as mx`` reads
 like the JAX package.  It imports ``torch`` and never ``jax`` or
@@ -40,3 +44,16 @@ npx = numpy_extension
 random = numpy.random
 
 __version__ = "2.0.0.torch0"
+
+#: the control-plane modules, loaded on first attribute access
+_LAZY = {"profiler": ".profiler", "telemetry": ".telemetry",
+         "flightrec": ".flightrec", "fault": ".fault"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module(_LAZY[name], __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -107,7 +107,8 @@ class Dense(HybridBlock):
         if self.bias is not None:
             finish_deferred_init(self.bias, (self._units,))
         if _sharding.placement(self.weight) is not None:
-            out = _sharding.linear(x, self.weight, self.bias, self._flatten)
+            out = _sharding.linear(x, self.weight, self.bias, self._flatten,
+                                   layer=self)
             return out if self._activation is None else \
                 F.activation(out, self._activation)
         out = int8_forward(self, x, self.bias, self._flatten)

@@ -31,10 +31,17 @@ check, so a raising step leaves every weight as it was; ``update`` and
 ``allreduce_grads`` then raise ``ValueError``, and ``save_states`` /
 ``load_states`` go through the store.
 
+The profiler's step seams are the reference's (``gluon/trainer.py``
+:166-194, :303-358): with ``profile_imperative`` on, ``step`` records
+``Trainer::step`` (and bumps ``trainer::steps``), the gradient sum
+``Trainer::allreduce`` and the update ``Trainer::update``; with
+``profile_memory`` each step samples the cards' memory.  Off, each seam
+costs one flag read.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: ``skip_nonfinite`` (ROADMAP queue 4).  The port has no AMP
-loss scaler, fault guard or profiler hook to attach yet (ROADMAP queues
-2 and 4), nor the elastic ``reset_kvstore`` (queue 4).
+loss scaler or fault guard to attach yet (ROADMAP queues 2 and 4), nor
+the elastic ``reset_kvstore`` (queue 4).
 
 ``save_states`` / ``load_states`` (:403, :428) write and read the
 optimizer states as one npz with the JAX Trainer's keys: ``s<i>_<j>``
@@ -49,6 +56,7 @@ import torch
 from torch import nn
 
 from .. import optimizer as opt_mod
+from .. import profiler as _profiler
 from ..utils import serialization
 
 __all__ = ["Trainer"]
@@ -148,10 +156,15 @@ class Trainer:
         kv = self._kvstore
         if kv is None or kv.num_workers <= 1:
             return
+        prof_t0 = _profiler._now_us() if _profiler._STEP else None
         for i, p in enumerate(self._params):
             if p.requires_grad and p.grad is not None:
                 g = p.grad()
                 kv.pushpull(i, g, out=g, priority=-i)
+        if prof_t0 is not None:
+            _profiler.record_duration(
+                "Trainer::allreduce", "trainer", prof_t0,
+                _profiler._now_us() - prof_t0)
 
     def step(self, batch_size, ignore_stale_grad=False,
              skip_nonfinite=False):
@@ -162,14 +175,23 @@ class Trainer:
         if skip_nonfinite:
             raise _not_ported("skip_nonfinite (the non-finite-step guard)",
                               4)
+        prof_t0 = _profiler._now_us() if _profiler._STEP else None
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         if self._on_kvstore():
             self._step_on_kvstore(ignore_stale_grad)
-            return
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
+        else:
+            self._allreduce_grads()
+            self._update(ignore_stale_grad)
+        if prof_t0 is not None:
+            _profiler.record_duration(
+                "Trainer::step", "trainer", prof_t0,
+                _profiler._now_us() - prof_t0,
+                args={"batch_size": batch_size})
+            _profiler.counter_add("trainer::steps", 1, cat="trainer")
+        if _profiler._MEMORY:  # profile_memory alone samples too
+            _profiler.record_memory()
 
     def _fresh(self, ignore_stale_grad):
         """Indices of the trainable parameters with a fresh gradient;
@@ -219,6 +241,7 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad):
+        prof_t0 = _profiler._now_us() if _profiler._STEP else None
         fresh = self._fresh(ignore_stale_grad)
         for i in fresh:
             if self._states[i] is None:
@@ -231,6 +254,10 @@ class Trainer:
                 [self._params[i].grad for i in fresh],
                 [self._states[i] for i in fresh])
         self._consume(fresh)
+        if prof_t0 is not None:
+            _profiler.record_duration(
+                "Trainer::update", "trainer", prof_t0,
+                _profiler._now_us() - prof_t0)
 
     def _init_states(self):
         for i, p in enumerate(self._params):

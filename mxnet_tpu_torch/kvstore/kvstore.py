@@ -17,17 +17,33 @@ A dist store sums over the ranks of the default process group with
 under gloo); the launcher sets the group up
 (``torch.distributed.init_process_group``).  A value is an ``NDArray``
 or a tensor; ``out`` is written in place (a parameter's ``data()`` stays
-the parameter's storage).  The reference's fault-runtime wrapping of
-each op (``_retrying``: ``retry_call`` / ``coordinated_call``) and its
-profiler spans are not ported yet (ROADMAP queue 4).
+the parameter's storage).
+
+Each op goes through the fault runtime as the reference's
+``_retrying`` does (``kvstore/kvstore.py:33-90``): the armed-fault seam
+(``fault.kvstore_check``) fires at the entry of every attempt, and a
+transient failure is retried with backoff (``fault.retry_call``,
+counters ``fault::retries`` / ``fault::gave_up``); a push or pushpull
+with an optimizer or updater retries only an entry-seam
+``InjectedFault`` (a re-run would apply the gradient twice).  A store
+over more than one worker does not retry alone: a solo retry would
+re-enter a collective its peers have left, and the coordinated retry
+(``fault_dist.coordinated_call``) waits for ROADMAP queue 4, so there
+a failure reaches the caller.  With ``profile_kvstore`` on, the ops
+record the reference's spans (``KVStore::push`` / ``pull`` /
+``pushpull`` / ``reduce``) and the ``kvstore::push_bytes`` /
+``pull_bytes`` counters.
 """
 from __future__ import annotations
 
+import functools
 import pickle
 
 import torch
 import torch.distributed as dist
 
+from .. import fault as _fault
+from .. import profiler as _profiler
 from ..ndarray.ndarray import NDArray
 from ..utils.serialization import CorruptCheckpointError, atomic_write
 from .base import KVStoreBase
@@ -38,8 +54,33 @@ _TYPES = ("local", "device", "nccl", "dist_sync", "dist_device_sync",
           "dist_async", "dist", "p3", "horovod", "byteps")
 
 
+def _retrying(op, mutating=False):
+    """Run a store op under the fault runtime (module docstring)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            def attempt():
+                _fault.kvstore_check(op)
+                return fn(self, *args, **kwargs)
+            if self.num_workers > 1:
+                return attempt()
+            is_mutating = mutating and (self._updater is not None
+                                        or self._optimizer is not None)
+            policy = _fault.entry_only_policy() if is_mutating \
+                else _fault.mutating_policy()
+            return _fault.retry_call(attempt, op="KVStore.%s" % op,
+                                     policy=policy)
+        return wrapper
+    return deco
+
+
 def _t(v):
     return v._data if isinstance(v, NDArray) else v
+
+
+def _nbytes(value):
+    """Payload bytes of a value or a per-device list of them."""
+    return sum(_t(v).numel() * _t(v).element_size() for v in _aslist(value))
 
 
 def _aslist(v):
@@ -118,6 +159,7 @@ class KVStore(KVStoreBase):
         """Sum the per-device copies, pass the sum through the
         compression round trip (a pushed gradient of a known key), then
         sum over the workers."""
+        prof_t0 = _profiler._now_us() if _profiler._KVSTORE else None
         vals = _aslist(value)
         acc = _t(vals[0]).detach().clone()
         for v in vals[1:]:
@@ -126,6 +168,11 @@ class KVStore(KVStoreBase):
             acc = self._compression.roundtrip(key, acc)
         if self.num_workers > 1:
             acc = _host_collective(acc, dist.all_reduce)
+        if prof_t0 is not None:
+            _profiler.record_duration(
+                "KVStore::reduce", "kvstore", prof_t0,
+                _profiler._now_us() - prof_t0,
+                args={"key": str(key), "devices": len(vals)})
         return acc
 
     def _apply(self, k, summed):
@@ -146,8 +193,14 @@ class KVStore(KVStoreBase):
                 "%s key %r: value shape %s does not match stored shape %s"
                 % (op, k, tuple(summed.shape), tuple(self._store[k].shape)))
 
+    @_retrying("push", mutating=True)
     def push(self, key, value, priority=0):
+        prof_t0 = _profiler._now_us() if _profiler._KVSTORE else None
         keys, values = self._normalize(key, value)
+        if prof_t0 is not None:
+            _profiler.counter_add("kvstore::push_bytes",
+                                  sum(_nbytes(v) for v in values),
+                                  cat="kvstore")
         for k, v in zip(keys, values):
             # the first push of an unseen key stores a value: never
             # compressed (the reference compresses gradient pushes only)
@@ -157,19 +210,38 @@ class KVStore(KVStoreBase):
                 continue
             self._check_shape("push", k, summed)
             self._apply(k, summed)
+        if prof_t0 is not None:
+            _profiler.record_duration(
+                "KVStore::push", "kvstore", prof_t0,
+                _profiler._now_us() - prof_t0, args={"keys": len(keys)})
 
+    @_retrying("pull")
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        prof_t0 = _profiler._now_us() if _profiler._KVSTORE else None
         keys, outs = self._normalize(key, out)
         for k, o in zip(keys, outs):
             if k not in self._store:
                 raise KeyError("key %s has not been initialized" % k)
             for dst in _aslist(o):
                 _write(dst, self._store[k]._data)
+        if prof_t0 is not None:
+            _profiler.counter_add("kvstore::pull_bytes",
+                                  sum(_nbytes(o) for o in outs),
+                                  cat="kvstore")
+            _profiler.record_duration(
+                "KVStore::pull", "kvstore", prof_t0,
+                _profiler._now_us() - prof_t0, args={"keys": len(keys)})
 
+    @_retrying("pushpull", mutating=True)
     def pushpull(self, key, value, out=None, priority=0):
         """Fused push and pull: ``out`` gets the fresh aggregate, or the
         updated weight with an updater / optimizer."""
+        prof_t0 = _profiler._now_us() if _profiler._KVSTORE else None
         keys, values = self._normalize(key, value)
+        if prof_t0 is not None:
+            _profiler.counter_add("kvstore::push_bytes",
+                                  sum(_nbytes(v) for v in values),
+                                  cat="kvstore")
         fresh = {}
         for k, v in zip(keys, values):
             summed = self._reduce(v, key=k if k in self._store else None)
@@ -184,7 +256,16 @@ class KVStore(KVStoreBase):
             for k, o in zip(keys, outs):
                 for dst in _aslist(o):
                     _write(dst, fresh[k])
+            if prof_t0 is not None:
+                _profiler.counter_add("kvstore::pull_bytes",
+                                      sum(_nbytes(o) for o in outs),
+                                      cat="kvstore")
+        if prof_t0 is not None:
+            _profiler.record_duration(
+                "KVStore::pushpull", "kvstore", prof_t0,
+                _profiler._now_us() - prof_t0, args={"keys": len(keys)})
 
+    @_retrying("broadcast")
     def broadcast(self, key, value, out, priority=0):
         """Worker 0's value to every worker, stored, then into ``out``."""
         keys, values = self._normalize(key, value)

@@ -18,6 +18,13 @@ Unlike the JAX module, whose updates are functional, the pools here
 live on the device and the ``write_*`` functions update them **in
 place** with ``index_put_``: nothing is copied per step, and the
 caller keeps using the same two tensors.
+
+A tensor-parallel replica (``serve.Server(mesh=)``) splits the pools
+over their ``H_kv`` axis, the reference's ``PartitionSpec(None, None,
+"tp", None, None)`` through ``_valid_spec``: each rank's pools hold its
+``H_kv / tp`` heads (:func:`local_kv_heads`; ``CacheSpec.n_kv_heads``
+is that local count), and where ``tp`` does not divide ``H_kv`` they
+stay whole, the same on every rank.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import torch
 
 from ..context import resolve_device
 
-__all__ = ["TRASH_PAGE", "CacheSpec", "init_pools", "write_prompt",
+__all__ = ["TRASH_PAGE", "CacheSpec", "init_pools", "local_kv_heads",
+           "write_prompt",
            "write_chunk", "write_token", "prompt_index", "chunk_index",
            "token_index", "scatter", "CacheView"]
 
@@ -40,7 +48,7 @@ class CacheSpec:
     """Static shape of a paged cache pool (one serving replica)."""
 
     n_layers: int
-    n_kv_heads: int
+    n_kv_heads: int       # the heads THIS rank's pools hold
     head_dim: int
     slots: int            # batch slots (S)
     pages: int            # pool pages (P), page 0 reserved as trash
@@ -55,6 +63,16 @@ class CacheSpec:
     def pages_for(self, tokens):
         """Pages needed to hold ``tokens`` cache entries."""
         return -(-int(tokens) // self.page_size)
+
+
+def local_kv_heads(n_kv_heads, mesh=None):
+    """The KV heads one rank's pools hold: ``n_kv_heads / tp`` when the
+    mesh's ``tp`` axis divides ``n_kv_heads``, else all of them
+    (replicated), as ``_valid_spec`` gives the reference's pool spec."""
+    if mesh is None or "tp" not in mesh.shape:
+        return n_kv_heads
+    tp = mesh.axis_size("tp")
+    return n_kv_heads // tp if n_kv_heads % tp == 0 else n_kv_heads
 
 
 def init_pools(spec: CacheSpec, device=None):

@@ -60,6 +60,7 @@ import torch
 
 from .. import initializer as init_mod
 from ..context import resolve_device
+from ..contrib.quantization import int8_forward
 from ..gluon.block import Block
 from ..gluon.nn import Dense, Embedding, RMSNorm
 from ..gluon.parameter import Parameter
@@ -163,6 +164,22 @@ def _megatron_axis(col, row, n_split=1):
     return mesh, ax, mesh.axis_size(ax)
 
 
+def _dense(layer, x):
+    """``x W^T`` with ``layer``'s (local block of its) weight, or with its
+    int8 weight inside a ``contrib.quantization.int8_weights`` scope (the
+    serving programs)."""
+    y = int8_forward(layer, x, None, False)
+    return F.dense(x, layer.weight) if y is None else y
+
+
+def _pick_heads(t, sel, dim):
+    """The heads ``sel`` of ``t`` along ``dim`` (all of them for None),
+    stacked by device copies only, so a captured program can hold it."""
+    if sel is None:
+        return t
+    return torch.stack([t.select(dim, h) for h in sel], dim)
+
+
 def _kv_heads_read(rank, hq, rep):
     """The KV heads that query heads ``rank*hq ..`` read, in the order
     the flash kernel's GQA grouping maps them: the distinct heads when
@@ -199,11 +216,11 @@ class Attention(Block):
         cfg = self.cfg
         B, T, _ = x.shape
         hd, nh, nkv = self.head_dim, cfg.n_heads, cfg.n_kv_heads
-        if cache is None:
-            tp = _megatron_axis([self.wq.weight, self.wk.weight,
-                                 self.wv.weight], [self.wo.weight], nh)
-            if tp is not None:
-                return self._forward_tp(x, *tp)
+        tp = _megatron_axis([self.wq.weight, self.wk.weight,
+                             self.wv.weight], [self.wo.weight], nh)
+        if tp is not None:
+            return self._forward_tp(x, *tp) if cache is None else \
+                self._forward_tp_cached(x, cache, *tp)
         if cache is not None:
             # serving (no gradient): one cast for the three products, whose
             # own casts are then no-ops
@@ -259,7 +276,35 @@ class Attention(Block):
         return _compat.psum(F.dense(o.to(self.wo.weight.dtype),
                                     self.wo.weight), ax, mesh)
 
-    def _forward_cached(self, q, k, v, cache):
+    def _forward_tp_cached(self, x, cache, mesh, ax, n):
+        """The Megatron path through a paged KV cache (serving), on this
+        rank's ``n_heads / n`` local query heads: q / k / v
+        column-parallel into the flash or paged kernel, whose pools hold
+        the rank's KV heads (``n_kv_heads / n``; all of them where ``n``
+        does not divide ``n_kv_heads``: K and V are then gathered, every
+        rank writes the whole pools, and attention reads the KV heads
+        its query heads read), then wo row-parallel, ending in one
+        ``psum``.  No gradient."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        hd, nh, nkv = self.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hq, rank = nh // n, mesh.axis_index(ax)
+        x = x.to(self.wq.weight.dtype)
+        q = _dense(self.wq, x).view(B, T, hq, hd)
+        k, v = _dense(self.wk, x), _dense(self.wv, x)
+        sel = None
+        if nkv % n == 0:
+            k, v = (t.view(B, T, nkv // n, hd) for t in (k, v))
+        else:
+            k, v = (_compat.all_gather(t, -1, ax, mesh).view(B, T, nkv, hd)
+                    for t in (k, v))
+            sel = _kv_heads_read(rank, hq, nh // nkv)
+            if sel == list(range(nkv)):
+                sel = None
+        o = self._forward_cached(q, k, v, cache, sel)
+        return _compat.psum(_dense(self.wo, o), ax, mesh)
+
+    def _forward_cached(self, q, k, v, cache, sel=None):
         """Prefill / chunk / decode through a paged KV cache (``serve``).
 
         Prefill: the prompt attends causally over its own K/V (no cache
@@ -272,10 +317,16 @@ class Attention(Block):
         cache.  The pools on ``cache`` are updated in place.  ``true_len``
         and ``start`` may be 0-dim int32 tensors on the pools' device (a
         serving program reads them there) or Python ints; the last
-        logit row is then read with a device index by the caller."""
+        logit row is then read with a device index by the caller.
+
+        ``q`` holds the query heads this call computes and ``k`` / ``v``
+        the heads the pools hold (all of the model's, or a
+        tensor-parallel rank's); ``sel`` names the pool heads the query
+        heads read, in the kernels' GQA grouping (None: all of them).
+        """
         cfg = self.cfg
         B, T = q.shape[0], q.shape[1]
-        hd, nh, nkv = self.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hd, nh, nkv = self.head_dim, q.shape[2], k.shape[2]
         theta, layer, psz = cfg.rope_theta, self.layer_idx, cache.page_size
         dev = q.device
         if cache.mode == "decode":
@@ -300,8 +351,10 @@ class Attention(Block):
         if cache.mode == "prefill":
             _kvc.scatter(cache.k, layer, index, k[0])
             _kvc.scatter(cache.v, layer, index, v[0])
-            o = flash_attention(_heads_first(q), _heads_first(k),
-                                _heads_first(v), causal=True)
+            o = flash_attention(_heads_first(q),
+                                _heads_first(_pick_heads(k, sel, 2)),
+                                _heads_first(_pick_heads(v, sel, 2)),
+                                causal=True)
             return o.transpose(1, 2).reshape(B, T, nh * hd)
         if cache.mode == "chunk":
             _kvc.scatter(cache.k, layer, index, k[0])
@@ -315,9 +368,11 @@ class Attention(Block):
                 MP * psz, nkv, hd)
             vpre = cache.v[layer, row].transpose(1, 2).reshape(
                 MP * psz, nkv, hd)
-            rep = nh // nkv
-            kk = torch.cat([kpre, k[0]], 0).repeat_interleave(rep, 1)
-            vv = torch.cat([vpre, v[0]], 0).repeat_interleave(rep, 1)
+            kk = _pick_heads(torch.cat([kpre, k[0]], 0), sel, 1)
+            vv = _pick_heads(torch.cat([vpre, v[0]], 0), sel, 1)
+            rep = nh // kk.shape[1]
+            kk = kk.repeat_interleave(rep, 1)
+            vv = vv.repeat_interleave(rep, 1)
             scores = torch.einsum("tnd,snd->nts", q[0].float(),
                                   kk.float()) / math.sqrt(hd)
 
@@ -336,8 +391,10 @@ class Attention(Block):
         _kvc.scatter(cache.v, layer, index, v[:, 0])
         ctx = cache.memo("ctx", lambda: torch.where(
             cache.active, lengths + 1, lengths))
-        o = paged_attention(q[:, 0].contiguous(), cache.k[layer],
-                            cache.v[layer], cache.page_table, ctx)
+        o = paged_attention(q[:, 0].contiguous(),
+                            _pick_heads(cache.k[layer], sel, 1),
+                            _pick_heads(cache.v[layer], sel, 1),
+                            cache.page_table, ctx)
         return o.reshape(B, T, nh * hd)
 
 
@@ -360,8 +417,9 @@ class FeedForward(Block):
             mesh, ax, _ = tp
             w1, w3, w2 = self.w1.weight, self.w3.weight, self.w2.weight
             x = _compat.psum_grad(x.to(w1.dtype), ax, mesh)
-            h = F.activation(F.dense(x, w1).float(), "silu") * F.dense(x, w3)
-            return _compat.psum(F.dense(h.to(w2.dtype), w2), ax, mesh)
+            h = F.activation(_dense(self.w1, x).float(), "silu") \
+                * _dense(self.w3, x)
+            return _compat.psum(_dense(self.w2, h.to(w2.dtype)), ax, mesh)
         # the gate product in float32, as the JAX bf16 model computes it
         # (the product promotes w3's output to float32)
         return self.w2(F.activation(self.w1(x).float(), "silu")

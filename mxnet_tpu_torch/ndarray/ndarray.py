@@ -31,6 +31,7 @@ import numpy as onp
 import torch
 
 from .. import engine
+from .. import profiler as _profiler
 from ..context import Context, current_context, resolve_device
 
 __all__ = ["NDArray", "apply_op", "array", "zeros", "ones", "full", "empty",
@@ -119,7 +120,11 @@ def apply_op(fn, inputs, name=None, out=None):
     and wrap its tensor results as NDArrays (a tuple or list gives a
     list).  Under ``autograd.record()`` torch records the op.  With
     ``out`` the result is written into that NDArray.  Under
-    NaiveEngine the op waits for its outputs before it returns."""
+    NaiveEngine the op waits for its outputs before it returns.  With
+    the profiler running and ``profile_imperative`` on, each call records
+    one op-dispatch event (host time; the device trace has the kernels'),
+    as the reference's seam does; off, the cost is one flag read."""
+    prof_t0 = _profiler._now_us() if _profiler._IMPERATIVE else None
     args = [x._data if isinstance(x, NDArray) else
             x if isinstance(x, torch.Tensor) else as_tensor(x)
             for x in inputs]
@@ -130,6 +135,11 @@ def apply_op(fn, inputs, name=None, out=None):
         engine._sync_outputs([r for r in outs if isinstance(r, torch.Tensor)])
     wrapped = [NDArray(r) if isinstance(r, torch.Tensor) else r
                for r in outs]
+    if prof_t0 is not None:
+        _profiler.record_duration(
+            name or getattr(fn, "__name__", "op"), "operator",
+            prof_t0, _profiler._now_us() - prof_t0,
+            args={"inputs": len(args), "outputs": len(outs)})
     if out is not None:
         if multi:
             raise ValueError("out= only supported for single-output ops")

@@ -42,7 +42,9 @@ where it launches and nowhere else, so a run can show which kernels its
 main path went through (:func:`reset_launch_counts` before, read after).
 A CUDA graph (:func:`capture_graph`) records the counts its capture
 added and adds them again on every replay (:func:`replay_graph`), so the
-count keeps its meaning when a path runs as graphs.
+count keeps its meaning when a path runs as graphs; the collectives'
+``parallel._compat.TRANSPORT`` counts a capture holds are carried the
+same way.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ from . import _build
 __all__ = ["flash_attention_with_lse", "flash_attention",
            "flash_attention_block_bwd", "paged_attention",
            "paged_split_plan", "paged_general_plan", "LAUNCHES",
-           "reset_launch_counts", "capture_graph", "replay_graph"]
+           "reset_launch_counts", "capture_graph", "replay_graph",
+           "GraphCounts"]
 
 NEG_INF = float("-inf")
 
@@ -101,6 +104,13 @@ def _side_stream():
     return _SIDE_STREAMS[dev]
 
 
+class GraphCounts(dict):
+    """The kernel launches a captured graph holds (kernel -> count),
+    with ``transport``: the collectives' ``TRANSPORT`` counts it holds."""
+
+    transport = {}
+
+
 def capture_graph(fn, pool=None, warmup=2):
     """``(graph, out, launches)``: ``fn()`` run ``warmup`` times on a side
     stream (first uses build kernels, fill lazy caches and let the
@@ -109,33 +119,47 @@ def capture_graph(fn, pool=None, warmup=2):
     what the captured call returned (static tensors the graph writes).
     ``launches`` maps each kernel to the count its capture added: the
     capture ran nothing, so they are taken off ``LAUNCHES`` here and
-    added per replay by :func:`replay_graph`.  Anything that cannot be
-    captured (a host sync, a pageable copy) raises.  The capture checks
-    this thread only, so another thread's work on the card (a serving
-    replica's engine reading its tokens) neither fails nor breaks it."""
+    added per replay by :func:`replay_graph` (a :class:`GraphCounts`,
+    whose ``transport`` does the same for ``parallel._compat.TRANSPORT``,
+    the NCCL collectives a tensor-parallel program holds).  Anything
+    that cannot be captured (a host sync, a pageable copy) raises.  The
+    capture checks this thread only, so another thread's work on the
+    card (a serving replica's engine reading its tokens) neither fails
+    nor breaks it."""
     side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    before = dict(LAUNCHES)
+    from ..parallel._compat import TRANSPORT
+    before, t_before = dict(LAUNCHES), dict(TRANSPORT)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool,
                           capture_error_mode="thread_local"):
         out = fn()
-    launches = {k: n - before[k] for k, n in LAUNCHES.items()
-                if n != before[k]}
+    launches = GraphCounts({k: n - before[k] for k, n in LAUNCHES.items()
+                            if n != before[k]})
     for k, n in launches.items():
         LAUNCHES[k] -= n
+    launches.transport = {k: n - t_before[k] for k, n in TRANSPORT.items()
+                          if n != t_before[k]}
+    for k, n in launches.transport.items():
+        TRANSPORT[k] -= n
     return graph, out, launches
 
 
 def replay_graph(graph, launches):
-    """Replay ``graph`` and count the kernel launches it holds."""
+    """Replay ``graph`` and count the kernel launches (and collectives)
+    it holds."""
     graph.replay()
     for k, n in launches.items():
         LAUNCHES[k] += n
+    transport = getattr(launches, "transport", None)
+    if transport:
+        from ..parallel._compat import TRANSPORT
+        for k, n in transport.items():
+            TRANSPORT[k] += n
 
 
 def _is_cuda(*ts):

@@ -36,6 +36,15 @@ Transport is chosen by the backend of the process group:
   their bytes and their milliseconds (host clock, copies included);
 * a one-rank axis moves nothing.
 
+Under NCCL, ``psum`` and the gathers on CUDA tensors can be captured in
+a CUDA graph (the serving programs of a tensor-parallel replica): they
+synchronize nothing with the host, stage nothing, and allocate their
+buffers on the capturing stream, so from the graph's pool.  Their
+``TRANSPORT`` counts move at capture, which runs nothing, so
+``ops.cuda_ops.capture_graph`` takes them off and ``replay_graph`` adds
+them on each replay, as it does for ``LAUNCHES``.  A staged (gloo)
+collective cannot run inside a capture: it raises.
+
 The differentiable pieces follow the rule that a replicated input is
 replicated on every rank and every rank computes the same loss:
 ``ppermute``'s gradient is the inverse permutation of its cotangent,
@@ -94,8 +103,15 @@ def axis_index(axis, mesh=None):
 
 
 def _staged(mesh, t):
-    """Whether a collective on ``t`` goes through pinned host memory."""
-    return mesh.backend == "gloo" and t.is_cuda
+    """Whether a collective on ``t`` goes through pinned host memory
+    (raises inside a CUDA graph capture, which such a copy cannot be
+    part of)."""
+    staged = mesh.backend == "gloo" and t.is_cuda
+    if staged and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "a gloo collective on CUDA tensors stages through host memory "
+            "and cannot be captured in a CUDA graph")
+    return staged
 
 
 def _host(t):
@@ -259,8 +275,15 @@ def _gather_raw(x, dim, axis, mesh):
         t0 = time.perf_counter()
         staged = _staged(mesh, x)
         src = _host(x) if staged else x
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=group)
+        if mesh.backend == "nccl":
+            # one flat output tensor: the form a CUDA graph captures
+            out = torch.empty(n * src.numel(), dtype=src.dtype,
+                              device=device)
+            dist.all_gather_into_tensor(out, src.reshape(-1), group=group)
+            parts = [p.view(src.shape) for p in out.chunk(n)]
+        else:
+            parts = [torch.empty_like(src) for _ in range(n)]
+            dist.all_gather(parts, src, group=group)
         x = torch.cat(parts, dim).to(device)
         _count(mesh, x, t0 if staged else None)
     return x

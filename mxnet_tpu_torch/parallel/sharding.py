@@ -43,6 +43,7 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as TF
 
+from ..contrib.quantization import int8_forward
 from . import _compat
 
 __all__ = ["P", "PartitionSpec", "NamedSharding", "param_sharding",
@@ -218,14 +219,15 @@ def unshard(p):
 def shard_params(block, mesh, rules=None, default=PartitionSpec()):
     """Give every initialized parameter of ``block`` this rank's block
     under its spec on ``mesh`` (a parameter sharded before is gathered
-    from its old placement first: a collective there).  Returns the
+    from its old placement first: a collective there; one already placed
+    so is left as it is).  Returns the
     name -> :class:`NamedSharding` map.  A rank outside ``mesh`` keeps
     whole parameters, with no placement."""
     params = block.collect_params()
     shardings = param_sharding(params, mesh, rules, default)
     for name, p in params.items():
-        if _deferred(p):
-            continue
+        if _deferred(p) or placement(p) == shardings[name]:
+            continue            # already this rank's block there
         unshard(p)
         if not mesh.is_member:
             continue
@@ -322,11 +324,13 @@ def _single(ax, mesh):
     return ax if ax is not None and mesh.axis_size(ax) > 1 else None
 
 
-def linear(x, weight, bias=None, flatten=True):
+def linear(x, weight, bias=None, flatten=True, layer=None):
     """``x W^T + b`` for a weight sharded by :func:`shard_params`,
     replicated in and out: the out dimension sharded is a local product
     then a gather (its input enters through ``psum_grad``), the in
-    dimension the local slice of x, a local product and a ``psum``."""
+    dimension the local slice of x, a local product and a ``psum``.
+    Inside a ``contrib.quantization.int8_weights`` scope that holds
+    ``layer``, the local product reads its int8 block."""
     sh = placement(weight)
     mesh = sh.mesh
     w, (out_ax, in_ax) = _model_spec(weight, sh)
@@ -338,7 +342,9 @@ def linear(x, weight, bias=None, flatten=True):
         x = _compat.psum_grad(x, out_ax, mesh)
     if in_ax is not None:
         x = _compat.split(x, -1, in_ax, mesh)
-    y = TF.linear(x, w)
+    y = None if layer is None else int8_forward(layer, x, None, False)
+    if y is None:
+        y = TF.linear(x, w)
     if in_ax is not None:
         y = _compat.psum(y, in_ax, mesh)
     if out_ax is not None:

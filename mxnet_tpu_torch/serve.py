@@ -35,9 +35,28 @@ package's): the decode's products read int8 weights from HBM through
 the W8A16 kernel (``ops.int8``), the prefill and chunk programs
 dequantize each weight into a transient and run one plain product.
 
-Not ported yet: ``mesh=`` (tensor-parallel decode, with ROADMAP queue
-3), the telemetry / flight-recorder / fault-injection hooks (queue 4)
-and ``lower_decode_program`` (an XLA HLO seam, with no PyTorch
+Tensor parallelism (``Server(net, cfg, mesh=)``): every rank of the
+mesh builds the same server over its shard of the weights and KV heads;
+the leader schedules and sends each program's step plan to the
+followers (:class:`Server`, :class:`WarmPool`).  Under NCCL the
+collectives are captured inside the graphs; under gloo the programs run
+eagerly.
+
+The control plane, as the reference's: every scheduler transaction is
+a flight-recorder event (``flightrec``) and bumps its ``serve::*``
+counter (``telemetry.bump``); a terminal request feeds the replica's
+:class:`~mxnet_tpu_torch.telemetry.ServeSLO` (``Server.slo``,
+``slo_snapshot``); ``attach_telemetry`` registers the load gauges and
+``attach_elastic`` drains the slots on a resize (``preempt_all``).  The
+chaos seams ``fault.serve_engine_check`` (top of ``engine_step``) and
+``fault.serve_decode_check`` (the decode commit) fire on the engine
+thread; a transient decode failure (``fault_dist.classify_xla_error``)
+drops the step, bumps ``serve::decode_retries`` and commits nothing, so
+the next iteration replays the same step and the tokens are those of a
+fault-free run; a fatal one kills the engine, and ``result`` re-raises.
+All of it is host Python around the program replays.
+
+Not ported: ``lower_decode_program`` (an XLA HLO seam, with no PyTorch
 counterpart).
 
 Knobs (environment, all optional)::
@@ -64,17 +83,25 @@ import time
 
 import numpy as onp
 import torch
+import torch.distributed as dist
 
+from . import fault as _fault
+from . import fault_dist as _fault_dist
+from . import flightrec as _flightrec
+from . import telemetry as _telemetry
 from .contrib.quantization import Int8Weight, _minmax_scale, int8_weights
 from .gluon.nn import Dense
-from .models.kv_cache import TRASH_PAGE, CacheSpec, CacheView, init_pools
+from .models.kv_cache import (TRASH_PAGE, CacheSpec, CacheView, init_pools,
+                              local_kv_heads)
 from .ops.cuda_ops import capture_graph, replay_graph
 from .ops.int8 import dequantize
+from .parallel import _compat
+from .parallel.sharding import placement, shard_params
 
 log = logging.getLogger("mxnet_tpu_torch.serve")
 
 __all__ = ["ServeConfig", "SlotScheduler", "WarmPool", "Server",
-           "DeadlineExceededError", "quantize_weights"]
+           "DeadlineExceededError", "OverloadedError", "quantize_weights"]
 
 
 class DeadlineExceededError(TimeoutError):
@@ -82,6 +109,12 @@ class DeadlineExceededError(TimeoutError):
     cancelled *through* the scheduler (pages and radix refcounts
     released), and :meth:`Server.result` raises this instead of
     hanging."""
+
+
+class OverloadedError(RuntimeError):
+    """The admission queue is full and the shed policy rejected this
+    request (``serve_router.ReplicaGroup``): the typed backpressure
+    signal that keeps admitted-request p99 bounded."""
 
 
 def _env_int(name, default):
@@ -150,9 +183,12 @@ class ServeConfig:
         return self.deadline_ms / 1000.0 if self.deadline_ms > 0 \
             else None
 
-    def cache_spec(self, cfg):
+    def cache_spec(self, cfg, mesh=None):
+        """The pools' spec; on a tensor-parallel ``mesh`` the KV heads
+        are this rank's (``kv_cache.local_kv_heads``)."""
         return CacheSpec(
-            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+            n_layers=cfg.n_layers,
+            n_kv_heads=local_kv_heads(cfg.n_kv_heads, mesh),
             head_dim=cfg.dim // cfg.n_heads, slots=self.slots,
             pages=self.pages, page_size=self.page_size,
             max_pages_per_slot=self.max_pages_per_slot, dtype=cfg.dtype)
@@ -212,6 +248,13 @@ class SlotScheduler:
             "prefix_hits": 0,
             "prefix_evictions": 0,
         }
+
+    # -- seams ----------------------------------------------------------
+    @staticmethod
+    def _point(kind, detail=""):
+        # every scheduler transaction lands in the flight recorder,
+        # called before / outside the locked transaction body
+        _flightrec.record(kind, detail=detail)
 
     def _pages_for(self, tokens):
         return max(1, -(-int(tokens) // self.page_size))
@@ -295,6 +338,7 @@ class SlotScheduler:
         ``prompt`` (the token tuple) opts the request into prefix-cache
         sharing; ``sampling`` overrides the greedy defaults per request
         ({seed, temperature, top_k, top_p}; seed defaults to rid)."""
+        self._point("sched.submit")
         with self._lock:
             s = self._s
             rid = s["next_rid"]
@@ -310,6 +354,7 @@ class SlotScheduler:
                          "t_first": None, "t_done": None, "preempts": 0}
             s["reqs"] = reqs
             s["queue"] = s["queue"] + (rid,)
+        _telemetry.bump("serve::submitted")
         return rid
 
     def cancel(self, rid):
@@ -317,6 +362,7 @@ class SlotScheduler:
         the queue; a running one frees its slot and pages NOW -- an
         in-flight step against it is dropped by the epoch check at
         commit.  Returns True when the request was still live."""
+        self._point("sched.cancel", "rid %s" % rid)
         with self._lock:
             s = self._s
             req = s["reqs"].get(rid)
@@ -330,6 +376,7 @@ class SlotScheduler:
                 self._release_slot(s, req["slot"])
             self._set_req(s, rid, state="cancelled", slot=None,
                           epoch=None, t_done=time.monotonic())
+        _telemetry.bump("serve::cancelled")
         return True
 
     # -- engine side ----------------------------------------------------
@@ -346,6 +393,7 @@ class SlotScheduler:
         position the engine must compute; ``cow`` names the (shared src,
         private dst) page pair to copy first when that position lands
         inside a shared page."""
+        self._point("sched.admit")
         with self._lock:
             s = self._s
             if not s["queue"] or not s["free_slots"]:
@@ -463,6 +511,7 @@ class SlotScheduler:
                           epoch=epoch,
                           t_admit=req.get("t_admit")
                           or time.monotonic())
+        _telemetry.bump("serve::admitted")
         return {"rid": rid, "slot": slot, "epoch": epoch,
                 "pages": table, "prefill_len": plen,
                 "prefill_start": start if seq else 0,
@@ -475,6 +524,7 @@ class SlotScheduler:
         """Record the prefill's first generated token.  Epoch-checked:
         a cancel may have freed (and admission reassigned) the slot while
         the prefill was in flight -- a stale commit is dropped."""
+        self._point("sched.commit_prefill", "rid %s" % plan["rid"])
         with self._lock:
             s = self._s
             ent = s["slots"].get(plan["slot"])
@@ -525,6 +575,7 @@ class SlotScheduler:
     def fail(self, plan):
         """Terminal failure of an admitted-but-unprefillable request
         (a preempted request regrown past the ladder).  Epoch-checked."""
+        self._point("sched.fail", "rid %s" % plan["rid"])
         with self._lock:
             s = self._s
             ent = s["slots"].get(plan["slot"])
@@ -542,6 +593,7 @@ class SlotScheduler:
         slot is preempted (pages freed, request requeued at the FRONT).
         Returns a tuple of per-slot dicts -- the identity
         ``commit_step`` validates."""
+        self._point("sched.begin")
         with self._lock:
             s = self._s
             s["slots"] = dict(s["slots"])
@@ -601,6 +653,7 @@ class SlotScheduler:
                       epoch=None, preempts=req.get("preempts", 0) + 1)
         s["queue"] = (ent["rid"],) + s["queue"]
         s["preemptions"] = s["preemptions"] + 1
+        _telemetry.bump("serve::preemptions")
 
     def commit_step(self, snapshot, results):
         """Apply one decode step's results: ``results`` pairs each
@@ -608,6 +661,7 @@ class SlotScheduler:
         (slot, epoch) identity from the snapshot is re-validated:
         admissions ran while the decode was in flight, so a slot may now
         belong to another request.  Returns the rids finished."""
+        self._point("sched.commit")
         finished = []
         with self._lock:
             s = self._s
@@ -634,7 +688,30 @@ class SlotScheduler:
                     s["slots"][slot] = dict(ent, len=new_len,
                                             last_tok=token)
                     self._set_req(s, rid, tokens=tokens)
+        if finished:
+            _telemetry.bump("serve::finished", len(finished))
         return finished
+
+    def preempt_all(self, reason="elastic"):
+        """Drain EVERY occupied slot through the ordinary preemption
+        path -- pages freed, each request requeued at the FRONT of the
+        queue to re-prefill later -- and return the number of slots
+        drained: the elastic-resize valve (:meth:`Server.attach_elastic`).
+        No request is dropped, only its KV cache.  One transaction under
+        the scheduler lock: an ``engine_step`` racing it sees either the
+        old world (its stale-epoch commits are discarded) or the drained
+        one."""
+        with self._lock:
+            s = self._s
+            s["slots"] = dict(s["slots"])
+            drained = 0
+            for slot in sorted(s["slots"]):
+                self._preempt(s, slot)
+                drained += 1
+        if drained:
+            _telemetry.bump("serve::elastic_drains", drained)
+            log.info("serve: drained %d slot(s) (%s)", drained, reason)
+        return drained
 
     def purge(self, rid):
         """Drop a TERMINAL request's record and return it (None when the
@@ -730,7 +807,8 @@ class SlotScheduler:
 # ----------------------------------------------------------------------
 # int8 weight path
 # ----------------------------------------------------------------------
-def quantize_weights(params, exclude=("tok_embeddings", "gamma")):
+def quantize_weights(params, exclude=("tok_embeddings", "gamma"),
+                     amax=None):
     """Per-tensor int8 weights for memory-bound decode (the JAX
     ``quantize_weights``, minmax as ``contrib.quantization``): returns
     (params with every 2-D weight whose name holds no ``exclude`` entry
@@ -738,14 +816,18 @@ def quantize_weights(params, exclude=("tok_embeddings", "gamma")):
     q = clip(round(w / scale), -127, 127), in float32.  The decode reads
     the int8 weights from HBM and dequantizes them in registers, so its
     weight bytes -- the decode bottleneck -- halve against bf16.
-    Embeddings and norm gains stay in the compute dtype."""
+    Embeddings and norm gains stay in the compute dtype.  ``amax``
+    ({name: max|w| over the whole weight}) gives the scale of a weight
+    of which ``params`` holds one rank's block."""
     q, scales = {}, {}
+    amax = amax or {}
     for name, w in params.items():
         if w.dim() != 2 or any(t in name for t in exclude):
             q[name] = w
             continue
         w32 = w.detach().float()
-        scale = _minmax_scale(w32)
+        scale = _minmax_scale(w32) if name not in amax \
+            else (amax[name] or 1.0) / 127
         div = torch.tensor(scale, dtype=torch.float32).to(w32.device)
         q[name] = torch.clamp(torch.round(w32 / div), -127, 127) \
             .to(torch.int8)
@@ -762,12 +844,36 @@ def _dequant(params, scales, dtype):
             for k, v in params.items()}
 
 
+def _global_amax(params):
+    """{name: max|w| over the whole weight} for each 2-D parameter
+    sharded over a mesh: the local maxima of the weights sharded over the
+    same axes gathered in one collective (every rank, one order)."""
+    groups = {}
+    for name, p in params.items():
+        sh = placement(p)
+        axes = tuple(a for a in (sh.spec if sh is not None else ())
+                     if a is not None)
+        if axes and p.dim() == 2:
+            groups.setdefault((id(sh.mesh), axes), (sh.mesh, []))[1] \
+                .append(name)
+    out = {}
+    for (_, axes), (mesh, names) in groups.items():
+        local = torch.stack([params[n].detach().float().abs().max()
+                             for n in names])
+        amax = _compat.all_gather(local[None], 0, axes, mesh).amax(0)
+        out.update(zip(names, amax.tolist()))
+    return out
+
+
 def _int8_layers(net):
     """``{Dense: Int8Weight}`` of ``net``'s quantized weights: each comes
     from :func:`quantize_weights` and computes in its weight's own dtype.
-    The net's parameters stay as they are."""
-    params = {k: p.detach() for k, p in net.collect_params().items()}
-    q, scales = quantize_weights(params)
+    The net's parameters stay as they are.  A tensor-parallel rank
+    quantizes its blocks with the whole weight's scale, so each int8
+    block is the block of the whole int8 weight."""
+    ps = net.collect_params()
+    params = {k: p.detach() for k, p in ps.items()}
+    q, scales = quantize_weights(params, amax=_global_amax(ps))
     modules = dict(net.named_modules())
     layers = {}
     for name, scale in scales.items():
@@ -866,12 +972,13 @@ class _Inputs:
 class _Program:
     """One serving program: a function of the pool's static buffers.  On
     the card it is captured into a CUDA graph once, at start-up, and
-    replayed; on the CPU, which has no graphs, it runs eagerly."""
+    replayed; on the CPU, which has no graphs, and with ``eager`` (a
+    gloo mesh's collectives), it runs eagerly."""
 
-    def __init__(self, fn, device, pool=None):
+    def __init__(self, fn, device, pool=None, eager=False):
         self.fn = fn
         self.graph, self.launches = None, {}
-        if device.type == "cuda":
+        if device.type == "cuda" and not eager:
             self.graph, _, self.launches = capture_graph(fn, pool=pool)
 
     def __call__(self):
@@ -900,14 +1007,30 @@ class WarmPool:
     runs inside the programs.  The decode graph has its own memory pool;
     the prefill and chunk graphs, which run one at a time on the engine
     thread, share one.  The COW page copy is one indexed copy and stays
-    eager."""
+    eager.
 
-    def __init__(self, net, serve_cfg: ServeConfig):
+    ``mesh`` (a tensor-parallel replica, reference ``serve.py:1148``):
+    the net's parameters go through ``parallel.shard_params`` under the
+    transformer's Megatron annotations (each rank keeps its blocks; the
+    net is changed in place), the KV pools hold the rank's KV heads
+    (``kv_cache.local_kv_heads``), and each program runs the model's
+    tensor-parallel path, whose collectives run over the mesh.  Every
+    rank of the mesh builds the same pool, in the same order.  Under
+    NCCL the collectives are captured inside the graphs (the
+    communicators are warmed first); under gloo with CUDA tensors they
+    stage through host memory, which no graph can hold, so the programs
+    run eagerly and ``stats["eager"]`` says why (``programs`` 0).  The
+    backend decides this, never a failure."""
+
+    def __init__(self, net, serve_cfg: ServeConfig, mesh=None):
         t0 = time.monotonic()
         self.net = net
         self.cfg = net.cfg
         self.serve_cfg = serve_cfg
-        spec = self.spec = serve_cfg.cache_spec(net.cfg)
+        self.mesh = mesh
+        if mesh is not None:
+            shard_params(net, mesh)
+        spec = self.spec = serve_cfg.cache_spec(net.cfg, mesh)
         dev = self.device = net.output.weight.device
         self.k_pages, self.v_pages = init_pools(spec, dev)
         self.int8 = _int8_layers(net) if serve_cfg.int8 else {}
@@ -930,26 +1053,45 @@ class WarmPool:
         self._dec_out = torch.zeros(S, dtype=i64, device=dev)
         self._pre_out = torch.zeros(1, dtype=i64, device=dev)
         cuda = dev.type == "cuda"
+        multi = mesh is not None and mesh.group is not None
+        eager = None
+        if cuda and multi and mesh.backend == "gloo":
+            eager = ("gloo mesh: its collectives stage CUDA tensors "
+                     "through host memory, which a CUDA graph cannot hold")
+        elif cuda and multi:
+            # NCCL builds a communicator at its first collective, which
+            # a capture cannot hold: one collective per axis first
+            for ax in mesh.axis_names:
+                _compat.psum(torch.zeros(1, device=dev), ax, mesh)
+            torch.cuda.synchronize(dev)
+        graphs = cuda and eager is None
         with torch.no_grad():
             self._decode = _Program(self._decode_step, dev, pool=(
-                torch.cuda.graph_pool_handle() if cuda else None))
-            shared = torch.cuda.graph_pool_handle() if cuda else None
+                torch.cuda.graph_pool_handle() if graphs else None),
+                eager=eager is not None)
+            shared = torch.cuda.graph_pool_handle() if graphs else None
             self._prefill = {T: _Program(functools.partial(
-                self._prefill_step, T, False), dev, shared)
-                for T in serve_cfg.ladder}
+                self._prefill_step, T, False), dev, shared,
+                eager=eager is not None) for T in serve_cfg.ladder}
             self._chunk = {T: _Program(functools.partial(
-                self._prefill_step, T, True), dev, shared)
+                self._prefill_step, T, True), dev, shared,
+                eager=eager is not None)
                 for T in serve_cfg.ladder} if serve_cfg.prefix_cache else {}
         self.stats = {
             "pool_bytes": 2 * self.k_pages.numel()
             * self.k_pages.element_size(),
             "programs": (1 + len(self._prefill) + len(self._chunk))
-            if cuda else 0,
+            if graphs else 0,
             "capture_s": round(time.monotonic() - t0, 3),
-            "int8": bool(self.int8)}
-        log.info("serve warm pool ready: %d graphs in %.2fs%s",
+            "int8": bool(self.int8),
+            "sharded": mesh is not None,
+            "tp": mesh.axis_size("tp") if mesh is not None
+            and "tp" in mesh.shape else 1,
+            "eager": eager}
+        log.info("serve warm pool ready: %d graphs in %.2fs%s%s",
                  self.stats["programs"], self.stats["capture_s"],
-                 " (int8 weights)" if self.int8 else "")
+                 " (int8 weights)" if self.int8 else "",
+                 " (eager: %s)" % eager if eager else "")
 
     def ladder_fit(self, n):
         """Smallest ladder length holding an n-token prompt (None when
@@ -1042,11 +1184,59 @@ class WarmPool:
         self.v_pages[:, dst] = self.v_pages[:, src]
 
 
+class _PlanChannel:
+    """A tensor-parallel replica's step plans, from the leader (rank 0 of
+    the mesh) to the followers: one ``broadcast_object_list`` per plan
+    on a gloo group of the mesh's ranks, so a plan is host data and
+    synchronizes nothing on the device.  A plan is ``(kind, args)``:
+    ``decode`` / ``prefill`` (the padded host arrays and sampling of
+    :meth:`WarmPool.run_decode` / :meth:`WarmPool.run_prefill`; the
+    prefill's ``start`` picks the chunk program), ``copy`` (a COW page
+    copy) or ``stop``.  Every rank of the world builds it, in one
+    order (``new_group``)."""
+
+    def __init__(self, mesh):
+        ranks = mesh.member_ranks()
+        self.group = dist.new_group(ranks, backend="gloo")
+        self.root = ranks[0]
+        self.leader = mesh.rank == self.root
+        self.sent = {}      # plans sent, by kind
+
+    def send(self, kind, args):
+        dist.broadcast_object_list([(kind, args)], src=self.root,
+                                   group=self.group)
+        self.sent[kind] = self.sent.get(kind, 0) + 1
+
+    def recv(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=self.root, group=self.group)
+        return box[0]
+
+
+#: what each plan kind runs on a rank's pool (through the instance, so
+#: a pool's own attribute wins)
+_RUN = {"decode": lambda pool, **a: pool.run_decode(**a),
+        "prefill": lambda pool, **a: pool.run_prefill(**a),
+        "copy": lambda pool, **a: pool.copy_page(**a)}
+
+
 class Server:
     """The serving replica: a :class:`WarmPool`, a
     :class:`SlotScheduler`, and one engine thread running the
     continuous-batching loop.  Clients call :meth:`submit` /
     :meth:`result` (or the one-shot :meth:`generate`) from any thread.
+
+    ``mesh`` (reference ``serve.py:1338``): a tensor-parallel replica
+    over the mesh's ranks.  The reference is one controller over every
+    device; here every rank of the mesh builds the same ``Server``.  The
+    **leader**, rank 0 of the mesh, runs the scheduler, takes
+    ``submit`` / ``result`` / ``generate`` and, at each program it runs,
+    first sends the followers its step plan (:class:`_PlanChannel`).
+    The **followers** run the same programs on their shards from their
+    engine threads (``start``), and a client call on a follower raises;
+    a follower's ``stop`` returns once the leader's ``stop`` (or its
+    engine's death) has sent the stop plan.  Faults are injected and
+    handled on the leader; a follower's own failure ends its engine.
 
     Engine iteration::
 
@@ -1058,9 +1248,13 @@ class Server:
         sched.commit_step(snapshot, results)    # epoch-checked
     """
 
-    def __init__(self, net, serve_cfg=None, **kw):
+    def __init__(self, net, serve_cfg=None, mesh=None, **kw):
         self.cfg = serve_cfg or ServeConfig(**kw)
-        self.pool = WarmPool(net, self.cfg)
+        self.pool = WarmPool(net, self.cfg, mesh=mesh)
+        self._plans = _PlanChannel(mesh) if mesh is not None \
+            and mesh.group is not None else None
+        self.leader = self._plans is None or self._plans.leader
+        self._followers_stopped = False
         spec = self.pool.spec
         self.sched = SlotScheduler(spec.slots, spec.pages,
                                    spec.page_size,
@@ -1078,6 +1272,28 @@ class Server:
         self._work = threading.Event()
         self._thread = None
         self._error = None              # engine-thread death, if any
+        # streaming SLO sketches, fed at terminal delivery
+        self.slo = _telemetry.ServeSLO()
+
+    def _require_leader(self, what):
+        if not self.leader:
+            raise RuntimeError(
+                "%s on a follower rank of a tensor-parallel Server: "
+                "requests go to the leader (global rank %d)"
+                % (what, self._plans.root))
+
+    def _run(self, kind, **args):
+        """Run one program (``_RUN``), its plan sent to the followers
+        first on a tensor-parallel replica."""
+        if self._plans is not None:
+            self._plans.send(kind, args)
+        return _RUN[kind](self.pool, **args)
+
+    def _stop_followers(self):
+        if self._plans is not None and self.leader \
+                and not self._followers_stopped:
+            self._followers_stopped = True
+            self._plans.send("stop", {})
 
     # -- client API -----------------------------------------------------
     def submit(self, prompt_tokens, max_new=None, sampling=None,
@@ -1088,6 +1304,7 @@ class Server:
         budget in SECONDS (default: ``MXNET_SERVE_DEADLINE_MS``); an
         expired request is cancelled through the scheduler and
         :meth:`result` raises :class:`DeadlineExceededError`."""
+        self._require_leader("submit")
         prompt = [int(t) for t in prompt_tokens]
         if not prompt:
             raise ValueError("empty prompt")
@@ -1126,6 +1343,7 @@ class Server:
         return rid
 
     def cancel(self, rid):
+        self._require_leader("cancel")
         ok = self.sched.cancel(rid)
         # the engine sweep is the SOLE notifier; wake it so the
         # cancelled waiter is released within one iteration
@@ -1146,6 +1364,7 @@ class Server:
         A caller whose ``timeout`` runs out cancels the request (pages
         released) and gets ``TimeoutError``; a request whose deadline
         expired raises :class:`DeadlineExceededError`."""
+        self._require_leader("result")
         with self._lock:
             ev = self._done.get(rid)
         if ev is not None and not ev.wait(timeout):
@@ -1193,22 +1412,70 @@ class Server:
                           sampling=sampling, deadline=deadline)
         return self.result(rid, timeout=timeout)
 
+    def slo_snapshot(self):
+        """Live serving SLOs: p50 / p95 / p99 latency, TTFT and queue
+        time, and tokens/s, from the streaming histograms (no per-request
+        state is kept past delivery)."""
+        return self.slo.snapshot()
+
+    def attach_telemetry(self, sess=None):
+        """Register this replica's load gauges (``serve::queue_depth``,
+        ``serve::running``, ``serve::free_pages``) on a telemetry session
+        (default: the process-wide one).  Returns the session."""
+        sess = sess or _telemetry.session()
+        sched = self.sched
+        sess.register_gauge("serve::queue_depth",
+                            lambda: sched.stats()["waiting"])
+        sess.register_gauge("serve::running",
+                            lambda: sched.stats()["running"])
+        sess.register_gauge("serve::free_pages",
+                            lambda: sched.stats()["free_pages"])
+        return sess
+
+    def attach_elastic(self, runner):
+        """Chain onto ``runner.on_resize`` (an elastic runner; any object
+        with that attribute): every topology change drains this
+        replica's slots through :meth:`SlotScheduler.preempt_all`, so the
+        requests survive in the queue and re-prefill; only KV state is
+        recomputed.  The previous hook still fires.  Returns the
+        runner."""
+        prev = runner.on_resize
+        sched = self.sched
+
+        def _drain(info, _prev=prev):
+            gen = getattr(info.gen, "value", info.gen)
+            sched.preempt_all(reason="resize gen=%s world=%s"
+                              % (gen, info.world))
+            self._work.set()   # the engine re-admits
+            if _prev is not None:
+                _prev(info)
+        runner.on_resize = _drain
+        return runner
+
     # -- engine ---------------------------------------------------------
     def start(self):
         if self._thread is None:
             self._stop.clear()
-            self._thread = threading.Thread(target=self._engine_loop,
-                                            daemon=True,
-                                            name="mxserve-engine")
+            self._thread = threading.Thread(
+                target=self._engine_loop if self.leader
+                else self._follow_loop, daemon=True,
+                name="mxserve-engine")
             self._thread.start()
         return self
 
     def stop(self):
+        if not self.leader:
+            # a follower ends at the leader's stop plan
+            if self._thread is not None:
+                self._thread.join()
+                self._thread = None
+            return
         self._stop.set()
         self._work.set()
         if self._thread is not None:
             self._thread.join(timeout=30.0)
             self._thread = None
+        self._stop_followers()
         # wake every live waiter: their requests read back in their
         # honest non-terminal state
         with self._lock:
@@ -1253,7 +1520,10 @@ class Server:
             for rid in done:
                 self._prompts.pop(rid, None)
                 self._deadlines.pop(rid, None)
-        for rid in done:
+        for rid, req in done.items():
+            # lifecycle spans and SLO samples come from the record's
+            # phase timestamps here, before the purge
+            _telemetry.request_lifecycle(req, slo=self.slo)
             self.sched.purge(rid)
         for ev in evs:
             if ev is not None:
@@ -1274,8 +1544,35 @@ class Server:
                 self._deadlines.pop(rid, None)
                 if cancelled and rid in self._live:
                     self._expired.add(rid)
+            if cancelled:
+                _telemetry.bump("serve::deadline_exceeded")
+                _flightrec.record("serve.deadline",
+                                  detail="rid %d expired" % rid)
+
+    def _bind_device(self):
+        # the kernels launch on the thread's current card
+        if self.pool.device.type == "cuda":
+            torch.cuda.set_device(self.pool.device)
+
+    def _follow_loop(self):
+        """A follower's engine: run each plan the leader sends, on this
+        rank's shard, until the stop plan."""
+        self._bind_device()
+        try:
+            while True:
+                kind, args = self._plans.recv()
+                if kind == "stop":
+                    return
+                _RUN[kind](self.pool, **args)
+        except BaseException as e:
+            with self._lock:
+                self._error = e
+            log.exception("serve follower engine died")
+            _flightrec.note_terminal("serve_follower", exc=e)
+            raise
 
     def _engine_loop(self):
+        self._bind_device()
         try:
             while not self._stop.is_set():
                 if not self.engine_step():
@@ -1290,14 +1587,21 @@ class Server:
                 evs = [self._done[r] for r in self._live
                        if r in self._done]
             log.exception("serve engine thread died")
+            _flightrec.note_terminal("serve_engine", exc=e)
             for ev in evs:
                 ev.set()
             raise
+        finally:
+            self._stop_followers()
 
     def engine_step(self):
         """One engine iteration; returns False when idle.  Public so
         tests (and single-threaded drivers) can pump the engine without
-        the background thread."""
+        the background thread (on a tensor-parallel replica, the
+        leader's)."""
+        self._require_leader("engine_step")
+        # chaos seam: serve_engine_kill fires here, on the engine thread
+        _fault.serve_engine_check("engine_step")
         self._sweep_deadlines()
         sched, pool = self.sched, self.pool
         spec = pool.spec
@@ -1321,8 +1625,9 @@ class Server:
             # the decode is queued on the device; the host runs the
             # admissions below meanwhile (their prefills queue behind it
             # on the same stream, so ordering is by the stream)
-            toks = pool.run_decode(page_table, lengths, tokens, active,
-                                   sampling=sampling)
+            toks = self._run("decode", page_table=page_table,
+                             lengths=lengths, tokens=tokens, active=active,
+                             sampling=sampling)
         admitted = False
         while True:
             plan = sched.admit_next()
@@ -1349,18 +1654,35 @@ class Server:
             if plan.get("cow"):
                 # the first computed position lands in a shared page:
                 # privatize it before any write can touch it
-                pool.copy_page(*plan["cow"])
+                self._run("copy", src=plan["cow"][0], dst=plan["cow"][1])
             padded = onp.zeros((T,), onp.int32)
             padded[:len(chunk)] = chunk
             row = onp.zeros((spec.max_pages_per_slot,), onp.int32)
             row[:len(plan["pages"])] = plan["pages"]
-            first = pool.run_prefill(padded, row, len(chunk), start=start,
-                                     sampling=plan.get("sampling"),
-                                     step=plan.get("ntok", 0))
+            first = self._run("prefill", tokens_padded=padded, page_row=row,
+                              true_len=len(chunk), start=start,
+                              sampling=plan.get("sampling"),
+                              step=plan.get("ntok", 0))
             sched.commit_prefill(plan, first,
                                  done=(eos is not None and first == eos))
         if snapshot:
-            out = toks.cpu().numpy()
+            try:
+                _fault.serve_decode_check()
+                out = toks.cpu().numpy()
+            except Exception as exc:  # noqa: BLE001 -- classified below
+                if _fault_dist.classify_xla_error(exc) != "transient":
+                    raise  # fatal or unclassified: the engine dies
+                # transient decode failure: nothing was committed, page
+                # writes are write-before-read and sampling is a pure
+                # function of (seed, step), so the same step replayed next
+                # iteration gives the tokens a fault-free run gives
+                _telemetry.bump("serve::decode_retries")
+                _flightrec.record("serve.decode_retry",
+                                  error=type(exc).__name__)
+                log.warning("serve: transient decode failure, step "
+                            "dropped for replay: %s", exc)
+                self._finish_terminal()
+                return True
             results = [(int(out[e["slot"]]),
                         eos is not None and int(out[e["slot"]]) == eos)
                        for e in snapshot]

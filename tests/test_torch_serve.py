@@ -471,9 +471,14 @@ def test_package_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.kvstore.kvstore, "
             "mxnet_tpu_torch.kvstore.compression, "
             "mxnet_tpu_torch.gluon.utils, "
-            "mxnet_tpu_torch.utils.serialization; "
-            # chip_smoke.py and what its ring phase's rank children import
+            "mxnet_tpu_torch.utils.serialization, "
+            "mxnet_tpu_torch.flightrec, mxnet_tpu_torch.profiler, "
+            "mxnet_tpu_torch.telemetry, mxnet_tpu_torch.fault, "
+            "mxnet_tpu_torch.fault_dist, mxnet_tpu_torch.serve_router; "
+            # chip_smoke.py and what its ring phase's and tensor-parallel
+            # serving phase's rank children import
             "import chip_smoke; chip_smoke.ring_rank_modules(); "
+            "from mxnet_tpu_torch import serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

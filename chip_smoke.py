@@ -54,7 +54,15 @@ decode fault replayed bit for bit, an elastic drain, a two-replica
 recorder), and ``Server(mesh=create_mesh(tp=2))`` serves 8 requests
 in bf16 and int8 on 2 gloo ranks sharing the card (``--serve-tp-rank R
 DIR BACKEND WORLD`` children), its tokens held against the one-rank
-server's and a teacher-forced forward. Each
+server's and a teacher-forced forward. Low precision (after ``entry()``):
+the all-finite, int8 quantize and int8 convolution kernels against their
+plain versions bit for bit at their edges and at ResNet-50's shapes,
+and timed there; int8
+post-training quantization of ResNet-50 (``bench.py``'s int8 config:
+B=32, one naive calibration batch) eager and as CUDA graphs beside the
+float32 and bf16 nets, and entropy calibration on a batch of 8; float16
+AMP training of BERT-base and ResNet-50 with dynamic loss scaling, and a
+``GradGuard`` skipping an injected NaN step. Each
 path that runs kernels does so with the launch counts reset before it
 and read after it, and fails unless every kernel it goes through was
 launched.
@@ -1213,7 +1221,21 @@ def train_phase(mt, co, dev, card, B=2, T=1024):
     print("train step: per step %s" % ", ".join("%s %.1f" % kv
                                                 for kv in counts.items()))
     lm = lm_adamw_timing(co, net, step._states, dev, card)
-    return launches, lm
+    return launches, lm, lm_finite_timing(net, dev, card)
+
+
+def lm_finite_timing(net, dev, card):
+    """K1 over the LM's gradient list: fresh gradients of every
+    trainable parameter's shape and dtype (the TrainStep's)."""
+    from mxnet_tpu_torch.ops import multi_tensor as mtk
+    gen = torch.Generator(device=dev).manual_seed(24)
+    grads = [torch.randn(p.shape, generator=gen, device=dev, dtype=p.dtype)
+             for p in net.parameters() if p.requires_grad]
+    rec = finite_list_timing(mtk, grads, "LM llama3_8b widths 8 layers "
+                             "grads", card)
+    del grads
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ----------------------------------------------------------------------
@@ -2230,6 +2252,630 @@ def entry_phase(mt, co, dev, card):
 
 
 # ----------------------------------------------------------------------
+# phase 14b: low precision -- the all-finite, quantize and int8
+# convolution kernels (slice 14)
+# ----------------------------------------------------------------------
+# The H100 SXM's dense int8 tensor-core peak (NVIDIA data sheet; only
+# wgmma reaches it, the kernel's mma.sync issues below it).
+INT8_OPS_PER_S = 1979e12
+# (name, N, C, H, W, O, kernel, stride, pad): five ResNet-50 shapes at
+# B=32, the last the 1000-way Dense as a 1 x 1 convolution of (32, 2048)
+INT8_CONV_TIMED = [("stem 7x7/2 3->64 224^2", 32, 3, 224, 224, 64, 7, 2, 3),
+                   ("1x1 256->64 56^2", 32, 256, 56, 56, 64, 1, 1, 0),
+                   ("3x3 64->64 56^2", 32, 64, 56, 56, 64, 3, 1, 1),
+                   ("3x3 512->512 7^2", 32, 512, 7, 7, 512, 3, 1, 1),
+                   ("dense 2048->1000", 32, 2048, 1, 1, 1000, 1, 1, 0)]
+# (N, C, H, W, O, kernel, stride, pad, dilation, groups): the edges
+INT8_CONV_EDGES = [(2, 3, 31, 29, 64, 7, 2, 3, 1, 1),     # stem, C = 3
+                   (1, 37, 13, 11, 45, 3, 2, 0, 2, 1),    # odd C, O; batch 1
+                   (3, 24, 9, 9, 40, 3, 1, 1, 1, 2),      # groups 2
+                   (2, 32, 9, 9, 32, 3, 2, 1, 1, 32),     # depthwise
+                   (2, 100, 10, 10, 70, 1, 1, 0, 1, 1),   # K not 16 / 32
+                   # C a multiple of 32 (the 32-byte tap gather that 52 of
+                   # ResNet-50's 53 convolutions take) with 3x3 taps,
+                   # padding, several image rows; then stride and dilation
+                   (2, 64, 12, 10, 64, 3, 1, 1, 1, 1),
+                   (2, 128, 11, 13, 96, 3, 2, 2, 2, 1),
+                   (4, 2048, 1, 1, 1000, 1, 1, 0, 1, 1)]  # the Dense
+INT8_RESNET_B, INT8_ENTROPY_B = 32, 8
+# the int8 ResNet-50's logits against the float32 net's on a second
+# batch: ||int8 - fp32|| / ||fp32|| (the reference's own quantize_net
+# test holds its small CNN to 0.25 of max|logit|)
+INT8_RESNET_REL = 0.25
+AMP_BERT_STEPS, AMP_RESNET_B, AMP_RESNET_STEPS = 6, 128, 3
+AMP_RESNET_TRIES = 20    # 2^16 halves to its floor of 1 in 16 overflows
+# the float16 AMP BERT-base against the float32 model on the same batch
+# and weights, dropout off.  With random weights the MLM + NSP loss sits
+# near ln(30522) + ln(2) whatever the forward computes, so the loss is
+# held tightly (its first reading on the H100 was 2.1e-5 relative) and
+# the MLM logits of two sequences are held as well: ||d|| / ||fp32||,
+# where float16's rounding (2^-11 an operation, 12 layers) gives about
+# 1e-3, and a layer whose residual branch is lost or wrong moves it by
+# that branch's share of the hidden state, about 0.3 at this init
+AMP_LOSS_RTOL = 1e-3
+AMP_LOGIT_REL = 1e-2
+
+
+def _int8_conv_inputs(i8, dev, gen, N, C, H, W, O, k, g, dtype):
+    x = torch.randn(N, C, H, W, generator=gen, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (O, C // g, k, k), generator=gen,
+                       device=dev, dtype=torch.int8)
+    return x, i8.pack_conv_weight(wq, g), wq
+
+
+def finite_list_timing(mtk, grads, tag, card):
+    """K1 over one gradient list: held against its plain version (clean,
+    then with the last element NaN), then timed: own device ms (a CUDA
+    graph of one launch), the wrapper call, the plain version, and
+    ``torch._amp_foreach_non_finite_check_and_unscale_`` at inverse scale
+    1 (the library's check, which also multiplies every gradient by the
+    scale and writes it back); the bound is the gradients' bytes over
+    3.35 TB/s."""
+    dev = grads[0].device
+    check(mtk.multi_all_finite(grads).item() ==
+          mtk.multi_all_finite_plain(grads).item() == 1.0,
+          "multi_all_finite %s: a clean list is not finite" % tag)
+    last = grads[-1].view(-1)
+    keep = last[-1].clone()
+    last[-1] = float("nan")
+    check(mtk.multi_all_finite(grads).item() ==
+          mtk.multi_all_finite_plain(grads).item() == 0.0,
+          "multi_all_finite %s: a NaN went unseen" % tag)
+    last[-1] = keep
+    flag = torch.ones(1, device=dev)
+    ms = graph_ms(lambda: mtk.multi_all_finite(grads, flag))
+    call_ms = time_ms(lambda: mtk.multi_all_finite(grads, flag))
+    plain_ms = time_ms(lambda: mtk.multi_all_finite_plain(grads), iters=3,
+                       warmup=1)
+    found, inv = torch.zeros(1, device=dev), torch.ones(1, device=dev)
+    try:
+        lib_ms = graph_ms(
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                grads, found, inv))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        print("torch._amp_foreach_non_finite_check_and_unscale_ not timed: "
+              "%s" % e)
+        lib_ms = None
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    b_ms, b_by = bound_ms(nbytes, sum(g.numel() for g in grads),
+                          FP32_FLOPS_PER_S)
+    launches = -(-len(grads) // mtk.TABLE)
+    print("multi_all_finite %s (%d tensors, %.1f M elements, %.3f GB, %d "
+          "launch): kernel %.4f ms (device), call %.4f ms, plain %.4f ms, "
+          "bound %.4f ms (%s), %.1f%% of it; library "
+          "(_amp_foreach_non_finite_check_and_unscale_, writes the grads "
+          "back) %s ms [%s]"
+          % (tag, len(grads), sum(g.numel() for g in grads) / 1e6,
+             nbytes / 1e9, launches, ms, call_ms, plain_ms, b_ms, b_by,
+             100 * b_ms / ms, "none" if lib_ms is None else "%.4f" % lib_ms,
+             card))
+    return {"shape": tag, "tensors": len(grads), "bytes": nbytes, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def low_precision_kernel_phase(co, dev, card):
+    """K1 ``multi_all_finite``, K2 ``int8_quantize`` and K3 ``int8_conv``
+    against their plain versions, bit for bit, at the edges of their
+    design; then K2 and K3, again held against their plain versions
+    (K3 in both epilogues), timed at ResNet-50's shapes (B=32): own device
+    ms (a CUDA graph of the call, L2 flushed), bound, plain, cuDNN's bf16
+    channels-last convolution of the same shape (``bf16_ms``) and, for
+    the Dense, ``torch._int_mm`` (``library_ms``).  K1's timing comes
+    from the gradient lists of the training and AMP phases.  Returns the
+    three kernels-line records (K1's shapes filled in later)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import int8 as i8
+    from mxnet_tpu_torch.ops import multi_tensor as mtk
+    gen = torch.Generator(device=dev).manual_seed(60)
+    # K1: mixed dtypes, every bad value in every position, > 256 tensors
+    kinds = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+    ts = [torch.randn(n, generator=gen, device=dev).to(kinds[i % 4])
+          for i, n in enumerate((1, 7, 16384 + 3, 40000, 8, 33))]
+    ts.append(torch.randn(9, device=dev)[1:])          # unaligned
+    for bad in (float("inf"), float("-inf"), float("nan")):
+        for j in range(len(ts)):
+            u = [t.clone() for t in ts]
+            u[j].view(-1)[j % u[j].numel()] = bad
+            check(mtk.multi_all_finite(u).item() ==
+                  mtk.multi_all_finite_plain(u).item() == 0.0,
+                  "multi_all_finite: %s in tensor %d unseen" % (bad, j))
+    many = [torch.ones(5, device=dev) for _ in range(600)]
+    many[599][4] = float("nan")
+    check(mtk.multi_all_finite(many).item() == 0.0 and
+          mtk.multi_all_finite(many[:599]).item() == 1.0,
+          "multi_all_finite: 600 tensors (3 launches) misjudged")
+    print("multi_all_finite vs plain: inf / -inf / NaN in every tensor of a "
+          "float16 / bfloat16 / float32 / float64 list (one launch), 600 "
+          "tensors (3 launches): equal")
+    # K2: every input dtype, .5 ties, C = 3, groups, a Dense input
+    n2 = 0
+    for dt in (torch.float16, torch.bfloat16, torch.float32, torch.int8):
+        for shape, g in (((2, 3, 31, 29), 1), ((1, 12, 5, 7), 3),
+                         ((5, 37), 1), ((32, 2048), 1), ((2, 64, 14, 14), 2)):
+            if dt == torch.int8:
+                x = torch.randint(-128, 128, shape, generator=gen,
+                                  device=dev, dtype=dt)
+                scales = (1.0,)
+            else:
+                x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dt)
+                x.view(-1)[:8] = ((torch.arange(8, device=dev) + 0.5)
+                                  * 0.5).to(dt)
+                scales = (0.0123, 0.5, 1 / 3)
+            for s in scales:
+                check(torch.equal(i8.int8_quantize(x, s, g),
+                                  i8.int8_quantize_plain(x, s, g)),
+                      "int8_quantize %s %s g=%d scale %g differs from plain"
+                      % (dt, shape, g, s))
+                n2 += 1
+    print("int8_quantize vs plain: %d cases (float16 / bfloat16 / float32 / "
+          "int8, .5 ties, C=3, groups 2 and 3, Dense inputs) bit for bit"
+          % n2)
+    # K3: the edges, both epilogues, three output dtypes
+    n3 = 0
+    for (N, C, H, W, O, k, s, p, d, g) in INT8_CONV_EDGES:
+        for dt in (torch.float16, torch.bfloat16, torch.float32):
+            x, wpk, _ = _int8_conv_inputs(i8, dev, gen, N, C, H, W, O, k, g,
+                                          dt)
+            xq = i8.int8_quantize(x, 0.02, g)
+            scale = torch.rand(O, generator=gen, device=dev) * 1e-3
+            bias = torch.randn(O, generator=gen, device=dev)
+            bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
+                               dtype=torch.int32)
+            geo = ((k, k), (s, s), (p, p), (d, d), g)
+            for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
+                       dict(out_dtype=torch.int32),
+                       dict(scale=scale, bias=bias, relu=True, out_dtype=dt),
+                       dict(scale=scale, bias=bias, out_dtype=dt),
+                       dict(scale=scale, out_dtype=dt, channels_last=True)):
+                got = i8.int8_conv(xq, wpk, *geo, **kw)
+                want = i8.int8_conv_plain(xq, wpk, *geo, **kw)
+                check(torch.equal(got, want), "int8_conv %s %s differs from "
+                      "plain: %d elements" % ((N, C, H, W, O, k, s, p, d, g),
+                                              sorted(kw),
+                                              int((got != want).sum())))
+                n3 += 1
+    print("int8_conv vs plain: %d cases (C=3 7x7 stem, odd C and O, stride "
+          "2, dilation 2, padding 0/1/2/3, groups 2, depthwise, batch 1, "
+          "3x3 with C a multiple of 32, the Dense; raw int32 with and "
+          "without bias, float with bias +- relu, "
+          "NCHW and NHWC, float16 / bfloat16 / float32) bit for bit" % n3)
+    # timing at ResNet-50's shapes
+    q_rows, c_rows = [], []
+    for name, N, C, H, W, O, k, s, p in INT8_CONV_TIMED:
+        x, wpk, wq = _int8_conv_inputs(i8, dev, gen, N, C, H, W, O, k, 1,
+                                       torch.float32)
+        if k == 1 and H == 1:
+            x = x.reshape(N, C)
+        scale = torch.full((O,), 1e-4, device=dev)
+        bias = torch.zeros(O, device=dev)
+        xq = i8.int8_quantize(x, 0.02)
+        xq4 = xq.reshape(N, H, W, -1)
+        geo = ((k, k), (s, s), (p, p))
+        # held against the plain version at this shape first: K2, then K3
+        # in both epilogues (random scales and biases)
+        check(torch.equal(xq, i8.int8_quantize_plain(x, 0.02)),
+              "int8_quantize %s (B=%d) differs from plain" % (name, N))
+        rs = torch.rand(O, generator=gen, device=dev) * 1e-3
+        rb = torch.randn(O, generator=gen, device=dev)
+        bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
+                   dict(scale=rs, bias=rb, relu=True)):
+            got = i8.int8_conv(xq4, wpk, *geo, **kw)
+            want = i8.int8_conv_plain(xq4, wpk, *geo, **kw)
+            check(torch.equal(got, want), "int8_conv %s (B=%d) %s differs "
+                  "from plain: %d elements" % (name, N, sorted(kw),
+                                               int((got != want).sum())))
+            del got, want
+        OH = (H + 2 * p - k) // s + 1
+        OW = (W + 2 * p - k) // s + 1
+        macs = N * OH * OW * O * C * k * k
+        ms = graph_ms(lambda: i8.int8_conv(xq4, wpk, *geo, scale=scale,
+                                           bias=bias))
+        call_ms = time_ms(lambda: i8.int8_conv(xq4, wpk, *geo, scale=scale,
+                                               bias=bias))
+        plain_ms = time_ms(lambda: i8.int8_conv_plain(
+            xq4, wpk, *geo, scale=scale, bias=bias), iters=3, warmup=1)
+        nbytes = xq4.numel() + wpk.numel() + 4 * N * O * OH * OW + 8 * O
+        b_ms, b_by = bound_ms(nbytes, 2 * macs, INT8_OPS_PER_S)
+        xb = x.to(torch.bfloat16)
+        wb = wq.to(torch.bfloat16)
+        if x.dim() == 4:
+            xb = xb.contiguous(memory_format=torch.channels_last)
+            wb = wb.contiguous(memory_format=torch.channels_last)
+            bf16_ms = graph_ms(lambda: F.conv2d(xb, wb, None, s, p))
+            lib_ms = None
+        else:
+            wb = wb.reshape(O, C)
+            bf16_ms = graph_ms(lambda: F.linear(xb, wb))
+            xi, wi = xq[:, :C].contiguous(), wq.reshape(O, C).t()
+            try:    # the yardstick only
+                lib_ms = graph_ms(lambda: torch._int_mm(xi, wi))
+            except (AttributeError, RuntimeError) as e:
+                print("torch._int_mm not timed: %s" % e)
+                lib_ms = None
+        print("int8_conv %s (B=%d): kernel %.4f ms (device), call %.4f ms, "
+              "plain %.4f ms, bound %.4f ms (%s: %.2f GMAC, int8 peak "
+              "1979 TOP/s), %.1f%% of it, %.1f TOP/s; cuDNN bf16 %s %.4f "
+              "ms%s [%s]"
+              % (name, N, ms, call_ms, plain_ms, b_ms, b_by, macs / 1e9,
+                 100 * b_ms / ms, 2 * macs / ms / 1e9,
+                 "channels-last conv" if x.dim() == 4 else "linear",
+                 bf16_ms, "" if lib_ms is None
+                 else "; torch._int_mm %.4f ms" % lib_ms, card))
+        c_rows.append({"shape": name, "ms": ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": lib_ms,
+                       "bf16_ms": bf16_ms, "macs": macs})
+        q_ms = graph_ms(lambda: i8.int8_quantize(x, 0.02))
+        q_call = time_ms(lambda: i8.int8_quantize(x, 0.02))
+        q_plain = time_ms(lambda: i8.int8_quantize_plain(x, 0.02), iters=3,
+                          warmup=1)
+        qb_ms, qb_by = bound_ms(4 * x.numel() + xq.numel(), x.numel(),
+                                FP32_FLOPS_PER_S)
+        print("int8_quantize %s input (B=%d, float32): kernel %.4f ms "
+              "(device), call %.4f ms, plain %.4f ms, bound %.4f ms (%s), "
+              "%.1f%% of it [%s]" % (name, N, q_ms, q_call, q_plain, qb_ms,
+                                    qb_by, 100 * qb_ms / q_ms, card))
+        q_rows.append({"shape": name, "ms": q_ms, "call_ms": q_call,
+                       "plain_ms": q_plain, "bound_ms": qb_ms,
+                       "bound_by": qb_by, "library_ms": None})
+        del x, wpk, wq, xq, xq4, xb, wb
+        torch.cuda.empty_cache()
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    conv_head = c_rows[2]                       # 3x3 64->64 at 56^2
+    return [{"name": "multi_all_finite", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/multi_tensor.cu",
+             "replaces": "mxnet_tpu/ndarray/op_updates.py:631",
+             "max_abs_err": 0.0, "shapes": []},
+            {"name": "int8_quantize", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
+             "replaces": "mxnet_tpu/contrib/quantization.py:115",
+             "max_abs_err": 0.0, **{k: q_rows[0][k] for k in keys},
+             "shapes": q_rows},
+            {"name": "int8_conv", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
+             "replaces": "mxnet_tpu/contrib/quantization.py:197",
+             "max_abs_err": 0.0, **{k: conv_head[k] for k in keys},
+             "bf16_ms": conv_head["bf16_ms"], "shapes": c_rows}]
+
+
+def _forward_row(mt, net, x, tag, card):
+    """device_busy of one forward of ``net`` on ``x`` (no tape), with the
+    peak memory of the calls."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mt.autograd.pause():
+        host, dev_ms, top, counts, _ = device_busy(lambda: net(x), reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    B = x.shape[0]
+    print("resnet50 %s forward (B=%d): %.0f images/s, %.2f ms host, %.2f ms "
+          "of kernels (device busy %.1f%%), %.1f device events per call, "
+          "peak memory %.2f GB; top kernels %s [%s]"
+          % (tag, B, B / host * 1e3, host, dev_ms, 100 * dev_ms / host,
+             counts["device events"], peak / 1e9,
+             "; ".join("%s %.3f" % t for t in top), card))
+    return {"images_per_s": B / host * 1e3, "host_ms": host,
+            "kernel_ms": dev_ms, "peak_gb": peak / 1e9}
+
+
+def int8_resnet_phase(mt, co, dev, card):
+    """``bench.py:318-343`` on the port: ``resnet50_v1()`` float32 NCHW,
+    B=32, 224^2, one ``uniform(0, 1)`` calibration batch through
+    ``quantize_net(calib_mode="naive")``, then the int8 net eager and
+    hybridized (CUDA graphs) beside the float32 and bf16 nets of the same
+    weights; top-1 agreement and the logits' error against the float32
+    net on a second batch; the kernels launched per forward (K3 54 times:
+    53 convolutions and the Dense; K2 as often).  Then
+    ``calib_mode="entropy"`` on a batch of 8, its calibration timed.
+    Returns the launch counts of the int8 forwards."""
+    from mxnet_tpu_torch.contrib import quantization as q
+    B = INT8_RESNET_B
+    gen = torch.Generator(device=dev).manual_seed(61)
+    calib = torch.rand(B, 3, 224, 224, generator=gen, device=dev)
+    x = torch.rand(B, 3, 224, 224, generator=gen, device=dev)
+    rows = {}
+    fp32 = _resnet50(mt, dev)
+    with mt.autograd.pause():
+        want = fp32(x)
+    for tag in ("float32", "bf16"):
+        net = fp32 if tag == "float32" else _resnet50(mt, dev).cast(
+            "bfloat16")
+        xin = x if tag == "float32" else x.to(torch.bfloat16)
+        for mode in ("eager", "hybridized"):
+            net.hybridize(mode == "hybridized")
+            rows["%s %s" % (tag, mode)] = _forward_row(
+                mt, net, xin, "%s %s" % (tag, mode), card)
+        net.hybridize(False)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = _resnet50(mt, dev)
+    with mt.autograd.pause():
+        net(x[:1])         # shapes: quantize_net skips a deferred layer
+    t0 = time.monotonic()
+    q.quantize_net(net, calib_data=[calib], calib_mode="naive")
+    torch.cuda.synchronize()
+    naive_s = time.monotonic() - t0
+    n_q = sum(isinstance(m, (q.QuantizedConv2D, q.QuantizedDense))
+              for m in net.modules())
+    check(n_q == 54, "int8 resnet50: %d layers quantized, want 54" % n_q)
+    co.reset_launch_counts()
+    with mt.autograd.pause():
+        got = net(x)
+    torch.cuda.synchronize()
+    launches = dict(co.LAUNCHES)
+    check(launches["int8_conv"] == 54 and launches["int8_quantize"] == 54,
+          "int8 resnet50: a forward launched int8_conv %d and int8_quantize "
+          "%d times, want 54 each" % (launches["int8_conv"],
+                                      launches["int8_quantize"]))
+    rows["int8 eager"] = _forward_row(mt, net, x, "int8 eager", card)
+    net.hybridize()
+    with mt.autograd.pause():
+        net(x)
+    co.reset_launch_counts()
+    hyb = net(x)
+    torch.cuda.synchronize()
+    hyb_launches = dict(co.LAUNCHES)
+    check(len(net._graphs) == 1 and torch.equal(hyb, got)
+          and hyb_launches["int8_conv"] == 54,
+          "int8 resnet50: the hybridized forward differs from eager or did "
+          "not replay its kernels (%s)" % hyb_launches)
+    rows["int8 hybridized"] = _forward_row(mt, net, x, "int8 hybridized",
+                                           card)
+    net.hybridize(False)
+    check(got.shape == (B, 1000) and bool(torch.isfinite(got).all()),
+          "int8 resnet50: logits %s not finite" % (tuple(got.shape),))
+    rel = _rel(got, want)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    maxrel = ((got - want).abs().max() / want.abs().max()).item()
+    print("int8 resnet50 (B=%d, calib naive on one uniform(0,1) batch, "
+          "%.2f s): on a second batch, top-1 agreement with float32 %.4f, "
+          "logits ||d||/||fp32|| %.4f (limit %.2f), max|d|/max|fp32| %.4f; "
+          "a forward launches int8_conv %d and int8_quantize %d times "
+          "(hybridized replay: %d, %d); hybridized == eager bit for bit "
+          "[%s]" % (B, naive_s, agree, rel, INT8_RESNET_REL, maxrel,
+                    launches["int8_conv"], launches["int8_quantize"],
+                    hyb_launches["int8_conv"], hyb_launches["int8_quantize"],
+                    card))
+    check(rel <= INT8_RESNET_REL, "int8 resnet50: logits differ from "
+          "float32 by %.4f" % rel)
+    print("int8 resnet50 forward rows, same run: %s" % "; ".join(
+        "%s %.0f images/s, %.2f ms host, %.2f ms kernels, %.2f GB"
+        % (k, v["images_per_s"], v["host_ms"], v["kernel_ms"], v["peak_gb"])
+        for k, v in rows.items()))
+    del net, got, hyb, fp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = _resnet50(mt, dev)
+    with mt.autograd.pause():
+        net(x[:1])
+    t0 = time.monotonic()
+    q.quantize_net(net, calib_data=[calib[:INT8_ENTROPY_B]],
+                   calib_mode="entropy")
+    torch.cuda.synchronize()
+    ent_s = time.monotonic() - t0
+    with mt.autograd.pause():
+        ent = net(x)
+    print("int8 resnet50 calib_mode=entropy on a batch of %d: calibration "
+          "%.2f s (host numpy: 54 histograms of 8001 bins and their KL "
+          "searches); top-1 agreement with float32 %.4f, logits "
+          "||d||/||fp32|| %.4f [%s]"
+          % (INT8_ENTROPY_B, ent_s,
+             (ent.argmax(-1) == want.argmax(-1)).float().mean().item(),
+             _rel(ent, want), card))
+    check(bool(torch.isfinite(ent).all()), "int8 resnet50 entropy: logits "
+          "not finite")
+    del net, ent, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def amp_phase(mt, co, dev, card, finite_rec):
+    """float16 AMP training: BERT-base (``amp.init("float16")``,
+    ``convert_hybrid_block`` keeping LayerNorm float32, AdamW with
+    ``multi_precision``, ``init_trainer``, ``scale_loss``), 6 steps at
+    B=16, T=512, dropout off, through the tensor-core flash kernels; then
+    ResNet-50 NHWC, B=128, SGD with momentum, 3 updating steps (an
+    overflowed step is counted and taken again); each with its
+    loss-scale trajectory from 2^16 and K1 launched once a step.  Then
+    the guard: a ``GradGuard`` on the ResNet trainer and an injected
+    ``nan_grad``: the step is skipped (weights bit for bit),
+    ``fault::nonfinite_steps`` counts 1, the scale halves, and the next
+    step updates.  ``finite_rec`` (K1's record) gains the BERT-base
+    gradient list's timing.  Returns the launch counts of the three
+    paths."""
+    from mxnet_tpu_torch import amp, fault, profiler
+    from mxnet_tpu_torch.ops import multi_tensor as mtk
+    amp.init("float16")
+    cfg = mt.models.bert_base_config(dtype="float32", dropout=0.0)
+    net = mt.models.BERTForPretrain(cfg).initialize(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    batch = bert_batch(cfg, dev, BERT_B, BERT_T, 7)
+    probe = (batch[0][:2], batch[1][:2])
+    with torch.no_grad(), mt.autograd.pause():
+        fp32_loss = bert_loss(mt, net, *batch).item()
+        fp32_logits = net(*probe)[0].float()
+    amp.convert_hybrid_block(net, "float16")
+    with torch.no_grad(), mt.autograd.pause():
+        logit_rel = _rel(net(*probe)[0], fp32_logits)
+    del fp32_logits
+    check(logit_rel <= AMP_LOGIT_REL, "amp bert: float16 MLM logits differ "
+          "from float32 by %.3g (limit %.0e)" % (logit_rel, AMP_LOGIT_REL))
+    dts = sorted({str(p.dtype)[6:] for p in net.parameters()})
+    ln = {str(m.gamma.dtype)[6:] for m in net.modules()
+          if isinstance(m, mt.gluon.nn.LayerNorm)}
+    check(ln == {"float32"} and "float16" in dts, "amp: convert_hybrid_block "
+          "left LayerNorm %s, weights %s" % (ln, dts))
+    tr = mt.gluon.Trainer(net.collect_params(), "adamw",
+                          {"learning_rate": 2e-5, "wd": 0.01,
+                           "multi_precision": True})
+    amp.init_trainer(tr)
+
+    def bert_step(step=True):
+        with mt.autograd.record():
+            loss = bert_loss(mt, net, *batch)
+            with amp.scale_loss(loss, tr) as scaled:
+                mt.autograd.backward(scaled)
+        if step:
+            tr.step(1)
+        return loss.item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
+    traj, losses = [], []
+    t0 = time.monotonic()
+    for _ in range(AMP_BERT_STEPS):
+        losses.append(bert_step())
+        traj.append(tr._amp_loss_scaler.loss_scale)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    bert_launches = dict(co.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    overflows = sum(b < a for a, b in zip([2.0 ** 16] + traj, traj))
+    check(all(math.isfinite(v) for v in losses), "amp bert: a loss is not "
+          "finite: %s" % losses)
+    check(abs(losses[0] - fp32_loss) <= AMP_LOSS_RTOL * abs(fp32_loss),
+          "amp bert: first loss %.5f, float32 %.5f" % (losses[0], fp32_loss))
+    check(bert_launches["multi_all_finite"] == AMP_BERT_STEPS,
+          "amp bert: multi_all_finite launched %d times in %d steps"
+          % (bert_launches["multi_all_finite"], AMP_BERT_STEPS))
+    for name in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"):
+        check(bert_launches[name] == cfg.num_layers * AMP_BERT_STEPS,
+              "amp bert: %s launched %d times" % (name, bert_launches[name]))
+    ms, dev_ms, top, counts, per = device_busy(bert_step, reps=2)
+    print("amp bert-base float16 (B=%d, T=%d, dropout 0, AdamW "
+          "multi_precision): losses %s (float32 model's first %.5f, limit "
+          "%.0e relative); MLM logits of 2 sequences before the first "
+          "step: ||fp16 - fp32|| / ||fp32|| %.3g (limit %.0e); loss scale "
+          "%s from 2^16, %d overflow steps; %d "
+          "steps in %.2f s; step %.1f ms host, %.1f ms of kernels (device "
+          "busy %.1f%%), %.1f samples/s, peak memory %.2f GB; "
+          "multi_all_finite %d launches (1 a step); top kernels %s [%s]"
+          % (BERT_B, BERT_T, losses, fp32_loss, AMP_LOSS_RTOL, logit_rel,
+             AMP_LOGIT_REL, traj,
+             overflows, AMP_BERT_STEPS, wall, ms, dev_ms, 100 * dev_ms / ms,
+             BERT_B / ms * 1e3, peak / 1e9,
+             bert_launches["multi_all_finite"],
+             "; ".join("%s %.3f" % t for t in top), card))
+    bert_step(step=False)                 # fresh gradients, kept
+    grads = [p.grad for p in net.parameters() if p.grad is not None]
+    finite_rec["shapes"].append(finite_list_timing(
+        mtk, grads, "bert-base float16 AMP grads (float16 + float32 "
+        "LayerNorm)", card))
+    del net, tr, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ResNet-50, NHWC, float16 with float32 BatchNorm
+    B = AMP_RESNET_B
+    net = _resnet50(mt, dev, "NHWC")
+    amp.convert_hybrid_block(net, "float16")
+    gen = torch.Generator(device=dev).manual_seed(62)
+    x = torch.randn(B, 224, 224, 3, generator=gen, device=dev).half()
+    labels = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+    with mt.autograd.pause():
+        net(x[:2])
+    tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.05, "momentum": 0.9,
+                           "wd": 1e-4, "multi_precision": True})
+    amp.init_trainer(tr)
+    loss_fn = mt.gluon.loss.SoftmaxCELoss()
+
+    def resnet_backward():
+        with mt.autograd.record():
+            loss = loss_fn(net(x).float(), labels).mean()
+            with amp.scale_loss(loss, tr) as scaled:
+                mt.autograd.backward(scaled)
+        return loss.item()
+
+    def resnet_step():
+        loss = resnet_backward()
+        tr.step(1)
+        return loss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
+    traj, losses, updates = [], [], 0
+    # AMP_RESNET_STEPS steps that update; an overflowed one (the scale
+    # halves, nothing updates) is counted and retried
+    while updates < AMP_RESNET_STEPS and len(traj) < AMP_RESNET_TRIES:
+        scale = tr._amp_loss_scaler.loss_scale
+        losses.append(resnet_step())
+        traj.append(tr._amp_loss_scaler.loss_scale)
+        updates += traj[-1] >= scale
+    torch.cuda.synchronize()
+    rn_launches = dict(co.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print("amp resnet50 float16 NHWC: losses %s; loss scale %s from 2^16, "
+          "%d overflow steps; launches %s" % (
+              losses, traj, len(traj) - updates,
+              {k: v for k, v in rn_launches.items() if v}))
+    check(all(math.isfinite(v) for v in losses), "amp resnet: a loss is not "
+          "finite: %s" % losses)
+    check(updates == AMP_RESNET_STEPS and
+          rn_launches["multi_all_finite"] == len(traj) and
+          rn_launches["multi_sgd"] == updates * opt_tables(net.parameters()),
+          "amp resnet: %d updating steps of %d, multi_all_finite %d / "
+          "multi_sgd %d launches" % (updates, len(traj),
+                                     rn_launches["multi_all_finite"],
+                                     rn_launches["multi_sgd"]))
+    ms, dev_ms, top, counts, per = device_busy(resnet_step, reps=2)
+    print("amp resnet50 float16 NHWC (B=%d, SGD momentum 0.9, float32 "
+          "BatchNorm): %d updating steps; step %.1f ms host, %.1f ms of "
+          "kernels (device busy %.1f%%), %.0f images/s, peak memory %.2f "
+          "GB; multi_all_finite %d launches (1 a step); top kernels %s [%s]"
+          % (B, updates, ms, dev_ms, 100 * dev_ms / ms, B / ms * 1e3,
+             peak / 1e9, rn_launches["multi_all_finite"],
+             "; ".join("%s %.3f" % t for t in top), card))
+    # the guard
+    guard = fault.GradGuard(tr)
+    base = profiler.get_counters().get("fault::nonfinite_steps", 0)
+    scale = tr._amp_loss_scaler.loss_scale
+    resnet_backward()
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    fault.inject("nan_grad", at=1)
+    co.reset_launch_counts()
+    try:
+        tr.step(1)
+    finally:
+        fault.clear()
+    torch.cuda.synchronize()
+    guard_launches = dict(co.LAUNCHES)
+    same = all(torch.equal(p.detach(), before[n])
+               for n, p in net.named_parameters())
+    skips = profiler.get_counters().get("fault::nonfinite_steps", 0) - base
+    check(same and skips == 1 and guard.skipped == 1
+          and tr._amp_loss_scaler.loss_scale == scale / 2
+          and guard_launches["multi_all_finite"] == 1
+          and guard_launches["multi_sgd"] == 0,
+          "guard: weights same %s, nonfinite_steps %d, skipped %d, scale "
+          "%s -> %s, launches %s" % (same, skips, guard.skipped, scale,
+                                     tr._amp_loss_scaler.loss_scale,
+                                     guard_launches))
+    resnet_step()
+    moved = sum(not torch.equal(p.detach(), before[n])
+                for n, p in net.named_parameters() if p.requires_grad)
+    check(moved > 0 and guard.consecutive == 0, "guard: the step after the "
+          "skip updated nothing")
+    print("guard (GradGuard on the amp resnet50 trainer, nan_grad injected "
+          "at the step seam): step skipped, every weight bit for bit, "
+          "fault::nonfinite_steps +%d, loss scale %s -> %s, "
+          "multi_all_finite launched %d, multi_sgd %d; the next step moved "
+          "%d trainable tensors [%s]"
+          % (skips, scale, scale / 2, guard_launches["multi_all_finite"],
+             guard_launches["multi_sgd"], moved, card))
+    guard.detach()
+    del net, tr, before, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bert_launches, rn_launches, guard_launches
+
+
+# ----------------------------------------------------------------------
 # phase 15: the optimizer's multi-tensor kernels (csrc/multi_tensor.cu)
 # ----------------------------------------------------------------------
 # Each kernel against its plain version (ops/multi_tensor.py) on cloned
@@ -2549,6 +3195,25 @@ def _fused_adamw_ms(groups, lr, wd, beta1=0.9, beta2=0.999, eps=1e-8):
     return ms_
 
 
+def _fused_sgd_ms(groups, lr, wd, momentum):
+    """Device ms (:func:`graph_ms`) of ``torch._fused_sgd_`` (PyTorch's
+    own fused SGD with momentum; one lr and wd for the list, where the
+    kernel's are per tensor, and the momentum in the weights' dtype,
+    where the kernel's is float32) on the list: the library yardstick of
+    ``multi_sgd``; the port never calls it."""
+    ps, gs = ([grp[i].clone() for grp in groups] for i in range(2))
+    # its fast path takes one dtype a list: momentum in the weights'
+    ms = [grp[2].to(grp[0].dtype) for grp in groups]
+    try:     # the yardstick only: a torch without it leaves library_ms null
+        return graph_ms(lambda: torch._fused_sgd_(
+            ps, gs, ms, weight_decay=wd, momentum=momentum, lr=lr,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        print("torch._fused_sgd_ not timed: %s" % e)
+        return None
+
+
 def _param_list(params, grad_dtype=None):
     """(shapes, (weight dtype, grad dtype)) of the trainable ``params``."""
     ps = [p for p in params if p.requires_grad]
@@ -2612,6 +3277,9 @@ def optimizer_phase(mt, co, dev, card):
                         tag == "bert-base float32":
                     def lib():
                         return _fused_adamw_ms(groups, 2e-5, 0.01)
+                elif kind == "sgd":
+                    def lib():
+                        return _fused_sgd_ms(groups, 2e-5, 0.01, 0.9)
                 for k, rec in opt_list_timing(co, mtk, kind, groups, sub,
                                               name, card, lib).items():
                     timing[k].append(rec)
@@ -4234,7 +4902,7 @@ def main(argv):
     del net                       # free the serving model for training
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, lm_adamw = train_phase(mt, co, dev, card)
+    train_launches, lm_adamw, lm_finite = train_phase(mt, co, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     resnet_launches = resnet_phase(mt, co, dev, card)
@@ -4247,6 +4915,16 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     entry_launches = entry_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    low_prec = low_precision_kernel_phase(co, dev, card)
+    int8_resnet_launches = int8_resnet_phase(mt, co, dev, card)
+    amp_bert_launches, amp_resnet_launches, guard_launches = amp_phase(
+        mt, co, dev, card, low_prec[0])
+    finite = low_prec[0]
+    finite["shapes"].append(lm_finite)
+    finite.update({k: finite["shapes"][0][k] for k in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     gc.collect()
     torch.cuda.empty_cache()
     (ring_launches, ring_block, dp_tp_launches, pipe_launches,
@@ -4267,7 +4945,8 @@ def main(argv):
     for k in flash_bwd:
         k["max_abs_err"] = max(k["max_abs_err"], ring_block["abs"])
         k["max_rel_err"] = max(k["max_rel_err"], ring_block["rel"])
-    kernels = [flash] + flash_bwd + [paged] + general + optim + int8
+    kernels = [flash] + flash_bwd + [paged] + general + optim + int8 \
+        + low_prec
     paths = {"serve": serve_launches, "serve_int8": serve_int8_launches,
              "train": train_launches,
              "bert": bert_launches, "tiny_fp32": tiny_launches,
@@ -4276,8 +4955,17 @@ def main(argv):
              "moe": moe_launches, "remat": remat_launches,
              "checkpoint": ckpt_launches, "dp_tp": dp_tp_launches,
              "pipeline": pipe_launches, "kvstore": kv_launches,
-             "serve_tp": serve_tp["bf16"], "serve_tp_int8": serve_tp["int8"]}
+             "serve_tp": serve_tp["bf16"], "serve_tp_int8": serve_tp["int8"],
+             "int8_resnet": int8_resnet_launches,
+             "amp_bert": amp_bert_launches,
+             "amp_resnet": amp_resnet_launches, "guard": guard_launches}
     for path, kernels_of_path in (
+            ("int8_resnet", ("int8_quantize", "int8_conv")),
+            ("amp_bert", ("multi_all_finite", "flash_fwd_mma",
+                          "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+                          "multi_adam")),
+            ("amp_resnet", ("multi_all_finite", "multi_sgd")),
+            ("guard", ("multi_all_finite",)),
             ("serve_tp", ("flash_fwd", "paged_decode")),
             ("serve_tp_int8", ("flash_fwd", "paged_decode", "int8_linear",
                                "int8_dequant")),

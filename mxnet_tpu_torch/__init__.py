@@ -12,8 +12,9 @@ the MoE), ``models`` (the Llama-class
 ``TransformerLM`` and its paged KV cache, BERT), ``serve`` (the
 continuous-batching server, tensor-parallel over a mesh) and
 ``convert`` (weights to and from the JAX package, as numpy); the control
-plane ``profiler``, ``telemetry``, ``flightrec`` and ``fault`` (loaded on
-first use, as the JAX package's lazy table loads them; ``serve_router``
+plane ``profiler``, ``telemetry``, ``flightrec`` and ``fault``, and
+``amp`` (mixed precision with dynamic loss scaling), loaded on first
+use, as the JAX package's lazy table loads them (``serve_router``
 is imported as ``mxnet_tpu_torch.serve_router``, as there); and the
 imperative MXNet surface: ``nd``
 (``NDArray``), ``np`` (with ``np.random``), ``npx``, ``engine`` and the
@@ -45,9 +46,9 @@ random = numpy.random
 
 __version__ = "2.0.0.torch0"
 
-#: the control-plane modules, loaded on first attribute access
+#: the control-plane modules and ``amp``, loaded on first attribute access
 _LAZY = {"profiler": ".profiler", "telemetry": ".telemetry",
-         "flightrec": ".flightrec", "fault": ".fault"}
+         "flightrec": ".flightrec", "fault": ".fault", "amp": ".amp"}
 
 
 def __getattr__(name):

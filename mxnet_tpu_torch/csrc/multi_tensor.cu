@@ -1,4 +1,5 @@
-// Multi-tensor optimizer updates: one launch over a list of tensors.
+// Multi-tensor optimizer updates, and the all-finite check, each one
+// launch over a list of tensors.
 //
 // Replaces the JAX package's compiled update: `Optimizer._compiled`
 // (mxnet_tpu/optimizer/optimizer.py:135-146) jits each rule once with
@@ -6,7 +7,7 @@
 // XLA program (mxnet_tpu/parallel/train_step.py:170-206); and the
 // multi-tensor update ops of mxnet_tpu/ndarray/op_updates.py:342-600
 // (`multi_sgd_update`, `multi_mp_sgd_*`, `multi_adamw_update`,
-// `multi_lamb_update`, ...).  No Pallas kernel is involved.  Four
+// `multi_lamb_update`, ...).  No Pallas kernel is involved.  Five
 // kernels:
 //   (a) sgd_kernel:   plain SGD, momentum, Nesterov (NAG);
 //   (b) adam_kernel:  Adam (wd coupled into g) or AdamW (decoupled),
@@ -16,7 +17,12 @@
 //                     and r^2;
 //   (d) lamb2_kernel: LAMB phase 2: each tensor's partials reduced in a
 //                     fixed order, the trust ratio with the reference's
-//                     bounds and zero guards, w -= lr * ratio * r.
+//                     bounds and zero guards, w -= lr * ratio * r;
+//   (e) finite_kernel: whether every element of every tensor is finite
+//                     (the reference's `multi_all_finite`,
+//                     mxnet_tpu/ndarray/op_updates.py:631, and the
+//                     gradient check of its loss scaler and non-finite
+//                     step guard, mxnet_tpu/fault.py:660); see below.
 // Each takes float16, bfloat16 or float32 weights and gradients (a
 // gradient is read in its own dtype: no separate float cast pass),
 // float32 states and, optionally, a float32 master copy of each weight
@@ -64,10 +70,11 @@ constexpr int NT = 256;           // threads per block
 constexpr int VEC = 8;            // elements per thread on the vector path
 constexpr int BLOCKS_PER_SM = 8;
 
-enum { F16 = 0, BF16 = 1, F32 = 2 };                    // dtype codes
-enum { SGD = 0, ADAM = 1, LAMB1 = 2, LAMB2 = 3 };       // kernel codes
+enum { F16 = 0, BF16 = 1, F32 = 2, F64 = 3 };          // dtype codes
+enum { SGD = 0, ADAM = 1, LAMB1 = 2, LAMB2 = 3, FINITE = 4 };  // kernels
 enum {                                                  // Scalars.flags
-  NESTEROV = 1, DECOUPLED = 2, HAS_CLIP = 4, HAS_LOWER = 8, HAS_UPPER = 16
+  NESTEROV = 1, DECOUPLED = 2, HAS_CLIP = 4, HAS_LOWER = 8, HAS_UPPER = 16,
+  NARROW = 32
 };
 
 // The per-launch table; `multi_tensor.py` builds the same layout with a
@@ -86,12 +93,14 @@ struct Table {
   int index[TABLE];                // its position in the caller's list
   int ntensors;
   unsigned char aligned[TABLE];    // every pointer 16-byte aligned
+  unsigned char dtype[TABLE];      // finite_kernel: each tensor's dtype
 };
 
 struct Scalars {
   const float* rescale_dev;  // rescale read on the device, or null
   double* partials;          // LAMB: (sum w^2, sum r^2) per chunk
   float* ratios;             // LAMB: each tensor's trust ratio, or null
+  float* finite;             // finite_kernel: the flag it clears
   float rescale, clip, beta1, beta2, omb1, omb2, eps, momentum;
   float lower, upper;
   int flags, nchunks;
@@ -390,6 +399,69 @@ lamb2_kernel(const __grid_constant__ Table t, const Scalars s) {
   }
 }
 
+// (e) The flag (one float32 on the device, set by the caller: 1, or the
+// value it carries over) drops to 0 where a block saw an inf or a NaN.
+// A tensor of the table is read in its own dtype (Table.dtype), so one
+// launch covers a list of mixed float16 / bfloat16 / float32 / float64
+// gradients; with NARROW a float64 value is checked after its rounding
+// to float32, as the reference's ops cast first (a finite double above
+// the float32 range counts as inf there).  No atomics and no host
+// sync: each block ORs its threads' verdicts (__syncthreads_or) and one
+// thread of a block that saw one stores the 0.  Bound by bytes: each
+// element is read once, 16 bytes a thread where the tensor is aligned.
+__device__ __forceinline__ bool finite_of(float x, bool) {
+  return isfinite(x);
+}
+__device__ __forceinline__ bool finite_of(__half x, bool) {
+  return isfinite(__half2float(x));
+}
+__device__ __forceinline__ bool finite_of(__nv_bfloat16 x, bool) {
+  return isfinite(__bfloat162float(x));
+}
+__device__ __forceinline__ bool finite_of(double x, bool narrow) {
+  return narrow ? isfinite((float)x) : isfinite(x);
+}
+
+template <typename GT>
+__device__ __forceinline__ bool chunk_finite(const Table& t, int ti, int c,
+                                             bool narrow) {
+  constexpr int V = 16 / sizeof(GT);
+  const GT* g = static_cast<const GT*>(t.g[ti]);
+  const long long start = (long long)(c - t.chunk_begin[ti]) * CHUNK;
+  const long long end = min(start + (long long)CHUNK, t.n[ti]);
+  bool ok = true;
+  long long tail = start;
+  if (t.aligned[ti]) {
+    tail = start + (end - start) / V * V;
+    for (long long i = start + (long long)V * threadIdx.x; i < tail;
+         i += (long long)V * NT) {
+      const uint4 u = *reinterpret_cast<const uint4*>(g + i);
+      const GT* h = reinterpret_cast<const GT*>(&u);
+#pragma unroll
+      for (int j = 0; j < V; ++j) ok &= finite_of(h[j], narrow);
+    }
+  }
+  for (long long i = tail + threadIdx.x; i < end; i += NT)
+    ok &= finite_of(g[i], narrow);
+  return ok;
+}
+
+__global__ void __launch_bounds__(NT)
+finite_kernel(const __grid_constant__ Table t, const Scalars s) {
+  const bool narrow = s.flags & NARROW;
+  bool ok = true;
+  for (int c = blockIdx.x; c < s.nchunks; c += gridDim.x) {
+    const int ti = find_tensor(t, c);
+    switch (t.dtype[ti]) {         // uniform over the block
+      case F16: ok &= chunk_finite<__half>(t, ti, c, narrow); break;
+      case BF16: ok &= chunk_finite<__nv_bfloat16>(t, ti, c, narrow); break;
+      case F32: ok &= chunk_finite<float>(t, ti, c, narrow); break;
+      default: ok &= chunk_finite<double>(t, ti, c, narrow); break;
+    }
+  }
+  if (__syncthreads_or(!ok) && threadIdx.x == 0) *s.finite = 0.f;
+}
+
 int blocks_cap() {
   static int sms[64] = {0};
   int dev = 0;
@@ -439,7 +511,8 @@ extern "C" int mx_multi_tensor_sizes(int* table, int* scalars) {
   return 0;
 }
 
-// Launch kernel `kind` (SGD, ADAM, LAMB1, LAMB2) over one table.  Returns
+// Launch kernel `kind` (SGD, ADAM, LAMB1, LAMB2, FINITE) over one table
+// (FINITE reads Table.dtype's codes, not wdtype / gdtype).  Returns
 // a CUDA error code: the launch's own (cudaGetLastError), or
 // cudaErrorInvalidValue for a table or scalars of the wrong size, an
 // unknown kind or dtype.
@@ -458,6 +531,14 @@ extern "C" int mx_multi_tensor(int kind, const void* table, int table_bytes,
       t.chunk_begin[t.ntensors] != s.nchunks)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kind == FINITE) {
+    for (int i = 0; i < t.ntensors; ++i)
+      if (t.dtype[i] > F64) return (int)cudaErrorInvalidValue;
+    if (!s.finite) return (int)cudaErrorInvalidValue;
+    const int grid = s.nchunks < blocks_cap() ? s.nchunks : blocks_cap();
+    finite_kernel<<<grid, NT, 0, st>>>(t, s);
+    return (int)cudaGetLastError();
+  }
   switch (wdtype) {
     case F16: return by_grad<__half>(kind, gdtype, t, s, st);
     case BF16: return by_grad<__nv_bfloat16>(kind, gdtype, t, s, st);

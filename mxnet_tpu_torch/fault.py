@@ -26,13 +26,23 @@ Spec DSL (``;``-separated)::
     serve_decode_fail@2[:op=fatal] fail the 2nd decode commit
     serve_slow_decode:op=0.2       stall each decode commit 0.2 s
 
+    nan_grad@2                     NaN the first fresh gradient at the
+                                   2nd Trainer.step
+
 A JSON list of ``{"kind": ..., "at": ..., ...}`` objects is accepted
 too.  All randomness is seeded (``seed=`` per fault).  The kinds of the
-reference's training and multi-host seams parse and arm here as there;
-their seams (``step_hook``, the dataloader's, the heartbeat's) wait for
-ROADMAP queue 4 and raise ``NotImplementedError``, as do
-``GradGuard``, ``grads_finite``, ``PreemptionHandler``,
-``on_preemption``, ``load_snapshot`` and the elastic state.
+reference's training and multi-host seams parse and arm here as there.
+
+**The non-finite gradient guard** (reference :660-716):
+:func:`grads_finite` checks a parameter list's gradients with one
+``multi_all_finite`` kernel launch on the card and one host sync;
+:class:`GradGuard` makes every step of a Trainer skip a non-finite
+batch (``Trainer.step(skip_nonfinite=True)`` for one step), counting
+``fault::nonfinite_steps``; :func:`step_hook`, the Trainer's step seam,
+delivers ``nan_grad``.  Its ``preempt`` and ``peer_preempt`` kinds, the
+dataloader's seam, ``PreemptionHandler``, ``on_preemption``,
+``load_snapshot`` and the elastic state wait for ROADMAP queue 4 and
+raise ``NotImplementedError``.
 
 Retry knobs from the environment: ``MXNET_FAULT_MAX_RETRIES`` (3),
 ``MXNET_FAULT_BACKOFF`` (0.05s base), ``MXNET_FAULT_BACKOFF_MAX`` (2.0s),
@@ -550,20 +560,105 @@ def verify_manifest(path, only=None):
     return not bad, bad
 
 
+# ----------------------------------------------------------------------
+# the training step's seam and the non-finite gradient guard
+# ----------------------------------------------------------------------
 def _queue4(name):
     def stub(*args, **kwargs):
         raise NotImplementedError(
-            "fault.%s is not ported yet (ROADMAP queue 4: the training "
-            "side of the fault runtime)" % name)
+            "fault.%s is not ported yet (ROADMAP queue 4: preemption and "
+            "the elastic state)" % name)
     stub.__name__ = name
     return stub
 
 
-# the training / preemption / elastic half of the reference module
-step_hook = _queue4("step_hook")
+def step_hook(trainer):
+    """Trainer.step entry: deliver armed step-site faults (``nan_grad``;
+    ``preempt`` / ``peer_preempt`` raise, ROADMAP queue 4)."""
+    for f in check("step"):
+        if f.kind == "nan_grad":
+            _corrupt_grads(trainer)
+        elif f.kind in ("preempt", "peer_preempt"):
+            raise NotImplementedError(
+                "fault %s is not ported yet (ROADMAP queue 4: preemption "
+                "and the elastic state)" % f.kind)
+
+
+def _grads(params):
+    """The floating-point gradients of the trainable ``params``."""
+    out = []
+    for p in params:
+        if getattr(p, "grad_req", "write") == "null" or \
+                not getattr(p, "requires_grad", True):
+            continue
+        g = getattr(p, "grad", None)
+        if g is not None and g.is_floating_point():
+            out.append(g)
+    return out
+
+
+def _corrupt_grads(trainer):
+    """Overwrite the first fresh floating-point gradient with NaN."""
+    grads = _grads(trainer._params)
+    if not grads:
+        return False
+    grads[0].fill_(float("nan"))
+    return True
+
+
+def grads_finite(params):
+    """Whether every gradient of ``params`` is finite: one
+    ``multi_all_finite`` kernel launch over all of them on the card (the
+    plain check on the CPU), each in its own dtype, then one host sync
+    (the reference reduces on the device and syncs once the same way)."""
+    from .ops.multi_tensor import multi_all_finite
+    grads = _grads(params)
+    if not grads:
+        return True
+    return bool(multi_all_finite(grads, narrow=False).item())
+
+
+class GradGuard:
+    """Attach to a Trainer so every step behaves as
+    ``step(..., skip_nonfinite=True)``: a non-finite gradient batch skips
+    the optimizer update (weights untouched), backs off the AMP loss
+    scale when one is attached, and counts ``fault::nonfinite_steps``.
+    ``max_consecutive`` bounds silent divergence: that many back-to-back
+    skips raises instead of looping forever."""
+
+    def __init__(self, trainer=None, max_consecutive=100):
+        self.skipped = 0
+        self.consecutive = 0
+        self.max_consecutive = max_consecutive
+        self._trainer = None
+        if trainer is not None:
+            self.attach(trainer)
+
+    def attach(self, trainer):
+        trainer._grad_guard = self
+        self._trainer = trainer
+        return self
+
+    def detach(self):
+        if self._trainer is not None and \
+                getattr(self._trainer, "_grad_guard", None) is self:
+            self._trainer._grad_guard = None
+        self._trainer = None
+
+    def _record_skip(self):
+        self.skipped += 1
+        self.consecutive += 1
+        if self.consecutive >= self.max_consecutive:
+            raise FaultError(
+                "GradGuard: %d consecutive non-finite gradient steps -- "
+                "training is diverging, not recovering" % self.consecutive)
+
+    def _record_ok(self):
+        self.consecutive = 0
+
+
+# the preemption / elastic half of the reference module
 dataloader_hook = _queue4("dataloader_hook")
-grads_finite = _queue4("grads_finite")
-GradGuard = _queue4("GradGuard")
 preempt_handler = _queue4("preempt_handler")
 PreemptionHandler = _queue4("PreemptionHandler")
 on_preemption = _queue4("on_preemption")

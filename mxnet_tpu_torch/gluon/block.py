@@ -15,10 +15,22 @@ it runs on the tensors the NDArrays hold and returns NDArrays, so the
 torch-tensor paths stay as they are.  ``initialize()`` without a
 generator draws from ``mx.np.random``'s generator for the device, which
 ``mx.np.random.seed`` seeds.
+
+Forward hooks are MXNet's (reference :155-164, :293-297, :495-500):
+``register_forward_pre_hook(hook)`` runs ``hook(block, args)`` before
+the forward and ``register_forward_hook(hook)`` runs ``hook(block, args,
+out)`` after it, ``args`` as the caller passed them (NDArrays stay
+NDArrays); each returns a handle whose ``detach()`` (or ``remove()``)
+removes the hook.  They replace torch's own hooks of the same names on
+these blocks (a hook's return value is ignored, as in MXNet).  A
+hybridized block runs its hooks on the host around the graph replay; the
+hooks of the blocks inside a captured graph run when it is captured,
+not at each replay, as the reference's run when its graph is traced.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 import re
 from collections import OrderedDict
 
@@ -78,6 +90,22 @@ def _nd_forward(forward):
     return wrapped
 
 
+class _HookHandle:
+    """A hook registered in ``hooks``; ``detach()`` (or torch's
+    spelling, ``remove()``) removes it."""
+
+    _ids = itertools.count()
+
+    def __init__(self, hooks, hook):
+        self._hooks, self._id = hooks, next(self._ids)
+        hooks[self._id] = hook
+
+    def detach(self):
+        self._hooks.pop(self._id, None)
+
+    remove = detach
+
+
 class Block(nn.Module):
 
     def __init_subclass__(cls, **kwargs):
@@ -87,9 +115,36 @@ class Block(nn.Module):
             cls.forward = _nd_forward(fwd)
 
     def __call__(self, *args, **kwargs):
+        hooks = self.__dict__.get("_mx_hooks")
+        if not hooks or not (hooks[0] or hooks[1]):
+            return self._mx_call(*args, **kwargs)
+        for hook in list(hooks[0].values()):
+            hook(self, args)
+        out = self._mx_call(*args, **kwargs)
+        for hook in list(hooks[1].values()):
+            hook(self, args, out)
+        return out
+
+    def _mx_call(self, *args, **kwargs):
+        """The call without the hooks."""
         if _has_nd(args, kwargs):
-            return _nd_call(self.__call__, args, kwargs)
-        return super().__call__(*args, **kwargs)
+            return _nd_call(self._mx_call, args, kwargs)
+        return nn.Module.__call__(self, *args, **kwargs)
+
+    def _hook_table(self, kind):
+        """The pre-hooks (0) or the hooks (1), in registration order."""
+        return self.__dict__.setdefault(
+            "_mx_hooks", (OrderedDict(), OrderedDict()))[kind]
+
+    def register_forward_pre_hook(self, hook):
+        """Run ``hook(block, args)`` before each forward; returns a
+        handle whose ``detach()`` removes it."""
+        return _HookHandle(self._hook_table(0), hook)
+
+    def register_forward_hook(self, hook):
+        """Run ``hook(block, args, out)`` after each forward; returns a
+        handle whose ``detach()`` removes it."""
+        return _HookHandle(self._hook_table(1), hook)
 
     def collect_params(self, select=None):
         """Ordered ``{name: Parameter}``; ``select`` is a regular
@@ -260,9 +315,9 @@ class HybridBlock(Block):
     def reset_cache(self):
         self._graphs.clear()
 
-    def __call__(self, *args, **kwargs):
+    def _mx_call(self, *args, **kwargs):
         if _has_nd(args, kwargs):
-            return _nd_call(self.__call__, args, kwargs)
+            return _nd_call(self._mx_call, args, kwargs)
         if self._active and not autograd.is_recording():
             tensors = list(_tensors((args, kwargs)))
             if tensors and all(t.is_cuda for t in tensors):
@@ -285,13 +340,14 @@ class HybridBlock(Block):
         return _map(torch.clone, g.out)
 
     def _capture(self, args, kwargs):
-        out = super().__call__(*args, **kwargs)      # materialises params
+        out = nn.Module.__call__(self, *args, **kwargs)   # materialises
         aux = [p for p in self.parameters() if not p.requires_grad] \
             if autograd.is_training() else []
         saved = [p.detach().clone() for p in aux]
         s_args, s_kwargs = _map(torch.clone, (args, kwargs))
         graph, s_out, launches = cuda_ops.capture_graph(
-            functools.partial(super().__call__, *s_args, **s_kwargs))
+            functools.partial(nn.Module.__call__, self, *s_args,
+                              **s_kwargs))
         for p, v in zip(aux, saved):
             p.detach().copy_(v)
         return out, _CachedGraph(graph, list(_tensors((s_args, s_kwargs))),

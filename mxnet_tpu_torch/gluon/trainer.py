@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py:20-453``.
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
-``rescale_grad / batch_size`` (:274-286, without the AMP scaler) and
+``rescale_grad / batch_size`` (:274-286; over the loss scale too when an
+AMP scaler is attached and the gradients were not unscaled by hand) and
 updates every trainable parameter from its ``.grad`` with one
 ``update_multi_precision`` call over all of them (:385; states from
 ``create_state_multi_precision``, :105-109), which runs each group of
@@ -38,10 +39,19 @@ The profiler's step seams are the reference's (``gluon/trainer.py``
 ``profile_memory`` each step samples the cards' memory.  Off, each seam
 costs one flag read.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``skip_nonfinite`` (ROADMAP queue 4).  The port has no AMP
-loss scaler or fault guard to attach yet (ROADMAP queues 2 and 4), nor
-the elastic ``reset_kvstore`` (queue 4).
+Low precision and the fault guard (:150-300, :326-380): an AMP loss
+scaler (``amp.init_trainer``) drops a batch whose gradients overflow
+(the scale halves, the weights stay) and grows the scale after its
+window of clean steps; ``step(skip_nonfinite=True)``, or a
+``fault.GradGuard`` attached, skips a non-finite batch, backs the scale
+off and counts ``fault::nonfinite_steps``.  Either check is
+``fault.grads_finite``: one ``multi_all_finite`` kernel launch over the
+fresh gradients and one host sync, and a "finite" verdict of the guard
+spares the scaler a second check.  The checks run after the stale-
+gradient check and before any update or push, so a skipped step leaves
+every weight as it was; its gradients count as consumed.  The step seam
+delivers the ``fault`` harness's ``nan_grad``.  Not ported yet: the
+elastic ``reset_kvstore`` (ROADMAP queue 4).
 
 ``save_states`` / ``load_states`` (:403, :428) write and read the
 optimizer states as one npz with the JAX Trainer's keys: ``s<i>_<j>``
@@ -55,16 +65,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import fault as _fault
 from .. import optimizer as opt_mod
 from .. import profiler as _profiler
 from ..utils import serialization
 
 __all__ = ["Trainer"]
-
-
-def _not_ported(what, queue):
-    return NotImplementedError("mxnet_tpu_torch: %s is not ported yet "
-                               "(ROADMAP queue %d)" % (what, queue))
 
 
 class Trainer:
@@ -104,6 +110,7 @@ class Trainer:
                                              param_dict=param_dict,
                                              **optimizer_params)
         self._states = [None] * len(params)
+        self._grad_guard = None
 
     @property
     def optimizer(self):
@@ -171,19 +178,20 @@ class Trainer:
         """Sum the gradients over the workers, then update every
         trainable parameter from its gradient, rescaled by
         ``rescale_grad / batch_size`` (on the kvstore with
-        ``update_on_kvstore``)."""
-        if skip_nonfinite:
-            raise _not_ported("skip_nonfinite (the non-finite-step guard)",
-                              4)
+        ``update_on_kvstore``).  With ``skip_nonfinite`` (or a
+        ``fault.GradGuard`` attached) a batch with an inf or NaN gradient
+        updates nothing."""
         prof_t0 = _profiler._now_us() if _profiler._STEP else None
+        if _fault._ACTIVE:
+            _fault.step_hook(self)
         if not self._kv_initialized:
             self._init_kvstore()
-        self._optimizer.rescale_grad = self._scale / batch_size
+        self._optimizer.rescale_grad = self._grad_rescale(batch_size)
         if self._on_kvstore():
-            self._step_on_kvstore(ignore_stale_grad)
+            self._step_on_kvstore(ignore_stale_grad, skip_nonfinite)
         else:
             self._allreduce_grads()
-            self._update(ignore_stale_grad)
+            self._update(ignore_stale_grad, skip_nonfinite)
         if prof_t0 is not None:
             _profiler.record_duration(
                 "Trainer::step", "trainer", prof_t0,
@@ -214,11 +222,70 @@ class Trainer:
             if getattr(p, "grad_req", "write") != "add":
                 p.grad = None   # "write": the next backward writes
 
-    def _step_on_kvstore(self, ignore_stale_grad):
+    def _skip_nonfinite_step(self, fresh, skip_nonfinite):
+        """The step guard: when on (``skip_nonfinite`` or a GradGuard)
+        and a fresh gradient is not finite, consume the gradients
+        without an update, back off the AMP scale and count the skip.
+        "skip" when skipped, "finite" when checked and finite (the
+        scaler need not check again), None when the guard is off."""
+        guard = self._grad_guard
+        if not (skip_nonfinite or guard is not None):
+            return None
+        if _fault.grads_finite([self._params[i] for i in fresh]):
+            if guard is not None:
+                guard._record_ok()
+            return "finite"
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            scaler.update_scale(True)
+        _profiler.counter_bump("fault::nonfinite_steps", 1, cat="fault")
+        self._consume(fresh)
+        if guard is not None:
+            guard._record_skip()      # may raise after max_consecutive
+        return "skip"
+
+    def _checked(self, fresh, skip_nonfinite):
+        """Whether the update of ``fresh`` goes ahead: the guard, then
+        the AMP scaler (an overflowed batch is dropped: the scale halves,
+        the gradients are consumed, the weights stay).  A batch with no
+        fresh gradient carries no evidence and moves neither."""
+        if not fresh:
+            return True
+        verdict = self._skip_nonfinite_step(fresh, skip_nonfinite)
+        if verdict == "skip":
+            return False
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is None:
+            return True
+        overflow = False if verdict == "finite" else \
+            scaler.has_overflow([self._params[i] for i in fresh])
+        scaler.update_scale(overflow)
+        if overflow:
+            self._consume(fresh)
+        return not overflow
+
+    def _grad_rescale(self, batch_size):
+        """``rescale_grad / batch_size``, over the loss scale when a
+        scaler is attached, unless ``amp.unscale`` divided the gradients
+        already: its flag is read (and cleared) here, so it covers exactly
+        this step attempt, even one that then raises stale."""
+        scale = self._scale / batch_size
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            manual = scaler._manual_unscaled
+            scaler._manual_unscaled = False
+            if not manual:
+                scale /= scaler.loss_scale
+        return scale
+
+    def _step_on_kvstore(self, ignore_stale_grad, skip_nonfinite=False):
         """push(grad) runs the store's optimizer on its weight, pull
-        brings the weight back."""
+        brings the weight back; the guard and the scaler decide first, so
+        a skipped step pushes nothing."""
         kv = self._kvstore
         fresh = self._fresh(ignore_stale_grad)
+        if not self._checked(fresh, skip_nonfinite):
+            return
         for i in fresh:
             p = self._params[i]
             kv.push(i, p.grad(), priority=-i)
@@ -227,9 +294,6 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False,
                skip_nonfinite=False):
-        if skip_nonfinite:
-            raise _not_ported("skip_nonfinite (the non-finite-step guard)",
-                              4)
         if not self._kv_initialized:
             self._init_kvstore()
         if self._on_kvstore():
@@ -237,10 +301,10 @@ class Trainer:
                 "update() is not supported when update_on_kvstore=True: "
                 "a local update would diverge from the store's weights; "
                 "call step()")
-        self._optimizer.rescale_grad = self._scale / batch_size
-        self._update(ignore_stale_grad)
+        self._optimizer.rescale_grad = self._grad_rescale(batch_size)
+        self._update(ignore_stale_grad, skip_nonfinite)
 
-    def _update(self, ignore_stale_grad):
+    def _update(self, ignore_stale_grad, skip_nonfinite=False):
         prof_t0 = _profiler._now_us() if _profiler._STEP else None
         fresh = self._fresh(ignore_stale_grad)
         for i in fresh:
@@ -248,6 +312,12 @@ class Trainer:
                 self._states[i] = \
                     self._optimizer.create_state_multi_precision(
                         i, self._params[i].data)
+        if not self._checked(fresh, skip_nonfinite):
+            if prof_t0 is not None:
+                _profiler.record_duration(
+                    "Trainer::update", "trainer", prof_t0,
+                    _profiler._now_us() - prof_t0, args={"skipped": True})
+            return
         if fresh:
             self._optimizer.update_multi_precision(
                 fresh, [self._params[i].data for i in fresh],

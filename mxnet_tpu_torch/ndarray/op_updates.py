@@ -15,10 +15,11 @@ The SGD family (``sgd_*``, ``mp_sgd_*``, ``nag_*``, ``multi_sgd_*``,
 ``multi_mp_lamb_update`` run through ``ops/multi_tensor.py``: one
 hand-written kernel launch for the whole list on the card (LAMB: its
 two phases), the plain version on the CPU.  They compute in float32 and
-round the new weight into the weight's dtype.  The others (FTML, FTRL,
-RMSProp, signSGD, Signum, the single LAMB phases, LANS, LARS,
-``all_finite``, ``reset_arrays`` and the AdaGrad ops) are plain
-PyTorch on the arrays' device.
+round the new weight into the weight's dtype.  ``all_finite`` and
+``multi_all_finite`` run its ``multi_all_finite`` kernel on CUDA arrays
+(one launch, the flag on the device).  The others (FTML, FTRL, RMSProp,
+signSGD, Signum, the single LAMB phases, LANS, LARS, ``reset_arrays``
+and the AdaGrad ops) are plain PyTorch on the arrays' device.
 """
 from __future__ import annotations
 
@@ -610,24 +611,32 @@ def multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, eta, eps,
     return _emit(out, new, lrs if isinstance(lrs, NDArray) else NDArray(lr_a))
 
 
-def _finite_result(ok, init_output, out):
-    res = ok.to(torch.float32).reshape(1)
+def _finite_flag(tensors, init_output, out):
+    """1.0 if every element of ``tensors`` is finite (after a cast to
+    float32), else 0.0, as a one-element float32 tensor; with an ``out``
+    and ``init_output=False`` the flag starts at min(1, out), so a 0
+    already in ``out`` stays (the reference's ``minimum``).  The check is
+    ``mt.multi_all_finite``: one kernel launch on CUDA arrays."""
+    dev = tensors[0].device if tensors else (
+        _a(out).device if out is not None else torch.device("cpu"))
+    flag = torch.ones(1, dtype=torch.float32, device=dev)
     if out is not None and not init_output:
-        res = torch.minimum(res, _a(out).float().reshape(1))
+        flag = torch.minimum(flag, _a(out).float().reshape(1).to(dev))
+    flag = mt.multi_all_finite([t for t in tensors if t.is_floating_point()],
+                               flag)
     if out is None:
-        return NDArray(res)
-    _set(out, res)
+        return NDArray(flag)
+    _set(out, flag)
     return out
 
 
 def all_finite(data, init_output=True, out=None):
-    return _finite_result(torch.isfinite(_a(data).float()).all(),
-                          init_output, out)
+    return _finite_flag([_a(data)], init_output, out)
 
 
 def multi_all_finite(*arrays, num_arrays=1, init_output=True, out=None):
-    oks = [torch.isfinite(_a(a).float()).all() for a in arrays[:num_arrays]]
-    return _finite_result(torch.stack(oks).all(), init_output, out)
+    return _finite_flag([_a(a) for a in arrays[:num_arrays]], init_output,
+                        out)
 
 
 def reset_arrays(*arrays, num_arrays=None):

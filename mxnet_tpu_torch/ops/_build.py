@@ -24,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "flash_general",
            "paged_general", "flash_bwd_mma", "flash_fwd_mma", "multi_tensor",
-           "int8_linear")
+           "int8_linear", "int8_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -163,6 +163,11 @@ def _signatures():
         "int8_linear": {"mx_int8_linear": [p, p, p, i, i, i, d, i, p],
                         "mx_int8_dequant": [p, p, ctypes.c_longlong, d, i,
                                             p]},
+        # x q, x's dtype code, N C P G Cgp, scale, stream | the ConvArgs
+        # struct, its bytes, stream | no arguments
+        "int8_conv": {"mx_int8_quantize": [p, p, i, i, i, i, i, i, f, p],
+                      "mx_int8_conv": [p, i, p],
+                      "mx_int8_conv_args_size": []},
     }
 
 

@@ -68,10 +68,12 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_bwd_dkv_mma": 0, "flash_fwd_mma": 0,
             # the optimizer's multi-tensor kernels (ops/multi_tensor.py)
             "multi_sgd": 0, "multi_adam": 0, "multi_lamb_phase1": 0,
-            "multi_lamb_phase2": 0,
+            "multi_lamb_phase2": 0, "multi_all_finite": 0,
             # the int8 weight path (ops/int8.py): the decode product, the
-            # prefill's dequantize
-            "int8_linear": 0, "int8_dequant": 0}
+            # prefill's dequantize; post-training quantization's activation
+            # quantize and int8 convolution / product
+            "int8_linear": 0, "int8_dequant": 0, "int8_quantize": 0,
+            "int8_conv": 0}
 
 #: dtype codes of the general kernels' C interface (csrc/general.cuh)
 GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,

@@ -14,7 +14,10 @@ kernel launch (LAMB: two) over a whole list of tensors, from
   (decoupled), with or without bias correction; ``multi_adam``;
 * :func:`multi_lamb` -- LAMB's phase 1 (moments, the direction r, partial
   norms) and phase 2 (trust ratio, weight); ``multi_lamb_phase1`` and
-  ``multi_lamb_phase2``.
+  ``multi_lamb_phase2``;
+* :func:`multi_all_finite` -- whether every element of a list of tensors
+  of mixed float dtypes is finite, into one float32 flag on the device
+  (no host sync); ``multi_all_finite``.
 
 Each takes a list of groups -- a weight, its gradient, its float32
 states and optionally a float32 master weight (``multi_precision``) --
@@ -46,6 +49,7 @@ from . import _build
 from .cuda_ops import LAUNCHES
 
 __all__ = ["multi_tensor_plan", "multi_sgd", "multi_adam", "multi_lamb",
+           "multi_all_finite", "multi_all_finite_plain",
            "multi_sgd_plain", "multi_adam_plain", "multi_lamb_plain",
            "sgd_step", "adam_step", "lamb_direction", "lamb_ratio",
            "one_minus", "inverse", "CHUNK", "TABLE"]
@@ -55,9 +59,11 @@ CHUNK = 16384
 TABLE = 256
 VEC_BYTES = 16
 KERNELS = {"multi_sgd": 0, "multi_adam": 1, "multi_lamb_phase1": 2,
-           "multi_lamb_phase2": 3}
+           "multi_lamb_phase2": 3, "multi_all_finite": 4}
 DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
-NESTEROV, DECOUPLED, HAS_CLIP, HAS_LOWER, HAS_UPPER = 1, 2, 4, 8, 16
+FINITE_DTYPES = {**DTYPES, torch.float64: 3}
+NESTEROV, DECOUPLED, HAS_CLIP, HAS_LOWER, HAS_UPPER, NARROW = \
+    1, 2, 4, 8, 16, 32
 
 _PTRS = ("w", "g", "s0", "s1", "w32", "r")
 _FLOATS = ("lr", "wd", "eta", "ic1", "ic2")
@@ -66,9 +72,11 @@ _TABLE_DTYPE = onp.dtype(
     [(k, "<u8", TABLE) for k in _PTRS] + [("n", "<i8", TABLE)]
     + [(k, "<f4", TABLE) for k in _FLOATS]
     + [("chunk_begin", "<i4", TABLE + 1), ("index", "<i4", TABLE),
-       ("ntensors", "<i4"), ("aligned", "u1", TABLE)], align=True)
+       ("ntensors", "<i4"), ("aligned", "u1", TABLE),
+       ("dtype", "u1", TABLE)], align=True)
 _SCALARS_DTYPE = onp.dtype(
-    [("rescale_dev", "<u8"), ("partials", "<u8"), ("ratios", "<u8")]
+    [("rescale_dev", "<u8"), ("partials", "<u8"), ("ratios", "<u8"),
+     ("finite", "<u8")]
     + [(k, "<f4") for k in ("rescale", "clip", "beta1", "beta2", "omb1",
                             "omb2", "eps", "momentum", "lower", "upper")]
     + [("flags", "<i4"), ("nchunks", "<i4")], align=True)
@@ -546,6 +554,70 @@ def multi_lamb(groups, lrs, wds, steps=None, beta1=0.9, beta2=0.999,
     for tab, s, _ in launches:
         _launch("multi_lamb_phase1", tab, s, codes, dev)
         _launch("multi_lamb_phase2", tab, s, codes, dev)
+
+
+def multi_all_finite_plain(tensors, flag=None, narrow=True):
+    """The plain version of :func:`multi_all_finite`, on any device."""
+    dev = flag.device if flag is not None else (
+        tensors[0].device if tensors else torch.device("cpu"))
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    for t in tensors:
+        ok = ok & torch.isfinite(t.float() if narrow else t).all().to(dev)
+    if flag is None:
+        return ok.to(torch.float32).reshape(1)
+    flag.copy_(torch.where(ok, flag, torch.zeros_like(flag)))
+    return flag
+
+
+@torch.no_grad()
+def multi_all_finite(tensors, flag=None, narrow=True):
+    """Whether every element of ``tensors`` (float16, bfloat16, float32
+    or float64, mixed) is finite: ``flag``, a float32 tensor of one
+    element, is set to 0 if one is not and left as it was otherwise; a
+    new flag of 1 when None.  Returns the flag, on the tensors' device,
+    with no host sync.  ``narrow``: a float64 element is checked after
+    its rounding to float32 (the reference's ops cast first).  On CUDA
+    one ``finite_kernel`` launch per 256 tensors."""
+    tensors = [t for t in tensors if t.numel()]
+    if not tensors or not _on_cuda([(t,) for t in tensors]):
+        return multi_all_finite_plain(tensors, flag, narrow)
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype not in FINITE_DTYPES:
+            raise TypeError("multi_all_finite kernel takes float16, "
+                            "bfloat16, float32 or float64 tensors, got %s"
+                            % t.dtype)
+        if t.device != dev:
+            raise ValueError("multi_all_finite kernel: tensors on %s and %s"
+                             % (dev, t.device))
+        if not t.is_contiguous():
+            raise ValueError("multi_all_finite kernel: tensors must be "
+                             "contiguous")
+    if flag is None:
+        flag = torch.ones(1, dtype=torch.float32, device=dev)
+    elif (flag.dtype != torch.float32 or flag.numel() != 1
+          or flag.device != dev):
+        raise ValueError("multi_all_finite: the flag must be one float32 "
+                         "element on %s" % dev)
+    ptrs = onp.array([t.data_ptr() for t in tensors], dtype=onp.int64)
+    codes = onp.array([FINITE_DTYPES[t.dtype] for t in tensors],
+                      dtype=onp.uint8)
+    s = _scalars(1.0, None, finite=flag.data_ptr(),
+                 flags=NARROW if narrow else 0)
+    for launch in multi_tensor_plan(
+            [t.numel() for t in tensors],
+            [t.element_size() for t in tensors], ptrs & -ptrs):
+        tab = onp.zeros((), dtype=_TABLE_DTYPE)
+        idx, k = launch.tensors, len(launch.tensors)
+        tab["g"][:k] = ptrs[idx].astype(onp.uint64)
+        tab["n"][:k] = [tensors[i].numel() for i in idx]
+        tab["chunk_begin"][:k + 1] = launch.chunk_begin
+        tab["index"][:k] = idx
+        tab["ntensors"] = k
+        tab["aligned"][:k] = launch.aligned
+        tab["dtype"][:k] = codes[idx]
+        _launch("multi_all_finite", tab, s, (0, 0), dev)
+    return flag
 
 
 def lamb_launches(groups, lrs, wds, steps=None, beta1=0.9, beta2=0.999,

@@ -18,7 +18,9 @@ import jax.numpy as jnp
 
 from mxnet_tpu.ops import pallas_ops
 from mxnet_tpu_torch.ops import cuda_ops
-from mxnet_tpu_torch.ops.int8 import dequantize, int8_linear
+from mxnet_tpu_torch.ops.int8 import (dequantize, int8_conv, int8_linear,
+                                      int8_quantize, pack_conv_weight)
+from mxnet_tpu_torch.ops.multi_tensor import multi_all_finite
 
 ATOL = 2e-5
 
@@ -111,12 +113,17 @@ def test_cpu_path_launches_no_kernel():
     cuda_ops.flash_attention(qq, kk, vv, causal=True)
     int8_linear(qq[0, 0], torch.ones(5, 64, dtype=torch.int8), 0.5)
     dequantize(torch.ones(5, 64, dtype=torch.int8), 0.5, torch.float32)
+    xq = int8_quantize(qq[0, 0].reshape(1, 4, 16, 16), 0.5)
+    int8_conv(xq, pack_conv_weight(torch.ones(3, 4, 3, 3, dtype=torch.int8),
+                                   1), (3, 3), out_dtype=torch.int32)
+    multi_all_finite([qq, kk])
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
     assert cuda_ops.LAUNCHES == dict.fromkeys(
         [name for k in kernels for name in (k, k + "_general")]
         + ["flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
            "multi_sgd", "multi_adam", "multi_lamb_phase1",
-           "multi_lamb_phase2", "int8_linear", "int8_dequant"], 0)
+           "multi_lamb_phase2", "multi_all_finite", "int8_linear",
+           "int8_dequant", "int8_quantize", "int8_conv"], 0)
 
 
 def test_gqa_head_mismatch_raises():

@@ -309,7 +309,7 @@ def test_classify_torch_runtime_errors_and_the_ports_injected_ones():
     with pytest.raises(NotImplementedError, match="queue 4"):
         tfault_dist.coordinated_call
     with pytest.raises(NotImplementedError, match="queue 4"):
-        tfault.GradGuard()
+        tfault.PreemptionHandler()
 
 
 # ----------------------------------------------------------------------

@@ -1119,3 +1119,179 @@ def test_server_raises_when_a_program_cannot_be_captured(dev,
     with pytest.raises(RuntimeError):
         _graph_pool(dev, layers=1)
     torch.cuda.synchronize()
+
+
+# ----------------------------------------------------------------------
+# low precision: multi_all_finite, int8_quantize, int8_conv
+# ----------------------------------------------------------------------
+FINITE_DTYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64]
+
+
+@pytest.mark.parametrize("bad", [None, float("inf"), float("-inf"),
+                                 float("nan")])
+def test_multi_all_finite_matches_plain(dev, bad):
+    from mxnet_tpu_torch.ops import multi_tensor as mtk
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sizes = [1, 7, 16384 + 3, 40000, 8]
+    ts = [torch.randn(n, generator=gen, device=dev).to(
+        FINITE_DTYPES[i % 4]) for i, n in enumerate(sizes)]
+    ts.append(torch.randn(9, device=dev)[1:])       # not 16-byte aligned
+    for j in range(len(ts)):
+        u = [t.clone() for t in ts]
+        if bad is not None:
+            u[j][-1] = bad
+        before = cuda_ops.LAUNCHES["multi_all_finite"]
+        got = mtk.multi_all_finite(u)
+        assert cuda_ops.LAUNCHES["multi_all_finite"] == before + 1
+        assert got.item() == mtk.multi_all_finite_plain(u).item() == \
+            (1.0 if bad is None else 0.0)
+    many = [torch.ones(3, device=dev) for _ in range(600)]
+    many[599][2] = float("nan")
+    before = cuda_ops.LAUNCHES["multi_all_finite"]
+    assert mtk.multi_all_finite(many).item() == 0.0
+    assert cuda_ops.LAUNCHES["multi_all_finite"] == before + 3
+    big = [torch.full((5,), 1e300, dtype=torch.float64, device=dev)]
+    assert mtk.multi_all_finite(big).item() == 0.0
+    assert mtk.multi_all_finite(big, narrow=False).item() == 1.0
+    flag = torch.zeros(1, device=dev)
+    assert mtk.multi_all_finite(ts, flag).item() == 0.0
+    with pytest.raises(TypeError):
+        mtk.multi_all_finite([torch.ones(3, dtype=torch.int32, device=dev)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.int8])
+def test_int8_quantize_matches_plain_bit_for_bit(dev, dtype):
+    from mxnet_tpu_torch.ops.int8 import int8_quantize, int8_quantize_plain
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for shape, groups in (((2, 3, 17, 19), 1), ((1, 12, 5, 7), 3),
+                          ((5, 37), 1), ((2, 64, 14, 14), 2)):
+        if dtype == torch.int8:
+            x = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8)
+            scales = (1.0,)
+        else:
+            x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+            # .5 ties of the scale 0.5
+            x.view(-1)[:8] = ((torch.arange(8, device=dev) + 0.5) * 0.5) \
+                .to(dtype)
+            scales = (0.0123, 0.5, 1 / 3)
+        for s in scales:
+            got = int8_quantize(x, s, groups)
+            assert torch.equal(got, int8_quantize_plain(x, s, groups))
+
+
+# (N, C, H, W, O, kernel, stride, pad, dilation, groups)
+INT8_CONV_CASES = [
+    (2, 3, 32, 32, 64, 7, 2, 3, 1, 1),       # the stem, C = 3
+    (2, 64, 14, 14, 64, 3, 1, 1, 1, 1),
+    (1, 256, 7, 7, 64, 1, 1, 0, 1, 1),       # batch 1
+    (3, 37, 13, 11, 45, 3, 2, 0, 2, 1),      # C, O odd; dilation 2
+    (1, 16, 9, 9, 24, 3, 1, 1, 1, 2),        # groups 2
+    (2, 32, 9, 9, 32, 3, 2, 1, 1, 32),       # depthwise
+    (4, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),    # ResNet-50's Dense
+]
+
+
+@pytest.mark.parametrize("case", INT8_CONV_CASES)
+def test_int8_conv_matches_plain_bit_for_bit(dev, case):
+    from mxnet_tpu_torch.ops import int8 as i8
+    N, C, H, W, O, k, s, p, d, g = case
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(N, C, H, W, generator=gen, device=dev)
+    xq = i8.int8_quantize(x, 0.02, g)
+    wq = torch.randint(-127, 128, (O, C // g, k, k), generator=gen,
+                       device=dev, dtype=torch.int8)
+    wpk = i8.pack_conv_weight(wq, g)
+    scale = torch.rand(O, generator=gen, device=dev) * 1e-3
+    bias = torch.randn(O, generator=gen, device=dev)
+    bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    geo = ((k, k), (s, s), (p, p), (d, d), g)
+    for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
+               dict(out_dtype=torch.int32),
+               dict(scale=scale, bias=bias, relu=True,
+                    out_dtype=torch.float16),
+               dict(scale=scale, out_dtype=torch.bfloat16),
+               dict(scale=scale, bias=bias, out_dtype=torch.float32,
+                    channels_last=True)):
+        before = cuda_ops.LAUNCHES["int8_conv"]
+        got = i8.int8_conv(xq, wpk, *geo, **kw)
+        assert cuda_ops.LAUNCHES["int8_conv"] == before + 1
+        assert torch.equal(got, i8.int8_conv_plain(xq, wpk, *geo, **kw))
+
+
+def test_int8_conv_refuses_what_it_does_not_take(dev):
+    from mxnet_tpu_torch.ops import int8 as i8
+    xq = torch.zeros(1, 4, 4, 8, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="weight row of 64"):
+        i8.int8_conv(xq, torch.zeros(1, 8, 64, dtype=torch.int8,
+                                     device=dev), (3, 3))
+    wpk = torch.zeros(1, 8, 128, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="scales"):
+        i8.int8_conv(xq, wpk, (3, 3))
+    with pytest.raises(TypeError):
+        i8.int8_conv(xq, wpk, (3, 3), out_dtype=torch.float64,
+                     scale=torch.ones(8, device=dev))
+    with pytest.raises(ValueError):
+        i8.int8_conv(xq, wpk, (3, 3), out_dtype=torch.int32,
+                     bias_i32=torch.zeros(8, device=dev))
+    with pytest.raises(TypeError):
+        i8.int8_quantize(torch.zeros(2, 4, device=dev,
+                                     dtype=torch.float64), 1.0)
+    with pytest.raises(ValueError, match="scale 1"):
+        i8.int8_quantize(torch.zeros(2, 4, device=dev, dtype=torch.int8),
+                         0.5)
+
+
+def test_quantized_net_hybridizes_into_graphs(dev):
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, activation="relu"), nn.MaxPool2D(2),
+            nn.Conv2D(16, 3, padding=1), nn.BatchNorm(),
+            nn.GlobalAvgPool2D(), nn.Dense(10))
+    net.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(6))
+    x = torch.rand(4, 3, 16, 16, device=dev)
+    with autograd.pause():
+        ref = net(x)
+    q.quantize_net(net, calib_data=[x])
+    cuda_ops.reset_launch_counts()
+    with autograd.pause():
+        eager = net(x)
+    assert cuda_ops.LAUNCHES["int8_conv"] == 3
+    assert cuda_ops.LAUNCHES["int8_quantize"] == 3
+    net.hybridize()
+    net(x)
+    out = net(x)
+    assert len(net._graphs) == 1 and torch.equal(out, eager)
+    assert (out.argmax(-1) == ref.argmax(-1)).float().mean() >= 0.75
+
+
+def test_amp_step_guard_on_the_card(dev):
+    from mxnet_tpu_torch import amp, autograd, fault, gluon
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.Dense(4, in_units=6).initialize(device=dev)
+    amp.convert_hybrid_block(net, "float16")
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+    amp.init("float16")
+    amp.init_trainer(tr)
+    guard = fault.GradGuard(tr)
+    x = torch.randn(3, 6, device=dev, dtype=torch.float16)
+    fault.inject("nan_grad", at=1)
+    try:
+        with autograd.record():
+            loss = (net(x).float() ** 2).mean()
+            with amp.scale_loss(loss, tr) as scaled:
+                autograd.backward(scaled)
+        w = net.weight.detach().clone()
+        cuda_ops.reset_launch_counts()
+        tr.step(3)
+        assert torch.equal(net.weight.detach(), w)
+        assert guard.skipped == 1
+        assert tr._amp_loss_scaler.loss_scale == 2.0 ** 15
+        assert cuda_ops.LAUNCHES["multi_all_finite"] == 1
+    finally:
+        fault.clear()

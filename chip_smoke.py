@@ -746,8 +746,11 @@ def serve_phase(mt, co, net, dev, card, max_new=32, int8=False):
     want = {"paged_decode": net.cfg.n_layers}
     want_pre = {"flash_fwd": net.cfg.n_layers}
     if int8:
-        want["int8_linear"] = want_pre["int8_dequant"] = \
-            7 * net.cfg.n_layers + 1
+        # the decode: one launch a block for wq, wk, wv and one for w1,
+        # w3 (they read the same input), one each for wo and w2, and the
+        # head's; the prefill dequantizes each weight
+        want["int8_linear"] = 4 * net.cfg.n_layers + 1
+        want_pre["int8_dequant"] = 7 * net.cfg.n_layers + 1
     check(per_replay["decode"] == want, "%s: the decode graph holds %s, "
           "want %s" % (tag, per_replay["decode"], want))
     check(per_replay["prefill 512"] == want_pre, "%s: a prefill graph "
@@ -937,13 +940,17 @@ def step_timing(srv, reqs, res, card, tag="serve"):
                 padded, row, len(prompt))),
             ("prefill T=512, eager", lambda: eager(pool._prefill[512],
                                                    pool._pre_out))):
-        ms, dev_ms, top, counts, _ = device_busy(fn)
+        ms, dev_ms, top, counts, per = device_busy(fn)
         out[name] = (ms, dev_ms)
+        lin = [sum(v[i] for k, v in per.items() if "int8_linear" in k)
+               for i in (0, 1)]
         print("%s %s: %.2f ms host, %.2f ms of kernels (device busy "
               "%.1f%%, host / kernels %.3f) [%s]; top kernels (ms per "
-              "call): %s"
+              "call): %s%s"
               % (tag, name, ms, dev_ms, 100 * dev_ms / ms, ms / dev_ms,
-                 card, "; ".join("%s %.3f" % t for t in top)))
+                 card, "; ".join("%s %.3f" % t for t in top),
+                 "; int8_linear %.3f ms in %g launches" % tuple(lin)
+                 if lin[1] else ""))
         ops = counts["top-level aten ops"]
         print("%s %s: per call %s; host us per top-level op %.2f"
               % (tag, name, ", ".join("%s %.1f" % kv
@@ -1000,23 +1007,38 @@ def consistency_phase(net, reqs, res, dev, int8_layers=None, tag=None):
 # step is 2^-8 of the value) against cuBLAS's rounding and order;
 # float32 summation order only
 INT8_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-# the decode's products at Llama-3-8B width: (name, K, N, launches per
-# decode step of 32 layers)
-INT8_SHAPES = [("wq, wo", 4096, 4096, 64), ("wk, wv", 4096, 1024, 64),
-               ("w1, w3", 4096, 14336, 64), ("w2", 14336, 4096, 32),
-               ("output", 4096, 128256, 1)]
+# the decode's int8 launches at Llama-3-8B width: (name, K, the rows of
+# each weight stacked in one launch, launches per decode step of 32
+# layers); wq | wk | wv and w1 | w3 read the same input
+INT8_SHAPES = [("wq|wk|wv", 4096, (4096, 1024, 1024), 32),
+               ("wo", 4096, (4096,), 32), ("w1|w3", 4096, (14336, 14336), 32),
+               ("w2", 14336, (4096,), 32), ("output", 4096, (128256,), 1)]
+# their rank-local blocks under tensor parallelism (wq, wk, wv, w1, w3
+# split by rows, wo and w2 by columns), held against plain: (name, K,
+# rows)
+INT8_TP_SHAPES = [("tp%d %s" % (tp, name), K // (tp if by_k else 1),
+                   tuple(n // (1 if by_k else tp) for n in rows))
+                  for tp in (2, 4)
+                  for name, K, rows, _ in INT8_SHAPES[:4]
+                  for by_k in [name in ("wo", "w2")]]
+# distinct weights a back-to-back timing reads: past the 50 MB L2
+CHAIN_BYTES = 100 * 2 ** 20
 
 
 def int8_kernel_phase(co, dev, card):
     """The int8 weight path's two kernels against their plain versions at
-    the decode's five shapes and at an odd K and N, in bf16 and float32,
-    each twice (same bits): ``int8_linear`` (``F.linear`` of the
-    dequantized weight; at M = 1, 8 and 17 rows, limit INT8_TOL) and
-    ``int8_dequant`` (``q * scale``, bit for bit).  Then, in bf16, each
-    one's own device time (:func:`graph_ms`, a CUDA graph of the call
-    replayed: torch.profiler dropped device records from traces of
-    these kernels) beside its bound (bytes over 3.35 TB/s) and the plain
-    version's event time.  Library: for ``int8_linear`` (M = 8) the
+    the decode's launches (INT8_SHAPES: wq | wk | wv and w1 | w3 stacked,
+    each weight with its own scale), their tp=2 / tp=4 blocks and an odd
+    K and N, in bf16 and float32, each twice (same bits):
+    ``int8_linear_group`` (each weight's ``F.linear`` of its dequantized
+    weight; at M = 1, 8 and 17 rows, limit INT8_TOL of that weight's
+    max|plain|) and ``int8_dequant`` (``q * scale``, bit for bit).  Then,
+    in bf16, each launch's own device time (:func:`graph_ms`, a CUDA
+    graph of the call replayed: torch.profiler dropped device records
+    from traces of these kernels) and back to back over distinct weights
+    (:func:`chain_ms`) beside its bound (bytes over 3.35 TB/s) and the
+    plain version's event time, and each weight's dequantize as the
+    prefill runs it.  Library: for ``int8_linear`` (M = 8) the
     dequantize + ``torch.matmul`` (no single PyTorch call computes it:
     the two calls, replayed as one graph), with a bf16 weight's product
     at the same shape (cuBLAS) for the record; for ``int8_dequant`` the
@@ -1025,12 +1047,17 @@ def int8_kernel_phase(co, dev, card):
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.int8 import (dequantize, dequantize_plain,
-                                          int8_linear, int8_linear_plain)
+                                          int8_linear_group,
+                                          int8_linear_group_plain,
+                                          int8_linear_plan)
     gen = torch.Generator(device=dev).manual_seed(40)
     scale = 8e-4                   # N(0, 0.02) weights: max ~0.1 / 127
     errs, shapes, deq_shapes = {}, [], []
-    for name, K, N, per_step in INT8_SHAPES + [("odd K, N", 4099, 1001,
-                                                0)]:
+    for name, K, rows, per_step in INT8_SHAPES + [
+            (n, K, r, 0) for n, K, r in INT8_TP_SHAPES] + [
+            ("odd K, N", 4099, (1001,), 0)]:
+        N = sum(rows)
+        scales = [scale * (1 + 0.25 * i) for i in range(len(rows))]
         q = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
                           dtype=torch.int8)
         for dt in INT8_TOL:
@@ -1039,75 +1066,106 @@ def int8_kernel_phase(co, dev, card):
                   "int8_dequant %s %s differs from plain" % (name, dt))
             for M in (1, 8, 17):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dt)
-                got = int8_linear(x, q, scale)
-                want = int8_linear_plain(x, q, scale)
-                err = (got.float() - want.float()).abs().max().item()
-                ref = want.float().abs().max().item()
-                check(err <= INT8_TOL[dt] * ref, "int8_linear %s M=%d %s: "
-                      "max|d| %.3e over %.0e * max|plain| %.3e"
-                      % (name, M, dt, err, INT8_TOL[dt], ref))
-                check(torch.equal(got, int8_linear(x, q, scale)),
+                got = int8_linear_group(x, q, rows, scales)
+                want = int8_linear_group_plain(x, q, rows, scales)
+                for i, (y, w) in enumerate(zip(got, want)):
+                    err = (y.float() - w.float()).abs().max().item()
+                    ref = w.float().abs().max().item()
+                    check(err <= INT8_TOL[dt] * ref, "int8_linear %s "
+                          "(weight %d) M=%d %s: max|d| %.3e over %.0e * "
+                          "max|plain| %.3e"
+                          % (name, i, M, dt, err, INT8_TOL[dt], ref))
+                    old = errs.get(dt, (0.0, 0.0))
+                    errs[dt] = (max(old[0], err), max(old[1], err / ref))
+                again = int8_linear_group(x, q, rows, scales)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
                       "int8_linear %s M=%d %s: two calls differ"
                       % (name, M, dt))
-                old = errs.get(dt, (0.0, 0.0))
-                errs[dt] = (max(old[0], err), max(old[1], err / ref))
         if per_step:
             bf16 = torch.bfloat16
             x = torch.randn(8, K, generator=gen, device=dev).to(bf16)
-            ms = graph_ms(lambda: int8_linear(x, q, scale))
-            call_ms = time_ms(lambda: int8_linear(x, q, scale))
-            plain_ms = time_ms(lambda: int8_linear_plain(x, q, scale),
-                               iters=5)
-            # the plain dequantize's product, with its scale made once
+
+            def run(w, x=x, rows=rows, scales=scales):
+                return int8_linear_group(x, w, rows, scales)
+            ms = graph_ms(lambda: run(q))
+            n_chain = max(2, -(-CHAIN_BYTES // (N * K)))
+            qs = [q] + [torch.randint(-127, 128, (N, K), generator=gen,
+                                      device=dev, dtype=torch.int8)
+                        for _ in range(n_chain - 1)]
+            chain = chain_ms([lambda w=w: run(w) for w in qs])
+            del qs
+            call_ms = time_ms(lambda: run(q))
+            plain_ms = time_ms(lambda: int8_linear_group_plain(
+                x, q, rows, scales), iters=5)
+            # the plain dequantize's product, each row's scale made once
             # (a host-to-device copy cannot be captured)
-            st = torch.tensor(scale, dtype=bf16, device=dev)
+            st = torch.cat([torch.full((r, 1), s, dtype=bf16, device=dev)
+                            for r, s in zip(rows, scales)])
             lib_ms = graph_ms(lambda: torch.matmul(x, (q * st).t()))
             w16 = q * st
             bf16_ms = graph_ms(lambda: F.linear(x, w16))
             del w16
             b_ms, b_by = bound_ms(N * K + 2 * 8 * K + 2 * 8 * N,
                                   2 * 8 * N * K)
-            print("int8_linear %s (M=8, K=%d, N=%d, bf16): kernel %.4f ms "
-                  "(device), call %.4f ms, plain %.4f ms, bound %.4f ms "
-                  "(%s), %.1f%% of it; library (dequantize + matmul) "
-                  "%.4f ms; a bf16 weight's product %.4f ms [%s]"
-                  % (name, K, N, ms, call_ms, plain_ms, b_ms, b_by,
-                     100 * b_ms / ms, lib_ms, bf16_ms, card))
+            print("int8_linear %s (M=8, K=%d, rows %s, bf16): kernel %.4f "
+                  "ms (device; %.4f ms a launch back to back over %d "
+                  "distinct weights, %.1f%% of the bound), call %.4f ms, "
+                  "plain %.4f ms, bound %.4f ms (%s), %.1f%% of it; library "
+                  "(dequantize + matmul) %.4f ms; a bf16 weight's product "
+                  "%.4f ms; plan %s [%s]"
+                  % (name, K, rows, ms, chain, n_chain, 100 * b_ms / chain,
+                     call_ms, plain_ms, b_ms, b_by, 100 * b_ms / ms, lib_ms,
+                     bf16_ms, int8_linear_plan(8, N, K), card))
             shapes.append({"shape": name, "M": 8, "K": K, "N": N,
-                           "per_decode_step": per_step, "ms": ms,
+                           "rows": rows, "per_decode_step": per_step,
+                           "ms": ms, "chain_ms": chain,
                            "call_ms": call_ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
                            "library_ms": lib_ms, "bf16_weight_ms": bf16_ms})
-            d_ms = graph_ms(lambda: dequantize(q, scale, bf16))
-            d_call = time_ms(lambda: dequantize(q, scale, bf16))
-            d_plain = time_ms(lambda: dequantize_plain(q, scale, bf16))
-            d_lib = graph_ms(lambda: q * st)
-            d_bound, d_by = bound_ms(3 * N * K, N * K)
-            print("int8_dequant %s (%d x %d, bf16): kernel %.4f ms "
-                  "(device), call %.4f ms, plain %.4f ms, bound %.4f ms "
-                  "(%s), %.1f%% of it; library (q * scale) %.4f ms [%s]"
-                  % (name, N, K, d_ms, d_call, d_plain, d_bound, d_by,
-                     100 * d_bound / d_ms, d_lib, card))
-            deq_shapes.append({"shape": name, "N": N, "K": K,
-                               "per_prefill": per_step, "ms": d_ms,
-                               "call_ms": d_call, "plain_ms": d_plain,
-                               "bound_ms": d_bound, "bound_by": d_by,
-                               "library_ms": d_lib})
+            # the prefill dequantizes each weight on its own
+            s0 = torch.tensor(scale, dtype=bf16, device=dev)
+            r0 = 0
+            for wname, r in zip(name.split("|"), rows):
+                qw = q[r0:r0 + r]
+                r0 += r
+                d_ms = graph_ms(lambda: dequantize(qw, scale, bf16))
+                d_call = time_ms(lambda: dequantize(qw, scale, bf16))
+                d_plain = time_ms(lambda: dequantize_plain(qw, scale, bf16))
+                d_lib = graph_ms(lambda: qw * s0)
+                d_bound, d_by = bound_ms(3 * r * K, r * K)
+                print("int8_dequant %s (%d x %d, bf16): kernel %.4f ms "
+                      "(device), call %.4f ms, plain %.4f ms, bound %.4f ms "
+                      "(%s), %.1f%% of it; library (q * scale) %.4f ms [%s]"
+                      % (wname, r, K, d_ms, d_call, d_plain, d_bound, d_by,
+                         100 * d_bound / d_ms, d_lib, card))
+                deq_shapes.append({"shape": wname, "N": r, "K": K,
+                                   "per_prefill": per_step, "ms": d_ms,
+                                   "call_ms": d_call, "plain_ms": d_plain,
+                                   "bound_ms": d_bound, "bound_by": d_by,
+                                   "library_ms": d_lib})
         del q
         torch.cuda.empty_cache()
     step = {k: sum(sh[k] * sh["per_decode_step"] for sh in shapes)
-            for k in ("ms", "bound_ms", "library_ms", "bf16_weight_ms")}
+            for k in ("ms", "chain_ms", "bound_ms", "library_ms",
+                      "bf16_weight_ms")}
     pre = {k: sum(sh[k] * sh["per_prefill"] for sh in deq_shapes)
            for k in ("ms", "bound_ms", "library_ms")}
-    print("int8_linear: max|d| / max|plain| %s (limits %s); a decode "
-          "step's 225 products %.3f ms of kernel, bound %.3f ms, library "
-          "%.3f ms, bf16 weights %.3f ms; int8_dequant bit for bit, a "
-          "prefill's 225 %.3f ms, bound %.3f ms, library %.3f ms [%s]"
+    print("int8_linear: max|d| / max|plain| %s (limits %s) at the decode "
+          "launches, their tp=2 / tp=4 blocks and an odd K, N; a decode "
+          "step's %d launches %.3f ms of kernel (%.3f back to back), "
+          "bound %.3f ms, library %.3f ms, bf16 weights %.3f ms; "
+          "int8_dequant bit for bit, a prefill's %d %.3f ms, bound %.3f "
+          "ms, library %.3f ms [%s]"
           % ({str(k)[6:]: "%.2e" % v[1] for k, v in errs.items()},
-             {str(k)[6:]: v for k, v in INT8_TOL.items()}, step["ms"],
-             step["bound_ms"], step["library_ms"], step["bf16_weight_ms"],
-             pre["ms"], pre["bound_ms"], pre["library_ms"], card))
-    head, dhead = shapes[2], deq_shapes[2]          # w1, w3: the largest
+             {str(k)[6:]: v for k, v in INT8_TOL.items()},
+             sum(sh["per_decode_step"] for sh in shapes), step["ms"],
+             step["chain_ms"], step["bound_ms"], step["library_ms"],
+             step["bf16_weight_ms"],
+             sum(sh["per_prefill"] for sh in deq_shapes), pre["ms"],
+             pre["bound_ms"], pre["library_ms"], card))
+    # the records' own numbers: w1 | w3, the largest launch, and w1
+    head = next(sh for sh in shapes if sh["shape"] == "w1|w3")
+    dhead = next(sh for sh in deq_shapes if sh["shape"] == "w1")
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     return [{"name": "int8_linear", "route": "cuda",
@@ -2271,12 +2329,22 @@ INT8_CONV_EDGES = [(2, 3, 31, 29, 64, 7, 2, 3, 1, 1),     # stem, C = 3
                    (3, 24, 9, 9, 40, 3, 1, 1, 1, 2),      # groups 2
                    (2, 32, 9, 9, 32, 3, 2, 1, 1, 32),     # depthwise
                    (2, 100, 10, 10, 70, 1, 1, 0, 1, 1),   # K not 16 / 32
-                   # C a multiple of 32 (the 32-byte tap gather that 52 of
-                   # ResNet-50's 53 convolutions take) with 3x3 taps,
-                   # padding, several image rows; then stride and dilation
+                   # C a multiple of 32 (the hopper route of 52 of
+                   # ResNet-50's 53 convolutions) with 3x3 taps, padding,
+                   # an image boundary inside a 128-row tile, M and O not
+                   # multiples of the tile, a split depth (2, 4 and 8
+                   # CTAs) and 7^2 rows that cross images; then stride and
+                   # dilation; C = 96 (taps straddle the 128-byte stages)
                    (2, 64, 12, 10, 64, 3, 1, 1, 1, 1),
                    (2, 128, 11, 13, 96, 3, 2, 2, 2, 1),
-                   (4, 2048, 1, 1, 1000, 1, 1, 0, 1, 1)]  # the Dense
+                   (2, 512, 7, 7, 512, 3, 1, 1, 1, 1),
+                   (3, 96, 9, 7, 70, 3, 2, 1, 1, 1),
+                   # the Dense: M = 4, 1, 17 (operands swapped, 32 rows)
+                   # and 33 (64 rows), depth split 8 ways
+                   (4, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),
+                   (1, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),
+                   (17, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),
+                   (33, 2048, 1, 1, 1000, 1, 1, 0, 1, 1)]
 INT8_RESNET_B, INT8_ENTROPY_B = 32, 8
 # the int8 ResNet-50's logits against the float32 net's on a second
 # batch: ||int8 - fp32|| / ||fp32|| (the reference's own quantize_net
@@ -2412,8 +2480,9 @@ def low_precision_kernel_phase(co, dev, card):
     print("int8_quantize vs plain: %d cases (float16 / bfloat16 / float32 / "
           "int8, .5 ties, C=3, groups 2 and 3, Dense inputs) bit for bit"
           % n2)
-    # K3: the edges, both epilogues, three output dtypes
-    n3 = 0
+    # K3: the edges, both epilogues, three output dtypes, on each route
+    # that takes the shape (hopper where int8_conv_route gives it)
+    n3 = {"hopper": 0, "general": 0}
     for (N, C, H, W, O, k, s, p, d, g) in INT8_CONV_EDGES:
         for dt in (torch.float16, torch.bfloat16, torch.float32):
             x, wpk, _ = _int8_conv_inputs(i8, dev, gen, N, C, H, W, O, k, g,
@@ -2424,24 +2493,32 @@ def low_precision_kernel_phase(co, dev, card):
             bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
                                dtype=torch.int32)
             geo = ((k, k), (s, s), (p, p), (d, d), g)
+            routes = ("hopper", "general") if i8.int8_conv_route(
+                *xq.shape[:3], xq.shape[3] // g, g) == "hopper" \
+                else ("general",)
             for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
-                       dict(out_dtype=torch.int32),
+                       dict(out_dtype=torch.int32, channels_last=True),
                        dict(scale=scale, bias=bias, relu=True, out_dtype=dt),
                        dict(scale=scale, bias=bias, out_dtype=dt),
                        dict(scale=scale, out_dtype=dt, channels_last=True)):
-                got = i8.int8_conv(xq, wpk, *geo, **kw)
                 want = i8.int8_conv_plain(xq, wpk, *geo, **kw)
-                check(torch.equal(got, want), "int8_conv %s %s differs from "
-                      "plain: %d elements" % ((N, C, H, W, O, k, s, p, d, g),
-                                              sorted(kw),
-                                              int((got != want).sum())))
-                n3 += 1
-    print("int8_conv vs plain: %d cases (C=3 7x7 stem, odd C and O, stride "
-          "2, dilation 2, padding 0/1/2/3, groups 2, depthwise, batch 1, "
-          "3x3 with C a multiple of 32, the Dense; raw int32 with and "
-          "without bias, float with bias +- relu, "
-          "NCHW and NHWC, float16 / bfloat16 / float32) bit for bit" % n3)
-    # timing at ResNet-50's shapes
+                for route in routes:
+                    got = i8._int8_conv(xq, wpk, *geo, route=route, **kw)
+                    check(torch.equal(got, want), "int8_conv %s %s %s "
+                          "differs from plain: %d elements"
+                          % (route, (N, C, H, W, O, k, s, p, d, g),
+                             sorted(kw), int((got != want).sum())))
+                    n3[route] += 1
+    print("int8_conv vs plain: %d cases on the hopper route, %d on the "
+          "general (C=3 7x7 stem, odd C and O, stride 2, dilation 2, "
+          "padding 0/1/2/3, groups 2, depthwise, batch 1, 3x3 with C a "
+          "multiple of 32, image boundaries inside tiles, depth split 2 / "
+          "4 / 8 ways, the Dense at M = 1, 4, 17, 33; raw int32 with and "
+          "without bias, NCHW and NHWC, float with bias +- relu, "
+          "float16 / bfloat16 / float32) bit for bit"
+          % (n3["hopper"], n3["general"]))
+    # timing at ResNet-50's shapes, each on its route and on the general
+    # kernel (the design this PR replaced on the hopper shapes)
     q_rows, c_rows = [], []
     for name, N, C, H, W, O, k, s, p in INT8_CONV_TIMED:
         x, wpk, wq = _int8_conv_inputs(i8, dev, gen, N, C, H, W, O, k, 1,
@@ -2453,8 +2530,11 @@ def low_precision_kernel_phase(co, dev, card):
         xq = i8.int8_quantize(x, 0.02)
         xq4 = xq.reshape(N, H, W, -1)
         geo = ((k, k), (s, s), (p, p))
+        route = i8.int8_conv_route(N, H, W, xq4.shape[3], 1)
+        routes = (route, "general") if route == "hopper" else (route,)
         # held against the plain version at this shape first: K2, then K3
-        # in both epilogues (random scales and biases)
+        # in both epilogues and the three float dtypes (random scales and
+        # biases) on each route
         check(torch.equal(xq, i8.int8_quantize_plain(x, 0.02)),
               "int8_quantize %s (B=%d) differs from plain" % (name, N))
         rs = torch.rand(O, generator=gen, device=dev) * 1e-3
@@ -2462,18 +2542,24 @@ def low_precision_kernel_phase(co, dev, card):
         bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
                            dtype=torch.int32)
         for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
-                   dict(scale=rs, bias=rb, relu=True)):
-            got = i8.int8_conv(xq4, wpk, *geo, **kw)
+                   dict(scale=rs, bias=rb, relu=True),
+                   dict(scale=rs, bias=rb, out_dtype=torch.float16),
+                   dict(scale=rs, out_dtype=torch.bfloat16,
+                        channels_last=True)):
             want = i8.int8_conv_plain(xq4, wpk, *geo, **kw)
-            check(torch.equal(got, want), "int8_conv %s (B=%d) %s differs "
-                  "from plain: %d elements" % (name, N, sorted(kw),
-                                               int((got != want).sum())))
-            del got, want
+            for r in routes:
+                got = i8._int8_conv(xq4, wpk, *geo, route=r, **kw)
+                check(torch.equal(got, want), "int8_conv %s %s (B=%d) %s "
+                      "differs from plain: %d elements"
+                      % (r, name, N, sorted(kw), int((got != want).sum())))
+                del got
+            del want
         OH = (H + 2 * p - k) // s + 1
         OW = (W + 2 * p - k) // s + 1
         macs = N * OH * OW * O * C * k * k
-        ms = graph_ms(lambda: i8.int8_conv(xq4, wpk, *geo, scale=scale,
-                                           bias=bias))
+        ms = {r: graph_ms(lambda r=r: i8._int8_conv(
+            xq4, wpk, *geo, scale=scale, bias=bias, route=r))
+            for r in routes}
         call_ms = time_ms(lambda: i8.int8_conv(xq4, wpk, *geo, scale=scale,
                                                bias=bias))
         plain_ms = time_ms(lambda: i8.int8_conv_plain(
@@ -2496,19 +2582,24 @@ def low_precision_kernel_phase(co, dev, card):
             except (AttributeError, RuntimeError) as e:
                 print("torch._int_mm not timed: %s" % e)
                 lib_ms = None
-        print("int8_conv %s (B=%d): kernel %.4f ms (device), call %.4f ms, "
-              "plain %.4f ms, bound %.4f ms (%s: %.2f GMAC, int8 peak "
-              "1979 TOP/s), %.1f%% of it, %.1f TOP/s; cuDNN bf16 %s %.4f "
-              "ms%s [%s]"
-              % (name, N, ms, call_ms, plain_ms, b_ms, b_by, macs / 1e9,
-                 100 * b_ms / ms, 2 * macs / ms / 1e9,
+        plan = (i8.int8_conv_plan(N * OH * OW, O, wpk.shape[2])
+                if route == "hopper" else None)
+        print("int8_conv %s (B=%d): %s route kernel %.4f ms (device)%s, "
+              "call %.4f ms, plain %.4f ms, bound %.4f ms (%s: %.2f GMAC, "
+              "int8 peak 1979 TOP/s), %.1f%% of it, %.1f TOP/s; cuDNN bf16 "
+              "%s %.4f ms%s; plan %s [%s]"
+              % (name, N, route, ms[route], "" if route == "general" else
+                 ", general kernel %.4f ms" % ms["general"], call_ms,
+                 plain_ms, b_ms, b_by, macs / 1e9, 100 * b_ms / ms[route],
+                 2 * macs / ms[route] / 1e9,
                  "channels-last conv" if x.dim() == 4 else "linear",
                  bf16_ms, "" if lib_ms is None
-                 else "; torch._int_mm %.4f ms" % lib_ms, card))
-        c_rows.append({"shape": name, "ms": ms, "call_ms": call_ms,
+                 else "; torch._int_mm %.4f ms" % lib_ms, plan, card))
+        c_rows.append({"shape": name, "route": route, "ms": ms[route],
+                       "general_ms": ms["general"], "call_ms": call_ms,
                        "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms,
-                       "bf16_ms": bf16_ms, "macs": macs})
+                       "bf16_ms": bf16_ms, "macs": macs, "plan": plan})
         q_ms = graph_ms(lambda: i8.int8_quantize(x, 0.02))
         q_call = time_ms(lambda: i8.int8_quantize(x, 0.02))
         q_plain = time_ms(lambda: i8.int8_quantize_plain(x, 0.02), iters=3,
@@ -2526,7 +2617,11 @@ def low_precision_kernel_phase(co, dev, card):
         torch.cuda.empty_cache()
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    conv_head = c_rows[2]                       # 3x3 64->64 at 56^2
+    hopper = [r for r in c_rows if r["route"] == "hopper"]
+    general = [dict(r, route="general", ms=r["general_ms"],
+                    call_ms=r["call_ms"] if r["route"] == "general" else None)
+               for r in c_rows]
+    head = hopper[1]                            # 3x3 64->64 at 56^2
     return [{"name": "multi_all_finite", "route": "cuda",
              "source": "mxnet_tpu_torch/csrc/multi_tensor.cu",
              "replaces": "mxnet_tpu/ndarray/op_updates.py:631",
@@ -2536,30 +2631,48 @@ def low_precision_kernel_phase(co, dev, card):
              "replaces": "mxnet_tpu/contrib/quantization.py:115",
              "max_abs_err": 0.0, **{k: q_rows[0][k] for k in keys},
              "shapes": q_rows},
-            {"name": "int8_conv", "route": "cuda",
+            {"name": "int8_conv_hopper", "route": "cuda",
              "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
              "replaces": "mxnet_tpu/contrib/quantization.py:197",
-             "max_abs_err": 0.0, **{k: conv_head[k] for k in keys},
-             "bf16_ms": conv_head["bf16_ms"], "shapes": c_rows}]
+             "max_abs_err": 0.0, **{k: head[k] for k in keys},
+             "bf16_ms": head["bf16_ms"], "general_ms": head["general_ms"],
+             "shapes": hopper},
+            {"name": "int8_conv_general", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
+             "replaces": "mxnet_tpu/contrib/quantization.py:197",
+             "max_abs_err": 0.0, **{k: general[0][k] for k in keys},
+             "bf16_ms": general[0]["bf16_ms"], "shapes": general}]
+
+
+# the int8 forward's kernels by name: K3 on each route, K2
+INT8_FORWARD_KERNELS = {"int8_conv hopper": "conv_hopper",
+                        "int8_conv general": "conv_kernel",
+                        "int8_quantize": "quantize_kernel"}
 
 
 def _forward_row(mt, net, x, tag, card):
     """device_busy of one forward of ``net`` on ``x`` (no tape), with the
-    peak memory of the calls."""
+    peak memory of the calls and the int8 kernels' ms and launches a
+    call (INT8_FORWARD_KERNELS)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with mt.autograd.pause():
-        host, dev_ms, top, counts, _ = device_busy(lambda: net(x), reps=5)
+        host, dev_ms, top, counts, per = device_busy(lambda: net(x), reps=5)
     peak = torch.cuda.max_memory_allocated()
     B = x.shape[0]
+    int8 = {name: [sum(v[i] for k, v in per.items() if match in k)
+                   for i in (0, 1)]
+            for name, match in INT8_FORWARD_KERNELS.items()}
     print("resnet50 %s forward (B=%d): %.0f images/s, %.2f ms host, %.2f ms "
           "of kernels (device busy %.1f%%), %.1f device events per call, "
-          "peak memory %.2f GB; top kernels %s [%s]"
+          "peak memory %.2f GB; top kernels %s%s [%s]"
           % (tag, B, B / host * 1e3, host, dev_ms, 100 * dev_ms / host,
              counts["device events"], peak / 1e9,
-             "; ".join("%s %.3f" % t for t in top), card))
+             "; ".join("%s %.3f" % t for t in top),
+             "".join("; %s %.3f ms in %g launches" % (k, v[0], v[1])
+                     for k, v in int8.items() if v[1]), card))
     return {"images_per_s": B / host * 1e3, "host_ms": host,
-            "kernel_ms": dev_ms, "peak_gb": peak / 1e9}
+            "kernel_ms": dev_ms, "peak_gb": peak / 1e9, "int8": int8}
 
 
 def int8_resnet_phase(mt, co, dev, card):
@@ -2608,10 +2721,15 @@ def int8_resnet_phase(mt, co, dev, card):
         got = net(x)
     torch.cuda.synchronize()
     launches = dict(co.LAUNCHES)
-    check(launches["int8_conv"] == 54 and launches["int8_quantize"] == 54,
-          "int8 resnet50: a forward launched int8_conv %d and int8_quantize "
-          "%d times, want 54 each" % (launches["int8_conv"],
-                                      launches["int8_quantize"]))
+    check(launches["int8_conv"] == 54 and launches["int8_quantize"] == 54
+          and launches["int8_conv_hopper"] == 53
+          and launches["int8_conv_general"] == 1,
+          "int8 resnet50: a forward launched int8_conv %d (hopper %d, "
+          "general %d) and int8_quantize %d times, want 54 (53 and the "
+          "stem's 1) and 54" % (launches["int8_conv"],
+                                launches["int8_conv_hopper"],
+                                launches["int8_conv_general"],
+                                launches["int8_quantize"]))
     rows["int8 eager"] = _forward_row(mt, net, x, "int8 eager", card)
     net.hybridize()
     with mt.autograd.pause():
@@ -2621,7 +2739,8 @@ def int8_resnet_phase(mt, co, dev, card):
     torch.cuda.synchronize()
     hyb_launches = dict(co.LAUNCHES)
     check(len(net._graphs) == 1 and torch.equal(hyb, got)
-          and hyb_launches["int8_conv"] == 54,
+          and hyb_launches["int8_conv"] == 54
+          and hyb_launches["int8_conv_hopper"] == 53,
           "int8 resnet50: the hybridized forward differs from eager or did "
           "not replay its kernels (%s)" % hyb_launches)
     rows["int8 hybridized"] = _forward_row(mt, net, x, "int8 hybridized",
@@ -2647,6 +2766,14 @@ def int8_resnet_phase(mt, co, dev, card):
         "%s %.0f images/s, %.2f ms host, %.2f ms kernels, %.2f GB"
         % (k, v["images_per_s"], v["host_ms"], v["kernel_ms"], v["peak_gb"])
         for k, v in rows.items()))
+    k3 = rows["int8 hybridized"]["int8"]
+    print("int8 resnet50 hybridized forward: K3 %.3f ms of kernels (hopper "
+          "%.3f ms in %g launches, general %.3f in %g), K2 %.3f ms in %g, "
+          "of %.2f ms [%s]"
+          % (k3["int8_conv hopper"][0] + k3["int8_conv general"][0],
+             *k3["int8_conv hopper"], *k3["int8_conv general"],
+             *k3["int8_quantize"], rows["int8 hybridized"]["kernel_ms"],
+             card))
     del net, got, hyb, fp32
     gc.collect()
     torch.cuda.empty_cache()
@@ -3138,6 +3265,18 @@ def graph_ms(fn, iters=20):
     from mxnet_tpu_torch.ops import cuda_ops
     graph, _, _ = cuda_ops.capture_graph(fn, warmup=1)
     return time_ms(graph.replay, iters, warmup=1)
+
+
+def chain_ms(fns, iters=10):
+    """Device ms per call of ``fns`` captured back to back in one CUDA
+    graph and replayed (L2 flushed before each replay): each call's time
+    as a graph step shows it, with the launch gaps inside a graph and no
+    graph launch.  Give calls that read distinct data (weights), more
+    than the L2 holds, so that each reads its own from memory."""
+    from mxnet_tpu_torch.ops import cuda_ops
+    graph, _, _ = cuda_ops.capture_graph(lambda: [f() for f in fns],
+                                         warmup=1)
+    return time_ms(graph.replay, iters, warmup=1) / len(fns)
 
 
 def opt_list_timing(co, mtk, kind, groups, kw, tag, card, library=None):
@@ -4960,7 +5099,8 @@ def main(argv):
              "amp_bert": amp_bert_launches,
              "amp_resnet": amp_resnet_launches, "guard": guard_launches}
     for path, kernels_of_path in (
-            ("int8_resnet", ("int8_quantize", "int8_conv")),
+            ("int8_resnet", ("int8_quantize", "int8_conv_hopper",
+                             "int8_conv_general")),
             ("amp_bert", ("multi_all_finite", "flash_fwd_mma",
                           "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                           "multi_adam")),

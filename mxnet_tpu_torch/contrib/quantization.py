@@ -55,7 +55,7 @@ from ..ndarray.contrib import _f32, _range_scalar, _t
 from ..ndarray.ndarray import NDArray
 from ..ops import int8 as _int8
 from ..ops import nn as _nn
-from ..ops.int8 import dequantize, int8_linear
+from ..ops.int8 import dequantize, int8_linear, int8_linear_group
 
 __all__ = ["Int8Weight", "int8_weights", "int8_forward", "optimal_threshold",
            "quantize_array", "QuantizedDense", "QuantizedConv2D",
@@ -445,12 +445,26 @@ def quantize_model(*args, **kwargs):
 class Int8Weight:
     """One layer's int8 weight: ``q`` (N, K) int8, its per-tensor
     ``scale`` (a Python float) and the compute ``dtype`` (the weight's
-    own before quantization)."""
+    own before quantization); ``group``, the :class:`Int8Group` whose
+    stacked tensor ``q`` is a block of, or None."""
 
-    def __init__(self, q, scale, dtype):
+    def __init__(self, q, scale, dtype, group=None):
         self.q = q
         self.scale = float(scale)
         self.dtype = dtype
+        self.group = group
+
+
+class Int8Group:
+    """Layers that read the same input, their int8 weights stacked by
+    rows in ``q`` (``rows`` each, with their ``scales``), so that the
+    decode runs their products as one ``int8_linear_group`` launch."""
+
+    def __init__(self, layers, q, rows, scales):
+        self.layers = tuple(layers)
+        self.q = q
+        self.rows = tuple(rows)
+        self.scales = tuple(scales)
 
 
 _state = threading.local()
@@ -465,12 +479,32 @@ def int8_weights(weights, route):
     if route not in ROUTES:
         raise ValueError("int8 route must be one of %s, got %r"
                          % (ROUTES, route))
-    prev = getattr(_state, "active", None)
+    prev = getattr(_state, "active", None), getattr(_state, "pending", None)
     _state.active = (weights, route) if weights else None
+    _state.pending = {}
     try:
         yield
     finally:
-        _state.active = prev
+        _state.active, _state.pending = prev
+
+
+def _group_product(group, layer, key, x):
+    """``layer``'s result of one launch over ``group``'s weights: the
+    first member called with the input object ``key`` launches for all
+    of them, and each other member called with that same object takes
+    its result."""
+    pending = _state.pending
+    entry = pending.get(group)
+    if entry is None or entry[0] is not key or layer not in entry[1]:
+        ys = int8_linear_group(x.reshape(-1, x.shape[-1]).contiguous(),
+                               group.q, group.rows, group.scales)
+        entry = (key, {m: y.reshape(*x.shape[:-1], y.shape[-1])
+                       for m, y in zip(group.layers, ys)})
+        pending[group] = entry
+    y = entry[1].pop(layer)
+    if not entry[1]:
+        del pending[group]
+    return y
 
 
 def int8_forward(layer, x, bias, flatten):
@@ -481,11 +515,14 @@ def int8_forward(layer, x, bias, flatten):
     w8 = None if active is None else active[0].get(layer)
     if w8 is None:
         return None
+    key = x
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     x = x.to(w8.dtype)
     if active[1] == "prefill":
         y = F.linear(x, dequantize(w8.q, w8.scale, w8.dtype))
+    elif w8.group is not None:
+        y = _group_product(w8.group, layer, key, x)
     else:
         y = int8_linear(x.reshape(-1, x.shape[-1]).contiguous(), w8.q,
                         w8.scale).reshape(*x.shape[:-1], w8.q.shape[0])

@@ -17,6 +17,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace {
 
 constexpr int BOX = 64 * 64;               // elements of one 64x64 box
@@ -67,6 +69,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box of `map` at (c0, c1, c2) into L2: a hint, which hands no
+// value to the program, so it may run before the data is final.
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map,
+                                                int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, "
+      "%3}];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -270,6 +283,57 @@ __device__ __forceinline__ void warpgroup_sync(int n) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
 
+// 16 bytes global -> shared by cp.async (L2 only); zero-filled, nothing
+// read, when !ok
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+// order this thread's view of shared memory through the generic proxy
+// (cp.async, stores) before its async-proxy accesses (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread block clusters: every thread of every CTA of the cluster
+// calls each of these, in turn.  A CTA may write another's shared memory
+// only once that CTA has started: cluster_arrive() at the start, and
+// cluster_wait() before the first remote store, see to that.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Launch `kernel` over clusters of `cluster` CTAs along x (1: plain CTAs).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads,
+                            int smem, int cluster, cudaStream_t stream,
+                            Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
 // ---- host side: tensor maps and launch
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -317,10 +381,13 @@ CtxGetCurrent ctx_get_current_fn() {
   return fn;
 }
 
-// A 3-D map over (heads, rows, D) of bf16, boxes of 64 rows x 64
-// columns in the 128-byte swizzle; out-of-range rows read as zeros.
-bool make_map(CUtensorMap* map, const void* base, int heads, int rows,
-              int D) {
+// A 3-D tiled map: `dims` elements (innermost first), `strides` the
+// bytes between consecutive indices of dims 1 and 2, boxes of `box`
+// elements; out-of-range elements read as zeros.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                const void* base, const cuuint64_t (&dims)[3],
+                const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3],
+                CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   // The encoder checks `base` against this thread's current context.  A
@@ -333,16 +400,40 @@ bool make_map(CUtensorMap* map, const void* base, int heads, int rows,
   CUcontext ctx = nullptr;
   if (get == nullptr || get(&ctx) != CUDA_SUCCESS) return false;
   if (ctx == nullptr && cudaFree(nullptr) != cudaSuccess) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over (heads, rows, D) of bf16, boxes of 64 rows x 64
+// columns in the 128-byte swizzle; out-of-range rows read as zeros.
+bool make_map(CUtensorMap* map, const void* base, int heads, int rows,
+              int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)rows * D * 2};
   const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A 2-D map over `rows` rows of `cols` elements of `esize` bytes (the
+// row stride cols * esize, a multiple of 16), boxes of `box_rows` rows x
+// 128 bytes in the 128-byte swizzle: the K-major tiles of the int8
+// kernels.  Out-of-range rows and columns read as zeros.
+bool make_rows_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                   const void* base, long long rows, long long cols,
+                   int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)(cols * esize),
+                                 (cuuint64_t)(rows * cols * esize)};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows,
+                             1};
+  return encode_map(map, type, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

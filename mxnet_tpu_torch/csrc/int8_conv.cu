@@ -21,23 +21,13 @@
 //      take consecutive positions, so the reads of each channel are
 //      coalesced.  Bound by bytes: x read once, q written once.
 //
-// (K3) conv_kernel: implicit GEMM.  Per group, rows are the output
-//      positions m = (n, oh, ow) (M = N * OH * OW), columns the group's
-//      Og output channels, and the depth k runs over (r, s, c) with c
-//      fastest, Kreal = KH * KW * Cgp, padded with zero weights to Kp, a
-//      multiple of BK.  Weights are repacked once, at the layer's
-//      construction, to (G, Og, Kp) int8.  A CTA of 8 warps owns a
-//      BM x BN = 128 x 64 tile of one group; each step of BK = 64 depth
-//      stages the A tile (gathered from x: 32 contiguous bytes of one tap
-//      where Cgp is a multiple of 32, else 4-byte words, zeros outside
-//      the image and beyond Kreal) and the B tile in shared memory, two
-//      buffers, the next step's loads in registers during this step's
-//      products.  Each warp computes 32 x 32 with
-//      mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 from fragments
-//      read out of shared memory rows padded to 80 bytes (no bank
-//      conflicts).  The sums are int32, exact.  Every stride, padding,
-//      dilation and group count runs; depthwise (Cg = 1, Og = 1) wastes
-//      most of a tile but is right.
+// (K3) implicit GEMM, two routes (ops/int8.py int8_conv_route).  Per
+//      group, rows are the output positions m = (n, oh, ow) (M = N * OH *
+//      OW), columns the group's Og output channels, and the depth k runs
+//      over (r, s, c) with c fastest, Kreal = KH * KW * Cgp, padded with
+//      zero weights to Kp, a multiple of BK.  Weights are repacked once,
+//      at the layer's construction, to (G, Og, Kp) int8.  The sums are
+//      int32, exact.
 //      Epilogues: raw, int32 acc + an int32 bias (nd.contrib's
 //      quantized_conv / quantized_fully_connected); or float, y =
 //      f32(acc) * scale[o] (+ bias[o]) (relu), each operation rounded once
@@ -45,18 +35,38 @@
 //      float16 / bfloat16 / float32 (round to nearest even).  The output
 //      is written through strides (n, channel, position), so NCHW and
 //      NHWC are both one kernel.
+//      "hopper", conv_hopper (below): one group with Cgp a multiple of
+//      32, which 52 of ResNet-50's 53 convolutions and its Dense are.
+//      "general", conv_kernel: everything (the stem's C = 3, groups,
+//      depthwise).  A CTA of 8 warps owns a BM x BN = 128 x 64 tile of
+//      one group; each step of BK = 64 depth stages the A tile (gathered
+//      from x: 32 contiguous bytes of one tap where Cgp is a multiple of
+//      32, else 4-byte words, zeros outside the image and beyond Kreal)
+//      and the B tile in shared memory, two buffers, the next step's
+//      loads in registers during this step's products.  Each warp
+//      computes 32 x 32 with mma.sync.aligned.m16n8k32.row.col.s32.s8.s8
+//      .s32 from fragments read out of shared memory rows padded to 80
+//      bytes (no bank conflicts).  Every stride, padding, dilation and
+//      group count runs; depthwise (Cg = 1, Og = 1) wastes most of a tile
+//      but is right.
 //
-// What bounds K3 on this card: at ResNet-50's shapes, operations (2 *
-// MACs over the 1,979 TOP/s dense int8 peak of the H100 data sheet,
-// which only wgmma reaches; mma.sync issues at a fraction of it).  The
-// design is the simple one: tiles staged through shared memory, no TMA
-// or wgmma; making it fast is later work.
+// What bounds K3 on this card: operations at the 7^2 and 14^2 stages
+// (2 * MACs over the 1,979 TOP/s dense int8 peak of the H100 data sheet,
+// which only wgmma reaches; mma.sync issues at a fraction of it); bytes
+// at 56^2, where the float32 NCHW output the int8 ResNet-50 writes is
+// most of them.  The hopper route answers both: wgmma from swizzled
+// shared memory fed by an asynchronous ring, split depth where the tiles
+// do not fill the card, and persistent CTAs whose loads overlap the last
+// tile's 16-byte stores.
 
-#include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace mxq {
 
@@ -123,6 +133,10 @@ struct ConvArgs {
   int N, H, W, G, Cgp, Og, KH, KW, OH, OW;
   int sh, sw, ph, pw, dh, dw;
   int Kreal, Kp, M, out_kind, relu;
+  // the launch plan (ops/int8.py int8_conv_plan): route 0 general, 1
+  // hopper; the hopper tile shape `cfg` (HOPPER_CFGS), the `splits` CTAs
+  // of a cluster that split the depth's stages evenly, and the `ctas`
+  int route, cfg, splits, ctas;
 };
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
@@ -286,6 +300,509 @@ __global__ void __launch_bounds__(NT) conv_kernel(const ConvArgs a) {
       }
 }
 
+// ------------------------------------------------------- K3, hopper --
+// The route for G == 1 and Cgp % 32 == 0: every 16-byte run of depth
+// lies in one tap.  A CTA is one producer warpgroup and NWG consumer
+// warpgroups around a ring of STAGES stages, each stage HBK = 128 bytes
+// of depth of a tile of positions (P, gathered by cp.async) and a tile of
+// output channels (W, one TMA box of the packed weight), both K-major in
+// the 128-byte swizzle.  Consumer warpgroup w runs wgmma
+// m64nNk32.s32.s8.s8 on rows 64w .. 64w + 63 of the A operand: the
+// positions, or with SWAP (small M: the Dense) the output channels, so
+// that a handful of positions is wgmma's N side and not most of a 64-row
+// tile.  Per tile, the producer tabulates the positions (image base,
+// corner: one division a row); each of its threads then walks the taps
+// of one 16-byte chunk of depth with no division, and its copies arrive
+// on the stage's mbarrier as they land; then it fills the epilogue's
+// tables (output offsets, scales, biases), double-buffered under
+// mbarriers.  Unsplit, CTAs are persistent: the producer streams the
+// next tile while the consumers finish the last.  Split, `splits` CTAs
+// of one cluster share a tile's depth: each pushes the rows of its int32
+// partial tile that CTA `rank` finishes into that CTA's shared memory
+// (distributed shared memory; no atomics), and after one cluster barrier
+// CTA `rank` sums its slice in rank order (int32 sums are exact).  The
+// sums are staged along the output's contiguous dimension and written
+// as 16-byte runs.
+constexpr int HBK = 128;         // depth bytes a stage: one swizzled row
+constexpr int HPROD = 128;       // the producer warpgroup
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da,
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// barrier `id` over the first `n` threads (0 is __syncthreads', 1 the
+// producer warpgroup's)
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int NWG, int N, bool SWAP, bool NCHW>
+struct HCfg {
+  static constexpr int AM = 64 * NWG;        // rows of wgmma's A operand
+  static constexpr int PR = SWAP ? N : AM;   // positions a tile
+  static constexpr int WR = SWAP ? AM : N;   // output channels a tile
+  static constexpr int P_BYTES = PR * HBK, W_BYTES = WR * HBK;
+  static constexpr int STAGE = P_BYTES + W_BYTES;
+  static constexpr int STAGES = SWAP ? 4 : 3;               // ring depth
+  static constexpr int CONS = 128 * NWG;                    // consumers
+  static constexpr int THREADS = CONS + HPROD;
+  // The int32 sums are staged along the output's contiguous dimension:
+  // positions (NCHW) or channels (NHWC).  INNER_A: that is wgmma's A
+  // side, and a slice of a_n = AM / splits rows is stored transposed,
+  // [N][a_n (+ 4 unsplit)]; else [a_n][N + 4].  Runs of 16 bytes stay
+  // aligned; the pad keeps the unsplit tile's writes off each other's
+  // banks.  A CTA receives `splits` such slices, one from each CTA of
+  // its cluster.
+  static constexpr bool INNER_A = NCHW != SWAP;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int ACC = (INNER_A ? N * (AM + 4) : AM * (N + 4)) * 4;
+  // per-tile tables: the producer's row table (image base, corner) and,
+  // two tiles' worth, the epilogue's (each position's output offset, -1
+  // past M; each channel's scale and bias)
+  static constexpr int TABLES = PR * 3 * 4 + 2 * (PR * 8 + WR * 8);
+  static constexpr int BARS = (2 * STAGES + 4) * 8;
+  static constexpr int SMEM = RING + ACC + TABLES + BARS + 1024;
+  static constexpr int MINB = N == 128 && !SWAP ? 1 : 2;     // CTAs an SM
+};
+
+// One epilogue value: the float one (each operation rounded once) or the
+// raw int32 sum plus its bias.
+template <typename OT>
+__device__ __forceinline__ OT finish(int v, float sc, float bi, bool bias,
+                                     bool relu) {
+  if constexpr (std::is_same_v<OT, int>) {
+    return v + __float_as_int(bi);
+  } else {
+    float y = __fmul_rn(__int2float_rn(v), sc);
+    if (bias) y = __fadd_rn(y, bi);
+    if (relu && y < 0.f) y = 0.f;
+    if constexpr (std::is_same_v<OT, float>) return y;
+    else if constexpr (std::is_same_v<OT, __half>) return __float2half_rn(y);
+    else return __float2bfloat16_rn(y);
+  }
+}
+
+// This CTA's slice of the tile, A rows [rank * a_n, +a_n): the `splits`
+// received partial slices summed in rank order, finished and stored by
+// the consumer threads.  Each takes VEC values (16 bytes of output) along
+// the output's contiguous dimension; offsets, scales and biases come from
+// the tile's tables.
+template <int NWG, int N, bool SWAP, bool NCHW, typename OT>
+__device__ void hopper_store(const ConvArgs& a, const int* recv,
+                             const long long* pos_off, const float* ch_sc,
+                             const float* ch_bi, int rank, int o0) {
+  using C = HCfg<NWG, N, SWAP, NCHW>;
+  constexpr int VEC = 16 / sizeof(OT);
+  const int S = a.splits, a_n = C::AM / S, a_lo = rank * a_n;
+  const int lds = C::INNER_A ? a_n + (S == 1 ? 4 : 0) : N + 4;
+  const int slice = (C::INNER_A ? N : a_n) * lds;
+  const int inner_v = (C::INNER_A ? a_n : N) / VEC;
+  const int groups = (C::INNER_A ? N : a_n) * inner_v;
+  const bool bias = a.out_kind == OUT_I32 ? a.bias_i32 != nullptr
+                                          : a.bias != nullptr;
+  OT* out = static_cast<OT*>(a.out);
+  for (int gi = threadIdx.x; gi < groups; gi += C::CONS) {
+    const int outer = gi / inner_v, in0 = (gi - outer * inner_v) * VEC;
+    const int off = outer * lds + in0;     // local row-major in the slice
+    int sum[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) sum[v] = 0;
+    for (int q = 0; q < S; ++q) {
+#pragma unroll
+      for (int v = 0; v < VEC; v += 4) {
+        const int4 w = *reinterpret_cast<const int4*>(recv + q * slice +
+                                                      off + v);
+        sum[v] += w.x;
+        sum[v + 1] += w.y;
+        sum[v + 2] += w.z;
+        sum[v + 3] += w.w;
+      }
+    }
+    const int arow0 = a_lo + (C::INNER_A ? in0 : outer);
+    const int bcol0 = C::INNER_A ? outer : in0;
+    // the run: positions of one channel (NCHW) or channels of one
+    // position (NHWC)
+    const int pi0 = SWAP ? bcol0 : arow0, ol0 = SWAP ? arow0 : bcol0;
+    union {
+      OT v[VEC];
+      uint4 u;
+    } vals;
+    if constexpr (NCHW) {
+      const int o = o0 + ol0;
+      if (o >= a.Og) continue;
+      const float sc = ch_sc[ol0], bi = ch_bi[ol0];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        vals.v[v] = finish<OT>(sum[v], sc, bi, bias, a.relu);
+      const long long b0 = pos_off[pi0], b1 = pos_off[pi0 + VEC - 1];
+      const long long idx = b0 + o * a.sC;
+      if (b0 >= 0 && b1 == b0 + VEC - 1 && idx % VEC == 0) {
+        *reinterpret_cast<uint4*>(out + idx) = vals.u;
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          if (pos_off[pi0 + v] >= 0)
+            out[pos_off[pi0 + v] + o * a.sC] = vals.v[v];
+      }
+    } else {
+      const long long b0 = pos_off[pi0];
+      const int oc0 = o0 + ol0;
+      if (b0 < 0) continue;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        vals.v[v] = finish<OT>(sum[v], ch_sc[ol0 + v], ch_bi[ol0 + v], bias,
+                               a.relu);
+      if (oc0 + VEC <= a.Og && (b0 + oc0) % VEC == 0) {
+        *reinterpret_cast<uint4*>(out + b0 + oc0) = vals.u;
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          if (oc0 + v < a.Og) out[b0 + oc0 + v] = vals.v[v];
+      }
+    }
+  }
+}
+
+// A cluster of `splits` CTAs takes tile cluster, cluster + clusters, ...
+// (one tile a cluster when splits > 1; unsplit, a persistent CTA walks
+// several, its producer streaming the next tile's stages while the
+// consumers finish the last).
+template <int NWG, int N, bool SWAP, bool NCHW>
+__global__ void __launch_bounds__(HCfg<NWG, N, SWAP, NCHW>::THREADS,
+                                  HCfg<NWG, N, SWAP, NCHW>::MINB)
+conv_hopper(const __grid_constant__ ConvArgs a,
+            const __grid_constant__ CUtensorMap tm_w) {
+  using C = HCfg<NWG, N, SWAP, NCHW>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  int* recv = reinterpret_cast<int*>(sm + C::RING);
+  long long* pos_offs = reinterpret_cast<long long*>(sm + C::RING + C::ACC);
+  float* ch_scs = reinterpret_cast<float*>(pos_offs + 2 * C::PR);
+  float* ch_bis = ch_scs + 2 * C::WR;
+  int* row_base = reinterpret_cast<int*>(ch_bis + 2 * C::WR);
+  int* row_ih0 = row_base + C::PR;
+  int* row_iw0 = row_ih0 + C::PR;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::RING + C::ACC +
+                                               C::TABLES);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* tab_full = empty + C::STAGES;    // a tile's epilogue tables
+  uint64_t* tab_empty = tab_full + 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = a.splits;
+  const int split = blockIdx.x % S, cluster = blockIdx.x / S;
+  const int clusters = gridDim.x / S;
+  const int mt = (a.M + C::PR - 1) / C::PR, ot = (a.Og + C::WR - 1) / C::WR;
+  const int b_tiles = SWAP ? mt : ot, tiles = mt * ot;
+  const int KT = (a.Kp + HBK - 1) / HBK;
+  const int kb = split * KT / S;
+  const int nsteps = (split + 1) * KT / S - kb;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], HPROD + 1);     // each producer thread + the TMA
+      mbar_init(&empty[s], 4 * NWG);      // each consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&tab_full[b], HPROD);
+      mbar_init(&tab_empty[b], 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (S > 1) cluster_arrive();       // waited on before the push
+
+  int gs = 0;                        // stages through the ring so far
+  if (warp >= 4 * NWG) {
+    // ---- producer.  A tile's row table first, a row a thread (one
+    // division a row); then thread -> 16-byte chunk j of rows r0 + 16i,
+    // the (r, s, c) walk of chunk j stepping HBK bytes a stage with no
+    // division.  Each thread's copies arrive on the stage's barrier as
+    // they land (cp.async.mbarrier.arrive.noinc): no thread waits on its
+    // own copies.  Once a tile's stages are issued, the producer fills
+    // the epilogue's tables for it, off the consumers' path.
+    constexpr int RPT = C::PR / 16;
+    const int ptid = tid - C::CONS, j = ptid & 7, r0 = ptid >> 3;
+    const int P = a.OH * a.OW, Ct = a.Cgp;         // G == 1
+    for (int t = cluster, tt = 0; t < tiles; t += clusters, ++tt) {
+      const int p0 = (SWAP ? t % b_tiles : t / b_tiles) * C::PR;
+      const int o0 = (SWAP ? t / b_tiles : t % b_tiles) * C::WR;
+      warpgroup_sync(HPROD);         // the last tile's table is read
+      long long my_off = -1;         // this thread's row's output offset
+      if (ptid < C::PR) {
+        const int m = p0 + ptid;
+        int base = 0, ih0 = -(1 << 29), iw0 = 0;  // past M: never inside
+        if (m < a.M) {
+          const int n = m / P, p = m - n * P;
+          const int oh = p / a.OW, ow = p - oh * a.OW;
+          ih0 = oh * a.sh - a.ph;
+          iw0 = ow * a.sw - a.pw;
+          base = ((n * a.H + ih0) * a.W + iw0) * Ct;
+          my_off = n * a.sN + p * a.sP;
+        }
+        row_base[ptid] = base;
+        row_ih0[ptid] = ih0;
+        row_iw0[ptid] = iw0;
+      }
+      warpgroup_sync(HPROD);
+      int base[RPT], ih0[RPT], iw0[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        base[i] = row_base[r0 + 16 * i];
+        ih0[i] = row_ih0[r0 + 16 * i];
+        iw0[i] = row_iw0[r0 + 16 * i];
+      }
+      const int k = kb * HBK + 16 * j;
+      const int tap = k / Ct;
+      int c = k - tap * Ct, r = tap / a.KW, s = tap - r * a.KW;
+      for (int i = 0; i < nsteps; ++i, ++gs) {
+        const int st = gs % C::STAGES;
+        unsigned char* sp = sm + st * C::STAGE;     // P tile, then W tile
+        if (gs >= C::STAGES)
+          mbar_wait(&empty[st], (gs / C::STAGES - 1) & 1);
+        if (ptid == 0) {
+          mbar_expect_tx(&full[st], C::W_BYTES);
+          tma_load_3d(sp + C::P_BYTES, &tm_w, &full[st], (kb + i) * HBK,
+                      o0, 0);
+        }
+        const bool kin = r < a.KH;
+        const int dy = r * a.dh, dx = s * a.dw;
+        const int off = (dy * a.W + dx) * Ct + c;
+#pragma unroll
+        for (int q = 0; q < RPT; ++q) {
+          const int row = r0 + 16 * q;
+          const int ih = ih0[q] + dy, iw = iw0[q] + dx;
+          const bool ok = kin && (unsigned)ih < (unsigned)a.H &&
+                          (unsigned)iw < (unsigned)a.W;
+          cp_async16_zfill(sp + row * HBK + ((j ^ (row & 7)) << 4),
+                           a.x + (ok ? base[q] + off : 0), ok);
+        }
+        cp_async_arrive(&full[st]);
+        c += HBK;
+        while (c >= Ct) {
+          c -= Ct;
+          if (++s == a.KW) {
+            s = 0;
+            ++r;
+          }
+        }
+      }
+      // the epilogue's tables, into the buffer of this tile's parity once
+      // the tile two back is stored
+      const int b = tt & 1;
+      if (tt >= 2) mbar_wait(&tab_empty[b], ((tt >> 1) - 1) & 1);
+      if (ptid < C::PR) pos_offs[b * C::PR + ptid] = my_off;
+      if (ptid < C::WR) {
+        const int o = min(o0 + ptid, a.Og - 1);
+        if (a.out_kind == OUT_I32) {
+          ch_bis[b * C::WR + ptid] =
+              __int_as_float(a.bias_i32 ? a.bias_i32[o] : 0);
+        } else {
+          ch_scs[b * C::WR + ptid] = a.scale[o];
+          ch_bis[b * C::WR + ptid] = a.bias ? a.bias[o] : 0.f;
+        }
+      }
+      mbar_arrive(&tab_full[b]);
+    }
+    if (S > 1) {                     // the consumers' two waits
+      cluster_wait();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- consumers: per tile, 4 k-steps of 32 bytes a stage (the
+  // gathered tile was written by cp.async, the generic proxy: a proxy
+  // fence before wgmma reads it), a stage released once the wgmma group
+  // reading it has completed; then each partial slice pushed to the
+  // cluster CTA that finishes it, and this CTA's slice stored.
+  const int wg = warp >> 2;
+  const int a_n = C::AM / S;
+  const int lds = C::INNER_A ? a_n + (S == 1 ? 4 : 0) : N + 4;
+  const int slice = (C::INNER_A ? N : a_n) * lds;
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  for (int t = cluster, tt = 0; t < tiles; t += clusters, ++tt) {
+    const int o0 = (SWAP ? t / b_tiles : t % b_tiles) * C::WR;
+    int acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+    for (int i = 0; i < nsteps; ++i, ++gs) {
+      const int st = gs % C::STAGES;
+      mbar_wait(&full[st], (gs / C::STAGES) & 1);
+      fence_proxy_async();
+      const unsigned char* sp = sm + st * C::STAGE;
+      const unsigned char* A = (SWAP ? sp + C::P_BYTES : sp) + wg * 64 * HBK;
+      const unsigned char* B = SWAP ? sp : sp + C::P_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HBK / 32; ++kk)
+        wgmma_s8<N>(acc, sw128_desc(A + 32 * kk, 16, 1024),
+                    sw128_desc(B + 32 * kk, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (i > 0 && lane == 0)
+        mbar_arrive(&empty[(gs - 1) % C::STAGES]);
+    }
+    wgmma_wait0();
+    fence_acc(acc);
+    if (nsteps > 0 && lane == 0) mbar_arrive(&empty[(gs - 1) % C::STAGES]);
+    // push: A row `row` belongs to the slice of CTA row / a_n
+    named_sync(2, C::CONS);          // the last tile is stored
+    if (S > 1) cluster_wait();
+    const int g = lane >> 2, tq = lane & 3;
+    const int row0 = wg * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i >> 2) + 2 * tq + (i & 1);
+      const int q = row / a_n, rl = row - q * a_n;
+      int* dst = recv + split * slice +
+                 (C::INNER_A ? col * lds + rl : rl * lds + col);
+      *(S == 1 ? dst : cl.map_shared_rank(dst, q)) = acc[i];
+    }
+    if (S > 1) cluster_sync(); else named_sync(2, C::CONS);
+    const int b = tt & 1;
+    mbar_wait(&tab_full[b], (tt >> 1) & 1);
+    const long long* pos_off = pos_offs + b * C::PR;
+    const float* ch_sc = ch_scs + b * C::WR;
+    const float* ch_bi = ch_bis + b * C::WR;
+    switch (a.out_kind) {
+      case OUT_F16:
+        hopper_store<NWG, N, SWAP, NCHW, __half>(a, recv, pos_off, ch_sc,
+                                                 ch_bi, split, o0);
+        break;
+      case OUT_BF16:
+        hopper_store<NWG, N, SWAP, NCHW, __nv_bfloat16>(a, recv, pos_off,
+                                                        ch_sc, ch_bi, split,
+                                                        o0);
+        break;
+      case OUT_F32:
+        hopper_store<NWG, N, SWAP, NCHW, float>(a, recv, pos_off, ch_sc,
+                                                ch_bi, split, o0);
+        break;
+      default:
+        hopper_store<NWG, N, SWAP, NCHW, int>(a, recv, pos_off, ch_sc,
+                                              ch_bi, split, o0);
+        break;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&tab_empty[b]);
+  }
+}
+
+template <int NWG, int N, bool SWAP, bool NCHW>
+int launch_hopper(const ConvArgs& a, cudaStream_t st) {
+  using C = HCfg<NWG, N, SWAP, NCHW>;
+  CUtensorMap tm;
+  if (!make_rows_map(&tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.Og, a.Kp,
+                     C::WR))
+    return (int)cudaErrorInvalidValue;
+  auto kern = conv_hopper<NWG, N, SWAP, NCHW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  // the plan's CTAs: every tile's cluster once when split, at most the
+  // tiles when not
+  const long long tiles = (long long)((a.M + C::PR - 1) / C::PR) *
+                          ((a.Og + C::WR - 1) / C::WR);
+  if (a.ctas % a.splits ||
+      (a.splits > 1 ? a.ctas != tiles * a.splits : a.ctas > tiles))
+    return (int)cudaErrorInvalidValue;
+  err = launch_clusters(kern, dim3(a.ctas), C::THREADS, C::SMEM, a.splits,
+                        st, a, tm);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int NWG, int N, bool SWAP>
+int launch_hopper(const ConvArgs& a, cudaStream_t st) {
+  return a.sP == 1 ? launch_hopper<NWG, N, SWAP, true>(a, st)
+                   : launch_hopper<NWG, N, SWAP, false>(a, st);
+}
+
 int grid_cap() {
   static int sms[64] = {0};
   int dev = 0;
@@ -348,7 +865,8 @@ extern "C" int mx_int8_quantize(const void* x, void* q, int dtype, int N,
 // The bytes of ConvArgs, for the host's check of its layout.
 extern "C" int mx_int8_conv_args_size() { return (int)sizeof(mxq::ConvArgs); }
 
-// K3 over one ConvArgs.  Returns a CUDA error code.
+// K3 over one ConvArgs, on the route and plan it names.  Returns a CUDA
+// error code.
 extern "C" int mx_int8_conv(const void* args, int args_bytes, void* stream) {
   using namespace mxq;
   if (args_bytes != (int)sizeof(ConvArgs)) return (int)cudaErrorInvalidValue;
@@ -359,8 +877,24 @@ extern "C" int mx_int8_conv(const void* args, int args_bytes, void* stream) {
       a.out_kind < OUT_F16 || a.out_kind > OUT_I32 ||
       (a.out_kind != OUT_I32 && !a.scale))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (a.route == 1) {
+    // every split non-empty, at most 8 CTAs a cluster, int offsets
+    if (a.G != 1 || a.Cgp % 32 || a.splits < 1 || a.splits > 8 ||
+        (a.splits & (a.splits - 1)) || a.splits > (a.Kp + HBK - 1) / HBK ||
+        (long long)a.N * a.H * a.W * a.Cgp >= (1ll << 31))
+      return (int)cudaErrorInvalidValue;
+    switch (a.cfg) {
+      case 0: return launch_hopper<2, 64, false>(a, st);
+      case 1: return launch_hopper<2, 128, false>(a, st);
+      case 2: return launch_hopper<1, 32, true>(a, st);
+      case 3: return launch_hopper<1, 64, true>(a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (a.route != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.M + BM - 1) / BM, (a.Og + BN - 1) / BN, a.G);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  conv_kernel<<<grid, NT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  conv_kernel<<<grid, NT, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

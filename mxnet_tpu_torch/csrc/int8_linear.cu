@@ -10,6 +10,10 @@
 //      float64), row-major;
 //   q: (N, K) int8, one float scale for the whole tensor;
 //   y: (M, N) in T;
+//   or up to three weights stacked in q by rows, each with its scale
+//   and its own y (Segs): the decode's products that read one x (wq,
+//   wk, wv; w1, w3) are one launch, which pays one launch's ramp and
+//   tail instead of three or two;
 //   dequant(q) = round_T(T(q) * T(scale)), rounded in T exactly as the
 //   JAX `_dequant` rounds it (q is at most 7 bits, so T(q) * T(scale)
 //   is exact in float32 before that one rounding);
@@ -22,27 +26,37 @@
 //
 // Two kernels, one C entry point:
 //
-// (a) int8_linear_mma, for float16 / bfloat16 with K a multiple of 16
-//     and 16-byte aligned x and q (the decode's products): tensor cores
-//     (mma.sync m16n8k16, float32 accumulation).  A CTA of MMA_WARPS
-//     warps owns 32 weight rows (two m16 tiles) and 8 rows of x (the n8
-//     of the mma); its warps split K in chunks of 64 and sum their
-//     partial products in shared memory, in warp order, at the end.  Per chunk a
-//     lane loads 16 weight bytes of each of its four rows and the 16 x
-//     values at the same k (16-byte loads, no shared memory), dequantizes
-//     in registers (byte -> float by the 2^23 magic number, times the
-//     scale, rounded in pairs to T) and issues 8 mma.  A dot product's k
-//     order is free, so each lane's 16 contiguous bytes are dealt to the
-//     k slots of its fragments (4 mma steps x 4 slots); x is read in the
-//     same order.  Each warp keeps MMA_BUFS chunks in registers, the
-//     next ones' loads in flight during a chunk's math.  Each weight byte
-//     is read once; x, 1 byte of it per 2 weight bytes, comes from L1 /
-//     L2.  (16 warps and 2 buffers: the fastest of 4 / 8 / 16 warps x 2 /
-//     3 / 4 buffers by tools/kernel_variants.py on the H100, within 8%
-//     of each other; none reached half the byte bound on the decode's
-//     4096-wide products.)
+// (a) int8_linear_mma, for float16 / bfloat16 with K a positive multiple of
+//     16 and 16-byte aligned x and q (the decode's products): tensor cores
+//     (mma.sync m16n8k16, float32 accumulation; wgmma's rate is not needed at
+//     16 operations a byte).  A CTA owns 64 weight rows and 8 rows of x (the
+//     n8 of the mma): one producer warp streams its rows' bytes by TMA, 128 k
+//     a stage (8 KB of weights and the 2 KB of x at the same k), into a ring
+//     of LSTAGES stages under mbarriers, in the 128-byte swizzle; four
+//     consumer warps, two to each 32 rows, each taking half of a stage's k,
+//     read their fragments out of shared memory, dequantize in registers
+//     (byte -> float by the 2^23 magic number, times the row's weight's
+//     scale, rounded in pairs to T) and issue the mma.  A dot product's k
+//     order is free, so each lane's 16 contiguous bytes are dealt to the k
+//     slots of its fragments (4 mma steps x 4 slots); x is read in the same
+//     order.  To fill the card at every decode shape (ops/int8.py
+//     int8_linear_plan), `splits` CTAs of a cluster split K (the narrow
+//     products: 1024 rows give 16 row tiles); each pushes the columns of its
+//     partial 8 x 64 tiles that CTA `rank` owns into that CTA's shared
+//     memory (distributed shared memory), and after one cluster barrier CTA
+//     `rank` sums its 64 / splits columns in rank order (no atomics, the
+//     same bits every call).  The launch is a programmatic dependent one:
+//     while the previous kernel of the stream finishes, a CTA prefetches
+//     its first stages' weights into L2 (a hint, which reads no value, so q
+//     may come from that kernel); it waits for that kernel
+//     (griddepcontrol.wait) before any load into shared memory or store of
+//     y, and lets the next kernel start at once.  (One and two CTAs an SM,
+//     4, 6 and 8 stages, two or four consumer warps, and one persistent CTA
+//     an SM owning whole rows with no split were timed against each other
+//     by tools/kernel_variants.py on the H100; this is the fastest back to
+//     back.)
 // (b) int8_linear_kernel, for the rest (float32, float64, K not a
-//     multiple of 16, unaligned x): SIMT.  A CTA of WARPS warps owns
+//     multiple of 16 or 0, unaligned x): SIMT.  A CTA of WARPS warps owns
 //     COLS = WARPS * CW output columns for a tile of MT <= 16 rows of x
 //     (8 for float64).  Lane l of a warp takes bytes 16l .. 16l+15 of
 //     each 512-byte stretch of its rows (16-byte loads), dequantizes in
@@ -63,7 +77,12 @@
 //     weights per step in 16-byte loads and stores where the pointers
 //     allow it.
 
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "general.cuh"
+#include "hopper.cuh"
 
 namespace mxi8 {
 
@@ -100,6 +119,30 @@ __device__ __forceinline__ typename Acc<T>::type dequant(
   return to_acc(from_acc<T>(mul_rn(static_cast<A>(qv), s)));
 }
 
+// The products of one launch: q's N rows are up to MAX_SEGS weights
+// stacked, weight i (rows end[i - 1] .. end[i] - 1, end[-1] = 0; every
+// end past the last weight's is N) with its own scale s[i], already
+// rounded to the compute dtype, and its own output y[i] (M x its rows,
+// row-major).  The decode's products that read the same x (wq, wk, wv;
+// w1, w3) are one launch.
+constexpr int MAX_SEGS = 3;
+struct Segs {
+  void* y[MAX_SEGS];
+  double s[MAX_SEGS];
+  int end[MAX_SEGS];
+};
+
+__device__ __forceinline__ int seg_of(const Segs& g, int row) {
+  return (row >= g.end[0]) + (row >= g.end[1]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_y(const Segs& g, int m, int row,
+                                        T v) {
+  const int i = seg_of(g, row), start = i ? g.end[i - 1] : 0;
+  static_cast<T*>(g.y[i])[(size_t)m * (g.end[i] - start) + row - start] = v;
+}
+
 // The staged position of tile column p on the vector path: lane p / 16
 // holds it as its byte p % 16, stored at (p % 16) * 32 + p / 16.
 __device__ __forceinline__ int vec_slot(int p) {
@@ -108,19 +151,21 @@ __device__ __forceinline__ int vec_slot(int p) {
 
 template <typename T, int MT>
 __global__ void __launch_bounds__(NT) int8_linear_kernel(
-    const T* __restrict__ x, const int8_t* __restrict__ q, T* __restrict__ y,
-    int M, int N, int K, typename Acc<T>::type s) {
+    const T* __restrict__ x, const int8_t* __restrict__ q, const Segs g,
+    int M, int N, int K) {
   using A = typename Acc<T>::type;
   __shared__ A xs[MT * KT];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.y * MT;
   const int n0 = blockIdx.x * COLS + warp * CW;
   const bool vec = (K & 15) == 0;
-  A acc[CW][MT];
+  A acc[CW][MT], s[CW];
 #pragma unroll
-  for (int c = 0; c < CW; ++c)
+  for (int c = 0; c < CW; ++c) {
+    s[c] = static_cast<A>(g.s[seg_of(g, n0 + c)]);
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc[c][m] = A(0);
+  }
 
   for (int k0 = 0; k0 < K; k0 += KT) {
     const int kn = min(KT, K - k0);
@@ -160,7 +205,7 @@ __global__ void __launch_bounds__(NT) int8_linear_kernel(
         A wv[CW];
 #pragma unroll
         for (int c = 0; c < CW; ++c)
-          wv[c] = dequant<T>(byte_value(words[c][j >> 2], j & 3), s);
+          wv[c] = dequant<T>(byte_value(words[c][j >> 2], j & 3), s[c]);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const A xv = xs[m * KT + j * 32 + lane];
@@ -174,7 +219,8 @@ __global__ void __launch_bounds__(NT) int8_linear_kernel(
 #pragma unroll
         for (int c = 0; c < CW; ++c)
           wv[c] = n0 + c < N
-                      ? dequant<T>((float)q[(size_t)(n0 + c) * K + k0 + p], s)
+                      ? dequant<T>((float)q[(size_t)(n0 + c) * K + k0 + p],
+                                   s[c])
                       : A(0);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
@@ -191,18 +237,24 @@ __global__ void __launch_bounds__(NT) int8_linear_kernel(
     for (int m = 0; m < MT; ++m) {
       const A v = warp_sum(acc[c][m]);
       if (lane == 0 && n0 + c < N && m0 + m < M)
-        y[(size_t)(m0 + m) * N + n0 + c] = from_acc<T>(v);
+        store_y<T>(g, m0 + m, n0 + c, from_acc<T>(v));
     }
 }
 
 // ---------------------------------------------------------------------
 // (a) the tensor-core kernel
 // ---------------------------------------------------------------------
-constexpr int KC = 64;              // k a warp takes per chunk: 4 lanes x 16
-constexpr int ROWS = 32;            // weight rows a CTA: two m16 tiles
-constexpr int MMA_WARPS = 16;       // warps a CTA, splitting K
-constexpr int MMA_NT = MMA_WARPS * 32;
-constexpr int MMA_BUFS = 2;         // chunks a warp holds: BUFS - 1 in flight
+constexpr int LROWS = 64;           // weight rows a CTA: 2 groups of 32
+constexpr int LBK = 128;            // k a stage: one 128-byte int8 row
+constexpr int LSTAGES = 4;          // ring depth
+constexpr int LKSPLIT = 2;          // warps sharing a group's stage (1, 2)
+constexpr int LCONS = 2 * LKSPLIT;  // consumer warps
+constexpr int LNT = (LCONS + 1) * 32;             // + the producer warp
+constexpr int W_STAGE = LROWS * LBK;              // 8 KB of weights
+constexpr int X_STAGE = 8 * LBK * 2;              // 8 rows of x, 2 boxes
+constexpr int L_STAGE = W_STAGE + X_STAGE;
+constexpr int L_PART = LKSPLIT * 8 * LROWS * 4;   // received partials
+constexpr int L_SMEM = LSTAGES * L_STAGE + L_PART + 2 * LSTAGES * 8 + 1024;
 
 template <typename T> struct Pack;
 template <> struct Pack<__nv_bfloat16> {
@@ -249,36 +301,16 @@ __device__ __forceinline__ void mma16816<__half>(
 }
 
 // One chunk's operands of a lane: 16 bytes of each of its four weight
-// rows (g, g + 8, g + 16, g + 24) and 16 x values of its x row g.
+// rows (g, g + 8, g + 16, g + 24), whose scales are s[0 .. 3], and 16 x
+// values of its x row g, all at the same 16 k.
 struct Chunk {
   uint4 w[4];
   uint4 x[2];
 };
 
-__device__ __forceinline__ void load_chunk(Chunk& c, const int8_t* q,
-                                           const void* x, int n0, int m0,
-                                           int M, int N, int K, int k,
-                                           int g, int esize) {
-  const bool in_k = k < K;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int n = n0 + g + 8 * r;
-    c.w[r] = make_uint4(0, 0, 0, 0);
-    if (in_k && n < N)
-      c.w[r] = __ldg(reinterpret_cast<const uint4*>(q + (size_t)n * K + k));
-  }
-  c.x[0] = c.x[1] = make_uint4(0, 0, 0, 0);
-  if (in_k && m0 + g < M) {
-    const uint4* xp = reinterpret_cast<const uint4*>(
-        static_cast<const char*>(x) + ((size_t)(m0 + g) * K + k) * esize);
-    c.x[0] = __ldg(xp);
-    c.x[1] = __ldg(xp + 1);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void chunk_mma(float (&acc)[2][4], const Chunk& c,
-                                          float s) {
+                                          const float (&s)[4]) {
   const uint32_t* xw = reinterpret_cast<const uint32_t*>(c.x);
 #pragma unroll
   for (int tile = 0; tile < 2; ++tile) {
@@ -288,63 +320,175 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[2][4], const Chunk& c,
 #pragma unroll
     for (int st = 0; st < 4; ++st) {     // word st: bytes 4st .. 4st + 3
       const unsigned fl = lo[st] ^ 0x80808080u, fh = hi[st] ^ 0x80808080u;
-      const uint32_t a[4] = {deq2<T>(fl, 0, s), deq2<T>(fh, 0, s),
-                             deq2<T>(fl, 2, s), deq2<T>(fh, 2, s)};
+      const float sl = s[2 * tile], sh = s[2 * tile + 1];
+      const uint32_t a[4] = {deq2<T>(fl, 0, sl), deq2<T>(fh, 0, sh),
+                             deq2<T>(fl, 2, sl), deq2<T>(fh, 2, sh)};
       mma16816<T>(acc[tile], a, xw[2 * st], xw[2 * st + 1]);
     }
   }
 }
 
+// Programmatic dependent launch: the next kernel of the stream may be
+// scheduled now; wait for the previous one's memory.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 template <typename T>
-__global__ void __launch_bounds__(MMA_NT) int8_linear_mma(
-    const T* __restrict__ x, const int8_t* __restrict__ q, T* __restrict__ y,
-    int M, int N, int K, float s) {
-  __shared__ float part[MMA_WARPS][2][4][32];
+__global__ void __launch_bounds__(LNT) int8_linear_mma(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_x, const Segs sg, int M, int N,
+    int K, int splits) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  float* recv = reinterpret_cast<float*>(sm + LSTAGES * L_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + LSTAGES * L_STAGE +
+                                               L_PART);
+  uint64_t* empty = full + LSTAGES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * ROWS, m0 = blockIdx.y * 8;
-  const int chunks = (K + KC - 1) / KC;
-  float acc[2][4] = {};
-  // warp w takes chunks w, w + W, w + 2W, ...; a ring of BUFS of them is
-  // loaded ahead, each refilled BUFS chunks on as soon as it is used (the
-  // unrolled ring index is a constant: the buffers stay in registers)
-  Chunk buf[MMA_BUFS];
+  const int split = blockIdx.x % splits;
+  const int n0 = blockIdx.x / splits * LROWS, m0 = blockIdx.y * 8;
+  const int KT = (K + LBK - 1) / LBK;
+  const int kb = split * KT / splits;
+  const int nsteps = (split + 1) * KT / splits - kb;
+  const int cols = LROWS / splits;     // the columns of y this CTA writes
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int b = 0; b < MMA_BUFS; ++b) {
-    const int c = warp + b * MMA_WARPS;
-    if (c < chunks)
-      load_chunk(buf[b], q, x, n0, m0, M, N, K, c * KC + 16 * t, g,
-                 sizeof(T));
+    for (int i = 0; i < LSTAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], LCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int c0 = warp; c0 < chunks; c0 += MMA_BUFS * MMA_WARPS) {
-#pragma unroll
-    for (int b = 0; b < MMA_BUFS; ++b) {
-      const int c = c0 + b * MMA_WARPS;
-      if (c < chunks) {
-        chunk_mma<T>(acc, buf[b], s);
-        const int next = c + MMA_BUFS * MMA_WARPS;
-        if (next < chunks)
-          load_chunk(buf[b], q, x, n0, m0, M, N, K, next * KC + 16 * t, g,
-                     sizeof(T));
+  __syncthreads();
+  pdl_launch_dependents();
+  if (splits > 1) cluster_arrive();   // waited on before the push
+
+  float acc[2][4] = {};
+  if (warp == LCONS) {
+    // ---- producer: the first stages' weights into L2 while the previous
+    // kernel finishes; every load into shared memory after it has
+    if (lane == 0) {
+      for (int i = 0; i < min(nsteps, LSTAGES); ++i)
+        tma_prefetch_3d(&tm_q, (kb + i) * LBK, n0, 0);
+      pdl_wait();
+      for (int i = 0; i < nsteps; ++i) {
+        const int st = i % LSTAGES;
+        unsigned char* sp = sm + st * L_STAGE;
+        if (i >= LSTAGES) mbar_wait(&empty[st], (i / LSTAGES - 1) & 1);
+        mbar_expect_tx(&full[st], L_STAGE);
+        const int k = (kb + i) * LBK;
+        tma_load_3d(sp, &tm_q, &full[st], k, n0, 0);
+        tma_load_3d(sp + W_STAGE, &tm_x, &full[st], k, m0, 0);
+        tma_load_3d(sp + W_STAGE + 1024, &tm_x, &full[st], k + 64, m0, 0);
       }
     }
+    if (splits > 1) cluster_wait();
+  } else {
+    // ---- consumers: warp w owns weight rows 32 (w % 2) .. + 31 and,
+    // of each stage's two chunk-steps of 64 k, every LKSPLIT-th from w /
+    // 2.  Lane (g, t) takes, in chunk-step cs, the 16 k at 16 * (2t +
+    // cs): in the 128-byte swizzle (16-byte chunk j of row r at j ^ (r &
+    // 7)) the eight lanes of a quarter-warp then read eight distinct bank
+    // groups.
+    const int g = lane >> 2, t = lane & 3;
+    const int rows = (warp & 1) * 32, half = warp >> 1;
+    float s[4];                          // the scales of the lane's rows
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      s[r] = static_cast<float>(sg.s[seg_of(sg, n0 + rows + g + 8 * r)]);
+    for (int i = 0; i < nsteps; ++i) {
+      const int st = i % LSTAGES;
+      mbar_wait(&full[st], (i / LSTAGES) & 1);
+      const unsigned char* W = sm + st * L_STAGE;
+      const unsigned char* X = W + W_STAGE;
+      Chunk c[2 / LKSPLIT];
+#pragma unroll
+      for (int h = 0; h < 2 / LKSPLIT; ++h) {
+        const int L = 2 * t + half + h;
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          c[h].w[r] = *reinterpret_cast<const uint4*>(
+              W + (rows + g + 8 * r) * LBK + ((L ^ g) << 4));
+        const unsigned char* xr = X + (L >> 2) * 1024 + g * 128;
+        const int xc = 2 * (L & 3);
+        c[h].x[0] = *reinterpret_cast<const uint4*>(xr + ((xc ^ g) << 4));
+        c[h].x[1] =
+            *reinterpret_cast<const uint4*>(xr + (((xc + 1) ^ g) << 4));
+      }
+#pragma unroll
+      for (int h = 0; h < 2 / LKSPLIT; ++h) chunk_mma<T>(acc, c[h], s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);   // the stage may refill
+    }
+    // push: c0, c1 are (row g, x rows 2t, 2t + 1), c2, c3 (row g + 8, the
+    // same); weight row nl goes to the cluster CTA that owns column block
+    // nl / cols of y, into its slot for this split and k-half
+    if (splits > 1) cluster_wait();
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = 2 * t + (i & 1);
+        const int nl = rows + 16 * tile + g + (i >= 2 ? 8 : 0);
+        const int q = nl / cols;
+        float* dst = recv + ((split * LKSPLIT + half) * 8 + m) * cols +
+                     nl - q * cols;
+        *(splits == 1 ? dst : cl.map_shared_rank(dst, q)) = acc[tile][i];
+      }
   }
-#pragma unroll
-  for (int tile = 0; tile < 2; ++tile)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) part[warp][tile][i][lane] = acc[tile][i];
-  __syncthreads();
-  // thread (tile, i, lane) sums its value over the warps, in warp order:
-  // c0, c1 are (row g, x rows 2t, 2t + 1), c2, c3 (row g + 8, the same)
-  for (int v = threadIdx.x; v < 2 * 4 * 32; v += MMA_NT) {
-    const int tile = v >> 7, i = (v >> 5) & 3, l = v & 31;
+  // CTA `rank` sums its columns over the cluster's partial tiles in rank
+  // order (the same bits every call); y is written only once the
+  // previous kernel has finished
+  pdl_wait();
+  if (splits > 1) cluster_sync(); else __syncthreads();
+  for (int v = threadIdx.x; v < 8 * cols; v += LNT) {
+    const int m = v / cols, c = v - m * cols;
     float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < MMA_WARPS; ++w) sum += part[w][tile][i][l];
-    const int n = n0 + 16 * tile + (l >> 2) + (i >= 2 ? 8 : 0);
-    const int m = m0 + 2 * (l & 3) + (i & 1);
-    if (n < N && m < M) y[(size_t)m * N + n] = from_acc<T>(sum);
+    for (int q = 0; q < splits * LKSPLIT; ++q)
+      sum += recv[(q * 8 + m) * cols + c];
+    if (m0 + m < M && n0 + split * cols + c < N)
+      store_y<T>(sg, m0 + m, n0 + split * cols + c, from_acc<T>(sum));
   }
+}
+
+template <typename T>
+int launch_mma(const void* x, const void* q, const Segs& sg, int M, int N,
+               int K, int splits, cudaStream_t stream) {
+  const CUtensorMapDataType xt = std::is_same_v<T, __half>
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tx;
+  if (!make_rows_map(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, N, K,
+                     LROWS) ||
+      !make_rows_map(&tx, xt, 2, x, M, K, 8))
+    return (int)cudaErrorInvalidValue;
+  auto kern = int8_linear_mma<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + LROWS - 1) / LROWS * splits, (M + 7) / 8);
+  cfg.blockDim = dim3(LNT);
+  cfg.dynamicSmemBytes = L_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kern, tq, tx, sg, M, N, K, splits);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // the largest row tile: 16 rows, 8 for float64 (whose staged tile would
@@ -354,16 +498,14 @@ template <typename T> constexpr int max_rows() {
 }
 
 template <typename T>
-int launch(const void* x, const void* q, void* y, int M, int N, int K,
-           double scale, cudaStream_t stream) {
-  using A = typename Acc<T>::type;
+int launch(const void* x, const void* q, const Segs& sg, int M, int N,
+           int K, int splits, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    if (K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-      dim3 grid((N + ROWS - 1) / ROWS, (M + 7) / 8);
-      int8_linear_mma<T><<<grid, MMA_NT, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const int8_t*>(q),
-          static_cast<T*>(y), M, N, K, static_cast<float>(scale));
-      return (int)cudaGetLastError();
+    if (K > 0 && K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+      if (splits < 1 || splits > 8 || (splits & (splits - 1)) ||
+          splits > (K + LBK - 1) / LBK || (M + 7) / 8 > 65535)
+        return (int)cudaErrorInvalidValue;
+      return launch_mma<T>(x, q, sg, M, N, K, splits, stream);
     }
   }
   int mt = 1;
@@ -371,16 +513,14 @@ int launch(const void* x, const void* q, void* y, int M, int N, int K,
   dim3 grid((N + COLS - 1) / COLS, (M + mt - 1) / mt);
   const T* xp = static_cast<const T*>(x);
   const int8_t* qp = static_cast<const int8_t*>(q);
-  T* yp = static_cast<T*>(y);
-  const A s = static_cast<A>(scale);
   switch (mt) {
-    case 1: int8_linear_kernel<T, 1><<<grid, NT, 0, stream>>>(xp, qp, yp, M, N, K, s); break;
-    case 2: int8_linear_kernel<T, 2><<<grid, NT, 0, stream>>>(xp, qp, yp, M, N, K, s); break;
-    case 4: int8_linear_kernel<T, 4><<<grid, NT, 0, stream>>>(xp, qp, yp, M, N, K, s); break;
-    case 8: int8_linear_kernel<T, 8><<<grid, NT, 0, stream>>>(xp, qp, yp, M, N, K, s); break;
+    case 1: int8_linear_kernel<T, 1><<<grid, NT, 0, stream>>>(xp, qp, sg, M, N, K); break;
+    case 2: int8_linear_kernel<T, 2><<<grid, NT, 0, stream>>>(xp, qp, sg, M, N, K); break;
+    case 4: int8_linear_kernel<T, 4><<<grid, NT, 0, stream>>>(xp, qp, sg, M, N, K); break;
+    case 8: int8_linear_kernel<T, 8><<<grid, NT, 0, stream>>>(xp, qp, sg, M, N, K); break;
     default:
       if constexpr (max_rows<T>() == 16)
-        int8_linear_kernel<T, 16><<<grid, NT, 0, stream>>>(xp, qp, yp, M, N, K, s);
+        int8_linear_kernel<T, 16><<<grid, NT, 0, stream>>>(xp, qp, sg, M, N, K);
       break;
   }
   return (int)cudaGetLastError();
@@ -462,20 +602,36 @@ extern "C" int mx_int8_dequant(const void* q, void* out, long long n,
   }
 }
 
-// y (M, N) = x (M, K) @ dequant(q (N, K))^T.  `scale` is the tensor's
-// scale already rounded to the compute dtype; `dtype` a code of
-// general.cuh.  Returns the launch's CUDA error (0 when it launched).
-extern "C" int mx_int8_linear(const void* x, const void* q, void* y, int M,
-                              int N, int K, double scale, int dtype,
+// y_i (M, rows[i]) = x (M, K) @ dequant(q_i)^T for the n <= 3 weights q_i
+// stacked in q (N, K), N = the sum of rows; scales[i] is q_i's scale
+// already rounded to the compute dtype; `dtype` a code of general.cuh;
+// `splits` the tensor-core route's depth split (ops/int8.py
+// int8_linear_plan).  Returns the launch's CUDA error (0 when it
+// launched).
+extern "C" int mx_int8_linear(const void* x, const void* q, void* const* ys,
+                              const int* rows, const double* scales, int n,
+                              int M, int N, int K, int dtype, int splits,
                               void* stream) {
+  if (n < 1 || n > mxi8::MAX_SEGS) return (int)cudaErrorInvalidValue;
+  mxi8::Segs sg;
+  int end = 0;
+  for (int i = 0; i < mxi8::MAX_SEGS; ++i) {
+    if (i < n && rows[i] <= 0) return (int)cudaErrorInvalidValue;
+    end += i < n ? rows[i] : 0;
+    sg.y[i] = ys[i < n ? i : n - 1];
+    sg.s[i] = scales[i < n ? i : n - 1];
+    sg.end[i] = i < n ? end : N;
+  }
+  if (end != N) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0 || K < 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using mxi8::launch;
   switch (dtype) {
-    case mxg::F16: return mxi8::launch<__half>(x, q, y, M, N, K, scale, st);
+    case mxg::F16: return launch<__half>(x, q, sg, M, N, K, splits, st);
     case mxg::BF16:
-      return mxi8::launch<__nv_bfloat16>(x, q, y, M, N, K, scale, st);
-    case mxg::F32: return mxi8::launch<float>(x, q, y, M, N, K, scale, st);
-    case mxg::F64: return mxi8::launch<double>(x, q, y, M, N, K, scale, st);
+      return launch<__nv_bfloat16>(x, q, sg, M, N, K, splits, st);
+    case mxg::F32: return launch<float>(x, q, sg, M, N, K, splits, st);
+    case mxg::F64: return launch<double>(x, q, sg, M, N, K, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -158,9 +158,12 @@ def _signatures():
         # dtype codes, stream | the two sizes' out-pointers
         "multi_tensor": {"mx_multi_tensor": [i, p, i, p, i, i, i, p],
                          "mx_multi_tensor_sizes": [p, p]},
-        # x q y, M N K, the scale rounded to the dtype, dtype code, stream
-        # | q out, n, the scale rounded to the dtype, dtype code, stream
-        "int8_linear": {"mx_int8_linear": [p, p, p, i, i, i, d, i, p],
+        # x q, the outputs' pointers, their row counts, their scales
+        # rounded to the dtype, their count, M N K, dtype code, splits,
+        # stream | q out, n, the scale rounded to the dtype, dtype code,
+        # stream
+        "int8_linear": {"mx_int8_linear": [p, p, p, p, p, i, i, i, i, i, i,
+                                           p],
                         "mx_int8_dequant": [p, p, ctypes.c_longlong, d, i,
                                             p]},
         # x q, x's dtype code, N C P G Cgp, scale, stream | the ConvArgs

@@ -8,6 +8,9 @@ package's int8 decode leaves XLA to fuse (``_dequant`` then the matmul,
 ``mxnet_tpu/serve.py:902-938``).  On CUDA tensors it launches
 ``csrc/int8_linear.cu`` (W8A16: int8 read from HBM, dequantized in
 registers) or raises; on CPU tensors it runs :func:`int8_linear_plain`.
+:func:`int8_linear_group` runs up to three weights stacked by rows,
+each with its own scale, in one launch (the decode's products that read
+the same x).
 The dequantized weight is ``q.to(dtype) * scale``, rounded in the
 compute dtype, exactly as the JAX ``_dequant`` rounds it; the prefill
 programs take it whole from :func:`dequantize` (the ``int8_dequant``
@@ -19,12 +22,15 @@ Post-training quantization (``contrib.quantization``'s quantized layers,
 written NHWC with each group's channels padded to a multiple of 4) and
 :func:`int8_conv` (the int8 x int8 -> int32 convolution on the tensor
 cores, with a raw int32 or a scaled float epilogue; a Dense product is
-its 1 x 1 convolution over (M, K, 1, 1)).  Weights are quantized and
-repacked once by :func:`pack_conv_weight`.  Each equals its plain
-version bit for bit.
+its 1 x 1 convolution over (M, K, 1, 1)), on the route
+:func:`int8_conv_route` picks (``wgmma`` for one group of a multiple of
+32 channels, planned by :func:`int8_conv_plan`; else ``mma.sync``).
+Weights are quantized and repacked once by :func:`pack_conv_weight`.
+Each equals its plain version bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as onp
@@ -35,8 +41,10 @@ from . import _build
 from .cuda_ops import GENERAL_DTYPES, LAUNCHES, _is_cuda
 
 __all__ = ["dequantize", "dequantize_plain", "int8_linear",
-           "int8_linear_plain", "int8_quantize", "int8_quantize_plain",
-           "int8_conv", "int8_conv_plain", "pack_conv_weight",
+           "int8_linear_group", "int8_linear_group_plain",
+           "int8_linear_plain", "int8_linear_plan", "int8_quantize",
+           "int8_quantize_plain", "int8_conv", "int8_conv_plain",
+           "int8_conv_route", "int8_conv_plan", "pack_conv_weight",
            "padded_channels", "quantize_tensor"]
 
 
@@ -81,6 +89,48 @@ def int8_linear_plain(x, q, scale):
     return F.linear(x, dequantize_plain(q, scale, x.dtype))
 
 
+#: the card's SMs (an H100 SXM), which the split-K plans fill
+SMS = 132
+#: most CTAs of a cluster splitting the depth (the portable limit)
+MAX_SPLITS = 8
+#: weight rows and k of one CTA stage of ``int8_linear``'s tensor-core
+#: route (``LROWS``, ``LBK`` of csrc/int8_linear.cu), and the x rows a CTA
+LINEAR_ROWS, LINEAR_BK, LINEAR_MT = 64, 128, 8
+#: most weights one ``int8_linear`` launch takes (``MAX_SEGS``)
+MAX_GROUP = 3
+
+
+def int8_linear_plan(M, N, K):
+    """The tensor-core route's launch: ``n_tiles`` x ``splits`` CTAs
+    along x (a cluster of ``splits`` splits K's ``kt`` stages evenly:
+    split ``s`` takes stages ``s * kt // splits`` up to ``(s + 1) * kt //
+    splits``) by ``m_tiles`` along y.  K is split, in powers of two up to
+    MAX_SPLITS, while the CTAs are fewer than the SMS (one CTA an SM:
+    on the H100 faster than two or four) and every split keeps 2 stages
+    or more."""
+    n_tiles, m_tiles = -(-N // LINEAR_ROWS), -(-M // LINEAR_MT)
+    kt = -(-K // LINEAR_BK)
+    splits = 1
+    while (splits < MAX_SPLITS and n_tiles * m_tiles * splits < SMS and
+           kt >= 4 * splits):
+        splits *= 2
+    return {"n_tiles": n_tiles, "m_tiles": m_tiles, "splits": splits,
+            "kt": kt}
+
+
+def int8_linear_blocks(plan, M, N):
+    """Each CTA of a tensor-core launch as ``(m0, m1, n0, n1, k0, k1)``:
+    the x rows, weight rows and stages it sums, clipped to the problem,
+    from the same index math as ``int8_linear_mma``."""
+    S = plan["splits"]
+    for by in range(plan["m_tiles"]):
+        for bx in range(plan["n_tiles"] * S):
+            split, n0 = bx % S, bx // S * LINEAR_ROWS
+            yield (by * LINEAR_MT, min(M, by * LINEAR_MT + LINEAR_MT), n0,
+                   min(N, n0 + LINEAR_ROWS), split * plan["kt"] // S,
+                   (split + 1) * plan["kt"] // S)
+
+
 def int8_linear(x, q, scale):
     """``y = x @ dequantize(q, scale)ᵀ``.
 
@@ -88,15 +138,47 @@ def int8_linear(x, q, scale):
     int8; ``scale``: the weight's per-tensor scale, a Python float,
     rounded to ``x``'s dtype before use.  ``y``: (M, N) in ``x``'s dtype,
     summed in float32 (float64 for float64).  On CUDA both are
-    contiguous and ``q`` starts on a 16-byte boundary (its rows are read
-    in 16-byte loads when K is a multiple of 16); anything else raises."""
+    contiguous and ``q`` starts on a 16-byte boundary; anything else
+    raises.  float16 / bfloat16 with K a positive multiple of 16 on a
+    16-byte boundary take the tensor-core kernel, its K split as
+    :func:`int8_linear_plan` says; the rest the SIMT one."""
+    return int8_linear_group(x, q, None, (scale,))[0]
+
+
+def int8_linear_group_plain(x, q, rows, scales):
+    """:func:`int8_linear_group` by :func:`int8_linear_plain`, a weight at
+    a time."""
+    out, r0 = [], 0
+    for r, s in zip(rows, scales):
+        out.append(int8_linear_plain(x, q[r0:r0 + r], s))
+        r0 += r
+    return tuple(out)
+
+
+def int8_linear_group(x, q, rows, scales):
+    """``x @ dequantize(q_i, s_i)ᵀ`` for up to MAX_GROUP weights ``q_i``
+    stacked by rows in ``q`` (N, K): ``rows`` their row counts (None: one
+    weight), ``scales`` their per-tensor scales.  A tuple of (M, rows_i)
+    results, from one launch on CUDA: the decode's products that read
+    the same x (wq, wk, wv; w1, w3) share the launch's ramp and tail.
+    Each result is :func:`int8_linear`'s for its weight alone up to the
+    order of the float32 sums (the depth split follows the stacked N);
+    the plain version's exactly."""
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[1]:
         raise ValueError("int8_linear: x %s and q %s are not (M, K) and "
                          "(N, K)" % (tuple(x.shape), tuple(q.shape)))
     if q.dtype != torch.int8:
         raise TypeError("int8_linear: q must be int8, got %s" % q.dtype)
+    M, K = x.shape
+    N = q.shape[0]
+    rows = (N,) if rows is None else tuple(int(r) for r in rows)
+    if (not 1 <= len(rows) <= MAX_GROUP or len(scales) != len(rows) or
+            sum(rows) != N or (len(rows) > 1 and min(rows) <= 0)):
+        raise ValueError("int8_linear: rows %s and %d scales do not split "
+                         "the %d rows of q into 1 to %d weights"
+                         % (rows, len(scales), N, MAX_GROUP))
     if not _is_cuda(x, q):
-        return int8_linear_plain(x, q, scale)
+        return int8_linear_group_plain(x, q, rows, scales)
     code = GENERAL_DTYPES.get(x.dtype)
     if code is None:
         raise TypeError("int8_linear takes float16, bfloat16, float32 or "
@@ -107,20 +189,25 @@ def int8_linear(x, q, scale):
     if q.data_ptr() % 16:
         raise ValueError("int8_linear: the rows of q must start on a "
                          "16-byte boundary")
-    M, K = x.shape
-    N = q.shape[0]
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ys = tuple(torch.empty((M, r), dtype=x.dtype, device=x.device)
+               for r in rows)
     if M == 0 or N == 0:
-        return y
-    s = torch.tensor(scale, dtype=x.dtype).item()
+        return ys
+    splits = int8_linear_plan(M, N, K)["splits"]
+    n = len(rows)
+    ptrs = (ctypes.c_void_p * n)(*(y.data_ptr() for y in ys))
+    counts = (ctypes.c_int * n)(*rows)
+    rounded = (ctypes.c_double * n)(*(torch.tensor(s, dtype=x.dtype).item()
+                                      for s in scales))
     err = _build.library("int8_linear").mx_int8_linear(
-        x.data_ptr(), q.data_ptr(), y.data_ptr(), M, N, K, s, code,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), q.data_ptr(), ctypes.addressof(ptrs),
+        ctypes.addressof(counts), ctypes.addressof(rounded), n, M, N, K,
+        code, splits, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("int8_linear kernel launch failed: CUDA error %d"
                            % err)
     LAUNCHES["int8_linear"] += 1
-    return y
+    return ys
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +227,19 @@ _CONV_ARGS = onp.dtype(
     + [(k, "<i8") for k in ("sN", "sC", "sP")]
     + [(k, "<i4") for k in ("N", "H", "W", "G", "Cgp", "Og", "KH", "KW",
                             "OH", "OW", "sh", "sw", "ph", "pw", "dh", "dw",
-                            "Kreal", "Kp", "M", "out_kind", "relu")],
+                            "Kreal", "Kp", "M", "out_kind", "relu",
+                            "route", "cfg", "splits", "ctas")],
     align=True)
+#: K3's routes (``ConvArgs.route``)
+CONV_ROUTES = {"general": 0, "hopper": 1}
+#: depth bytes of one stage of the hopper route (``HBK``)
+HOPPER_BK = 128
+#: the hopper route's tile shapes (``ConvArgs.cfg``, ``HCfg`` of
+#: csrc/int8_conv.cu): (consumer warpgroups, wgmma N, operands swapped,
+#: CTAs an SM).  Unswapped, a tile is 64 x warpgroups positions by N
+#: output channels; swapped (small M), 64 output channels by N positions.
+HOPPER_CFGS = ((2, 64, False, 2), (2, 128, False, 1), (1, 32, True, 2),
+               (1, 64, True, 2))
 
 
 def padded_channels(cg):
@@ -285,6 +383,71 @@ def int8_conv_plain(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
     return y.permute(0, 2, 3, 1).contiguous() if channels_last else y
 
 
+def int8_conv_route(N, H, W, cgp, groups):
+    """K3's route for an input (N, H, W, G * Cgp): ``"hopper"`` (wgmma)
+    for one group whose channels are a multiple of 32 and whose input has
+    fewer than 2^31 bytes, else ``"general"`` (``conv_kernel``: the stem
+    with its 4 channels, groups, depthwise)."""
+    if groups == 1 and cgp % 32 == 0 and N * H * W * cgp < 2 ** 31:
+        return "hopper"
+    return "general"
+
+
+def int8_conv_plan(M, O, Kp):
+    """The hopper route's launch: a dict of the tile shape ``cfg`` (an
+    index of HOPPER_CFGS), the tiles of positions and channels, the depth
+    split and the CTAs.  ``splits`` CTAs (a power of two up to
+    MAX_SPLITS, one cluster) split each tile's ``kt`` stages, split ``s``
+    taking stages ``s * kt // splits`` up to ``(s + 1) * kt // splits``;
+    then there are ``ctas`` = tiles x splits, one tile a cluster.
+    Unsplit, ``ctas`` persistent CTAs (as many as the card holds at
+    once, at most one a tile) take tiles c, c + ctas, ...
+
+    M <= 64 positions (the Dense) swap the operands.  Otherwise a tile is
+    128 positions by 128 channels, or by 64 where O <= 64 or the wider
+    tiles would leave SMs idle.  Where the tiles fill less than the
+    card's CTA slots, the depth is split while every split keeps 2
+    stages or more."""
+    kt = -(-Kp // HOPPER_BK)
+    if M <= 64:
+        cfg = 2 if M <= 32 else 3
+    elif O <= 64 or -(-M // 128) * -(-O // 128) < SMS:
+        cfg = 0
+    else:
+        cfg = 1
+    nwg, n, swap, per_sm = HOPPER_CFGS[cfg]
+    pr, wr = (n, 64 * nwg) if swap else (64 * nwg, n)
+    m_tiles, o_tiles = -(-M // pr), -(-O // wr)
+    tiles = m_tiles * o_tiles
+    splits = 1
+    while (splits < MAX_SPLITS and tiles * splits * 2 <= SMS * per_sm and
+           kt >= 4 * splits):
+        splits *= 2
+    ctas = tiles * splits if splits > 1 else min(tiles, SMS * per_sm)
+    return {"cfg": cfg, "swap": swap, "positions": pr, "channels": wr,
+            "m_tiles": m_tiles, "o_tiles": o_tiles, "splits": splits,
+            "kt": kt, "ctas": ctas}
+
+
+def int8_conv_blocks(plan, M, O):
+    """Each (CTA, tile) of a hopper launch as ``(m0, m1, o0, o1, k0,
+    k1)``: the positions, output channels and depth stages it sums,
+    clipped to the problem, from the same index math as
+    ``conv_hopper``."""
+    pr, wr, S = plan["positions"], plan["channels"], plan["splits"]
+    b_tiles = plan["m_tiles"] if plan["swap"] else plan["o_tiles"]
+    tiles = plan["m_tiles"] * plan["o_tiles"]
+    clusters = plan["ctas"] // S
+    for bx in range(plan["ctas"]):
+        split, cluster = bx % S, bx // S
+        for t in range(cluster, tiles, clusters):
+            a, b = t // b_tiles, t % b_tiles
+            mt, ot = (b, a) if plan["swap"] else (a, b)
+            yield (mt * pr, min(M, mt * pr + pr), ot * wr,
+                   min(O, ot * wr + wr), split * plan["kt"] // S,
+                   (split + 1) * plan["kt"] // S)
+
+
 def int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
               dilation=(1, 1), groups=1, scale=None, bias=None, relu=False,
               out_dtype=torch.float32, bias_i32=None, channels_last=False):
@@ -299,8 +462,21 @@ def int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
       operation rounded once, then rounded to ``out_dtype``.
 
     The output is (N, O, OH, OW), or (N, OH, OW, O) with
-    ``channels_last``.  The ``int8_conv`` kernel on CUDA (one launch),
-    :func:`int8_conv_plain` on the CPU; the same bits."""
+    ``channels_last``.  On CUDA one launch of the ``int8_conv`` kernel on
+    the route :func:`int8_conv_route` picks, :func:`int8_conv_plain` on
+    the CPU; the same bits."""
+    return _int8_conv(xq, wpk, kernel, stride, padding, dilation, groups,
+                      scale, bias, relu, out_dtype, bias_i32, channels_last)
+
+
+def _int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
+               dilation=(1, 1), groups=1, scale=None, bias=None, relu=False,
+               out_dtype=torch.float32, bias_i32=None, channels_last=False,
+               route=None):
+    """:func:`int8_conv` on ``route`` (None: :func:`int8_conv_route`'s;
+    ``"general"`` forces the general kernel, which the card's checks time
+    beside the hopper route; ``"hopper"`` on a shape it does not take
+    raises)."""
     N, H, W, cgp, O, OH, OW = _conv_args(xq, wpk, kernel, stride, padding,
                                          dilation, groups)
     if not _is_cuda(xq, wpk):
@@ -311,6 +487,12 @@ def int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
     if kind is None:
         raise TypeError("int8_conv writes float16, bfloat16, float32 or "
                         "int32, got %s" % out_dtype)
+    own = int8_conv_route(N, H, W, cgp, groups)
+    if route is None:
+        route = own
+    if route not in CONV_ROUTES or (route == "hopper" and own != "hopper"):
+        raise ValueError("int8_conv: no route %r for %d groups of %d "
+                         "channels" % (route, groups, cgp))
     vecs = {"scale": (scale, torch.float32), "bias": (bias, torch.float32),
             "bias_i32": (bias_i32, torch.int32)}
     if kind != 3 and scale is None:
@@ -340,11 +522,16 @@ def int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
     kh, kw = kernel
     for name, v in zip(("N", "H", "W", "G", "Cgp", "Og", "KH", "KW", "OH",
                         "OW", "sh", "sw", "ph", "pw", "dh", "dw", "Kreal",
-                        "Kp", "M", "out_kind", "relu"),
+                        "Kp", "M", "out_kind", "relu", "route"),
                        (N, H, W, groups, cgp, O // groups, kh, kw, OH, OW,
                         *stride, *padding, *dilation, kh * kw * cgp,
-                        wpk.shape[2], N * P, kind, int(bool(relu)))):
+                        wpk.shape[2], N * P, kind, int(bool(relu)),
+                        CONV_ROUTES[route])):
         a[name] = v
+    if route == "hopper":
+        plan = int8_conv_plan(N * P, O, wpk.shape[2])
+        for name in ("cfg", "splits", "ctas"):
+            a[name] = plan[name]
     lib = _build.library("int8_conv")
     size = lib.mx_int8_conv_args_size()
     if size != _CONV_ARGS.itemsize:
@@ -356,4 +543,5 @@ def int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
         raise RuntimeError("int8_conv kernel launch failed: CUDA error %d"
                            % err)
     LAUNCHES["int8_conv"] += 1
+    LAUNCHES["int8_conv_" + route] += 1
     return out

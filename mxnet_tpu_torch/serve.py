@@ -89,7 +89,8 @@ from . import fault as _fault
 from . import fault_dist as _fault_dist
 from . import flightrec as _flightrec
 from . import telemetry as _telemetry
-from .contrib.quantization import Int8Weight, _minmax_scale, int8_weights
+from .contrib.quantization import (Int8Group, Int8Weight, _minmax_scale,
+                                  int8_weights)
 from .gluon.nn import Dense
 from .models.kv_cache import (TRASH_PAGE, CacheSpec, CacheView, init_pools,
                               local_kv_heads)
@@ -865,12 +866,19 @@ def _global_amax(params):
     return out
 
 
+#: the layers of one block that read the same input, whose int8
+#: products the decode runs as one launch
+INT8_GROUPS = (("wq", "wk", "wv"), ("w1", "w3"))
+
+
 def _int8_layers(net):
     """``{Dense: Int8Weight}`` of ``net``'s quantized weights: each comes
     from :func:`quantize_weights` and computes in its weight's own dtype.
     The net's parameters stay as they are.  A tensor-parallel rank
     quantizes its blocks with the whole weight's scale, so each int8
-    block is the block of the whole int8 weight."""
+    block is the block of the whole int8 weight.  The layers of a block
+    named by INT8_GROUPS share one stacked int8 tensor (an
+    :class:`Int8Group`), each layer's weight a block of its rows."""
     ps = net.collect_params()
     params = {k: p.detach() for k, p in ps.items()}
     q, scales = quantize_weights(params, amax=_global_amax(ps))
@@ -883,6 +891,24 @@ def _int8_layers(net):
             raise NotImplementedError("int8 path: %s is not the weight of "
                                       "a Dense layer" % name)
         layers[layer] = Int8Weight(q[name], scale, params[name].dtype)
+    del q
+    for owner in modules.values():
+        for leaves in INT8_GROUPS:
+            members = [getattr(owner, leaf, None) for leaf in leaves]
+            if not all(m in layers for m in members) or len(
+                    {(layers[m].dtype, layers[m].q.shape[1])
+                     for m in members}) != 1:
+                continue
+            ws = [layers[m] for m in members]
+            stacked = torch.cat([w.q for w in ws])
+            group = Int8Group(members, stacked, [w.q.shape[0] for w in ws],
+                              [w.scale for w in ws])
+            r0 = 0
+            for m, w in zip(members, ws):
+                n = w.q.shape[0]
+                layers[m] = Int8Weight(stacked[r0:r0 + n], w.scale, w.dtype,
+                                       group)
+                r0 += n
     return layers
 
 

@@ -933,9 +933,14 @@ def test_optimizers_launch_one_kernel_per_group_and_match_cpu(dev, name, kw,
 INT8_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5,
             torch.float64: 1e-12}
 # (M, N, K): decode-like rows of 1, 8 and 17 slots (a second row tile),
-# odd N and K (the scalar path), K below one staged tile, K = 0
+# odd N and K (the scalar path), K below one staged tile, K = 0; then the
+# tensor-core route's split plans: N of 512 / 1024 / 2048 (8 to 32 row
+# tiles of 64, K split 8, 4 or 2 ways) at K = 2048 and 7168
+# (tensor-parallel blocks)
 INT8_SHAPES = [(1, 96, 4096), (8, 1024, 4096), (17, 33, 4096),
-               (8, 31, 100), (3, 17, 1), (5, 64, 528), (2, 9, 0)]
+               (8, 31, 100), (3, 17, 1), (5, 64, 528), (2, 9, 0)] + [
+    (M, N, K) for N in (512, 1024, 2048) for K in (2048, 7168)
+    for M in (1, 8, 17)]
 
 
 def _int8_weight(dev, seed, N, K):
@@ -968,6 +973,41 @@ def test_int8_linear_matches_plain(dev, dtype, shape):
     want = int8_linear_plain(x, q, scale)
     scale_ = max(want.abs().max().item(), 1e-30)
     assert _max_err(got, want) <= INT8_TOL[dtype] * scale_
+
+
+# (M, rows of each stacked weight, K): the decode's wq | wk | wv and w1 |
+# w3 cut down, a block boundary inside a 64-row tile, a depth split, and
+# the SIMT kernel's odd K
+INT8_GROUPS = [(8, (512, 128, 128), 1024), (17, (96, 32), 2048),
+               (1, (40, 24, 8), 4096), (8, (64, 64), 7168),
+               (3, (33, 7), 100)]
+
+
+@pytest.mark.parametrize("shape", INT8_GROUPS)
+@pytest.mark.parametrize("dtype", list(INT8_TOL))
+def test_int8_linear_group_matches_plain(dev, dtype, shape):
+    """Weights stacked by rows, each with its own scale, in one launch:
+    each result against its weight's plain product, two calls the same
+    bits."""
+    from mxnet_tpu_torch.ops.int8 import (int8_linear_group,
+                                          int8_linear_plain)
+    M, rows, K = shape
+    ws = [_int8_weight(dev, 7 * i + K, r, K) for i, r in enumerate(rows)]
+    q = torch.cat([w for w, _ in ws])
+    scales = [s for _, s in ws]
+    x = torch.from_numpy(onp.random.RandomState(M).randn(M, K).astype(
+        onp.float32)).to(dev, dtype)
+    before = cuda_ops.LAUNCHES["int8_linear"]
+    got = int8_linear_group(x, q, rows, scales)
+    again = int8_linear_group(x, q, rows, scales)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["int8_linear"] == before + 2
+    for (w, s), y, y2 in zip(ws, got, again):
+        assert y.dtype == dtype and y.shape == (M, w.shape[0])
+        assert torch.equal(y, y2)
+        want = int8_linear_plain(x, w, s)
+        scale_ = max(want.abs().max().item(), 1e-30)
+        assert _max_err(y, want) <= INT8_TOL[dtype] * scale_
 
 
 @pytest.mark.parametrize("n", [4096 * 33, 16 * 5 + 7, 3, 0])
@@ -1061,11 +1101,12 @@ def test_serving_graph_replays_equal_the_eager_function(dev, int8):
 
 def test_graph_replays_count_their_launches(dev):
     """Each replay adds the launches its capture recorded: the decode
-    graph one paged decode per layer (and one int8 product per Dense
-    with int8 weights), a prefill graph one flash forward per layer."""
+    graph one paged decode per layer (and with int8 weights, one int8
+    product a layer for wq, wk, wv, one for w1, w3, one each for wo and
+    w2, and the head's), a prefill graph one flash forward per layer."""
     pool = _graph_pool(dev, int8=True, layers=3)
     assert pool._decode.launches == {"paged_decode": 3,
-                                     "int8_linear": 7 * 3 + 1}
+                                     "int8_linear": 4 * 3 + 1}
     assert pool._prefill[32].launches == {"flash_fwd": 3,
                                           "int8_dequant": 7 * 3 + 1}
     cuda_ops.reset_launch_counts()
@@ -1075,7 +1116,7 @@ def test_graph_replays_count_their_launches(dev):
                         onp.full(S, n, onp.int32), onp.ones(S, onp.int32),
                         onp.ones(S, bool))
         assert cuda_ops.LAUNCHES["paged_decode"] == 3 * n
-        assert cuda_ops.LAUNCHES["int8_linear"] == 22 * n
+        assert cuda_ops.LAUNCHES["int8_linear"] == 13 * n
     pool.run_prefill(onp.ones(32, onp.int32), onp.ones(MP, onp.int32), 9)
     assert cuda_ops.LAUNCHES["flash_fwd"] == 3
 
@@ -1190,11 +1231,27 @@ INT8_CONV_CASES = [
     (1, 16, 9, 9, 24, 3, 1, 1, 1, 2),        # groups 2
     (2, 32, 9, 9, 32, 3, 2, 1, 1, 32),       # depthwise
     (4, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),    # ResNet-50's Dense
+    # the hopper route: M and O not multiples of the tile, with an image
+    # boundary inside the first 128-row tile (120 positions an image);
+    # the depth split 4 and 8 ways (stride and dilation 2; 7^2 rows that
+    # cross images); C = 96 (taps straddle the 128-byte stages)
+    (2, 64, 12, 10, 96, 3, 1, 1, 1, 1),
+    (2, 128, 11, 13, 96, 3, 2, 2, 2, 1),
+    (2, 512, 7, 7, 512, 3, 1, 1, 1, 1),
+    (3, 96, 9, 7, 70, 3, 2, 1, 1, 1),
+    # the Dense with the operands swapped at M = 1, 17 (32 rows) and 33
+    # (64 rows)
+    (1, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),
+    (17, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),
+    (33, 2048, 1, 1, 1000, 1, 1, 0, 1, 1),
 ]
 
 
 @pytest.mark.parametrize("case", INT8_CONV_CASES)
 def test_int8_conv_matches_plain_bit_for_bit(dev, case):
+    """Every epilogue and layout against plain, on the route
+    ``int8_conv_route`` gives the shape and, where that is hopper, on the
+    general kernel too; each call one launch, counted under its route."""
     from mxnet_tpu_torch.ops import int8 as i8
     N, C, H, W, O, k, s, p, d, g = case
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1208,17 +1265,27 @@ def test_int8_conv_matches_plain_bit_for_bit(dev, case):
     bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
                        dtype=torch.int32)
     geo = ((k, k), (s, s), (p, p), (d, d), g)
+    own = i8.int8_conv_route(N, H, W, xq.shape[3] // g, g)
+    assert own == ("hopper" if g == 1 and C % 32 == 0 else "general")
     for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
                dict(out_dtype=torch.int32),
+               dict(out_dtype=torch.int32, bias_i32=bi, channels_last=True),
                dict(scale=scale, bias=bias, relu=True,
                     out_dtype=torch.float16),
                dict(scale=scale, out_dtype=torch.bfloat16),
                dict(scale=scale, bias=bias, out_dtype=torch.float32,
-                    channels_last=True)):
-        before = cuda_ops.LAUNCHES["int8_conv"]
-        got = i8.int8_conv(xq, wpk, *geo, **kw)
-        assert cuda_ops.LAUNCHES["int8_conv"] == before + 1
-        assert torch.equal(got, i8.int8_conv_plain(xq, wpk, *geo, **kw))
+                    channels_last=True),
+               dict(scale=scale, bias=bias, relu=True,
+                    out_dtype=torch.bfloat16, channels_last=True)):
+        want = i8.int8_conv_plain(xq, wpk, *geo, **kw)
+        for route in dict.fromkeys((None, own, "general")):
+            before = dict(cuda_ops.LAUNCHES)
+            got = (i8.int8_conv(xq, wpk, *geo, **kw) if route is None else
+                   i8._int8_conv(xq, wpk, *geo, route=route, **kw))
+            assert cuda_ops.LAUNCHES["int8_conv"] == before["int8_conv"] + 1
+            name = "int8_conv_" + (route or own)
+            assert cuda_ops.LAUNCHES[name] == before[name] + 1
+            assert torch.equal(got, want)
 
 
 def test_int8_conv_refuses_what_it_does_not_take(dev):
@@ -1236,6 +1303,14 @@ def test_int8_conv_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         i8.int8_conv(xq, wpk, (3, 3), out_dtype=torch.int32,
                      bias_i32=torch.zeros(8, device=dev))
+    # a route that does not take the shape, or none of that name
+    with pytest.raises(ValueError, match="no route 'hopper'"):
+        i8._int8_conv(xq, wpk, (3, 3), out_dtype=torch.int32,
+                      route="hopper")           # 8 channels: general only
+    x32 = torch.zeros(1, 4, 4, 32, dtype=torch.int8, device=dev)
+    w32 = torch.zeros(1, 8, 320, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="no route 'mma'"):
+        i8._int8_conv(x32, w32, (3, 3), out_dtype=torch.int32, route="mma")
     with pytest.raises(TypeError):
         i8.int8_quantize(torch.zeros(2, 4, device=dev,
                                      dtype=torch.float64), 1.0)

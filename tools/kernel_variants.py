@@ -6,11 +6,18 @@
 here: ``flash_fwd_mma`` (BERT-base's float32 attention, q/k/v (16, 12,
 512, 64) non-causal, and a causal GQA case for the error),
 ``paged_general`` (the float32 serving shape: 8 slots, lengths 51-347,
-32/8 heads of 128, pages of 128) or ``int8_linear`` (the bf16 decode's
-five products at M = 8, ``chip_smoke.INT8_SHAPES``, each timed by
-``chip_smoke.graph_ms`` and summed as a decode step's 225 launches).  Each ``VARIANT`` is a ``.cu`` file
-written in place of ``csrc/LIB.cu`` (a copy with text edits), optionally
-followed by ``@N`` to run it with ``cuda_ops.PAGED_TARGET_CTAS = N``.
+32/8 heads of 128, pages of 128), ``int8_conv`` (the hopper route at
+``chip_smoke.INT8_CONV_TIMED``'s ResNet-50 shapes, B=32, float32 NCHW
+out as ``QuantizedConv2D`` writes it, then bf16 NHWC and raw int32; each
+by ``chip_smoke.graph_ms`` and ``chip_smoke.device_ms``) or
+``int8_linear`` (the bf16 decode's
+five launches at M = 8, ``chip_smoke.INT8_SHAPES``, wq | wk | wv and
+w1 | w3 stacked, each timed alone by ``chip_smoke.graph_ms`` and back to
+back over distinct weights by ``chip_smoke.chain_ms``, both summed as a
+decode step's 129 launches).
+Each ``VARIANT`` is a ``.cu`` file written in place of ``csrc/LIB.cu`` (a
+copy with text edits), optionally followed by ``@N`` to run it with
+``cuda_ops.PAGED_TARGET_CTAS = N``.
 Every variant is compiled with ``_build``'s flags (all ``nvcc`` at once,
 into ``mxnet_tpu_torch/_build/variants``), loaded in place of the
 library, held against the plain version on the card, and timed through
@@ -93,24 +100,67 @@ def _case(lib_name, dev):
                 want = co._paged_dense(q, kp, vp, pt, lens, D ** -0.5)
             return (cs._rel_err(run(), want)[1],)
         return run, errors, "paged_general"
-    if lib_name == "int8_linear":
-        from mxnet_tpu_torch.ops.int8 import int8_linear, int8_linear_plain
+    if lib_name == "int8_conv":
+        from mxnet_tpu_torch.ops import int8 as i8
         cases = []
-        for name, K, N, per_step in cs.INT8_SHAPES:
-            q = torch.randint(-127, 128, (N, K), dtype=torch.int8,
-                              generator=gen).to(dev)
-            x = torch.randn(8, K, generator=gen).to(dev, torch.bfloat16)
-            cases.append((name, per_step, q, x,
-                          int8_linear_plain(x, q, 8e-4).float()))
+        for name, N, C, H, W, O, k, s, p in cs.INT8_CONV_TIMED[1:]:
+            x = torch.randn(N, C, H, W, generator=gen).to(dev)
+            wq = torch.randint(-127, 128, (O, C, k, k), dtype=torch.int8,
+                               generator=gen).to(dev)
+            xq = i8.int8_quantize(x, 0.02).reshape(N, H, W, -1)
+            wpk = i8.pack_conv_weight(wq, 1)
+            sc, b = torch.full((O,), 1e-4, device=dev), torch.zeros(O,
+                                                                    device=dev)
+            for tag, kw in (("f32", dict(scale=sc, bias=b)),
+                            ("bf16 nhwc", dict(scale=sc,
+                                               out_dtype=torch.bfloat16,
+                                               channels_last=True)),
+                            ("i32", dict(out_dtype=torch.int32))):
+                args = (xq, wpk, (k, k), (s, s), (p, p))
+                cases.append(("%s %s" % (name, tag), args, kw,
+                              i8.int8_conv_plain(*args, **kw)))
 
         def run():
-            return {name: (per, cs.graph_ms(lambda: int8_linear(x, q, 8e-4)))
-                    for name, per, q, x, _ in cases}
+            return {name: (cs.graph_ms(lambda: i8.int8_conv(*a, **kw)),
+                           cs.device_ms(lambda: i8.int8_conv(*a, **kw),
+                                        "conv_hopper")[0])
+                    for name, a, kw, _ in cases}
 
         def errors():
-            return tuple((int8_linear(x, q, 8e-4).float() - want).abs().max()
-                         .item() / want.abs().max().item()
-                         for _, _, q, x, want in cases)
+            return (sum(not torch.equal(i8.int8_conv(*a, **kw), want)
+                        for _, a, kw, want in cases),)
+        return run, errors, None
+    if lib_name == "int8_linear":
+        from mxnet_tpu_torch.ops.int8 import (int8_linear_group,
+                                              int8_linear_group_plain)
+        cases = []
+        for name, K, rows, per_step in cs.INT8_SHAPES:
+            N, sc = sum(rows), [8e-4 * (1 + 0.25 * i) for i in range(
+                len(rows))]
+            # distinct weights past the 50 MB L2 for the back-to-back time
+            qs = [torch.randint(-127, 128, (N, K), dtype=torch.int8,
+                                device=dev)
+                  for _ in range(max(2, -(-100 * 2 ** 20 // (N * K))))]
+            x = torch.randn(8, K, generator=gen).to(dev, torch.bfloat16)
+            cases.append((name, per_step, qs, x, rows, sc, torch.cat(
+                int8_linear_group_plain(x, qs[0], rows, sc), 1).float()))
+
+        def group(x, q, rows, sc):
+            return torch.cat(int8_linear_group(x, q, rows, sc), 1)
+
+        def run():
+            return {name: (per, cs.graph_ms(lambda: int8_linear_group(
+                x, qs[0], rows, sc)), cs.chain_ms([
+                    lambda q=q: int8_linear_group(x, q, rows, sc)
+                    for q in qs]),
+                cs.device_ms(lambda: int8_linear_group(x, qs[0], rows, sc),
+                             "int8_linear")[0])
+                    for name, per, qs, x, rows, sc, _ in cases}
+
+        def errors():
+            return tuple((group(x, qs[0], rows, sc).float() - want).abs()
+                         .max().item() / want.abs().max().item()
+                         for _, _, qs, x, rows, sc, want in cases)
         return run, errors, None
     raise SystemExit("no timing case for %r" % lib_name)
 
@@ -134,13 +184,24 @@ def main(argv):
         _build._libs[lib_name] = lib
         co.PAGED_TARGET_CTAS = int(n) if n else target
         errs = errors()
+        if lib_name == "int8_conv":
+            times = run()
+            print("%-40s unequal cases %d; (graph_ms, device_ms) %s"
+                  % (spec, errs[0], {k: (round(a, 4), round(b, 4))
+                                     for k, (a, b) in times.items()}),
+                  flush=True)
+            continue
         if lib_name == "int8_linear":
             times = run()
-            print("%-40s step %.4f ms  err %s  per shape %s"
-                  % (os.path.basename(spec),
-                     sum(n * ms for n, ms in times.values()),
+            print("%-40s step %.4f ms alone, %.4f ms back to back, %.4f ms "
+                  "by the profiler  err %s  per shape (alone, back to back, "
+                  "profiler) %s"
+                  % (spec, sum(n * a for n, a, _, _ in times.values()),
+                     sum(n * b for n, _, b, _ in times.values()),
+                     sum(n * c for n, _, _, c in times.values()),
                      ["%.2e" % e for e in errs],
-                     {k: round(ms, 4) for k, (_, ms) in times.items()}),
+                     {k: (round(a, 4), round(b, 4), round(c, 4))
+                      for k, (_, a, b, c) in times.items()}),
                   flush=True)
             continue
         ms, per = cs.device_ms(run, match)

@@ -2422,6 +2422,98 @@ def finite_list_timing(mtk, grads, tag, card):
             "bound_by": b_by, "library_ms": lib_ms}
 
 
+# K2's tiled design's edges: (shape, groups) -- P = 49 and P % 4 != 0,
+# channels past the tile (200 = a 128-byte line and 72 bytes; 37 -> 40),
+# the stem's 3, groups, Dense inputs, whole 64- and 16-byte rows
+K2_EDGES = [((2, 512, 7, 7), 1), ((3, 64, 5, 7), 1), ((1, 200, 9, 11), 1),
+            ((2, 37, 6, 6), 1), ((2, 3, 17, 19), 1), ((1, 12, 5, 7), 3),
+            ((2, 64, 14, 14), 2), ((5, 37), 1), ((32, 2048), 1),
+            ((2, 256, 28, 28), 1), ((1, 16, 33, 3), 1)]
+# the im2col mode: (N, C, H, W, kernel, stride, pad, dilation)
+K2_IM2COL_EDGES = [(2, 3, 224, 224, 7, 2, 3, 1), (1, 3, 17, 19, 3, 1, 3, 2),
+                   (2, 12, 9, 7, 3, 2, 1, 1), (3, 4, 8, 8, 1, 1, 0, 1),
+                   (1, 20, 12, 12, 10, 1, 4, 1)]
+
+
+def _quant_edges(dev, scale):
+    """float32 values where K2's rounding is at stake for ``scale``: the
+    halves k + .5 of it and their neighbours, +-127.5 of it, zeros,
+    denormals, huge values, inf and NaN, then quotients spread over the
+    int8 range."""
+    s = torch.tensor(scale, dtype=torch.float32, device=dev)
+    k = torch.arange(-130, 130, device=dev, dtype=torch.float32) + 0.5
+    halves = torch.cat([k * s, torch.tensor([127.5, -127.5],
+                                            device=dev) * s])
+    up, down = (torch.nextafter(halves, torch.full_like(halves, v))
+                for v in (float("inf"), float("-inf")))
+    special = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-40, -3e-39, 3e38,
+                            -3e38, float("inf"), float("-inf"),
+                            float("nan")], device=dev)
+    spread = torch.linspace(-140, 140, 4093, device=dev) * s
+    return torch.cat([halves, up, down, special, spread])
+
+
+def k2_edge_checks(i8, dev, gen):
+    """K2 (both modes) against its plain version, bit for bit, at the
+    edges of the tiled design and of the quotient's fast path; the number
+    of cases."""
+    n = 0
+    for dt in (torch.float16, torch.bfloat16, torch.float32, torch.int8):
+        for shape, g in K2_EDGES:
+            numel = math.prod(shape)
+            if dt == torch.int8:
+                flat = torch.randint(-128, 128, (numel + 1,), generator=gen,
+                                     device=dev, dtype=dt)
+                flat[:8] = -128
+                scales = (1.0,)
+            else:
+                flat = (torch.randn(numel + 1, generator=gen, device=dev)
+                        * 3).to(dt)
+                scales = (0.0123, 0.5)
+            # aligned, then one element in: no vector loads
+            for x in (flat[:numel].view(shape), flat[1:].view(shape)):
+                for s in scales:
+                    check(torch.equal(i8.int8_quantize(x, s, g),
+                                      i8.int8_quantize_plain(x, s, g)),
+                          "int8_quantize %s %s g=%d scale %g (offset %d) "
+                          "differs from plain"
+                          % (dt, shape, g, s, x.storage_offset()))
+                    n += 1
+        for (N, C, H, W, k, st, p, d) in K2_IM2COL_EDGES:
+            if dt == torch.int8:
+                x = torch.randint(-128, 128, (N, C, H, W), generator=gen,
+                                  device=dev, dtype=dt)
+                s = 1.0
+            else:
+                x = (torch.randn(N, C, H, W, generator=gen, device=dev)
+                     * 3).to(dt)
+                s = 0.0123
+            geo = ((k, k), (st, st), (p, p), (d, d))
+            check(torch.equal(i8.int8_quantize_im2col(x, s, *geo),
+                              i8.int8_quantize_im2col_plain(x, s, *geo)),
+                  "int8_quantize im2col %s %s differs from plain"
+                  % (dt, (N, C, H, W, k, st, p, d)))
+            n += 1
+    for scale in (0.0123, 0.5, 1 / 3, 1e-30, 1e-39, 3e38):
+        v = _quant_edges(dev, scale)
+        m = v.numel() // 64 * 64
+        for x in (v[:m].reshape(2, 32, m // 64),
+                  v[:m].reshape(2, 16, 2, -1)):
+            check(torch.equal(i8.int8_quantize(x, scale),
+                              i8.int8_quantize_plain(x, scale)),
+                  "int8_quantize: edge values at scale %g differ from "
+                  "plain" % scale)
+            n += 1
+        x = v[:m].reshape(1, 2, 8, m // 16)
+        geo = ((3, 3), (1, 1), (1, 1), (1, 1))
+        check(torch.equal(i8.int8_quantize_im2col(x, scale, *geo),
+                          i8.int8_quantize_im2col_plain(x, scale, *geo)),
+              "int8_quantize im2col: edge values at scale %g differ from "
+              "plain" % scale)
+        n += 1
+    return n
+
+
 def low_precision_kernel_phase(co, dev, card):
     """K1 ``multi_all_finite``, K2 ``int8_quantize`` and K3 ``int8_conv``
     against their plain versions, bit for bit, at the edges of their
@@ -2480,6 +2572,16 @@ def low_precision_kernel_phase(co, dev, card):
     print("int8_quantize vs plain: %d cases (float16 / bfloat16 / float32 / "
           "int8, .5 ties, C=3, groups 2 and 3, Dense inputs) bit for bit"
           % n2)
+    n2 = k2_edge_checks(i8, dev, gen)
+    print("int8_quantize vs plain, tiles and im2col: %d cases (each tile "
+          "width and the row kernel at P = 49, P %% 4 != 0, channels past "
+          "the tile, "
+          "groups, aligned and unaligned x, int8 -128 kept; the values "
+          "where the quotient's rounding decides: halves of the scale and "
+          "their neighbours, +-127.5 of it, denormals, inf, NaN, scales "
+          "whose reciprocal is not normal; the im2col mode at the stem, "
+          "dilation, odd padding, 12 channels and a 1 x 1) bit for bit"
+          % n2)
     # K3: the edges, both epilogues, three output dtypes, on each route
     # that takes the shape (hopper where int8_conv_route gives it)
     n3 = {"hopper": 0, "general": 0}
@@ -2518,8 +2620,9 @@ def low_precision_kernel_phase(co, dev, card):
           "float16 / bfloat16 / float32) bit for bit"
           % (n3["hopper"], n3["general"]))
     # timing at ResNet-50's shapes, each on its route and on the general
-    # kernel (the design this PR replaced on the hopper shapes)
-    q_rows, c_rows = [], []
+    # kernel (the earlier design on the hopper shapes); K2's
+    # rows come from the int8 forward's own inputs (int8_resnet_phase)
+    c_rows = []
     for name, N, C, H, W, O, k, s, p in INT8_CONV_TIMED:
         x, wpk, wq = _int8_conv_inputs(i8, dev, gen, N, C, H, W, O, k, 1,
                                        torch.float32)
@@ -2600,19 +2703,8 @@ def low_precision_kernel_phase(co, dev, card):
                        "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms,
                        "bf16_ms": bf16_ms, "macs": macs, "plan": plan})
-        q_ms = graph_ms(lambda: i8.int8_quantize(x, 0.02))
-        q_call = time_ms(lambda: i8.int8_quantize(x, 0.02))
-        q_plain = time_ms(lambda: i8.int8_quantize_plain(x, 0.02), iters=3,
-                          warmup=1)
-        qb_ms, qb_by = bound_ms(4 * x.numel() + xq.numel(), x.numel(),
-                                FP32_FLOPS_PER_S)
-        print("int8_quantize %s input (B=%d, float32): kernel %.4f ms "
-              "(device), call %.4f ms, plain %.4f ms, bound %.4f ms (%s), "
-              "%.1f%% of it [%s]" % (name, N, q_ms, q_call, q_plain, qb_ms,
-                                    qb_by, 100 * qb_ms / q_ms, card))
-        q_rows.append({"shape": name, "ms": q_ms, "call_ms": q_call,
-                       "plain_ms": q_plain, "bound_ms": qb_ms,
-                       "bound_by": qb_by, "library_ms": None})
+        if name.startswith("stem"):
+            stem = stem_routes(i8, x, wpk, wq, geo, scale, bias, ms, card)
         del x, wpk, wq, xq, xq4, xb, wb
         torch.cuda.empty_cache()
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2622,6 +2714,7 @@ def low_precision_kernel_phase(co, dev, card):
                     call_ms=r["call_ms"] if r["route"] == "general" else None)
                for r in c_rows]
     head = hopper[1]                            # 3x3 64->64 at 56^2
+    hopper.insert(0, stem["hopper_row"])
     return [{"name": "multi_all_finite", "route": "cuda",
              "source": "mxnet_tpu_torch/csrc/multi_tensor.cu",
              "replaces": "mxnet_tpu/ndarray/op_updates.py:631",
@@ -2629,8 +2722,11 @@ def low_precision_kernel_phase(co, dev, card):
             {"name": "int8_quantize", "route": "cuda",
              "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
              "replaces": "mxnet_tpu/contrib/quantization.py:115",
-             "max_abs_err": 0.0, **{k: q_rows[0][k] for k in keys},
-             "shapes": q_rows},
+             "max_abs_err": 0.0, "shapes": []},
+            {"name": "int8_quantize_im2col", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
+             "replaces": "mxnet_tpu/contrib/quantization.py:115",
+             "max_abs_err": 0.0, "shapes": [], "stem": stem["summary"]},
             {"name": "int8_conv_hopper", "route": "cuda",
              "source": "mxnet_tpu_torch/csrc/int8_conv.cu",
              "replaces": "mxnet_tpu/contrib/quantization.py:197",
@@ -2644,10 +2740,94 @@ def low_precision_kernel_phase(co, dev, card):
              "bf16_ms": general[0]["bf16_ms"], "shapes": general}]
 
 
-# the int8 forward's kernels by name: K3 on each route, K2
+def stem_routes(i8, x, wpk, wq, geo, scale, bias, ms, card):
+    """The stem (B=32 float32 NCHW, scale 0.02) on both routes: its im2col
+    rows through the hopper route's 1 x 1 (this slice's path) against
+    the NHWC quantize and the general kernel (the earlier path), bit for bit in
+    each epilogue, then timed: each kernel's own device ms (graph_ms),
+    the pair in one graph, and each by the profiler (L2 flushed).  The
+    pair's bound is x read once and the float32 output written once; the
+    rows' own floor adds the im2col rows written and read."""
+    geo4 = geo[:3] + ((1, 1),)
+    cols = i8.int8_quantize_im2col(x, 0.02, *geo4)
+    check(torch.equal(cols, i8.int8_quantize_im2col_plain(x, 0.02, *geo4)),
+          "int8_quantize im2col: the stem's rows differ from plain")
+    xq = i8.int8_quantize(x, 0.02)
+    for kw in (dict(out_dtype=torch.int32), dict(scale=scale, bias=bias,
+                                                 relu=True),
+               dict(scale=scale, out_dtype=torch.bfloat16,
+                    channels_last=True)):
+        got = i8.quantized_conv(x, 0.02, wpk, *geo4, **kw)
+        want = i8._int8_conv(xq, wpk, *geo, route="general", **kw)
+        check(torch.equal(got, want), "the stem's hopper route differs "
+              "from the general route: %d elements (%s)"
+              % (int((got != want).sum()), sorted(kw)))
+        del got, want
+    fns = {"im2col": lambda: i8.int8_quantize_im2col(x, 0.02, *geo4),
+           "hopper 1x1": lambda: i8.int8_conv(cols, wpk, (1, 1),
+                                              scale=scale, bias=bias),
+           "pair": lambda: i8.quantized_conv(x, 0.02, wpk, *geo4,
+                                             scale=scale, bias=bias),
+           "nhwc": lambda: i8.int8_quantize(x, 0.02),
+           "general pair": lambda: i8._int8_conv(
+               i8.int8_quantize(x, 0.02), wpk, *geo, scale=scale,
+               bias=bias, route="general")}
+    g = {k: graph_ms(f) for k, f in fns.items()}
+    g["general"] = ms["general"]
+    dv = {k: profiled_ms(fns[k]) for k in ("im2col", "hopper 1x1", "pair",
+                                            "general pair")}
+    call = time_ms(fns["pair"])
+    plain = time_ms(lambda: i8.int8_conv_plain(
+        i8.int8_quantize_im2col_plain(x, 0.02, *geo4), wpk, (1, 1),
+        scale=scale, bias=bias), iters=3, warmup=1)
+    N, O = x.shape[0], wpk.shape[1]
+    M, kc = cols.shape[0] * cols.shape[1] * cols.shape[2], cols.shape[3]
+    out_bytes = 4 * M * O
+    macs = M * O * 3 * 49
+    pair_b, pair_by = bound_ms(4 * x.numel() + wpk.numel() + out_bytes
+                               + 8 * O, 2 * macs, INT8_OPS_PER_S)
+    rows_b, _ = bound_ms(4 * x.numel() + 2 * M * kc + wpk.numel()
+                         + out_bytes + 8 * O, 0)
+    conv_b, conv_by = bound_ms(M * kc + wpk.numel() + out_bytes + 8 * O,
+                               2 * M * O * kc, INT8_OPS_PER_S)
+    col_b, col_by = bound_ms(4 * x.numel() + M * kc, x.numel(),
+                             FP32_FLOPS_PER_S)
+    print("int8 stem 7x7/2 3->64 224^2 (B=%d): im2col quantize %.4f ms + "
+          "hopper 1x1 over %d channels %.4f ms = %.4f ms (one graph: %.4f "
+          "ms; by the profiler %s + %s, one graph %s); the earlier NHWC "
+          "quantize %.4f ms + general kernel %.4f ms (one graph: %.4f ms; "
+          "profiler %s); the pair's call %.4f ms, plain %.4f ms; bound "
+          "%.4f ms "
+          "(%s: x read once, the float32 output written once), %.4f ms "
+          "with the im2col rows written and read, im2col alone %.4f ms "
+          "(%s), the 1x1 alone %.4f ms (%s) [%s]"
+          % (N, g["im2col"], kc, g["hopper 1x1"],
+             g["im2col"] + g["hopper 1x1"], g["pair"], _fmt(dv["im2col"]),
+             _fmt(dv["hopper 1x1"]), _fmt(dv["pair"]), g["nhwc"],
+             g["general"], g["general pair"], _fmt(dv["general pair"]),
+             call, plain, pair_b, pair_by, rows_b,
+             col_b, col_by, conv_b, conv_by, card))
+    summary = {"pair_ms": g["pair"], "im2col_ms": g["im2col"],
+               "conv_ms": g["hopper 1x1"], "device_ms": dv,
+               "general_pair_ms": g["general pair"],
+               "general_ms": g["general"], "nhwc_ms": g["nhwc"],
+               "bound_ms": pair_b, "rows_floor_ms": rows_b,
+               "call_ms": call, "plain_ms": plain}
+    hopper_row = {"shape": "stem as im2col rows, 1x1 over %d channels" % kc,
+                  "route": "hopper", "ms": g["hopper 1x1"],
+                  "general_ms": g["general"], "call_ms": None,
+                  "plain_ms": plain, "bound_ms": conv_b, "bound_by": conv_by,
+                  "library_ms": None, "bf16_ms": None, "macs": M * O * kc,
+                  "plan": i8.int8_conv_plan(M, O, wpk.shape[2])}
+    return {"summary": summary, "hopper_row": hopper_row}
+
+
+# the int8 forward's kernels by name: K3 on each route, K2 (its three
+# kernels: quantize_tile, quantize_kernel for the Dense, quantize_im2col)
 INT8_FORWARD_KERNELS = {"int8_conv hopper": "conv_hopper",
                         "int8_conv general": "conv_kernel",
-                        "int8_quantize": "quantize_kernel"}
+                        "int8_quantize": "quantize_",
+                        "int8_quantize im2col": "quantize_im2col"}
 
 
 def _forward_row(mt, net, x, tag, card):
@@ -2675,6 +2855,98 @@ def _forward_row(mt, net, x, tag, card):
             "kernel_ms": dev_ms, "peak_gb": peak / 1e9, "int8": int8}
 
 
+def k2_forward_rows(mt, net, x, card):
+    """K2 at every distinct quantize input of the int8 forward of ``net``
+    on ``x``, found by forward pre-hooks on its quantized layers, and,
+    beside them, the stem's NHWC layout (the earlier path): each held
+    against plain on random data of that shape and timed -- own device
+    ms by CUDA-graph replay (``ms``) and by the profiler (``device_ms``,
+    L2 flushed), the wrapper call, the plain version; the bound is x
+    read once and the int8 written once.  Each row counts its launches
+    in the forward."""
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.ops import int8 as i8
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda blk, a: seen.append((blk, tuple(a[0].shape), a[0].dtype)))
+        for m in net.modules()
+        if isinstance(m, (q.QuantizedConv2D, q.QuantizedDense))]
+    with mt.autograd.pause():
+        net(x)
+    for h in hooks:
+        h.detach()
+    keys = {}
+    for blk, shape, dt in seen:
+        if isinstance(blk, q.QuantizedDense):
+            key = ("nhwc", (math.prod(shape[:-1]), shape[-1]), 1, None)
+        else:
+            geo = (blk._kernel, blk._strides, blk._padding, blk._dilation)
+            mode, _ = i8.int8_conv_mode(*shape, *geo, blk._groups)
+            key = (mode, shape, blk._groups, geo if mode == "im2col"
+                   else None)
+            if mode == "im2col":      # beside it, the earlier NHWC layout
+                keys.setdefault(("nhwc", shape, blk._groups, None), 0)
+        keys[key] = keys.get(key, 0) + 1
+    check(sum(keys.values()) == 54, "int8 resnet50: %d quantize inputs, "
+          "want 54" % sum(keys.values()))
+    gen = torch.Generator(device=x.device).manual_seed(62)
+    rows = []
+    for (mode, shape, g, geo), count in sorted(keys.items(),
+                                               key=lambda kv: -kv[1]):
+        if mode == "im2col":
+            def k2(xi, geo=geo):
+                return i8.int8_quantize_im2col(xi, 0.02, *geo)
+
+            def k2_plain(xi, geo=geo):
+                return i8.int8_quantize_im2col_plain(xi, 0.02, *geo)
+        else:
+            def k2(xi, g=g):
+                return i8.int8_quantize(xi, 0.02, g)
+
+            def k2_plain(xi, g=g):
+                return i8.int8_quantize_plain(xi, 0.02, g)
+        # distinct inputs, 160 MB or more of them (at least 2, at most 16)
+        xs = [torch.randn(shape, generator=gen, device=x.device)
+              for _ in range(max(2, min(16, -(-160_000_000 // (
+                  4 * math.prod(shape))))))]
+        xr = xs[0]
+        fn = lambda: k2(xr)  # noqa: E731
+        out = fn()
+        check(torch.equal(out, k2_plain(xr)), "int8_quantize %s %s "
+              "differs from plain" % (mode, shape))
+        ms = graph_ms(fn)
+        b2b = chain_ms([lambda xi=xi: k2(xi) for xi in xs])
+        dms = profiled_ms(fn, "quantize_")
+        call = time_ms(fn)
+        plain_ms = time_ms(lambda: k2_plain(xr), iters=3, warmup=1)
+        b_ms, b_by = bound_ms(4 * xr.numel() + out.numel(), xr.numel(),
+                              FP32_FLOPS_PER_S)
+        tag = "x".join(map(str, shape[1:]))
+        if mode == "im2col":
+            tag += " im2col %dx%d/%d -> %s" % (geo[0][0], geo[0][1],
+                                               geo[1][0],
+                                               tuple(out.shape))
+        plan = (i8.int8_quantize_plan(shape[0], shape[1],
+                                      math.prod(shape[2:]) or 1, g)
+                if mode == "nhwc" else None)
+        print("int8_quantize %s (B=%d, float32, %d in the forward): kernel "
+              "%.4f ms (graph), %.4f ms a launch back to back over %d "
+              "inputs, %s ms (profiler), call %.4f ms, plain %.4f ms, "
+              "bound %.4f ms (%s), %.1f%% of it (back to back: %.1f%%); "
+              "plan %s [%s]"
+              % (tag, shape[0], count, ms, b2b, len(xs), _fmt(dms), call,
+                 plain_ms, b_ms, b_by, 100 * b_ms / ms, 100 * b_ms / b2b,
+                 plan, card))
+        rows.append({"shape": tag, "mode": mode, "launches": count,
+                     "ms": ms, "b2b_ms": b2b, "device_ms": dms,
+                     "call_ms": call,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, "plan": plan})
+        del xr, xs, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def int8_resnet_phase(mt, co, dev, card):
     """``bench.py:318-343`` on the port: ``resnet50_v1()`` float32 NCHW,
     B=32, 224^2, one ``uniform(0, 1)`` calibration batch through
@@ -2684,7 +2956,8 @@ def int8_resnet_phase(mt, co, dev, card):
     net on a second batch; the kernels launched per forward (K3 54 times:
     53 convolutions and the Dense; K2 as often).  Then
     ``calib_mode="entropy"`` on a batch of 8, its calibration timed.
-    Returns the launch counts of the int8 forwards."""
+    Returns the launch counts of the int8 forwards and K2's rows at its
+    inputs (:func:`k2_forward_rows`)."""
     from mxnet_tpu_torch.contrib import quantization as q
     B = INT8_RESNET_B
     gen = torch.Generator(device=dev).manual_seed(61)
@@ -2722,14 +2995,16 @@ def int8_resnet_phase(mt, co, dev, card):
     torch.cuda.synchronize()
     launches = dict(co.LAUNCHES)
     check(launches["int8_conv"] == 54 and launches["int8_quantize"] == 54
-          and launches["int8_conv_hopper"] == 53
-          and launches["int8_conv_general"] == 1,
+          and launches["int8_conv_hopper"] == 54
+          and launches["int8_conv_general"] == 0
+          and launches["int8_quantize_im2col"] == 1,
           "int8 resnet50: a forward launched int8_conv %d (hopper %d, "
-          "general %d) and int8_quantize %d times, want 54 (53 and the "
-          "stem's 1) and 54" % (launches["int8_conv"],
-                                launches["int8_conv_hopper"],
-                                launches["int8_conv_general"],
-                                launches["int8_quantize"]))
+          "general %d) and int8_quantize %d times (im2col %d), want 54 "
+          "(54 and 0) and 54 (the stem's 1)"
+          % (launches["int8_conv"], launches["int8_conv_hopper"],
+             launches["int8_conv_general"], launches["int8_quantize"],
+             launches["int8_quantize_im2col"]))
+    k2_rows = k2_forward_rows(mt, net, x, card)
     rows["int8 eager"] = _forward_row(mt, net, x, "int8 eager", card)
     net.hybridize()
     with mt.autograd.pause():
@@ -2740,7 +3015,9 @@ def int8_resnet_phase(mt, co, dev, card):
     hyb_launches = dict(co.LAUNCHES)
     check(len(net._graphs) == 1 and torch.equal(hyb, got)
           and hyb_launches["int8_conv"] == 54
-          and hyb_launches["int8_conv_hopper"] == 53,
+          and hyb_launches["int8_conv_hopper"] == 54
+          and hyb_launches["int8_quantize"] == 54
+          and hyb_launches["int8_quantize_im2col"] == 1,
           "int8 resnet50: the hybridized forward differs from eager or did "
           "not replay its kernels (%s)" % hyb_launches)
     rows["int8 hybridized"] = _forward_row(mt, net, x, "int8 hybridized",
@@ -2768,12 +3045,22 @@ def int8_resnet_phase(mt, co, dev, card):
         for k, v in rows.items()))
     k3 = rows["int8 hybridized"]["int8"]
     print("int8 resnet50 hybridized forward: K3 %.3f ms of kernels (hopper "
-          "%.3f ms in %g launches, general %.3f in %g), K2 %.3f ms in %g, "
-          "of %.2f ms [%s]"
+          "%.3f ms in %g launches, general %.3f in %g), K2 %.3f ms in %g "
+          "(im2col %.3f in %g), of %.2f ms [%s]"
           % (k3["int8_conv hopper"][0] + k3["int8_conv general"][0],
              *k3["int8_conv hopper"], *k3["int8_conv general"],
-             *k3["int8_quantize"], rows["int8 hybridized"]["kernel_ms"],
-             card))
+             *k3["int8_quantize"], *k3["int8_quantize im2col"],
+             rows["int8 hybridized"]["kernel_ms"], card))
+    k2_sum = sum(r["launches"] * r["ms"] for r in k2_rows)
+    k2_b2b = sum(r["launches"] * r["b2b_ms"] for r in k2_rows)
+    k2_bound = sum(r["launches"] * r["bound_ms"] for r in k2_rows)
+    print("int8 resnet50 K2 over the forward's %d launches: %.4f ms by the "
+          "forward's own profile (hybridized), %.4f ms summed from the "
+          "per-input rows (graph, L2 flushed; %.4f ms back to back), "
+          "against a summed bound of %.4f ms (%.1f%% in the forward) [%s]"
+          % (sum(r["launches"] for r in k2_rows), k3["int8_quantize"][0],
+             k2_sum, k2_b2b, k2_bound,
+             100 * k2_bound / max(k3["int8_quantize"][0], 1e-9), card))
     del net, got, hyb, fp32
     gc.collect()
     torch.cuda.empty_cache()
@@ -2799,7 +3086,7 @@ def int8_resnet_phase(mt, co, dev, card):
     del net, ent, want
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, k2_rows
 
 
 def amp_phase(mt, co, dev, card, finite_rec):
@@ -3265,6 +3552,20 @@ def graph_ms(fn, iters=20):
     from mxnet_tpu_torch.ops import cuda_ops
     graph, _, _ = cuda_ops.capture_graph(fn, warmup=1)
     return time_ms(graph.replay, iters, warmup=1)
+
+
+def profiled_ms(fn, match=None):
+    """:func:`device_ms`'s ms, or None where the profiler keeps dropping
+    the calls' records (seen on the H100 machine late in a run)."""
+    try:
+        return device_ms(fn, match)[0]
+    except SmokeFailure as e:
+        print("profiler: not measured (%s)" % str(e)[:160])
+        return None
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else "%.4f" % ms
 
 
 def chain_ms(fns, iters=10):
@@ -5057,7 +5358,13 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     low_prec = low_precision_kernel_phase(co, dev, card)
-    int8_resnet_launches = int8_resnet_phase(mt, co, dev, card)
+    int8_resnet_launches, k2_rows = int8_resnet_phase(mt, co, dev, card)
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for rec, mode in ((low_prec[1], "nhwc"), (low_prec[2], "im2col")):
+        rec["shapes"] = [r for r in k2_rows if r["mode"] == mode]
+        rec.update({k: max(rec["shapes"], key=lambda r: r["bound_ms"])[k]
+                    for k in keys})
     amp_bert_launches, amp_resnet_launches, guard_launches = amp_phase(
         mt, co, dev, card, low_prec[0])
     finite = low_prec[0]
@@ -5099,8 +5406,8 @@ def main(argv):
              "amp_bert": amp_bert_launches,
              "amp_resnet": amp_resnet_launches, "guard": guard_launches}
     for path, kernels_of_path in (
-            ("int8_resnet", ("int8_quantize", "int8_conv_hopper",
-                             "int8_conv_general")),
+            ("int8_resnet", ("int8_quantize", "int8_quantize_im2col",
+                             "int8_conv_hopper")),
             ("amp_bert", ("multi_all_finite", "flash_fwd_mma",
                           "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
                           "multi_adam")),

@@ -217,9 +217,10 @@ class QuantizedConv2D(HybridBlock):
     """int8 x int8 -> int32 convolution with per-output-channel weight
     scales (reference ``src/operator/quantization/quantized_conv.cc:1``;
     channel-wise weight scaling as the oneDNN backend does): the
-    ``int8_quantize`` kernel, then the ``int8_conv`` kernel on the tensor
-    cores, its float epilogue writing NCHW in the input's dtype.  NCHW
-    layers only."""
+    ``int8_quantize`` kernel (in its im2col mode where
+    ``ops.int8.int8_conv_mode`` says so: the stem), then the ``int8_conv``
+    kernel on the tensor cores, its float epilogue writing NCHW in the
+    input's dtype.  NCHW layers only."""
 
     def __init__(self, conv, act_scale):
         super().__init__()
@@ -254,11 +255,10 @@ class QuantizedConv2D(HybridBlock):
         self._activation = conv._activation
 
     def forward(self, x):
-        xq = _int8.int8_quantize(x, self._act_scale, self._groups)
         act = self._activation
-        y = _int8.int8_conv(
-            xq, self._wpk, self._kernel, self._strides, self._padding,
-            self._dilation, self._groups, scale=self._scale,
+        y = _int8.quantized_conv(
+            x, self._act_scale, self._wpk, self._kernel, self._strides,
+            self._padding, self._dilation, self._groups, scale=self._scale,
             bias=self._bias, relu=act == "relu",
             out_dtype=x.dtype if act in (None, "relu") else torch.float32)
         return _epilogue(y, act, x.dtype)

@@ -8,18 +8,50 @@
 // with preferred_element_type=int32), and PyTorch has no int8
 // convolution on CUDA.  These kernels are that work written by hand.
 //
-// (K2) quantize_kernel: x (N, C, P) in float16, bfloat16, float32 or int8
-//      (P the spatial positions; a Dense input is (M, K, 1)) ->
-//      q (N, P, G, Cgp) int8, NHWC with each group's Cg channels padded
-//      with zeros to Cgp, a multiple of 4 (the stem's C = 3 becomes 4).
+// (K2) the activation quantize, three kernels behind one entry point.
 //      Each value is cast to float32, divided by the scale in IEEE
-//      arithmetic (__fdiv_rn: not a product with the reciprocal), rounded
-//      half to even (rintf) and clipped to [-127, 127]: the bits of the
-//      JAX `quantize_array` and of the plain version.  An int8 x (at
-//      scale 1) is only laid out, -128 kept.  A thread writes
-//      one 4-byte word (4 channels of one position); consecutive threads
-//      take consecutive positions, so the reads of each channel are
-//      coalesced.  Bound by bytes: x read once, q written once.
+//      arithmetic, rounded half to even and clipped to [-127, 127]: the
+//      bits of the JAX `quantize_array` and of the plain version (NaN
+//      gives 0, as the plain version's conversion does).  The quotient is
+//      x * RN(1 / scale), within 3 * 2^-24 of x / scale relatively, so
+//      its rint is the IEEE quotient's except within 2^-13 of a half
+//      (about one value in 4000), where __fdiv_rn decides (quant_f).  An
+//      int8 x (at scale 1) is only laid out, -128 kept.  Bound by bytes:
+//      x read once, q written once.
+//      quantize_tile: x (N, C, P) in float16, bfloat16, float32 or int8
+//      -> q (N, P, G, Cgp) int8, NHWC with each group's Cg channels
+//      padded with zeros to Cgp, a multiple of 4 (the stem's C = 3
+//      becomes 4).  A CTA transposes one tile of one image through
+//      shared memory: TP positions by TCB output channels, 4 KB of int8
+//      (TCB = 128 bytes of a wide row, else the whole row rounded to 16,
+//      32 or 64).  Each thread loads 4 channel rows x 4 positions (one
+//      16-byte load a row for float32 where P % 4 == 0: a warp reads 4
+//      runs of 128 bytes), quantizes them, transposes the 4 x 4 bytes in
+//      registers and writes 4 words into the tile, whose 16-byte chunks
+//      are XOR-swizzled by position so that neither these writes nor the
+//      16-byte reads of the stores meet a bank twice; then the tile goes
+//      out in 16-byte stores along the channels, a 128-byte line per
+//      quarter warp.  A thread's 16 loads are all issued before any is
+//      used, and the SM's other CTAs (6 fit) keep the next tiles' loads
+//      in flight while one converts; loads and stores are marked
+//      streaming (read once, written once); index math is per tile, in
+//      32 bits (ops/int8.py int8_quantize_plan picks TCB).
+//      quantize_kernel: the Dense's (M, K) input (P = 1) and rows under 16
+//      bytes (the stem's 4 channels, where a tile would idle): a thread
+//      one 4-byte word, consecutive threads consecutive words.
+//      quantize_im2col: x (N, C, H, W), one group whose Cgp is not a
+//      multiple of 32 (the stem) -> rows (N * OH * OW, Kc) int8, the
+//      depth (kh, kw, c) c fastest as pack_conv_weight orders a weight
+//      row, zeros outside the image and past KH * KW * Cgp, Kc rounded
+//      up to a multiple of 32.  K3's hopper route then runs them as a
+//      1 x 1 convolution over Kc channels with the layer's packed weight
+//      unchanged: the same sum in the same order.  A CTA takes TH x TW
+//      output positions of one image (ops/int8.py int8_im2col_plan; the
+//      stem 4 x 112): it quantizes their input patch into shared memory
+//      once (each input value once a CTA, not once a tap: 7 x 7 taps at
+//      stride 2 read each value ~12 times), then writes the rows in
+//      16-byte chunks, consecutive threads consecutive chunks, each word
+//      of depth one read of the patch at the offset a table gives it.
 //
 // (K3) implicit GEMM, two routes (ops/int8.py int8_conv_route).  Per
 //      group, rows are the output positions m = (n, oh, ow) (M = N * OH *
@@ -37,8 +69,8 @@
 //      NHWC are both one kernel.
 //      "hopper", conv_hopper (below): one group with Cgp a multiple of
 //      32, which 52 of ResNet-50's 53 convolutions and its Dense are.
-//      "general", conv_kernel: everything (the stem's C = 3, groups,
-//      depthwise).  A CTA of 8 warps owns a BM x BN = 128 x 64 tile of
+//      "general", conv_kernel: everything else (groups, depthwise; the
+//      stem through _int8_conv(..., route="general")).  A CTA of 8 warps owns a BM x BN = 128 x 64 tile of
 //      one group; each step of BK = 64 depth stages the A tile (gathered
 //      from x: 32 contiguous bytes of one tap where Cgp is a multiple of
 //      32, else 4-byte words, zeros outside the image and beyond Kreal)
@@ -74,6 +106,9 @@ enum { F16 = 0, BF16 = 1, F32 = 2, I8 = 3 };          // x dtype (K2)
 enum { OUT_F16 = 0, OUT_BF16 = 1, OUT_F32 = 2, OUT_I32 = 3 };   // K3
 
 constexpr int QNT = 256;           // K2 threads per block
+constexpr int QTILE = 4096;        // K2 tile bytes: positions x channels
+constexpr int COL_PATCH = 24576;   // im2col: input patch bytes a CTA holds
+constexpr int COL_WORDS = 512;     // most 4-byte words an im2col row holds
 constexpr int BM = 128, BN = 64, BK = 64;
 constexpr int NT = 256;            // K3 threads per block: 8 warps
 constexpr int LDS = BK + 16;       // bytes per shared-memory row
@@ -85,20 +120,46 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// RN(1 / s) where s and 1 / s are normal, else 0 (every quotient then
+// takes __fdiv_rn).
+__device__ __forceinline__ float quant_recip(float s) {
+  return fabsf(s) >= 0x1p-126f && fabsf(s) <= 0x1p126f ? __frcp_rn(s) : 0.f;
+}
+
+// clip(rint(x / s), -127, 127) with x / s the IEEE quotient, r =
+// quant_recip(s).  q = x * r is within 3 * 2^-24 * |x / s| of RN(x / s),
+// under 2^-15 below 128: where q is more than 2^-13 from a half, both
+// round to one integer; from 128 up both clip alike.  The conversion
+// rounds half to even, saturates, and gives 0 for NaN.
+__device__ __forceinline__ int quant_f(float x, float s, float r) {
+  float q = x * r;
+  if (r == 0.f ||
+      (fabsf(q) < 128.f && fabsf(q - rintf(q)) >= 0.5f - 0x1p-13f))
+    q = __fdiv_rn(x, s);
+  return max(min(__float2int_rn(q), 127), -127);
+}
+
 // One channel's int8: a float is divided, rounded and clipped; an int8 is
 // laid out unchanged (the entry point takes it at scale 1 only), -128
 // included, as the reference convolves raw int8 data.
 template <typename T>
-__device__ __forceinline__ int quant(T x, float scale) {
-  return (int)fminf(fmaxf(rintf(__fdiv_rn(to_f(x), scale)), -127.f), 127.f);
+__device__ __forceinline__ int quant(T x, float s, float r) {
+  return quant_f(to_f(x), s, r);
 }
-__device__ __forceinline__ int quant(int8_t x, float) { return x; }
+__device__ __forceinline__ int quant(int8_t x, float, float) { return x; }
 
+__device__ __forceinline__ uint32_t byte_at(int v, int j) {
+  return (uint32_t)(uint8_t)(int8_t)v << (8 * j);
+}
+
+// The Dense's input (P = 1) and rows under 16 bytes (any shape is right):
+// a thread one 4-byte word.
 template <typename T>
 __global__ void __launch_bounds__(QNT)
 quantize_kernel(const T* __restrict__ x, uint32_t* __restrict__ q,
                 long long words, int P, int C, int Cg, int Cgp, int CW,
                 float scale) {
+  const float r = quant_recip(scale);
   for (long long w = blockIdx.x * (long long)QNT + threadIdx.x; w < words;
        w += (long long)gridDim.x * QNT) {
     const int p = (int)(w % P);
@@ -110,12 +171,214 @@ quantize_kernel(const T* __restrict__ x, uint32_t* __restrict__ q,
     for (int j = 0; j < 4; ++j) {
       const int cl = cw * 4 + j;
       const int grp = cl / Cgp, c = cl - grp * Cgp;
-      int v = 0;
       if (c < Cg)
-        v = quant(x[(n * C + grp * Cg + c) * (long long)P + p], scale);
-      word |= (uint32_t)(uint8_t)(int8_t)v << (8 * j);
+        word |= byte_at(
+            quant(x[(n * C + grp * Cg + c) * (long long)P + p], scale, r), j);
     }
     q[(n * P + p) * CW + cw] = word;
+  }
+}
+
+// 4 values of T as one load
+template <typename T> struct Run4;
+template <> struct Run4<float> { using V = float4; };
+template <> struct Run4<__half> { using V = uint2; };
+template <> struct Run4<__nv_bfloat16> { using V = uint2; };
+template <> struct Run4<int8_t> { using V = uint32_t; };
+
+// Positions p .. p + 3 of one channel row: one vector load where `vec`
+// (P % 4 == 0 on an aligned x: every run is aligned), else four loads,
+// clamped to the row (the positions past P are never stored).
+template <typename T>
+__device__ __forceinline__ void load_run(const T* row, int p, int P,
+                                         bool vec, T (&v)[4]) {
+  if (vec) {
+    if (p >= P) return;         // a run past the row (P % 4 == 0)
+    union {
+      typename Run4<T>::V w;
+      T e[4];
+    } u;
+    u.w = __ldcs(reinterpret_cast<const typename Run4<T>::V*>(row + p));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = u.e[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = row[min(p + i, P - 1)];
+  }
+}
+
+// A tile of one image: TP = QTILE / TCB positions by TCB output channels.
+// The tile lives in 128-byte lines, RPL = 128 / TCB rows a line; the
+// 16-byte chunk h of line L sits at chunk h ^ ((row >> 2) & 7).  A warp's
+// unit writes (4 channel quads x 8 runs of 4 positions, one row of each
+// run at a time) and a quarter warp's 16-byte reads (one line) each touch
+// every bank once.
+template <typename T, int TCB>
+__global__ void __launch_bounds__(QNT)
+quantize_tile(const T* __restrict__ x, int8_t* __restrict__ q, int P, int C,
+              int Cg, int Cgp, int Ctot, int ptiles, float scale, bool vec) {
+  constexpr int TP = QTILE / TCB, RPL = 128 / TCB, CPR = TCB / 16;
+  constexpr int UNITS = QTILE / 16, PER = UNITS / QNT;
+  __shared__ __align__(16) uint32_t tile[QTILE / 4];
+  const int n = blockIdx.x / ptiles;
+  const int p0 = (blockIdx.x - n * ptiles) * TP, c0 = blockIdx.y * TCB;
+  const T* xn = x + (long long)n * C * P;
+  int8_t* qn = q + ((long long)n * P + p0) * Ctot;
+  const int lane = threadIdx.x & 31;
+  const float r = quant_recip(scale);
+
+  // every load first: unit k -> channel quad cq, run of positions pq
+  T v[PER][4][4];
+  bool ok[PER][4];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int wu = (threadIdx.x >> 5) + k * (QNT / 32);
+    const int cq = (wu % CPR) * 4 + (lane >> 3);
+    const int pq = (wu / CPR) * 8 + (lane & 7);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int oc = c0 + 4 * cq + j;
+      int src = oc;                     // one group: no division
+      ok[k][j] = oc < Cg;
+      if (Ctot != Cgp) {
+        const int grp = oc / Cgp, cl = oc - grp * Cgp;
+        ok[k][j] = oc < Ctot && cl < Cg;
+        src = grp * Cg + cl;
+      }
+      if (ok[k][j]) load_run(xn + src * P, p0 + 4 * pq, P, vec, v[k][j]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int wu = (threadIdx.x >> 5) + k * (QNT / 32);
+    const int cq = (wu % CPR) * 4 + (lane >> 3);
+    const int pq = (wu / CPR) * 8 + (lane & 7);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {         // row 4 pq + i: 4 channels
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ok[k][j]) word |= byte_at(quant(v[k][j][i], scale, r), j);
+      const int row = 4 * pq + i;
+      const int h = (row % RPL) * CPR + (cq >> 2);
+      tile[(row / RPL) * 32 + ((h ^ (pq & 7)) << 2) + (cq & 3)] = word;
+    }
+  }
+  __syncthreads();
+  const uint4* chunks = reinterpret_cast<const uint4*>(tile);
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int t = threadIdx.x + k * QNT, line = t >> 3, h = t & 7;
+    const int row = line * RPL + h / CPR, col = (h % CPR) * 16;
+    const int oc = c0 + col;
+    if (p0 + row >= P || oc >= Ctot) continue;
+    const uint4 val = chunks[line * 8 + (h ^ ((row >> 2) & 7))];
+    int8_t* dst = qn + row * Ctot + oc;
+    if (oc + 16 <= Ctot && (Ctot & 15) == 0) {
+      __stcs(reinterpret_cast<uint4*>(dst), val);
+    } else {
+      const uint32_t w4[4] = {val.x, val.y, val.z, val.w};
+      for (int w = 0; w < 4 && oc + 4 * w < Ctot; ++w)
+        reinterpret_cast<uint32_t*>(dst)[w] = w4[w];
+    }
+  }
+}
+
+// im2col geometry and plan, 18 ints from ops/int8.py (int8_quantize_im2col,
+// int8_im2col_plan): a CTA takes TH x TW output positions of one image
+struct ColGeo {
+  int N, C, H, W, Cgp, KH, KW, sh, sw, ph, pw, dh, dw, OH, OW, Kc, TH, TW;
+};
+
+// The CTA's input patch (the taps of its TH x TW positions) is read once
+// and quantized into shared memory, [row][column][Cgp] int8, zeros
+// outside the image and in the padded channels; then each thread writes
+// 16-byte chunks of the rows, each 4-byte word of depth one aligned read
+// of the patch at the word's tabulated offset.
+template <typename T>
+__global__ void __launch_bounds__(QNT)
+quantize_im2col(const T* __restrict__ x, int8_t* __restrict__ q,
+                const ColGeo g, float scale) {
+  __shared__ __align__(16) int8_t patch[COL_PATCH];
+  __shared__ __align__(16) int word_off[COL_WORDS];
+  const int twn = (g.OW + g.TW - 1) / g.TW, thn = (g.OH + g.TH - 1) / g.TH;
+  const int tw = blockIdx.x % twn, rest = blockIdx.x / twn;
+  const int th = rest % thn, n = rest / thn;
+  const int oh0 = th * g.TH, ow0 = tw * g.TW;
+  const int ih0 = oh0 * g.sh - g.ph, iw0 = ow0 * g.sw - g.pw;
+  const int PH = (g.TH - 1) * g.sh + (g.KH - 1) * g.dh + 1;
+  const int PW = (g.TW - 1) * g.sw + (g.KW - 1) * g.dw + 1;
+  const int Kreal = g.KH * g.KW * g.Cgp, nw = g.Kc / 4;
+  for (int w = threadIdx.x; w < nw; w += QNT) {
+    const int k = 4 * w;
+    int off = -1;                               // past Kreal: zeros
+    if (k < Kreal) {
+      const int tap = k / g.Cgp, r = tap / g.KW;
+      off = ((r * g.dh) * PW + (tap - r * g.KW) * g.dw) * g.Cgp +
+            (k - tap * g.Cgp);
+    }
+    word_off[w] = off;
+  }
+  // the patch: a warp a (channel, row), its lanes along the row, 8 loads
+  // in flight a lane (more rows' loads at once measured slower)
+  const float rs = quant_recip(scale);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* xn = x + (long long)n * g.C * g.H * g.W;
+  for (int cr = warp; cr < g.Cgp * PH; cr += QNT / 32) {
+    const int c = cr / PH, py = cr - c * PH, ih = ih0 + py;
+    const bool row_in = c < g.C && (unsigned)ih < (unsigned)g.H;
+    const T* src = xn + (c * g.H + ih) * g.W;
+    int8_t* dst = patch + py * PW * g.Cgp + c;
+    for (int px0 = lane; px0 < PW; px0 += 256) {
+      T v[8];
+      bool in[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int iw = iw0 + px0 + 32 * i;
+        in[i] = row_in && (unsigned)iw < (unsigned)g.W;
+        if (in[i]) v[i] = src[iw];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (px0 + 32 * i < PW)
+          dst[(px0 + 32 * i) * g.Cgp] =
+              (int8_t)(in[i] ? quant(v[i], scale, rs) : 0);
+    }
+  }
+  __syncthreads();
+  // thread -> (row, chunk) of the tile's rows, stepped QNT chunks at a
+  // time with carries: a division only where a row of positions wraps
+  const int cw = g.Kc / 16, rows = g.TH * g.TW;
+  const int drow = QNT / cw, dch = QNT - drow * cw;
+  int row = threadIdx.x / cw, ch = threadIdx.x - row * cw;
+  int lr = row / g.TW, lc = row - lr * g.TW;
+  while (row < rows) {
+    if (oh0 + lr < g.OH && ow0 + lc < g.OW) {
+      const int base = (lr * g.sh * PW + lc * g.sw) * g.Cgp;
+      const int4 o4 = reinterpret_cast<const int4*>(word_off)[ch];
+      const int offs[4] = {o4.x, o4.y, o4.z, o4.w};
+      uint32_t wv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wv[j] = offs[j] < 0 ? 0u : *reinterpret_cast<const uint32_t*>(
+                                       patch + base + offs[j]);
+      const long long m = ((long long)n * g.OH + oh0 + lr) * g.OW + ow0 +
+                          lc;
+      *reinterpret_cast<uint4*>(q + m * g.Kc + ch * 16) =
+          make_uint4(wv[0], wv[1], wv[2], wv[3]);
+    }
+    int adv = drow;
+    ch += dch;
+    if (ch >= cw) {
+      ch -= cw;
+      ++adv;
+    }
+    row += adv;
+    lc += adv;
+    if (lc >= g.TW) {
+      lr += lc / g.TW;
+      lc -= (lc / g.TW) * g.TW;
+    }
   }
 }
 
@@ -820,46 +1083,128 @@ int grid_cap() {
 }  // namespace mxq
 
 // K2: x (N, C, P) of dtype code `dtype` -> q (N, P, G * Cgp) int8 (C = G *
-// Cg).  Returns a CUDA error code (cudaErrorInvalidValue for bad sizes).
-extern "C" int mx_int8_quantize(const void* x, void* q, int dtype, int N,
-                                int C, int P, int G, int Cgp, float scale,
-                                void* stream) {
-  using namespace mxq;
-  if (N <= 0 || C <= 0 || P <= 0 || G <= 0 || C % G || Cgp % 4 ||
-      Cgp < C / G)
+// Cg): `tcb` 0 runs quantize_kernel, 16 / 32 / 64 / 128 quantize_tile
+// with that tile width (ops/int8.py int8_quantize_plan).  Returns a CUDA
+// error code (cudaErrorInvalidValue for bad sizes).
+namespace mxq {
+template <typename T>
+int launch_quantize(const T* x, void* q, int N, int C, int P, int G, int Cgp,
+                    int tcb, float scale, cudaStream_t st) {
+  const int Cg = C / G, Ctot = G * Cgp;
+  if (tcb == 0) {
+    const int CW = Ctot / 4;
+    const long long words = (long long)N * P * CW;
+    long long blocks = (words + QNT - 1) / QNT;
+    if (blocks > grid_cap()) blocks = grid_cap();
+    quantize_kernel<T><<<(int)blocks, QNT, 0, st>>>(
+        x, static_cast<uint32_t*>(q), words, P, C, Cg, Cgp, CW, scale);
+    return (int)cudaGetLastError();
+  }
+  // int offsets inside an image
+  if ((long long)C * P >= (1ll << 31) || (long long)P * Ctot >= (1ll << 31) ||
+      reinterpret_cast<uintptr_t>(q) % 16)
     return (int)cudaErrorInvalidValue;
-  const int CW = G * Cgp / 4;
-  const long long words = (long long)N * P * CW;
-  long long blocks = (words + QNT - 1) / QNT;
-  if (blocks > grid_cap()) blocks = grid_cap();
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  uint32_t* out = static_cast<uint32_t*>(q);
-  const int Cg = C / G;
-  switch (dtype) {
-    case F16:
-      quantize_kernel<__half><<<(int)blocks, QNT, 0, st>>>(
-          static_cast<const __half*>(x), out, words, P, C, Cg, Cgp, CW,
-          scale);
+  const int tp = QTILE / tcb, ptiles = (P + tp - 1) / tp;
+  const long long bx = (long long)N * ptiles;
+  const int by = (Ctot + tcb - 1) / tcb;
+  if (bx >= (1ll << 31) || by > 65535) return (int)cudaErrorInvalidValue;
+  const bool vec = P % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  const dim3 grid((unsigned)bx, by);
+  int8_t* out = static_cast<int8_t*>(q);
+  switch (tcb) {
+    case 16:
+      quantize_tile<T, 16><<<grid, QNT, 0, st>>>(x, out, P, C, Cg, Cgp, Ctot,
+                                                 ptiles, scale, vec);
       break;
-    case BF16:
-      quantize_kernel<__nv_bfloat16><<<(int)blocks, QNT, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x), out, words, P, C, Cg, Cgp,
-          CW, scale);
+    case 32:
+      quantize_tile<T, 32><<<grid, QNT, 0, st>>>(x, out, P, C, Cg, Cgp, Ctot,
+                                                 ptiles, scale, vec);
       break;
-    case F32:
-      quantize_kernel<float><<<(int)blocks, QNT, 0, st>>>(
-          static_cast<const float*>(x), out, words, P, C, Cg, Cgp, CW,
-          scale);
+    case 64:
+      quantize_tile<T, 64><<<grid, QNT, 0, st>>>(x, out, P, C, Cg, Cgp, Ctot,
+                                                 ptiles, scale, vec);
       break;
-    case I8:
-      quantize_kernel<int8_t><<<(int)blocks, QNT, 0, st>>>(
-          static_cast<const int8_t*>(x), out, words, P, C, Cg, Cgp, CW,
-          scale);
+    case 128:
+      quantize_tile<T, 128><<<grid, QNT, 0, st>>>(x, out, P, C, Cg, Cgp,
+                                                  Ctot, ptiles, scale, vec);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_im2col(const T* x, void* q, const ColGeo& g, float scale,
+                  cudaStream_t st) {
+  const long long ctas = (long long)g.N * ((g.OH + g.TH - 1) / g.TH) *
+                         ((g.OW + g.TW - 1) / g.TW);
+  if (ctas >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  quantize_im2col<T><<<(unsigned)ctas, QNT, 0, st>>>(
+      x, static_cast<int8_t*>(q), g, scale);
+  return (int)cudaGetLastError();
+}
+}  // namespace mxq
+
+extern "C" int mx_int8_quantize(const void* x, void* q, int dtype, int N,
+                                int C, int P, int G, int Cgp, int tcb,
+                                float scale, void* stream) {
+  using namespace mxq;
+  if (N <= 0 || C <= 0 || P <= 0 || G <= 0 || C % G || Cgp % 4 ||
+      Cgp < C / G)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F16:
+      return launch_quantize(static_cast<const __half*>(x), q, N, C, P, G,
+                             Cgp, tcb, scale, st);
+    case BF16:
+      return launch_quantize(static_cast<const __nv_bfloat16*>(x), q, N, C,
+                             P, G, Cgp, tcb, scale, st);
+    case F32:
+      return launch_quantize(static_cast<const float*>(x), q, N, C, P, G,
+                             Cgp, tcb, scale, st);
+    case I8:
+      return launch_quantize(static_cast<const int8_t*>(x), q, N, C, P, G,
+                             Cgp, tcb, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2's im2col mode: x (N, C, H, W) of dtype code `dtype` -> q (N * OH * OW,
+// Kc) int8, `geo` the 18 ints of ColGeo.  Returns a CUDA error code.
+extern "C" int mx_int8_quantize_im2col(const void* x, void* q, int dtype,
+                                       const int* geo, float scale,
+                                       void* stream) {
+  using namespace mxq;
+  ColGeo g;
+  memcpy(&g, geo, sizeof g);
+  for (int i = 0; i < 18; ++i)            // only the paddings may be 0
+    if (geo[i] < 0 || (geo[i] == 0 && i != 9 && i != 10))
+      return (int)cudaErrorInvalidValue;
+  const long long PH = (long long)(g.TH - 1) * g.sh + (g.KH - 1) * g.dh + 1;
+  const long long PW = (long long)(g.TW - 1) * g.sw + (g.KW - 1) * g.dw + 1;
+  if (g.Cgp % 4 || g.Cgp < g.C || g.Kc % 32 || g.Kc > 4 * COL_WORDS ||
+      g.Kc < g.KH * g.KW * g.Cgp || PH * PW * g.Cgp > COL_PATCH ||
+      (long long)g.C * g.H * g.W >= (1ll << 31) ||
+      reinterpret_cast<uintptr_t>(q) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F16:
+      return launch_im2col(static_cast<const __half*>(x), q, g, scale, st);
+    case BF16:
+      return launch_im2col(static_cast<const __nv_bfloat16*>(x), q, g, scale,
+                           st);
+    case F32:
+      return launch_im2col(static_cast<const float*>(x), q, g, scale, st);
+    case I8:
+      return launch_im2col(static_cast<const int8_t*>(x), q, g, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The bytes of ConvArgs, for the host's check of its layout.

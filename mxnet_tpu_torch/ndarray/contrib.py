@@ -7,8 +7,9 @@ range is QuantizationRangeForMultiplication.  ``quantized_conv`` and
 ``quantized_fully_connected`` return the raw int32 sums (plus the bias
 shifted to the int32 scale) from the ``int8_conv`` kernel on CUDA (its
 raw epilogue; the int8 data reach it through the ``int8_quantize``
-kernel at scale 1, which only lays them out channels last), the plain
-version on the CPU.  The others are plain PyTorch on the arrays' device,
+kernel at scale 1, which only lays them out channels last, or as im2col
+rows where ``ops.int8.int8_conv_mode`` says so), the plain version on
+the CPU.  The others are plain PyTorch on the arrays' device,
 each rounding where the JAX op does: float32 arithmetic, a Python scalar
 rounded to float32 first, a cast to an integer type truncating.
 
@@ -213,12 +214,12 @@ def quantized_conv(data, weight, bias, min_data, max_data, min_weight,
     if nsp == 1:
         d, w = d.unsqueeze(2), w.unsqueeze(2)
         stride, pad, dilate = ((1,) + stride, (0,) + pad, (1,) + dilate)
-    xq = _int8.int8_quantize(d.contiguous(), 1.0, num_group)
     b = None if bias is None else _bias_i32(bias, min_bias, max_bias, hi, d)
-    y = _int8.int8_conv(xq, _int8.pack_conv_weight(w, num_group),
-                        tuple(w.shape[2:]), stride, pad, dilate, num_group,
-                        out_dtype=torch.int32, bias_i32=b,
-                        channels_last=last)
+    y = _int8.quantized_conv(d.contiguous(), 1.0,
+                             _int8.pack_conv_weight(w, num_group),
+                             tuple(w.shape[2:]), stride, pad, dilate,
+                             num_group, out_dtype=torch.int32, bias_i32=b,
+                             channels_last=last)
     if nsp == 1:
         y = y.squeeze(1 if last else 2)
     return _three(y, lo, hi)

@@ -57,6 +57,7 @@ _CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32,
 def to_torch_dtype(dtype):
     """A torch dtype from a name, a numpy dtype or type, a Python type or
     a torch dtype (None stays None)."""
+    dtype = getattr(dtype, "torch_dtype", dtype)     # mx.np.bfloat16
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
     if dtype in _PY_TYPES:

@@ -34,7 +34,31 @@ from ..ndarray.ndarray import (NDArray, apply_op, as_tensor, to_numpy_dtype,
 ndarray = NDArray
 
 float16, float32, float64 = onp.float16, onp.float32, onp.float64
-bfloat16 = torch.bfloat16
+
+
+class _ScalarType(type):
+    """The type of a scalar type numpy lacks: equal to its torch dtype,
+    so it serves as a dtype anywhere one is taken or compared."""
+
+    def __eq__(cls, other):
+        return other is cls or other == cls.torch_dtype
+
+    def __hash__(cls):
+        return hash(cls.torch_dtype)
+
+    def __repr__(cls):
+        return "<class 'mx.np.%s'>" % cls.__name__
+
+
+class bfloat16(metaclass=_ScalarType):
+    """``np.bfloat16(1.5)``: a 0-d bfloat16 array on the current context,
+    as the JAX package's scalar type gives; as a dtype, bfloat16."""
+    torch_dtype = torch.bfloat16
+
+    def __new__(cls, value=0):
+        return array(value, dtype=torch.bfloat16)  # noqa: F821
+
+
 int8, int16, int32, int64 = onp.int8, onp.int16, onp.int32, onp.int64
 uint8, uint16, uint32, uint64 = onp.uint8, onp.uint16, onp.uint32, onp.uint64
 bool_ = onp.bool_
@@ -141,19 +165,44 @@ def _spacing(x):
                            .to(x.dtype)) - x
 
 
+def _bool_kept(fn):
+    """``fn`` for numbers; a bool array unchanged (numpy's ``abs`` /
+    ``positive`` of bools)."""
+    return lambda x: x if x.dtype == torch.bool else fn(x)
+
+
+def _exact_kept(fn):
+    """``fn`` for floats; integers and bools unchanged, in their dtype
+    (``floor`` / ``ceil`` / ``trunc`` / ``fix`` / ``nan_to_num`` of an
+    int32 stay int32, of a bool bool)."""
+    return lambda x, **kw: fn(x, **kw) if x.is_floating_point() or \
+        x.is_complex() else x
+
+
+def _square(x):
+    return torch.square(x.to(torch.int32) if x.dtype == torch.bool else x)
+
+
+def _imag(x):
+    return torch.imag(x) if x.is_complex() else torch.zeros_like(x)
+
+
 _UNARY = {
-    "negative": torch.neg, "positive": torch.positive,
-    "absolute": torch.abs, "abs": torch.abs, "sign": torch.sign,
-    "square": torch.square, "logical_not": torch.logical_not,
+    "negative": torch.neg, "positive": _bool_kept(torch.positive),
+    "absolute": _bool_kept(torch.abs), "abs": _bool_kept(torch.abs),
+    "sign": torch.sign, "square": _square,
+    "logical_not": torch.logical_not,
     "invert": torch.bitwise_not, "bitwise_not": torch.bitwise_not,
     "conjugate": torch.conj_physical, "conj": torch.conj_physical,
     "isnan": torch.isnan, "isinf": torch.isinf, "isfinite": torch.isfinite,
     "isposinf": torch.isposinf, "isneginf": torch.isneginf,
-    "real": torch.real, "imag": torch.imag,
+    "real": torch.real, "imag": _imag,
+    **{n: _exact_kept(f) for n, f in (
+        ("ceil", torch.ceil), ("floor", torch.floor), ("trunc", torch.trunc),
+        ("fix", torch.trunc), ("nan_to_num", torch.nan_to_num))},
 }
 _UNARY_FLOAT = {
-    "fabs": torch.abs, "rint": torch.round, "ceil": torch.ceil,
-    "floor": torch.floor, "trunc": torch.trunc, "fix": torch.trunc,
+    "fabs": torch.abs, "rint": torch.round,
     "sqrt": torch.sqrt, "cbrt": _cbrt, "reciprocal": torch.reciprocal,
     "exp": torch.exp, "expm1": torch.expm1, "exp2": torch.exp2,
     "log": torch.log, "log2": torch.log2, "log10": torch.log10,
@@ -164,7 +213,7 @@ _UNARY_FLOAT = {
     "arctanh": torch.arctanh, "degrees": torch.rad2deg,
     "radians": torch.deg2rad, "deg2rad": torch.deg2rad,
     "rad2deg": torch.rad2deg, "angle": torch.angle, "i0": torch.i0,
-    "sinc": torch.sinc, "nan_to_num": torch.nan_to_num, "spacing": _spacing,
+    "sinc": torch.sinc, "spacing": _spacing,
 }
 for _n, _f in _UNARY.items():
     globals()[_n] = _unary(_f, _n)
@@ -178,11 +227,22 @@ def _floor_divide(a, b):
         else torch.floor(a / b)
 
 
+def _remainder(a, b):
+    """numpy's ``mod``: an integer modulo 0 gives 0, not an error."""
+    if a.is_floating_point() or b.is_floating_point() or \
+            a.is_complex() or b.is_complex():
+        return torch.remainder(a, b)
+    zero = b == 0
+    r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros((), dtype=r.dtype,
+                                         device=r.device), r)
+
+
 _BINARY = {
     "add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
     "divide": torch.true_divide, "true_divide": torch.true_divide,
-    "floor_divide": _floor_divide, "mod": torch.remainder,
-    "remainder": torch.remainder, "fmod": torch.fmod, "power": torch.pow,
+    "floor_divide": _floor_divide, "mod": _remainder,
+    "remainder": _remainder, "fmod": torch.fmod, "power": torch.pow,
     "maximum": torch.maximum, "minimum": torch.minimum,
     "bitwise_and": torch.bitwise_and, "bitwise_or": torch.bitwise_or,
     "bitwise_xor": torch.bitwise_xor,
@@ -271,12 +331,20 @@ def _sum(x, dim, keepdim=False):
     return torch.sum(x, dim, keepdim=keepdim)
 
 
+def _axis(ax, nd):
+    """``ax`` within ``nd`` dimensions, made non-negative; numpy's
+    ``AxisError`` (a ValueError and an IndexError) where it is not."""
+    if not -nd <= ax < nd:
+        raise onp.exceptions.AxisError(ax, nd)
+    return ax % nd
+
+
 def _prod(x, dim, keepdim=False):
     if isinstance(dim, tuple):
-        for d in sorted((d % x.dim() for d in dim), reverse=True):
+        for d in sorted((_axis(d, x.dim()) for d in dim), reverse=True):
             x = torch.prod(x, d, keepdim=keepdim)
         return x
-    return torch.prod(x, dim, keepdim=keepdim)
+    return torch.prod(x, _axis(dim, x.dim()), keepdim=keepdim)
 
 
 def _nanprod(x, dim, keepdim=False):
@@ -294,8 +362,9 @@ def _amin(x, dim, keepdim=False):
 
 def _nanfill(fn, fill):
     def g(x, dim, keepdim=False):
-        return fn(torch.where(torch.isnan(x), torch.full_like(x, fill), x),
-                  dim, keepdim=keepdim)
+        if x.is_floating_point():       # an integer array holds no NaN
+            x = torch.where(torch.isnan(x), torch.full_like(x, fill), x)
+        return fn(x, dim, keepdim=keepdim)
     return g
 
 
@@ -420,6 +489,8 @@ cumprod = _cum(torch.cumprod, "cumprod")
 def _arg(fn, name):
     def f(a, axis=None, out=None, keepdims=False):
         def g(x):
+            if x.dtype == torch.bool:
+                x = x.to(torch.uint8)
             if axis is None:
                 r = fn(x.reshape(-1))
                 return r.reshape((1,) * x.dim()) if keepdims else r
@@ -665,7 +736,11 @@ def moveaxis(a, source, destination):
 def rollaxis(a, axis, start=0):
     def g(x):
         n = x.dim()
-        ax, st = axis % n, start if start >= 0 else start + n
+        ax = _axis(axis, n)
+        if not -n <= start <= n:
+            raise onp.exceptions.AxisError(
+                "start=%d must satisfy %d<=start<=%d" % (start, -n, n))
+        st = start if start >= 0 else start + n
         if ax < st:
             st -= 1
         return torch.movedim(x, ax, st)
@@ -681,8 +756,18 @@ def expand_dims(a, axis):
 
 
 def squeeze(a, axis=None):
-    return apply_op(lambda x: torch.squeeze(x) if axis is None
-                    else torch.squeeze(x, _axes(axis)), [a], "squeeze")
+    def g(x):
+        if axis is None:
+            return torch.squeeze(x)
+        axes = _axes(axis)
+        for ax in axes if isinstance(axes, tuple) else (axes,):
+            if x.shape[_axis(ax, x.dim())] != 1:
+                raise ValueError("cannot select an axis to squeeze out "
+                                 "which has size not equal to one, got "
+                                 "shape=%s and axis=%s"
+                                 % (tuple(x.shape), axis))
+        return torch.squeeze(x, axes)
+    return apply_op(g, [a], "squeeze")
 
 
 def broadcast_to(a, shape):
@@ -748,6 +833,9 @@ def _split_points(n, spec, even):
     if isinstance(spec, NDArray):
         spec = spec.asnumpy().tolist()
     if isinstance(spec, (builtins.int, onp.integer)):
+        if spec < 0:
+            raise ValueError("number sections must be larger than 0, got "
+                             "%d" % spec)
         if even and n % spec:
             raise ValueError("array split does not result in an equal "
                              "division")
@@ -815,6 +903,8 @@ def flipud(a):
 
 
 def roll(a, shift, axis=None):
+    if axis is None and isinstance(shift, (tuple, list)):
+        shift = builtins.sum(shift)     # the flat array, by every shift
     return apply_op(lambda x: torch.roll(x, shift, axis), [a], "roll")
 
 
@@ -963,6 +1053,8 @@ def pad(a, pad_width, mode="constant", **kw):
 def resize(a, new_shape):
     shape = (new_shape,) if isinstance(new_shape, builtins.int) \
         else tuple(new_shape)
+    if builtins.any(d < 0 for d in shape):
+        raise ValueError("all elements of `new_shape` must be non-negative")
     n = int(onp.prod(shape))
     return apply_op(lambda x: x.reshape(-1).repeat(
         -(-n // builtins.max(x.numel(), 1)))[:n].reshape(shape), [a],
@@ -1064,8 +1156,16 @@ def triu_indices_from(arr, k=0):
 
 
 def trace(a, offset=0, axis1=0, axis2=1, dtype=None, out=None):
-    return apply_op(lambda x: torch.diagonal(x, offset, axis1, axis2)
-                    .sum(-1), [a], "trace", out)
+    dt = _dt(dtype)
+
+    def g(x):
+        d = torch.diagonal(x, offset, axis1, axis2)
+        if dt is not None:
+            return d.to(dt).sum(-1, dtype=dt)
+        r = _sum(d, -1)           # int32 stays int32, as sum's does
+        return r.to(torch.int32) if r.dtype == torch.int64 and \
+            d.dtype != torch.int64 else r
+    return apply_op(g, [a], "trace", out)
 
 
 def searchsorted(a, v, side="left", sorter=None):
@@ -1077,6 +1177,9 @@ def searchsorted(a, v, side="left", sorter=None):
 
 def select(condlist, choicelist, default=0):
     n = len(condlist)
+    if n != len(choicelist):
+        raise ValueError("condlist must have length equal to choicelist "
+                         "(%d vs %d)" % (n, len(choicelist)))
 
     def g(*xs):
         out = torch.full_like(xs[n], default) if not _is_arr(default) \
@@ -1143,8 +1246,10 @@ def diff(a, n=1, axis=-1, prepend=None, append=None):
 
 def gradient(f, *varargs, axis=None, edge_order=1):
     sp = [v._data if isinstance(v, NDArray) else v for v in varargs]
+    # one scalar spacing serves every axis: torch takes it bare
+    spacing = sp[0] if len(sp) == 1 and onp.ndim(sp[0]) == 0 else sp or 1
     res = apply_op(lambda x: torch.gradient(
-        _float(x), spacing=sp if sp else 1,
+        _float(x), spacing=spacing,
         dim=_axes(axis) if axis is not None else None,
         edge_order=edge_order), [f], "gradient")
     return res[0] if len(res) == 1 else res
@@ -1294,9 +1399,21 @@ def bincount(x, weights=None, minlength=0):
         [x] + ([] if weights is None else [weights]), "bincount")
 
 
+def _digitize(a, b, right):
+    """numpy's ``digitize``: increasing bins (``b[-1] >= b[0]``) by a
+    search, decreasing ones by the search of the flipped bins counted
+    from the end."""
+    if b.numel() and b[-1] < b[0]:
+        r = b.numel() - torch.searchsorted(torch.flip(b, (0,)), a,
+                                           right=not right)
+    else:
+        r = torch.bucketize(a, b, right=not right)
+    return r.to(torch.int32)
+
+
 def digitize(x, bins, right=False):
-    return apply_op(lambda a, b: torch.bucketize(a, b, right=not right)
-                    .to(torch.int32), [x, bins], "digitize")
+    return apply_op(lambda a, b: _digitize(a, b, right), [x, bins],
+                    "digitize")
 
 
 # ----------------------------------------------------------------------
@@ -1322,7 +1439,7 @@ def array_equiv(a1, a2):
 
 
 def allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
-    return builtins.bool(isclose(a, b, rtol, atol, equal_nan).all())
+    return builtins.bool(isclose(a, b, rtol, atol, equal_nan)._data.all())
 
 
 def isclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):

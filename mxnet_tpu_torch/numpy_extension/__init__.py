@@ -318,7 +318,7 @@ def reshape_like(lhs, rhs):
 
 
 def shape_array(data):
-    return NDArray(torch.tensor(data.shape, dtype=torch.int64,
+    return NDArray(torch.tensor(data.shape, dtype=torch.int32,
                                 device=data._data.device))
 
 

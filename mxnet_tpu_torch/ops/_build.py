@@ -166,9 +166,11 @@ def _signatures():
                                            p],
                         "mx_int8_dequant": [p, p, ctypes.c_longlong, d, i,
                                             p]},
-        # x q, x's dtype code, N C P G Cgp, scale, stream | the ConvArgs
-        # struct, its bytes, stream | no arguments
-        "int8_conv": {"mx_int8_quantize": [p, p, i, i, i, i, i, i, f, p],
+        # x q, x's dtype code, N C P G Cgp, the tile width, scale, stream
+        # | x q, dtype code, the 16 ints of the geometry, scale, stream |
+        # the ConvArgs struct, its bytes, stream | no arguments
+        "int8_conv": {"mx_int8_quantize": [p, p, i, i, i, i, i, i, i, f, p],
+                      "mx_int8_quantize_im2col": [p, p, i, p, f, p],
                       "mx_int8_conv": [p, i, p],
                       "mx_int8_conv_args_size": []},
     }

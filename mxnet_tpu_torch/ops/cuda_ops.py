@@ -71,10 +71,12 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "multi_lamb_phase2": 0, "multi_all_finite": 0,
             # the int8 weight path (ops/int8.py): the decode product, the
             # prefill's dequantize; post-training quantization's activation
-            # quantize and int8 convolution / product (every call, and
-            # each call again under its route)
+            # quantize (every call, and its im2col calls again) and int8
+            # convolution / product (every call, and each call again under
+            # its route)
             "int8_linear": 0, "int8_dequant": 0, "int8_quantize": 0,
-            "int8_conv": 0, "int8_conv_hopper": 0, "int8_conv_general": 0}
+            "int8_quantize_im2col": 0, "int8_conv": 0,
+            "int8_conv_hopper": 0, "int8_conv_general": 0}
 
 #: dtype codes of the general kernels' C interface (csrc/general.cuh)
 GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,

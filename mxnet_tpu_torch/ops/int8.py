@@ -19,14 +19,19 @@ kernel on CUDA) and run one plain product.
 Post-training quantization (``contrib.quantization``'s quantized layers,
 ``nd.contrib``'s int8 family) runs two kernels of ``csrc/int8_conv.cu``:
 :func:`int8_quantize` (``clip(round(x / scale), -127, 127)`` to int8,
-written NHWC with each group's channels padded to a multiple of 4) and
-:func:`int8_conv` (the int8 x int8 -> int32 convolution on the tensor
-cores, with a raw int32 or a scaled float epilogue; a Dense product is
-its 1 x 1 convolution over (M, K, 1, 1)), on the route
-:func:`int8_conv_route` picks (``wgmma`` for one group of a multiple of
-32 channels, planned by :func:`int8_conv_plan`; else ``mma.sync``).
-Weights are quantized and repacked once by :func:`pack_conv_weight`.
-Each equals its plain version bit for bit.
+written NHWC with each group's channels padded to a multiple of 4, tiled
+as :func:`int8_quantize_plan` says) or :func:`int8_quantize_im2col` (the
+same values as im2col rows, for one group of a channel count that is not
+a multiple of 32: the stem), and :func:`int8_conv` (the int8 x int8 ->
+int32 convolution on the tensor cores, with a raw int32 or a scaled
+float epilogue; a Dense product is its 1 x 1 convolution over (M, K, 1,
+1), the im2col rows' too), on the route :func:`int8_conv_route` picks
+(``wgmma`` for one group of a multiple of 32 channels, planned by
+:func:`int8_conv_plan`; else ``mma.sync``).  :func:`int8_conv_mode`
+chooses between the two quantize layouts from a layer's geometry, and
+:func:`quantized_conv` runs the pair.  Weights are quantized and
+repacked once by :func:`pack_conv_weight`.  Each equals its plain
+version bit for bit.
 """
 from __future__ import annotations
 
@@ -43,9 +48,11 @@ from .cuda_ops import GENERAL_DTYPES, LAUNCHES, _is_cuda
 __all__ = ["dequantize", "dequantize_plain", "int8_linear",
            "int8_linear_group", "int8_linear_group_plain",
            "int8_linear_plain", "int8_linear_plan", "int8_quantize",
-           "int8_quantize_plain", "int8_conv", "int8_conv_plain",
+           "int8_quantize_plain", "int8_quantize_plan",
+           "int8_quantize_im2col", "int8_quantize_im2col_plain",
+           "int8_conv", "int8_conv_plain", "int8_conv_mode",
            "int8_conv_route", "int8_conv_plan", "pack_conv_weight",
-           "padded_channels", "quantize_tensor"]
+           "padded_channels", "quantize_tensor", "quantized_conv"]
 
 
 def dequantize_plain(q, scale, dtype):
@@ -222,6 +229,16 @@ OUT_KINDS = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
 #: the convolution's depth step (``BK`` of csrc/int8_conv.cu): a packed
 #: weight row is padded to a multiple of it
 CONV_BK = 64
+#: K2's tile, output bytes (``QTILE``): TP positions x TCB channels
+QUANT_TILE = 4096
+#: K2's threads a CTA (``QNT``) and the most CTAs its row kernel starts
+QUANT_THREADS, QUANT_GRID_CAP = 256, 132 * 16
+#: depth bytes an im2col row may hold (``COL_WORDS`` x 4); its rows are
+#: padded to a multiple of IM2COL_ALIGN, the hopper route's channel step
+IM2COL_MAX_K, IM2COL_ALIGN = 2048, 32
+#: the quantized input patch an im2col CTA holds (``COL_PATCH``), and the
+#: output positions a CTA aims at
+IM2COL_PATCH, IM2COL_ROWS = 24576, 512
 _CONV_ARGS = onp.dtype(
     [(k, "<u8") for k in ("x", "w", "out", "scale", "bias", "bias_i32")]
     + [(k, "<i8") for k in ("sN", "sC", "sP")]
@@ -280,6 +297,38 @@ def int8_quantize_plain(x, scale, groups=1):
     return _nhwc_groups(q, groups)
 
 
+def int8_quantize_plan(N, C, P, groups=1):
+    """K2's launch for x (N, C, P) -> (N, P, G * Cgp).  ``"rows"`` where
+    P == 1 (the Dense's (M, K)) or an output row is under 16 bytes (the
+    stem's 4): ``quantize_kernel``, a thread a 4-byte word of one row,
+    consecutive threads consecutive words, at most QUANT_GRID_CAP CTAs;
+    else ``"tile"`` (``quantize_tile``): a CTA transposes ``positions``
+    x ``tcb`` output bytes of one image, QUANT_TILE in all, ``tcb`` 128
+    for rows wider than 64 bytes (a 128-byte line of each position),
+    else the row rounded up to 16, 32 or 64; ``ptiles`` x ``ctiles``
+    tiles an image, ``ctas`` in all."""
+    ctot = groups * padded_channels(C // groups)
+    if P == 1 or ctot < 16:
+        words = N * P * ctot // 4
+        return {"kind": "rows", "tcb": 0, "ctas": min(
+            -(-words // QUANT_THREADS), QUANT_GRID_CAP)}
+    tcb = next(w for w in (16, 32, 64, 128) if ctot <= w or w == 128)
+    tp = QUANT_TILE // tcb
+    ptiles, ctiles = -(-P // tp), -(-ctot // tcb)
+    return {"kind": "tile", "tcb": tcb, "positions": tp, "ptiles": ptiles,
+            "ctiles": ctiles, "ctas": N * ptiles * ctiles}
+
+
+def _quant_code(x, name):
+    code = QUANT_DTYPES.get(x.dtype)
+    if code is None:
+        raise TypeError("%s takes float16, bfloat16, float32 or int8 x, got "
+                        "%s" % (name, x.dtype))
+    if not x.is_contiguous():
+        raise ValueError("%s: x must be contiguous" % name)
+    return code
+
+
 def int8_quantize(x, scale, groups=1):
     """``x`` (N, C, *spatial) -- NCHW, or (M, K) -- in float16, bfloat16,
     float32 or int8, quantized with ``scale`` (a Python float, rounded to
@@ -287,33 +336,132 @@ def int8_quantize(x, scale, groups=1):
     ``groups`` groups' C / G channels padded with zeros to
     :func:`padded_channels`.  An int8 ``x`` takes ``scale`` 1 and is only
     laid out, its values (-128 included) unchanged.  The
-    ``int8_quantize`` kernel on CUDA (one launch),
-    :func:`int8_quantize_plain` on the CPU; the same bits."""
+    ``int8_quantize`` kernel on CUDA (one launch, planned by
+    :func:`int8_quantize_plan`), :func:`int8_quantize_plain` on the CPU;
+    the same bits."""
     if x.dim() < 2 or x.shape[1] % groups:
         raise ValueError("int8_quantize: x of shape %s does not split into "
                          "%d groups of channels" % (tuple(x.shape), groups))
     _int8_scale(x, scale)
     if not x.is_cuda:
         return int8_quantize_plain(x, scale, groups)
-    code = QUANT_DTYPES.get(x.dtype)
-    if code is None:
-        raise TypeError("int8_quantize takes float16, bfloat16, float32 or "
-                        "int8 x, got %s" % x.dtype)
-    if not x.is_contiguous():
-        raise ValueError("int8_quantize: x must be contiguous")
+    code = _quant_code(x, "int8_quantize")
     N, C, sp = x.shape[0], x.shape[1], x.shape[2:]
     cgp = padded_channels(C // groups)
     q = torch.empty((N, *sp, groups * cgp), dtype=torch.int8,
                     device=x.device)
     if q.numel() == 0:
         return q
+    P = math.prod(sp)
     err = _build.library("int8_conv").mx_int8_quantize(
-        x.data_ptr(), q.data_ptr(), code, N, C, math.prod(sp), groups, cgp,
-        scale, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), q.data_ptr(), code, N, C, P, groups, cgp,
+        int8_quantize_plan(N, C, P, groups)["tcb"], scale,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("int8_quantize kernel launch failed: CUDA error "
                            "%d" % err)
     LAUNCHES["int8_quantize"] += 1
+    return q
+
+
+def _patch_bytes(geo, th, tw):
+    kh, kw, sh, sw, dh, dw = (geo[i] for i in (5, 6, 7, 8, 11, 12))
+    return ((th - 1) * sh + (kh - 1) * dh + 1) * \
+        ((tw - 1) * sw + (kw - 1) * dw + 1) * geo[4]
+
+
+def int8_im2col_plan(geo):
+    """The im2col mode's launch for ``geo`` (:func:`_col_geometry`): a
+    CTA takes ``th`` x ``tw`` output positions of one image, its input
+    patch quantized into at most IM2COL_PATCH bytes of shared memory:
+    whole output rows where their patch fits (else the widest share of a
+    row, halving), then rows doubled while the patch fits, up to
+    IM2COL_ROWS positions.  None where one position's patch is too
+    big."""
+    OH, OW = geo[13], geo[14]
+    if _patch_bytes(geo, 1, 1) > IM2COL_PATCH:
+        return None
+    tw = OW
+    while _patch_bytes(geo, 1, tw) > IM2COL_PATCH:
+        tw = (tw + 1) // 2
+    th = 1
+    while (th < OH and th * tw < IM2COL_ROWS and
+           _patch_bytes(geo, 2 * th, tw) <= IM2COL_PATCH):
+        th *= 2
+    ctas = geo[0] * -(-OH // th) * -(-OW // tw)
+    return {"th": th, "tw": tw, "patch": _patch_bytes(geo, th, tw),
+            "ctas": ctas}
+
+
+def _col_geometry(shape, kernel, stride, padding, dilation):
+    """The im2col rows' geometry for x of ``shape`` (N, C, H, W): (N, C,
+    H, W, Cgp, KH, KW, sh, sw, ph, pw, dh, dw, OH, OW, Kc), the first 16
+    ints of ``ColGeo`` of csrc/int8_conv.cu."""
+    if len(shape) != 4:
+        raise ValueError("int8_quantize_im2col: x of shape %s is not (N, C, "
+                         "H, W)" % (tuple(shape),))
+    N, C, H, W = shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel, stride, padding, dilation
+    cgp = padded_channels(C)
+    kc = -(-kh * kw * cgp // IM2COL_ALIGN) * IM2COL_ALIGN
+    return (N, C, H, W, cgp, kh, kw, sh, sw, ph, pw, dh, dw,
+            _out_size(H, kh, sh, ph, dh), _out_size(W, kw, sw, pw, dw), kc)
+
+
+def int8_quantize_im2col_plain(x, scale, kernel, stride=(1, 1),
+                               padding=(0, 0), dilation=(1, 1)):
+    """The plain version of :func:`int8_quantize_im2col`, on any device:
+    the quantized values (exact in float32) unfolded, each tap's channels
+    padded to Cgp, the depth reordered to (kh, kw, c) c fastest and
+    padded to Kc."""
+    _int8_scale(x, scale)
+    N, C, H, W, cgp, kh, kw, *_, OH, OW, kc = _col_geometry(
+        x.shape, kernel, stride, padding, dilation)
+    q = x if x.dtype == torch.int8 else quantize_tensor(x, scale)
+    q = F.pad(q.float(), (0, 0, 0, 0, 0, cgp - C))
+    cols = F.unfold(q, (kh, kw), dilation, padding, stride)
+    cols = cols.reshape(N, cgp, kh * kw, OH * OW).permute(0, 3, 2, 1)
+    cols = F.pad(cols.reshape(N, OH, OW, kh * kw * cgp),
+                 (0, kc - kh * kw * cgp))
+    return cols.to(torch.int8).contiguous()
+
+
+def int8_quantize_im2col(x, scale, kernel, stride=(1, 1), padding=(0, 0),
+                         dilation=(1, 1)):
+    """``x`` (N, C, H, W) in float16, bfloat16, float32 or int8 (one
+    group), quantized as :func:`int8_quantize` does and laid out as the
+    im2col rows of a ``kernel`` convolution: (N, OH, OW, Kc) int8, the
+    depth (kh, kw, c) c fastest with the channels padded to Cgp (the
+    order of a :func:`pack_conv_weight` row), zeros outside the image and
+    past KH * KW * Cgp, Kc that depth rounded up to IM2COL_ALIGN.  A 1 x
+    1 :func:`int8_conv` of these rows with the layer's packed weight is
+    the layer's convolution.  The ``int8_quantize`` kernel's im2col mode
+    on CUDA (one launch), :func:`int8_quantize_im2col_plain` on the CPU;
+    the same bits."""
+    geo = _col_geometry(x.shape, kernel, stride, padding, dilation)
+    _int8_scale(x, scale)
+    if not x.is_cuda:
+        return int8_quantize_im2col_plain(x, scale, kernel, stride, padding,
+                                          dilation)
+    code = _quant_code(x, "int8_quantize_im2col")
+    N, OH, OW, kc = geo[0], geo[13], geo[14], geo[15]
+    plan = int8_im2col_plan(geo)
+    if kc > IM2COL_MAX_K or plan is None or \
+            min(geo[:9] + geo[11:]) <= 0 or min(geo[9:11]) < 0:
+        raise ValueError("int8_quantize_im2col: geometry %s has no im2col "
+                         "rows (depth at most %d bytes, a position's "
+                         "patch at most %d)" % (geo, IM2COL_MAX_K,
+                                                IM2COL_PATCH))
+    q = torch.empty((N, OH, OW, kc), dtype=torch.int8, device=x.device)
+    ints = (ctypes.c_int * 18)(*geo, plan["th"], plan["tw"])   # alive
+    err = _build.library("int8_conv").mx_int8_quantize_im2col(
+        x.data_ptr(), q.data_ptr(), code, ctypes.addressof(ints), scale,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("int8_quantize im2col kernel launch failed: CUDA "
+                           "error %d" % err)
+    LAUNCHES["int8_quantize"] += 1
+    LAUNCHES["int8_quantize_im2col"] += 1
     return q
 
 
@@ -391,6 +539,45 @@ def int8_conv_route(N, H, W, cgp, groups):
     if groups == 1 and cgp % 32 == 0 and N * H * W * cgp < 2 ** 31:
         return "hopper"
     return "general"
+
+
+def int8_conv_mode(N, C, H, W, kernel, stride=(1, 1), padding=(0, 0),
+                   dilation=(1, 1), groups=1):
+    """How a quantized convolution of x (N, C, H, W) reads its input, and
+    on which K3 route: ``("im2col", "hopper")`` for one group whose
+    padded channels are not a multiple of 32 (the stem's 3 -> 4), where
+    the im2col rows fit (depth at most IM2COL_MAX_K, one position's patch
+    in IM2COL_PATCH bytes, int offsets): a 1 x 1 convolution over Kc
+    channels, which the hopper route takes; else ``("nhwc",
+    int8_conv_route(...))``."""
+    cgp = padded_channels(C // groups)
+    if groups == 1 and cgp % 32:
+        geo = _col_geometry((N, C, H, W), kernel, stride, padding, dilation)
+        OH, OW, kc = geo[13:]
+        if (kc <= IM2COL_MAX_K and OH > 0 and OW > 0 and
+                int8_im2col_plan(geo) is not None and C * H * W < 2 ** 31 and
+                int8_conv_route(N, OH, OW, kc, 1) == "hopper"):
+            return "im2col", "hopper"
+    return "nhwc", int8_conv_route(N, H, W, cgp, groups)
+
+
+def quantized_conv(x, act_scale, wpk, kernel, stride=(1, 1), padding=(0, 0),
+                   dilation=(1, 1), groups=1, **epilogue):
+    """``x`` (N, C, H, W) quantized with ``act_scale`` and convolved with
+    the packed weight ``wpk``: :func:`int8_quantize` then
+    :func:`int8_conv`, or where :func:`int8_conv_mode` says so
+    :func:`int8_quantize_im2col` then the rows' 1 x 1 :func:`int8_conv`
+    (the same bits).  ``epilogue``: :func:`int8_conv`'s keywords."""
+    N, C, H, W = x.shape
+    mode, _ = int8_conv_mode(N, C, H, W, kernel, stride, padding, dilation,
+                             groups)
+    if mode == "im2col":
+        cols = int8_quantize_im2col(x, act_scale, kernel, stride, padding,
+                                    dilation)
+        return int8_conv(cols, wpk, (1, 1), **epilogue)
+    xq = int8_quantize(x, act_scale, groups)
+    return int8_conv(xq, wpk, kernel, stride, padding, dilation, groups,
+                     **epilogue)
 
 
 def int8_conv_plan(M, O, Kp):

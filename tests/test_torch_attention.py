@@ -19,7 +19,8 @@ import jax.numpy as jnp
 from mxnet_tpu.ops import pallas_ops
 from mxnet_tpu_torch.ops import cuda_ops
 from mxnet_tpu_torch.ops.int8 import (dequantize, int8_conv, int8_linear,
-                                      int8_quantize, pack_conv_weight)
+                                      int8_quantize, int8_quantize_im2col,
+                                      pack_conv_weight)
 from mxnet_tpu_torch.ops.multi_tensor import multi_all_finite
 
 ATOL = 2e-5
@@ -116,6 +117,7 @@ def test_cpu_path_launches_no_kernel():
     xq = int8_quantize(qq[0, 0].reshape(1, 4, 16, 16), 0.5)
     int8_conv(xq, pack_conv_weight(torch.ones(3, 4, 3, 3, dtype=torch.int8),
                                    1), (3, 3), out_dtype=torch.int32)
+    int8_quantize_im2col(qq[0, 0].reshape(1, 4, 16, 16), 0.5, (3, 3))
     multi_all_finite([qq, kk])
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
     assert cuda_ops.LAUNCHES == dict.fromkeys(
@@ -123,8 +125,8 @@ def test_cpu_path_launches_no_kernel():
         + ["flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
            "multi_sgd", "multi_adam", "multi_lamb_phase1",
            "multi_lamb_phase2", "multi_all_finite", "int8_linear",
-           "int8_dequant", "int8_quantize", "int8_conv", "int8_conv_hopper",
-           "int8_conv_general"], 0)
+           "int8_dequant", "int8_quantize", "int8_quantize_im2col",
+           "int8_conv", "int8_conv_hopper", "int8_conv_general"], 0)
 
 
 def test_gqa_head_mismatch_raises():

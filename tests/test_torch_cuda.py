@@ -19,6 +19,8 @@ that key's value row, up to ~4.5 here; the lse is float32 and within
 1e-5.  The paged kernel keeps P in float32, so its bf16 output is within
 one bf16 step of plain: 1e-3 + 1e-2 * |plain|.
 """
+import math
+
 import numpy as onp
 import pytest
 import torch
@@ -1222,6 +1224,134 @@ def test_int8_quantize_matches_plain_bit_for_bit(dev, dtype):
             assert torch.equal(got, int8_quantize_plain(x, s, groups))
 
 
+def _quant_edges(dev, scale):
+    """float32 values where K2's rounding is at stake for ``scale``: the
+    halves k + .5 of it and their neighbours, +-127.5 of it, zeros,
+    denormals, huge values, inf and NaN, then quotients spread over the
+    int8 range."""
+    s = torch.tensor(scale, dtype=torch.float32, device=dev)
+    k = torch.arange(-130, 130, device=dev, dtype=torch.float32) + 0.5
+    halves = torch.cat([k * s, torch.tensor([127.5, -127.5],
+                                            device=dev) * s])
+    up, down = (torch.nextafter(halves, torch.full_like(halves, v))
+                for v in (float("inf"), float("-inf")))
+    special = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-40, -3e-39, 3e38,
+                            -3e38, float("inf"), float("-inf"),
+                            float("nan")], device=dev)
+    spread = torch.linspace(-140, 140, 4093, device=dev) * s
+    return torch.cat([halves, up, down, special, spread])
+
+
+@pytest.mark.parametrize("scale", [0.0123, 0.5, 1 / 3, 1e-30, 1e-39, 3e38])
+def test_int8_quantize_edge_values_bit_for_bit(dev, scale):
+    """Both K2 layouts against plain at the values where the quotient's
+    rounding decides: a fast quotient near a half goes to the IEEE
+    division; scales whose reciprocal is not normal take it always."""
+    from mxnet_tpu_torch.ops import int8 as i8
+    v = _quant_edges(dev, scale)
+    n = v.numel() // 64 * 64
+    for x in (v[:n].reshape(2, 32, n // 64), v[:n].reshape(2, 16, 2, -1)):
+        assert torch.equal(i8.int8_quantize(x, scale),
+                           i8.int8_quantize_plain(x, scale))
+    x = v[:n].reshape(1, 2, 8, n // 16)
+    geo = ((3, 3), (1, 1), (1, 1), (1, 1))
+    assert torch.equal(i8.int8_quantize_im2col(x, scale, *geo),
+                       i8.int8_quantize_im2col_plain(x, scale, *geo))
+
+
+# (shape, groups): P = 49 and P % 4 != 0, channels that are not a multiple
+# of the tile (200: a 128-byte line and 72 bytes; 37 -> 40), the stem's 3,
+# groups, a Dense input (P = 1), whole 64-byte and 16-byte rows
+K2_CASES = [((2, 512, 7, 7), 1), ((3, 64, 5, 7), 1), ((1, 200, 9, 11), 1),
+            ((2, 37, 6, 6), 1), ((2, 3, 17, 19), 1), ((1, 12, 5, 7), 3),
+            ((2, 64, 14, 14), 2), ((5, 37), 1), ((32, 2048), 1),
+            ((2, 256, 28, 28), 1), ((1, 16, 33, 3), 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.int8])
+def test_int8_quantize_tiles_match_plain_bit_for_bit(dev, dtype):
+    """Each tile width and the row kernel, on aligned and unaligned x (a
+    view one element in: no vector loads), one launch a call."""
+    from mxnet_tpu_torch.ops import int8 as i8
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for shape, groups in K2_CASES:
+        numel = math.prod(shape)
+        if dtype == torch.int8:
+            flat = torch.randint(-128, 128, (numel + 1,), generator=gen,
+                                 device=dev, dtype=torch.int8)
+            flat[:8] = -128
+            scales = (1.0,)
+        else:
+            flat = (torch.randn(numel + 1, generator=gen, device=dev) * 3) \
+                .to(dtype)
+            scales = (0.0123, 0.5)
+        for x in (flat[:numel].view(shape), flat[1:].view(shape)):
+            for s in scales:
+                before = cuda_ops.LAUNCHES["int8_quantize"]
+                got = i8.int8_quantize(x, s, groups)
+                assert cuda_ops.LAUNCHES["int8_quantize"] == before + 1
+                assert torch.equal(got, i8.int8_quantize_plain(x, s, groups))
+
+
+# (N, C, H, W, kernel, stride, pad, dilation): the stem, dilation and odd
+# padding, 12 channels (108 -> 128 of depth), a 1 x 1, the widest depth
+IM2COL_CASES = [(2, 3, 224, 224, 7, 2, 3, 1), (1, 3, 17, 19, 3, 1, 3, 2),
+                (2, 12, 9, 7, 3, 2, 1, 1), (3, 4, 8, 8, 1, 1, 0, 1),
+                (1, 20, 12, 12, 10, 1, 4, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.int8])
+@pytest.mark.parametrize("case", IM2COL_CASES)
+def test_int8_quantize_im2col_matches_plain_bit_for_bit(dev, case, dtype):
+    from mxnet_tpu_torch.ops import int8 as i8
+    N, C, H, W, k, s, p, d = case
+    gen = torch.Generator(device=dev).manual_seed(8)
+    if dtype == torch.int8:
+        x = torch.randint(-128, 128, (N, C, H, W), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = 1.0
+    else:
+        x = (torch.randn(N, C, H, W, generator=gen, device=dev) * 3) \
+            .to(dtype)
+        scale = 0.0123
+    geo = ((k, k), (s, s), (p, p), (d, d))
+    before = dict(cuda_ops.LAUNCHES)
+    got = i8.int8_quantize_im2col(x, scale, *geo)
+    assert cuda_ops.LAUNCHES["int8_quantize"] == before["int8_quantize"] + 1
+    assert cuda_ops.LAUNCHES["int8_quantize_im2col"] == \
+        before["int8_quantize_im2col"] + 1
+    assert torch.equal(got, i8.int8_quantize_im2col_plain(x, scale, *geo))
+
+
+def test_the_stems_hopper_route_equals_the_general_route(dev):
+    """The stem through ``quantized_conv`` (im2col rows, the hopper
+    route's 1 x 1) against the NHWC quantize and the general kernel:
+    the same bits in every epilogue."""
+    from mxnet_tpu_torch.ops import int8 as i8
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand(4, 3, 224, 224, generator=gen, device=dev)
+    wq = torch.randint(-127, 128, (64, 3, 7, 7), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wpk = i8.pack_conv_weight(wq, 1)
+    scale = torch.rand(64, generator=gen, device=dev) * 1e-3
+    bias = torch.randn(64, generator=gen, device=dev)
+    geo = ((7, 7), (2, 2), (3, 3), (1, 1))
+    assert i8.int8_conv_mode(4, 3, 224, 224, *geo) == ("im2col", "hopper")
+    xq = i8.int8_quantize(x, 1 / 127)
+    for kw in (dict(out_dtype=torch.int32),
+               dict(scale=scale, bias=bias, relu=True),
+               dict(scale=scale, out_dtype=torch.bfloat16,
+                    channels_last=True)):
+        cuda_ops.reset_launch_counts()
+        got = i8.quantized_conv(x, 1 / 127, wpk, *geo, **kw)
+        assert cuda_ops.LAUNCHES["int8_conv_hopper"] == 1
+        assert cuda_ops.LAUNCHES["int8_quantize_im2col"] == 1
+        want = i8._int8_conv(xq, wpk, *geo, route="general", **kw)
+        assert torch.equal(got, want)
+
+
 # (N, C, H, W, O, kernel, stride, pad, dilation, groups)
 INT8_CONV_CASES = [
     (2, 3, 32, 32, 64, 7, 2, 3, 1, 1),       # the stem, C = 3
@@ -1338,6 +1468,11 @@ def test_quantized_net_hybridizes_into_graphs(dev):
         eager = net(x)
     assert cuda_ops.LAUNCHES["int8_conv"] == 3
     assert cuda_ops.LAUNCHES["int8_quantize"] == 3
+    # both convolutions' channels (3, 8) are not multiples of 32: im2col
+    # rows on the hopper route; the Dense's 16 stay on the general one
+    assert cuda_ops.LAUNCHES["int8_quantize_im2col"] == 2
+    assert cuda_ops.LAUNCHES["int8_conv_hopper"] == 2
+    assert cuda_ops.LAUNCHES["int8_conv_general"] == 1
     net.hybridize()
     net(x)
     out = net(x)

@@ -173,6 +173,51 @@ def test_quantized_conv2d(case):
                                    jacc.astype(onp.float32))
 
 
+# the stem's geometry at a small size, then dilation with odd paddings:
+# (N, C, H, W, O, kernel, stride, (ph, pw), dilation)
+IM2COL_CASES = [(2, 3, 32, 32, 16, 7, 2, (3, 3), 1),
+                (1, 3, 17, 19, 8, 3, 1, (3, 1), 2),
+                (2, 5, 15, 13, 12, 5, 2, (1, 2), 1)]
+
+
+@pytest.mark.parametrize("case", IM2COL_CASES,
+                         ids=["n%d_c%d_%dx%d_o%d_k%d_s%d_p%s_d%d" % c
+                              for c in IM2COL_CASES])
+def test_im2col_rows_by_the_packed_weight_match_jax_int32(case):
+    """The stem's path: the im2col rows (quantize_array's values, the
+    depth in pack_conv_weight's order) as a 1 x 1 int8_conv with the
+    layer's packed weight give the JAX package's int32 sums exactly."""
+    N, C, H, W, O, k, s, (ph, pw), d = case
+    x = _rand(3, N, C, H, W)
+    wq = onp.random.RandomState(4).randint(-127, 128, (O, C, k, k)) \
+        .astype(onp.int8)
+    scale = jq._minmax_scale(x)
+    aq = jq.quantize_array(jnp.asarray(x), scale)
+    dn = jax.lax.conv_dimension_numbers(aq.shape, wq.shape,
+                                        ("NCHW", "OIHW", "NCHW"))
+    jacc = onp.asarray(jax.lax.conv_general_dilated(
+        aq, jnp.asarray(wq), (s, s), [(ph, ph), (pw, pw)],
+        rhs_dilation=(d, d), dimension_numbers=dn,
+        preferred_element_type=jnp.int32))
+    geo = ((k, k), (s, s), (ph, pw), (d, d))
+    assert ti8.int8_conv_mode(N, C, H, W, *geo) == ("im2col", "hopper")
+    xt, wpk = torch.from_numpy(x), ti8.pack_conv_weight(
+        torch.from_numpy(wq), 1)
+    cols = ti8.int8_quantize_im2col_plain(xt, scale, *geo)
+    assert torch.equal(ti8.int8_quantize_im2col(xt, scale, *geo), cols)
+    kc = cols.shape[3]
+    assert kc % 32 == 0 and kc <= wpk.shape[2]
+    tacc = ti8.int8_conv(cols, wpk, (1, 1), out_dtype=torch.int32).numpy()
+    onp.testing.assert_array_equal(tacc, jacc)
+    # the layer's pair, and the NHWC layout through the general route's
+    # plain version: the same sums
+    onp.testing.assert_array_equal(ti8.quantized_conv(
+        xt, scale, wpk, *geo, out_dtype=torch.int32).numpy(), jacc)
+    onp.testing.assert_array_equal(ti8.int8_conv(
+        ti8.int8_quantize(xt, scale), wpk, *geo,
+        out_dtype=torch.int32).numpy(), jacc)
+
+
 @pytest.mark.parametrize("flatten,shape,act", [(True, (3, 3, 2, 2), "relu"),
                                                (False, (2, 3, 12), None),
                                                (True, (4, 12), "tanh")])

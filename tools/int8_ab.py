@@ -1,7 +1,8 @@
 """Compare the int8 paths of two checkouts of the port on one card, in
 alternating pairs.
 
-    python3 tools/int8_ab.py [--pairs N] [--out FILE] TREE_A TREE_B
+    python3 tools/int8_ab.py [--pairs N] [--out FILE] [--resnet-only]
+        TREE_A TREE_B
 
 Each ``TREE`` is the root of a checkout of this repository (say the
 parent commit unpacked by ``git archive`` beside this one).  One worker
@@ -28,7 +29,18 @@ card runs one tree at a time.  A measurement is:
   them: wq | wk | wv and w1 | w3 as one launch each where the tree has
   ``int8_linear_group``;
 * ``images_per_s`` / ``resnet_kernel_ms``: one hybridized forward
-  (``chip_smoke._forward_row``).
+  (``chip_smoke._forward_row``); ``k2_ms``: its ``int8_quantize``
+  kernels' device time in that forward (every kernel whose name holds
+  ``quantize_``: 54 launches); ``stem_ms``: the stem layer alone (its
+  quantize and convolution, as the tree runs them) captured in one CUDA
+  graph and replayed, L2 flushed (``chip_smoke.graph_ms``);
+* ``eager_images_per_s`` / ``eager_host_ms``: one eager forward of a
+  second net quantized the same way, host clock; ``eager_layer_us``:
+  the host time of one quantized layer's call in it (forward hooks
+  around each of the 54, mean), and ``eager_other_ms`` the forward's
+  host time outside them.
+
+``--resnet-only`` leaves the server out: the ResNet-50 metrics alone.
 
 It prints the card, each run, and for each metric each side's median
 and quartiles, the pairs B won (ties counting for neither) and the
@@ -52,7 +64,12 @@ LAYER_ORDER = [(4096, (4096, 1024, 1024)), (4096, (4096,)),
 #: each metric and whether more is better
 METRICS = {"tokens_per_s": True, "decode_ms": False,
            "decode_kernel_ms": False, "products_ms": False,
-           "images_per_s": True, "resnet_kernel_ms": False}
+           "images_per_s": True, "resnet_kernel_ms": False, "k2_ms": False,
+           "stem_ms": False, "eager_images_per_s": True,
+           "eager_host_ms": False, "eager_layer_us": False,
+           "eager_other_ms": False}
+SERVE_METRICS = ("tokens_per_s", "decode_ms", "decode_kernel_ms",
+                 "products_ms")
 
 
 def _chip_smoke():
@@ -76,10 +93,42 @@ def _decode_step(srv, reqs, res):
     return pool.run_decode(table, lengths, tokens, onp.ones(S, bool)).cpu()
 
 
-def worker(tree):
-    """Set up ``tree``'s int8 server and ResNet-50, then answer each
-    ``run`` line of stdin with one measurement, a JSON line on stdout
-    (every other print goes to stderr)."""
+def _eager_host(mt, q, net, x):
+    """Host ms of one eager forward of ``net`` on ``x`` (synchronized),
+    and the host us of each quantized layer's call inside it (forward
+    hooks around each), over 5 forwards after one warm-up."""
+    import time
+
+    import torch
+    spans, starts = [], {}
+    hooks = []
+    for m in net.modules():
+        if isinstance(m, (q.QuantizedConv2D, q.QuantizedDense)):
+            hooks.append(m.register_forward_pre_hook(
+                lambda b, a: starts.__setitem__(id(b), time.perf_counter())))
+            hooks.append(m.register_forward_hook(
+                lambda b, a, o: spans.append(time.perf_counter()
+                                             - starts[id(b)])))
+    with mt.autograd.pause():
+        net(x)
+        torch.cuda.synchronize()
+        spans.clear()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            net(x)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / 5 * 1e3
+    for h in hooks:
+        h.detach()
+    layer_us = sum(spans) / len(spans) * 1e6
+    return host, layer_us, host - sum(spans) / 5 * 1e3
+
+
+def worker(tree, resnet_only=False):
+    """Set up ``tree``'s int8 server (unless ``resnet_only``) and
+    ResNet-50, then answer each ``run`` line of stdin with one
+    measurement, a JSON line on stdout (every other print goes to
+    stderr)."""
     out, sys.stdout = sys.stdout, sys.stderr
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -94,12 +143,13 @@ def worker(tree):
     dev = torch.device("cuda")
     card = cs.card_line()
     _build.build_all()
-    net = cs.build_model(mt, dev, 32)
-    srv = mt.serve.Server(net, mt.serve.ServeConfig(
-        slots=8, page_size=128, pages=64, ladder=(128, 256, 512),
-        max_new=32, int8=True))
-    reqs = cs.make_requests(net.cfg.vocab_size)
-    res, _ = cs.serve_requests(srv, reqs, 32)           # warm
+    if not resnet_only:
+        net = cs.build_model(mt, dev, 32)
+        srv = mt.serve.Server(net, mt.serve.ServeConfig(
+            slots=8, page_size=128, pages=64, ladder=(128, 256, 512),
+            max_new=32, int8=True))
+        reqs = cs.make_requests(net.cfg.vocab_size)
+        res, _ = cs.serve_requests(srv, reqs, 32)           # warm
     gen = torch.Generator(device=dev).manual_seed(41)
     xs = {K: torch.randn(8, K, generator=gen, device=dev).to(torch.bfloat16)
           for K in (4096, 14336)}
@@ -117,10 +167,16 @@ def worker(tree):
             r0 += r
 
     x = torch.rand(cs.INT8_RESNET_B, 3, 224, 224, generator=gen, device=dev)
-    resnet = cs._resnet50(mt, dev)
-    with mt.autograd.pause():
-        resnet(x[:1])
-    q.quantize_net(resnet, calib_data=[x], calib_mode="naive")
+    nets = []
+    for _ in range(2):               # hybridized, and eager
+        resnet = cs._resnet50(mt, dev)
+        with mt.autograd.pause():
+            resnet(x[:1])
+        q.quantize_net(resnet, calib_data=[x], calib_mode="naive")
+        nets.append(resnet)
+    resnet, eager = nets
+    stem = next(m for m in eager.modules()      # never hybridized
+                if isinstance(m, q.QuantizedConv2D))
     resnet.hybridize()
     with mt.autograd.pause():
         resnet(x)
@@ -128,29 +184,35 @@ def worker(tree):
     for line in sys.stdin:
         if line.strip() != "run":
             break
-        ntok = wall = 0
-        for _ in range(3):
-            res, w = cs.serve_requests(srv, reqs, 32)
-            ntok += sum(len(r["tokens"]) for r in res)
-            wall += w
-        tps = ntok / wall
-        decode_ms, decode_kernel_ms = cs.device_busy(
-            lambda: _decode_step(srv, reqs, res), reps=50)[:2]
-        ws = [torch.randint(-127, 128, (sum(rows), K), generator=gen,
-                            device=dev, dtype=torch.int8)
-              for K, rows in shapes]
-        prod_ms = len(ws) * cs.chain_ms(
-            [lambda w=w, sh=sh: products(*sh, w)
-             for w, sh in zip(ws, shapes)], iters=5)
-        del ws
-        gc.collect()
-        torch.cuda.empty_cache()
+        got = {}
+        if not resnet_only:
+            ntok = wall = 0
+            for _ in range(3):
+                res, w = cs.serve_requests(srv, reqs, 32)
+                ntok += sum(len(r["tokens"]) for r in res)
+                wall += w
+            got["tokens_per_s"] = ntok / wall
+            got["decode_ms"], got["decode_kernel_ms"] = cs.device_busy(
+                lambda: _decode_step(srv, reqs, res), reps=50)[:2]
+            ws = [torch.randint(-127, 128, (sum(rows), K), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for K, rows in shapes]
+            got["products_ms"] = len(ws) * cs.chain_ms(
+                [lambda w=w, sh=sh: products(*sh, w)
+                 for w, sh in zip(ws, shapes)], iters=5)
+            del ws
+            gc.collect()
+            torch.cuda.empty_cache()
         row = cs._forward_row(mt, resnet, x, "int8 ab", card)
-        out.write(json.dumps({
-            "tokens_per_s": tps, "decode_ms": decode_ms,
-            "decode_kernel_ms": decode_kernel_ms,
-            "products_ms": prod_ms, "images_per_s": row["images_per_s"],
-            "resnet_kernel_ms": row["kernel_ms"]}) + "\n")
+        got["images_per_s"] = row["images_per_s"]
+        got["resnet_kernel_ms"] = row["kernel_ms"]
+        got["k2_ms"] = row["int8"]["int8_quantize"][0]
+        with mt.autograd.pause():
+            got["stem_ms"] = cs.graph_ms(lambda: stem(x))
+        (got["eager_host_ms"], got["eager_layer_us"],
+         got["eager_other_ms"]) = _eager_host(mt, q, eager, x)
+        got["eager_images_per_s"] = x.shape[0] / got["eager_host_ms"] * 1e3
+        out.write(json.dumps(got) + "\n")
         out.flush()
     return 0
 
@@ -169,11 +231,12 @@ def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out")
+    ap.add_argument("--resnet-only", action="store_true")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("trees", nargs="+")
     args = ap.parse_args(argv[1:])
     if args.worker:
-        return worker(args.trees[0])
+        return worker(args.trees[0], args.resnet_only)
     import torch
     if not torch.cuda.is_available() or len(args.trees) != 2:
         print(__doc__, file=sys.stderr)
@@ -181,7 +244,8 @@ def main(argv):
     cs = _chip_smoke()
     print(cs.card_line(), flush=True)
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--worker", t],
+        [sys.executable, os.path.abspath(__file__), "--worker", t]
+        + (["--resnet-only"] if args.resnet_only else []),
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
         for t in args.trees]
     runs = {t: [] for t in args.trees}
@@ -208,6 +272,8 @@ def main(argv):
     a, b = (runs[t] for t in args.trees)
     summary = {}
     for m, more in METRICS.items():
+        if args.resnet_only and m in SERVE_METRICS:
+            continue
         qa, qb = _quartiles([r[m] for r in a]), _quartiles([r[m] for r in b])
         wins = sum((rb[m] > ra[m]) if more else (rb[m] < ra[m])
                    for ra, rb in zip(a, b) if rb[m] != ra[m])

@@ -62,7 +62,20 @@ post-training quantization of ResNet-50 (``bench.py``'s int8 config:
 B=32, one naive calibration batch) eager and as CUDA graphs beside the
 float32 and bf16 nets, and entropy calibration on a batch of 8; float16
 AMP training of BERT-base and ResNet-50 with dynamic loss scaling, and a
-``GradGuard`` skipping an injected NaN step. Each
+``GradGuard`` skipping an injected NaN step. Then the rest of the
+vision zoo: a capture that fails (a host sync) and leaves the process
+usable (an unseeded ``torch.randn``, a fresh graph replayed);
+AlexNet, VGG-16-BN, SqueezeNet 1.1, MobileNet 1.0 / v2 1.0 and
+DenseNet-121 at B=32 x 3 x 224^2 and Inception v3 at 299^2, bf16,
+eager and hybridized, each float32 net on the card against the CPU; 3
+SGD steps of MobileNet v2 and Inception v3; int8 MobileNet v2 through
+``quantize_net`` (its 17 depthwise layers on K3's general route, every
+distinct K2 / K3 input against plain, the depthwise shapes timed beside
+cuDNN's bf16 depthwise convolution); ``save_parameters`` /
+``load_parameters`` of ResNet-50, ``export`` -> ``SymbolBlock.imports``
+of the int8 ResNet-50 (K2 and K3 launched by the program's
+``mxnet_tpu_torch::`` ops) and of the bf16 MobileNet v2, bit for bit
+against their nets, and BERT-base's export refused. Each
 path that runs kernels does so with the launch counts reset before it
 and read after it, and fails unless every kernel it goes through was
 launched.
@@ -2830,7 +2843,7 @@ INT8_FORWARD_KERNELS = {"int8_conv hopper": "conv_hopper",
                         "int8_quantize im2col": "quantize_im2col"}
 
 
-def _forward_row(mt, net, x, tag, card):
+def _forward_row(mt, net, x, tag, card, model="resnet50"):
     """device_busy of one forward of ``net`` on ``x`` (no tape), with the
     peak memory of the calls and the int8 kernels' ms and launches a
     call (INT8_FORWARD_KERNELS)."""
@@ -2843,10 +2856,10 @@ def _forward_row(mt, net, x, tag, card):
     int8 = {name: [sum(v[i] for k, v in per.items() if match in k)
                    for i in (0, 1)]
             for name, match in INT8_FORWARD_KERNELS.items()}
-    print("resnet50 %s forward (B=%d): %.0f images/s, %.2f ms host, %.2f ms "
+    print("%s %s forward (B=%d): %.0f images/s, %.2f ms host, %.2f ms "
           "of kernels (device busy %.1f%%), %.1f device events per call, "
           "peak memory %.2f GB; top kernels %s%s [%s]"
-          % (tag, B, B / host * 1e3, host, dev_ms, 100 * dev_ms / host,
+          % (model, tag, B, B / host * 1e3, host, dev_ms, 100 * dev_ms / host,
              counts["device events"], peak / 1e9,
              "; ".join("%s %.3f" % t for t in top),
              "".join("; %s %.3f ms in %g launches" % (k, v[0], v[1])
@@ -3087,6 +3100,571 @@ def int8_resnet_phase(mt, co, dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, k2_rows
+
+
+# ----------------------------------------------------------------------
+# the vision zoo: every family at full width, two of them
+# training, int8 MobileNet v2 (K3's general route at its depthwise
+# layers), parameter files and export, and a failed capture
+# ----------------------------------------------------------------------
+ZOO_B = 32
+#: one net a family, at its published input size
+ZOO_NETS = [("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
+            ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+            ("densenet121", 224), ("inceptionv3", 299)]
+ZOO_TRAIN = ("mobilenetv2_1.0", "inceptionv3")
+ZOO_TRAIN_STEPS = 3
+#: float32 logits, card (cuDNN with TF32 off) vs CPU, ||d|| / ||cpu||:
+#: ResNet-50's limit (the seven nets measured 0 to 2.3e-6 on the H100)
+ZOO_CPU_REL = RESNET_CPU_REL
+ZOO_HYB_REL = RESNET_HYB_REL
+#: int8 MobileNet v2 against its float32 net, ||d|| / ||fp32||: the int8
+#: ResNet-50's limit (measured 0.0223 on the H100, top-1 agreement 1.0)
+ZOO_INT8_REL = INT8_RESNET_REL
+#: an imported program against its net's eager forward: the same aten
+#: ops and kernels on the same inputs, so bit for bit (as measured)
+ZOO_EXPORT_REL = 0.0
+
+
+def _zoo_net(mt, name, dev, seed=0):
+    """``get_model(name)`` at full width (1000 classes), float32 on the
+    card, its weights Xavier (magnitude 2) drawn from ``seed`` at the
+    first forward."""
+    net = mt.gluon.model_zoo.vision.get_model(name)
+    return net.initialize(mt.init.Xavier(magnitude=2), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              seed))
+
+
+def zoo_cpu_check(mt, dev, name, params, x):
+    """The float32 net on the card (cuDNN with TF32 off) against the CPU
+    on the same weights and 2 images; returns ||d|| / ||cpu||."""
+    vision = mt.gluon.model_zoo.vision
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with mt.autograd.pause():
+            card = mt.convert.load_params(
+                vision.get_model(name).initialize(device=dev), params)(x)
+            cpu = mt.convert.load_params(
+                vision.get_model(name).initialize(device="cpu"),
+                params)(x.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rel = _rel(card.cpu(), cpu)
+    check(rel <= ZOO_CPU_REL, "%s: the card disagrees with the CPU by %.3e"
+          % (name, rel))
+    return rel
+
+
+def zoo_inference(mt, dev, card, name, size):
+    """``name`` at B=32 bf16 NCHW, eager and hybridized (CUDA graphs),
+    after its float32 net held against the CPU; returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(70)
+    x = torch.randn(ZOO_B, 3, size, size, generator=gen, device=dev)
+    net = _zoo_net(mt, name, dev)
+    with mt.autograd.pause():
+        net(x[:2])                             # materialise the weights
+    cpu_rel = zoo_cpu_check(mt, dev, name, mt.convert.export_params(net),
+                            x[:2])
+    net.cast("bfloat16")
+    xb = x.to(torch.bfloat16)
+    with mt.autograd.pause():
+        eager = net(xb)
+    check(eager.shape == (ZOO_B, 1000) and bool(torch.isfinite(eager).all()),
+          "%s: bf16 logits %s not finite" % (name, tuple(eager.shape)))
+    rows = {"cpu_rel": cpu_rel}
+    for mode in ("eager", "hybridized"):
+        net.hybridize(mode == "hybridized")
+        scope = contextlib.nullcontext() if mode == "hybridized" \
+            else mt.autograd.pause()
+        with scope:
+            if mode == "hybridized":
+                net(xb)                         # eager once, then capture
+                out = net(xb)                   # replay
+                rel = _rel(out, eager)
+                check(len(net._graphs) == 1 and rel <= ZOO_HYB_REL,
+                      "%s: no graph, or hybridized differs from eager by "
+                      "%.3e" % (name, rel))
+                rows["hyb_equal"] = torch.equal(out, eager)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):  # the profiler now and then keeps no device event
+                host, dev_ms, top, counts, _ = device_busy(
+                    lambda: net(xb), reps=5)
+                if counts["device events"]:
+                    break
+            peak = torch.cuda.max_memory_allocated()
+        rows[mode] = {"images_per_s": ZOO_B / host * 1e3, "host_ms": host,
+                      "kernel_ms": dev_ms, "busy": dev_ms / host,
+                      "peak_gb": peak / 1e9}
+        print("zoo %s %s forward (B=%d bf16 %dx%d NCHW): %.0f images/s, "
+              "%.2f ms host, %.2f ms of kernels (device busy %.1f%%), %.1f "
+              "device events per call, peak memory %.2f GB; top kernels %s "
+              "[%s]" % (name, mode, ZOO_B, size, size, ZOO_B / host * 1e3,
+                        host, dev_ms, 100 * dev_ms / host,
+                        counts["device events"], peak / 1e9,
+                        "; ".join("%s %.3f" % t for t in top[:4]), card))
+    net.hybridize(False)
+    print("zoo %s: float32 card (TF32 off) vs CPU on 2 images ||d||/||cpu|| "
+          "%.3e (limit %.0e); bf16 hybridized == eager bit for bit %s"
+          % (name, cpu_rel, ZOO_CPU_REL, rows["hyb_equal"]))
+    return rows
+
+
+def zoo_train(mt, co, dev, card, name):
+    """3 SGD steps (lr 0.05, momentum 0.9, wd 1e-4) of ``name`` at B=32,
+    bf16 weights with BatchNorm in float32, BatchNorm in training mode,
+    the softmax CE, through ``record`` and the ``Trainer``; returns the
+    launch counts of the steps."""
+    size = dict(ZOO_NETS)[name]
+    net = _zoo_net(mt, name, dev, seed=1).cast("bfloat16")
+    for m in net.modules():
+        if isinstance(m, mt.gluon.nn.BatchNorm):
+            m.cast("float32")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    x = torch.randn(ZOO_B, 3, size, size, generator=gen, device=dev).to(
+        torch.bfloat16)
+    labels = torch.randint(0, 1000, (ZOO_B,), generator=gen, device=dev)
+    with mt.autograd.pause():
+        net(x[:2])
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.05, "momentum": 0.9,
+                                "wd": 1e-4})
+    loss_fn = mt.gluon.loss.SoftmaxCELoss()
+
+    def step():
+        with mt.autograd.record():
+            loss = loss_fn(net(x).float(), labels)
+        mt.autograd.backward(loss)
+        trainer.step(ZOO_B)
+        return loss.mean().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
+    t0 = time.monotonic()
+    losses = [step() for _ in range(ZOO_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(co.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), "zoo %s train: a loss is "
+          "not finite: %s" % (name, losses))
+    opt_per = check_opt_launches("zoo %s train" % name, launches, "multi_sgd",
+                                 ZOO_TRAIN_STEPS, net.parameters())
+    ms, dev_ms, _, _, per = device_busy(step, reps=2)
+    opt_ms, opt_n = opt_cost(per)
+    print("zoo %s train (B=%d bf16 %dx%d, SGD momentum 0.9): losses %s; %d "
+          "steps in %.2f s; step %.1f ms host, %.1f ms of kernels (device "
+          "busy %.1f%%), %.0f images/s, peak memory %.2f GB; multi_sgd %.3f "
+          "ms in %g launches per step (%d by the table) [%s]"
+          % (name, ZOO_B, size, size, losses, ZOO_TRAIN_STEPS, wall, ms,
+             dev_ms, 100 * dev_ms / ms, ZOO_B / ms * 1e3, peak / 1e9, opt_ms,
+             opt_n, opt_per, card))
+    return launches
+
+
+def _qconv_layers(mt, net, x):
+    """(block, input shape) of every quantized convolution of a forward
+    of ``net`` on ``x``, found by forward pre-hooks."""
+    from mxnet_tpu_torch.contrib import quantization as q
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda blk, a: seen.append((blk, tuple(a[0].shape))))
+        for m in net.modules() if isinstance(m, q.QuantizedConv2D)]
+    with mt.autograd.pause():
+        net(x)
+    for h in hooks:
+        h.detach()
+    return seen
+
+
+def _qconv_key(i8, blk, shape):
+    geo = (blk._kernel, blk._strides, blk._padding, blk._dilation)
+    mode, route = i8.int8_conv_mode(*shape, *geo, blk._groups)
+    return (shape, blk._groups, geo, blk._wpk.shape[0] * blk._wpk.shape[1],
+            mode, route)
+
+
+def _qconv_plain(i8, blk, xi, mode):
+    """K2 then K3, the plain versions, as ``quantized_conv`` runs them;
+    (quantized input, output)."""
+    s, g = blk._act_scale, blk._groups
+    geo = (blk._kernel, blk._strides, blk._padding, blk._dilation)
+    epi = {"scale": blk._scale, "bias": blk._bias,
+           "relu": blk._activation == "relu", "out_dtype": xi.dtype}
+    if mode == "im2col":
+        q = i8.int8_quantize_im2col_plain(xi, s, *geo)
+        return q, i8.int8_conv_plain(q, blk._wpk, (1, 1), **epi)
+    q = i8.int8_quantize_plain(xi, s, g)
+    return q, i8.int8_conv_plain(q, blk._wpk, *geo, g, **epi)
+
+
+def zoo_int8_layers(mt, net, x, card):
+    """Every distinct quantized convolution of the int8 forward: K2 and
+    K3 (through ``quantized_conv``) held against their plain versions
+    bit for bit on random data of that input's shape; each depthwise one
+    (K3's general route) timed: own device ms by CUDA-graph replay (``ms``,
+    L2 flushed), the call, the plain version, cuDNN's bf16 channels-last
+    depthwise convolution of the shape (``bf16_ms``; PyTorch has no int8
+    convolution on CUDA), and the bound on the unpadded bytes (int8 in,
+    float32 out, the weight, its scales) or the MACs, the padded input
+    bytes beside it.  Returns (route counts a forward, depthwise rows)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import int8 as i8
+    layers = _qconv_layers(mt, net, x)
+    keys = {}
+    for blk, shape in layers:
+        keys.setdefault(_qconv_key(i8, blk, shape), []).append(blk)
+    routes = {"hopper": 0, "general": 0, "im2col": 0}
+    for key, blks in keys.items():
+        routes[key[5]] += len(blks)
+        routes["im2col"] += len(blks) * (key[4] == "im2col")
+    gen = torch.Generator(device=x.device).manual_seed(72)
+    rows = []
+    for key, blks in sorted(keys.items(), key=lambda kv: -len(kv[1])):
+        (shape, g, geo, O, mode, route), blk = key, blks[0]
+        xi = torch.randn(shape, generator=gen, device=x.device)
+        want_q, want = _qconv_plain(i8, blk, xi, mode)
+        got_q = (i8.int8_quantize_im2col(xi, blk._act_scale, *geo)
+                 if mode == "im2col" else
+                 i8.int8_quantize(xi, blk._act_scale, g))
+        got = i8.quantized_conv(xi, blk._act_scale, blk._wpk, *geo, g,
+                                scale=blk._scale, bias=blk._bias,
+                                relu=blk._activation == "relu",
+                                out_dtype=xi.dtype)
+        check(torch.equal(got_q, want_q) and torch.equal(got, want),
+              "int8 mobilenetv2: K2 / K3 differ from plain at %s" % (key,))
+        if g == 1:
+            continue
+        (kh, kw), stride, pad, dil = geo
+        xq = got_q
+
+        def fn(xq=xq, blk=blk, geo=geo, g=g):
+            return i8._int8_conv(xq, blk._wpk, *geo, g, scale=blk._scale,
+                                 bias=blk._bias,
+                                 relu=blk._activation == "relu",
+                                 out_dtype=torch.float32, route="general")
+        ms = graph_ms(fn)
+        call = time_ms(fn)
+        plain_ms = time_ms(lambda: _qconv_plain(i8, blk, xi, mode),
+                           iters=3, warmup=1)
+        xb = xi.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wb = torch.randn(O, 1, kh, kw, generator=gen, device=x.device).to(
+            torch.bfloat16)
+        bf16_ms = graph_ms(lambda: F.conv2d(xb, wb, None, stride, pad, dil,
+                                            g))
+        N, C, H, W = shape
+        OH, OW = got.shape[2:]
+        macs = N * O * OH * OW * kh * kw
+        nbytes = N * C * H * W + 4 * N * O * OH * OW + O * kh * kw + 8 * O
+        padded = xq.numel()
+        b_ms, b_by = bound_ms(nbytes, 2 * macs, INT8_OPS_PER_S)
+        tag = "dw %dx%d/%d %d@%dx%d" % (kh, kw, stride[0], C, H, W)
+        print("int8_conv general %s (B=%d, %d in the forward): kernel %.4f "
+              "ms (graph), call %.4f ms, plain %.4f ms, bound %.4f ms (%s: "
+              "%.1f MB unpadded, int8 in %.1f MB as laid out with groups "
+              "padded to 4 channels), %.1f%% of it; cuDNN bf16 depthwise "
+              "%.4f ms [%s]"
+              % (tag, N, len(blks), ms, call, plain_ms, b_ms, b_by,
+                 nbytes / 1e6, padded / 1e6, 100 * b_ms / ms, bf16_ms,
+                 card))
+        rows.append({"shape": tag, "route": "general", "launches": len(blks),
+                     "ms": ms, "call_ms": call, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_bytes": nbytes, "padded_in_bytes": padded,
+                     "library_ms": None, "bf16_ms": bf16_ms,
+                     "macs": macs})
+        del xq, xb, wb
+    torch.cuda.empty_cache()
+    return routes, rows
+
+
+def zoo_int8_phase(mt, co, dev, card):
+    """``mobilenetv2_1.0`` float32 NCHW at B=32 through ``quantize_net``
+    (naive, one uniform(0, 1) batch), eager and hybridized, beside the
+    float32 and bf16 nets of the same weights: its depthwise layers on
+    K3's general route, the rest (the one-group layers whose padded
+    channels are not a multiple of 32 through K2's im2col rows) on the
+    hopper route; every distinct K2 / K3 input against plain.  Returns
+    (the launches of one eager int8 forward, the depthwise rows)."""
+    from mxnet_tpu_torch.contrib import quantization as q
+    name = "mobilenetv2_1.0"
+    gen = torch.Generator(device=dev).manual_seed(73)
+    calib = torch.rand(ZOO_B, 3, 224, 224, generator=gen, device=dev)
+    x = torch.rand(ZOO_B, 3, 224, 224, generator=gen, device=dev)
+    fp32 = _zoo_net(mt, name, dev, seed=2)
+    with mt.autograd.pause():
+        want = fp32(x)
+    rows = {}
+    for tag in ("float32", "bf16"):
+        net = fp32 if tag == "float32" else _zoo_net(mt, name, dev, 2).cast(
+            "bfloat16")
+        xin = x if tag == "float32" else x.to(torch.bfloat16)
+        for mode in ("eager", "hybridized"):
+            net.hybridize(mode == "hybridized")
+            rows["%s %s" % (tag, mode)] = _forward_row(
+                mt, net, xin, "%s %s" % (tag, mode), card, name)
+        net.hybridize(False)
+    del net
+    net = _zoo_net(mt, name, dev, seed=2)
+    with mt.autograd.pause():
+        net(x[:1])
+    q.quantize_net(net, calib_data=[calib], calib_mode="naive")
+    n_q = sum(isinstance(m, (q.QuantizedConv2D, q.QuantizedDense))
+              for m in net.modules())
+    check(n_q == 54, "int8 %s: %d layers quantized, want 54" % (name, n_q))
+    routes, dw_rows = zoo_int8_layers(mt, net, x, card)
+    co.reset_launch_counts()
+    with mt.autograd.pause():
+        got = net(x)
+    torch.cuda.synchronize()
+    launches = dict(co.LAUNCHES)
+    counts = (launches["int8_conv"], launches["int8_conv_hopper"],
+              launches["int8_conv_general"], launches["int8_quantize"],
+              launches["int8_quantize_im2col"])
+    check(counts == (n_q, routes["hopper"], routes["general"], n_q,
+                     routes["im2col"]) and routes["general"] == 17,
+          "int8 %s: a forward launched int8_conv / hopper / general / "
+          "int8_quantize / im2col %s times, want %s" % (
+              name, counts, (n_q, routes["hopper"], routes["general"], n_q,
+                             routes["im2col"])))
+    rows["int8 eager"] = _forward_row(mt, net, x, "int8 eager", card, name)
+    net.hybridize()
+    with mt.autograd.pause():
+        net(x)
+    co.reset_launch_counts()
+    hyb = net(x)
+    torch.cuda.synchronize()
+    hyb_counts = tuple(co.LAUNCHES[k] for k in (
+        "int8_conv", "int8_conv_hopper", "int8_conv_general",
+        "int8_quantize", "int8_quantize_im2col"))
+    check(len(net._graphs) == 1 and torch.equal(hyb, got)
+          and hyb_counts == counts, "int8 %s: the hybridized forward differs "
+          "from eager or did not replay its kernels (%s)" % (name, hyb_counts))
+    rows["int8 hybridized"] = _forward_row(mt, net, x, "int8 hybridized",
+                                           card, name)
+    net.hybridize(False)
+    check(got.shape == (ZOO_B, 1000) and bool(torch.isfinite(got).all()),
+          "int8 %s: logits not finite" % name)
+    rel = _rel(got, want)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print("int8 %s (B=%d, calib naive on one uniform(0,1) batch): on a "
+          "second batch, top-1 agreement with float32 %.4f, logits "
+          "||d||/||fp32|| %.4f (limit %.2f), max|d|/max|fp32| %.4f; a forward "
+          "launches int8_conv %d times (hopper %d, general %d: the 17 "
+          "depthwise layers) and int8_quantize %d (im2col %d); hybridized == "
+          "eager bit for bit [%s]"
+          % (name, ZOO_B, agree, rel, ZOO_INT8_REL,
+             ((got - want).abs().max() / want.abs().max()).item(), *counts,
+             card))
+    check(rel <= ZOO_INT8_REL, "int8 %s: logits differ from float32 by %.4f"
+          % (name, rel))
+    print("int8 %s forward rows, same run: %s" % (name, "; ".join(
+        "%s %.0f images/s, %.2f ms host, %.2f ms kernels, %.2f GB"
+        % (k, v["images_per_s"], v["host_ms"], v["kernel_ms"], v["peak_gb"])
+        for k, v in rows.items())))
+    k3 = rows["int8 hybridized"]["int8"]
+    dw_sum = sum(r["launches"] * r["ms"] for r in dw_rows)
+    dw_bound = sum(r["launches"] * r["bound_ms"] for r in dw_rows)
+    print("int8 %s hybridized forward: K3 general (depthwise) %.3f ms in %g "
+          "launches (the per-shape rows sum to %.3f ms against a bound of "
+          "%.3f ms: %.1f%%), K3 hopper %.3f ms in %g, K2 %.3f ms in %g, of "
+          "%.2f ms of kernels [%s]"
+          % (name, *k3["int8_conv general"], dw_sum, dw_bound,
+             100 * dw_bound / dw_sum, *k3["int8_conv hopper"],
+             *k3["int8_quantize"], rows["int8 hybridized"]["kernel_ms"],
+             card))
+    del net, fp32, got, hyb, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dw_rows
+
+
+def _imported_rows(mt, net, blk, x, tag, card):
+    """Host and kernel time of the net hybridized and of its imported
+    program, eager and hybridized, in one run."""
+    out = {}
+    for who, b in (("net", net), ("imported", blk)):
+        for mode in ("eager", "hybridized"):
+            if who == "net" and mode == "eager":
+                continue
+            b.hybridize(mode == "hybridized")
+            with mt.autograd.pause() if mode == "eager" else \
+                    contextlib.nullcontext():
+                host, dev_ms, *_ = device_busy(lambda: b(x), reps=5)
+            out["%s %s" % (who, mode)] = (x.shape[0] / host * 1e3, host,
+                                          dev_ms)
+            b.hybridize(False)
+    print("%s export: %s [%s]" % (tag, "; ".join(
+        "%s %.0f images/s (%.2f ms host, %.2f ms kernels)" % (k, *v)
+        for k, v in out.items()), card))
+    return out
+
+
+def zoo_io_phase(mt, co, dev, card):
+    """``save_parameters`` / ``load_parameters(device=cuda)`` of ResNet-50
+    (logits bit for bit); ``export`` -> ``SymbolBlock.imports`` on the
+    card of the int8 ResNet-50 (K2 and K3 launched by the program's
+    ``mxnet_tpu_torch::`` ops) and of the bf16 MobileNet v2, each held
+    against its net's eager forward; BERT-base's export refused.
+    Returns the launches of one run of the imported int8 program."""
+    import tempfile
+
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.models.bert import BERTModel, bert_base_config
+    vision = mt.gluon.model_zoo.vision
+    gen = torch.Generator(device=dev).manual_seed(74)
+    calib = torch.rand(ZOO_B, 3, 224, 224, generator=gen, device=dev)
+    x = torch.rand(ZOO_B, 3, 224, 224, generator=gen, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        r50 = _resnet50(mt, dev)
+        with mt.autograd.pause():
+            want = r50(x)
+        path = os.path.join(tmp, "resnet50.params")
+        t0 = time.monotonic()
+        r50.save_parameters(path)
+        save_s = time.monotonic() - t0
+        fresh = vision.resnet50_v1()
+        t0 = time.monotonic()
+        fresh.load_parameters(path, device=dev)
+        load_s = time.monotonic() - t0
+        with mt.autograd.pause():
+            got = fresh(x)
+        check(all(p.is_cuda for p in fresh.parameters()) and
+              torch.equal(got, want), "resnet50: logits after save / load "
+              "differ")
+        print("resnet50 save_parameters %.2f s, load_parameters(device=cuda) "
+              "%.2f s (%.1f MB): logits bit for bit [%s]"
+              % (save_s, load_s, os.path.getsize(path) / 1e6, card))
+        del fresh, got
+        q.quantize_net(r50, calib_data=[calib], calib_mode="naive")
+        with mt.autograd.pause():
+            want = r50(x)
+        t0 = time.monotonic()
+        sym, par = r50.export(os.path.join(tmp, "r50_int8"),
+                              example_inputs=(x,))
+        export_s = time.monotonic() - t0
+        blk = SymbolBlock.imports(sym, ["data"], par, device=dev)
+        co.reset_launch_counts()
+        got = blk(x)
+        torch.cuda.synchronize()
+        launches = dict(co.LAUNCHES)
+        rel = _rel(got, want)
+        check(launches["int8_quantize"] == 54 and launches["int8_conv"] == 54
+              and launches["int8_conv_hopper"] == 54
+              and launches["int8_quantize_im2col"] == 1,
+              "int8 resnet50 imported: K2 / K3 launched %s" % {
+                  k: v for k, v in launches.items() if v})
+        check(rel <= ZOO_EXPORT_REL, "int8 resnet50 imported: differs from "
+              "the net by %.3e" % rel)
+        print("int8 resnet50 export %.2f s (%.1f MB program, %.1f MB "
+              "params): the imported program launches int8_quantize %d "
+              "(im2col %d) and int8_conv %d (hopper %d) times; == eager bit "
+              "for bit %s (||d||/||eager|| %.3e, limit %.0e) [%s]"
+              % (export_s, os.path.getsize(sym) / 1e6,
+                 os.path.getsize(par) / 1e6, launches["int8_quantize"],
+                 launches["int8_quantize_im2col"], launches["int8_conv"],
+                 launches["int8_conv_hopper"], torch.equal(got, want), rel,
+                 ZOO_EXPORT_REL, card))
+        rows = {"int8 resnet50": _imported_rows(mt, r50, blk, x,
+                                                "int8 resnet50", card)}
+        del r50, blk, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        mnv2 = _zoo_net(mt, "mobilenetv2_1.0", dev, seed=3).cast("bfloat16")
+        xb = x.to(torch.bfloat16)
+        with mt.autograd.pause():
+            want = mnv2(xb)
+        sym, par = mnv2.export(os.path.join(tmp, "mnv2"), example_inputs=xb)
+        blk = SymbolBlock.imports(sym, None, par, device=dev)
+        got = blk(xb)
+        rel = _rel(got, want)
+        check(rel <= ZOO_EXPORT_REL, "bf16 mobilenetv2 imported: differs from "
+              "the net by %.3e" % rel)
+        print("bf16 mobilenetv2_1.0 export: imported == eager bit for bit %s "
+              "(||d||/||eager|| %.3e, limit %.0e) [%s]"
+              % (torch.equal(got, want), rel, ZOO_EXPORT_REL, card))
+        rows["bf16 mobilenetv2_1.0"] = _imported_rows(
+            mt, mnv2, blk, xb, "bf16 mobilenetv2_1.0", card)
+        del mnv2, blk, got, want
+        bert = BERTModel(bert_base_config()).initialize(device=dev)
+        toks = torch.randint(0, 30000, (1, 128), generator=gen, device=dev)
+        refused = None
+        try:
+            bert.export(os.path.join(tmp, "bert"), example_inputs=(toks,))
+        except NotImplementedError as e:
+            refused = str(e)
+        check(refused is not None and "queue 2" in refused and
+              not os.path.exists(os.path.join(tmp, "bert-0000.params")),
+              "BERT-base: export did not refuse the flash forward")
+        print("BERT-base export refused before writing a file: %s" % refused)
+        del bert
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def failed_capture_phase(co, dev):
+    """F12: a capture that syncs with the host raises its error and
+    leaves the process as it was: an unseeded ``torch.randn`` on the
+    card, then a graph that captures and replays."""
+    def syncing():
+        return torch.ones(4, device=dev).sum().item()
+    before = dict(co.LAUNCHES)
+    raised = None
+    try:
+        co.capture_graph(syncing, warmup=0)
+    except RuntimeError as e:
+        raised = e
+    check(raised is not None and co.LAUNCHES == before,
+          "a capture that syncs with the host did not raise")
+    a, b = torch.randn(8, device=dev), torch.rand(8, device=dev)
+    y = torch.ones(16, device=dev)
+    graph, out, _ = co.capture_graph(lambda: y * 2 + 1)
+    y.fill_(3)
+    co.replay_graph(graph, {})
+    torch.cuda.synchronize()
+    check(a.shape == b.shape == (8,) and
+          torch.equal(out, torch.full((16,), 7.0, device=dev)),
+          "after a failed capture a graph did not replay")
+    print("failed capture (%s): unseeded torch.randn / torch.rand on the "
+          "card, then a fresh graph captured and replayed: ok"
+          % str(raised).splitlines()[0][:80])
+
+
+def vision_zoo_phase(mt, co, dev, card):
+    """The slice's phases; returns ({path: launches}, K3 general's
+    depthwise rows)."""
+    t0 = time.monotonic()
+    failed_capture_phase(co, dev)
+    infer = {}
+    for name, size in ZOO_NETS:
+        infer[name] = zoo_inference(mt, dev, card, name, size)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("zoo inference rows (B=%d bf16; images/s eager / hybridized, "
+          "device busy hybridized, peak GB hybridized, card vs CPU): %s "
+          "[%s]" % (ZOO_B, "; ".join(
+              "%s %.0f / %.0f, %.1f%%, %.2f GB, %.1e" % (
+                  k, v["eager"]["images_per_s"],
+                  v["hybridized"]["images_per_s"],
+                  100 * v["hybridized"]["busy"], v["hybridized"]["peak_gb"],
+                  v["cpu_rel"]) for k, v in infer.items()), card))
+    train = {}
+    for name in ZOO_TRAIN:
+        for k, v in zoo_train(mt, co, dev, card, name).items():
+            train[k] = train.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    int8_launches, dw_rows = zoo_int8_phase(mt, co, dev, card)
+    export_launches, _ = zoo_io_phase(mt, co, dev, card)
+    print("vision zoo phases %.1f s" % (time.monotonic() - t0))
+    return {"zoo_train": train, "zoo_int8": int8_launches,
+            "zoo_export": export_launches}, dw_rows
 
 
 def amp_phase(mt, co, dev, card, finite_rec):
@@ -5359,6 +5937,15 @@ def main(argv):
     torch.cuda.empty_cache()
     low_prec = low_precision_kernel_phase(co, dev, card)
     int8_resnet_launches, k2_rows = int8_resnet_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_paths, dw_rows = vision_zoo_phase(mt, co, dev, card)
+    k3_general = low_prec[4]
+    k3_general["shapes"] = dw_rows + k3_general["shapes"]
+    k3_general.update({k: max(dw_rows, key=lambda r: r["launches"] *
+                              r["ms"])[k]
+                       for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "bf16_ms")})
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for rec, mode in ((low_prec[1], "nhwc"), (low_prec[2], "im2col")):
@@ -5404,7 +5991,8 @@ def main(argv):
              "serve_tp": serve_tp["bf16"], "serve_tp_int8": serve_tp["int8"],
              "int8_resnet": int8_resnet_launches,
              "amp_bert": amp_bert_launches,
-             "amp_resnet": amp_resnet_launches, "guard": guard_launches}
+             "amp_resnet": amp_resnet_launches, "guard": guard_launches,
+             **zoo_paths}
     for path, kernels_of_path in (
             ("int8_resnet", ("int8_quantize", "int8_quantize_im2col",
                              "int8_conv_hopper")),
@@ -5419,7 +6007,12 @@ def main(argv):
             ("dp_tp", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                        "multi_adam")),
             ("pipeline", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-            ("kvstore", ("multi_sgd",))):
+            ("kvstore", ("multi_sgd",)),
+            ("zoo_train", ("multi_sgd",)),
+            ("zoo_int8", ("int8_quantize", "int8_quantize_im2col",
+                          "int8_conv_hopper", "int8_conv_general")),
+            ("zoo_export", ("int8_quantize", "int8_quantize_im2col",
+                            "int8_conv_hopper"))):
         check(all(paths[path][k] > 0 for k in kernels_of_path),
               "%s: a kernel of the path was not launched: %s"
               % (path, paths[path]))

@@ -4,8 +4,9 @@ A second package beside the JAX one, with its module layout and names:
 ``context``, ``ops`` (plain PyTorch ops and the hand-written CUDA
 attention kernels under ``csrc/``), ``autograd`` (record/pause scopes
 over torch autograd), ``initializer`` (also ``init``), ``gluon``
-(``Block`` / ``HybridBlock``, ``Parameter``, ``nn`` layers, the vision
-``model_zoo``, ``loss``, ``Trainer``, ``utils``), ``optimizer``,
+(``Block`` / ``HybridBlock`` with parameter files and ``export``,
+``SymbolBlock``, ``Parameter``, ``nn`` layers, the vision ``model_zoo``'s
+34 nets, ``loss``, ``Trainer``, ``utils``), ``optimizer``,
 ``lr_scheduler``, ``kvstore`` (also ``kv``), ``parallel`` (meshes of
 ranks, parameter sharding, ``TrainStep``, the pipeline, ring attention,
 the MoE), ``models`` (the Llama-class

@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/autograd.py:18-110`` (``record``, ``pause``,
 ``train_mode``, ``predict_mode``, ``backward``, ``grad``).  The port
 keeps no tape of its own: torch autograd is the tape, and
 ``backward`` / ``grad`` call ``torch.autograd``.  A custom
-differentiable function is a ``torch.autograd.Function``, the port's
-idiom for what ``autograd.Function`` (:113) does in the JAX package.
+differentiable function is MXNet's :class:`Function` (:113): its
+``forward`` and ``backward`` run on NDArrays (or tensors, as given),
+bridged onto torch autograd by a ``torch.autograd.Function``.
 
 The recording state is MXNet's: off by default, on inside ``record()``
 and off again inside a ``pause()``.  The scopes set torch's grad mode
@@ -39,7 +40,7 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "backward",
            "grad", "is_recording", "is_training", "set_recording",
-           "set_training", "mark_variables"]
+           "set_training", "mark_variables", "Function"]
 
 _state = threading.local()
 
@@ -182,3 +183,76 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     res = [NDArray(g) if isinstance(v, NDArray) else g
            for v, g in zip(variables, res)]
     return res[0] if single else res
+
+
+class Function:
+    """A differentiable function with a hand-written backward (reference
+    ``autograd.Function``).  Subclass it and define ``forward`` and
+    ``backward``::
+
+        class sigmoid(Function):
+            def forward(self, x):
+                y = 1 / (1 + mx.np.exp(-x))
+                self.save_for_backward(y)
+                return y
+
+            def backward(self, dy):
+                y, = self.saved_tensors
+                return dy * y * (1 - y)
+
+    ``forward`` runs under ``pause`` with the training flag kept, and
+    returns one array or a tuple; ``backward`` takes one gradient per
+    output and returns one per input.  Both see NDArrays where the call
+    was given NDArrays, else tensors.  Inside ``record()`` the call is
+    one node of torch's tape whose backward is ``backward`` (under
+    ``pause`` too); outside it only ``forward`` runs."""
+
+    def __init__(self):
+        self.saved_tensors = ()
+
+    def save_for_backward(self, *args):
+        self.saved_tensors = args
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        nd = any(isinstance(x, NDArray) for x in inputs)
+        if not is_recording():
+            with pause(train_mode=is_training()):
+                return self.forward(*inputs)
+        outs = _FunctionNode.apply(self, nd, *(_tensor(x) for x in inputs))
+        if not nd:
+            return outs
+        return NDArray(outs) if isinstance(outs, torch.Tensor) else \
+            tuple(NDArray(o) for o in outs)
+
+
+def _as(nd, tensors):
+    from .ndarray.ndarray import NDArray
+    return [NDArray(t) if nd and isinstance(t, torch.Tensor) else t
+            for t in tensors]
+
+
+class _FunctionNode(torch.autograd.Function):
+    """A :class:`Function` call on torch's tape."""
+
+    @staticmethod
+    def forward(ctx, func, nd, *tensors):
+        ctx.func, ctx.nd, ctx.training = func, nd, is_training()
+        with pause(train_mode=ctx.training):
+            out = func.forward(*_as(nd, tensors))
+        ctx.single = not isinstance(out, (tuple, list))
+        outs = [_tensor(o) for o in ([out] if ctx.single else out)]
+        return outs[0] if ctx.single else tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with pause(train_mode=ctx.training):
+            res = ctx.func.backward(*_as(ctx.nd, grads))
+        res = [res] if not isinstance(res, (tuple, list)) else res
+        return (None, None) + tuple(_tensor(g) for g in res)

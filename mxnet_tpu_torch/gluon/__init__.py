@@ -1,7 +1,14 @@
-"""Gluon of the port: ``Block`` / ``HybridBlock``, ``Parameter``, layers
-(``nn``), the vision model zoo, losses, the ``Trainer`` and ``utils``."""
+"""Gluon of the port: ``Block`` / ``HybridBlock``, ``SymbolBlock``,
+``Parameter``, layers (``nn``), the vision model zoo, losses, the
+``Trainer`` and ``utils``."""
 from . import loss, model_zoo, nn, parameter, utils  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
+from .loss import (CosineEmbeddingLoss, HingeLoss, HuberLoss,  # noqa: F401
+                   KLDivLoss, L1Loss, L2Loss, LogisticLoss, PoissonNLLLoss,
+                   SDMLLoss, SigmoidBCELoss, SigmoidBinaryCrossEntropyLoss,
+                   SoftmaxCELoss, SoftmaxCrossEntropyLoss, SquaredHingeLoss,
+                   TripletLoss)
 from .parameter import (Constant, DeferredInitializationError,  # noqa: F401
                         Parameter)
+from .symbol_block import SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401

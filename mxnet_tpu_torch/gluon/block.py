@@ -26,11 +26,26 @@ these blocks (a hook's return value is ignored, as in MXNet).  A
 hybridized block runs its hooks on the host around the graph replay; the
 hooks of the blocks inside a captured graph run when it is captured,
 not at each replay, as the reference's run when its graph is traced.
+
+Parameter files are the reference's (:166-274): ``save_parameters``
+writes the npz of ``utils.serialization`` (bf16 tagged, so a file
+crosses between the packages both ways) and refreshes a sibling
+``<stem>.manifest.json`` (``fault.write_manifest``'s) where one lists
+the file; ``load_parameters`` verifies that manifest before anything
+is read, then ``load_dict`` checks every name and shape before any
+parameter is written.  ``HybridBlock.export`` (:505-560) writes the
+same parameter file and, where the reference writes a StableHLO
+program, a ``torch.export`` program that takes the parameters as
+inputs (``-symbol.pt2``), which ``SymbolBlock.imports`` runs without
+the model's Python code.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
+import json
+import os
 import re
 from collections import OrderedDict
 
@@ -42,9 +57,13 @@ from .. import initializer as init_mod
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
 from ..ops import cuda_ops
+from ..utils import serialization
 from . import parameter as param_mod
 
 __all__ = ["Block", "HybridBlock"]
+
+#: the member of an exported program that holds its header
+SYMBOL_HEADER = "mxnet_header.json"
 
 
 def _has_nd(args, kwargs):
@@ -146,12 +165,20 @@ class Block(nn.Module):
         handle whose ``detach()`` removes it."""
         return _HookHandle(self._hook_table(1), hook)
 
+    def _param_items(self):
+        """(name, parameter) under every name, a shared one under each."""
+        return self.named_parameters(remove_duplicate=False)
+
     def collect_params(self, select=None):
         """Ordered ``{name: Parameter}``; ``select`` is a regular
         expression matched at the start of each name."""
         pattern = re.compile(select) if select else None
-        return OrderedDict((name, p) for name, p in self.named_parameters()
-                           if pattern is None or pattern.match(name))
+        out, seen = OrderedDict(), set()
+        for name, p in self._param_items():
+            if id(p) not in seen and (pattern is None or pattern.match(name)):
+                out[name] = p
+            seen.add(id(p))
+        return out
 
     def initialize(self, init=None, device=None, generator=None,
                    force_reinit=False):
@@ -217,6 +244,207 @@ class Block(nn.Module):
         for p in self.parameters():
             if p.grad is not None:
                 p.grad.zero_()
+
+    # -- parameter files (reference :166-274) ------------------------------
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter that holds values to ``filename`` (the
+        npz of ``utils.serialization``) under its ``collect_params``
+        name; a parameter shared under several names is written under
+        each, or with ``deduplicate`` under its first only.  A sharded
+        parameter is written whole (every rank of its mesh calls this).
+        A ``<stem>.manifest.json`` that lists the file gets its new
+        checksum."""
+        from ..parallel import sharding as _sharding
+        arrays, seen = {}, set()
+        for name, p in self._param_items():
+            if param_mod.is_deferred(p) or (deduplicate and id(p) in seen):
+                continue
+            seen.add(id(p))
+            t = p.detach()
+            sh = _sharding.placement(p)
+            if sh is not None:
+                t = _sharding.gather_global(t, sh.spec, sh.mesh)
+            arrays[name] = t
+        serialization.savez(filename, **arrays)
+        _refresh_manifest(filename)
+
+    def load_parameters(self, filename, device=None, ctx=None,
+                        allow_missing=False, ignore_extra=False,
+                        cast_dtype=False, dtype_source="current"):
+        """Read the parameters ``save_parameters`` wrote (the reference's
+        files too) into this block; see :meth:`load_dict` for the
+        options.  A ``<stem>.manifest.json`` beside the file is verified
+        first: a torn or stale file raises
+        ``fault.CorruptCheckpointError`` with the block untouched."""
+        if isinstance(filename, (str, os.PathLike)):
+            filename = os.fspath(filename)
+            manifest = _manifest_of(filename)
+            if os.path.exists(manifest):
+                from .. import fault
+                ok, bad = fault.verify_manifest(
+                    manifest, only=[os.path.basename(filename)])
+                if not ok:
+                    raise fault.CorruptCheckpointError(
+                        "checkpoint %s failed manifest verification: %s"
+                        % (filename, ", ".join(bad)))
+        loaded = serialization.load(filename, device="cpu")
+        if isinstance(loaded, (list, NDArray)):
+            raise ValueError("parameter file %s has no names" % (filename,))
+        self._load(loaded, device if device is not None else ctx,
+                   allow_missing, ignore_extra, cast_dtype, dtype_source,
+                   "file %s" % (filename,))
+
+    def load_dict(self, param_dict, device=None, allow_missing=False,
+                  ignore_extra=False, cast_dtype=False,
+                  dtype_source="current"):
+        """Set the parameters from ``{name: array}`` (NDArrays, tensors or
+        numpy arrays).  Every name and shape is checked before any value
+        is written: a parameter with no value raises ``AssertionError``
+        unless ``allow_missing`` (a parameter shared under several names
+        needs one of them), a value no parameter takes raises
+        ``AssertionError`` unless ``ignore_extra``, and a shape that
+        does not fit raises ``ValueError``.  A value is cast to the
+        parameter's dtype, or with ``cast_dtype`` and ``dtype_source=
+        "saved"`` the parameter takes the value's.  ``device`` places the
+        parameters (None: where they are; a deferred one on the device
+        ``initialize`` named, else the current context), and a deferred
+        parameter takes the value's shape.  The block's captured graphs
+        are dropped."""
+        self._load(param_dict, device, allow_missing, ignore_extra,
+                   cast_dtype, dtype_source, "param_dict")
+
+    def _load(self, loaded, device, allow_missing, ignore_extra, cast_dtype,
+              dtype_source, where):
+        named = list(self._param_items())
+        names = {}
+        for name, p in named:
+            names.setdefault(id(p), []).append(name)
+        if not allow_missing:
+            for name, p in named:
+                if not any(n in loaded for n in names[id(p)]):
+                    raise AssertionError("Parameter %s is missing in %s"
+                                         % (name, where))
+        own = dict(named)
+        if not ignore_extra:
+            for name in loaded:
+                if name not in own:
+                    raise AssertionError(
+                        "Parameter %s loaded from %s is not present in this "
+                        "block" % (name, where))
+        values = {}
+        for name, p in named:
+            if name not in loaded or id(p) in values:
+                continue
+            v = loaded[name]
+            t = v._data if isinstance(v, NDArray) else torch.as_tensor(
+                v.astype("float32") if getattr(v, "dtype", None) is not None
+                and v.dtype.name == "bfloat16" else v)
+            want = param_mod._spec(p).shape if param_mod.is_deferred(p) \
+                else param_mod.global_shape(p)
+            if len(want) != t.dim() or any(
+                    w not in (0, d) for w, d in zip(want, t.shape)):
+                raise ValueError("Parameter %s has shape %s in %s; the block "
+                                 "wants %s" % (name, tuple(t.shape), where,
+                                               tuple(want)))
+            values[id(p)] = (p, t)
+        # a tensor's device names its index ("cuda:0"), as p.device does
+        dev = None if device is None else torch.empty(
+            0, device=resolve_device(device)).device
+        with torch.no_grad():
+            for p, t in values.values():
+                _load_one(p, t, dev, cast_dtype and dtype_source == "saved")
+        for m in self.modules():
+            if isinstance(m, HybridBlock):
+                m.reset_cache()
+
+
+def _manifest_of(filename):
+    stem = filename[:-len(".params")] if filename.endswith(".params") \
+        else filename
+    return stem + ".manifest.json"
+
+
+def _refresh_manifest(filename):
+    """Give a sibling manifest that lists ``filename`` its new checksum,
+    so a verified load still takes the file; an unreadable manifest is
+    removed rather than left to refuse the new file for ever."""
+    if not isinstance(filename, (str, os.PathLike)):
+        return
+    filename = os.fspath(filename)
+    manifest = _manifest_of(filename)
+    if not os.path.exists(manifest):
+        return
+    from .. import fault
+    try:
+        with open(manifest, "rb") as f:
+            data = json.loads(f.read().decode())
+        entries = data["files"]
+    except (OSError, ValueError, KeyError, UnicodeDecodeError):
+        os.remove(manifest)
+        return
+    rel = os.path.relpath(os.path.abspath(filename),
+                          os.path.dirname(os.path.abspath(manifest)))
+    if rel in entries:
+        entries[rel] = {"sha256": fault.file_sha256(filename),
+                        "bytes": os.path.getsize(filename)}
+        fault._atomic_write_bytes(manifest, json.dumps(data, indent=1)
+                                  .encode())
+
+
+def _load_one(p, t, device, take_dtype):
+    """Write ``t`` into ``p``: in place where ``p`` stays on its device
+    and in its dtype, else as new storage (a deferred ``p`` is made with
+    ``t``'s shape)."""
+    from ..parallel import sharding as _sharding
+    spec = param_mod._spec(p)
+    if take_dtype:
+        spec.dtype = t.dtype
+    if param_mod.is_deferred(p):
+        if spec.deferred is not None and device is None:
+            device = spec.deferred[2]
+        spec.shape, spec.deferred = tuple(t.shape), None
+        p.materialize(spec.shape, device=resolve_device(device),
+                      dtype=spec.dtype)
+    sh = _sharding.placement(p)
+    if sh is not None:
+        t = _sharding.local_block(t, sh.spec, sh.mesh)
+    device = p.device if device is None else device
+    if p.device == device and p.dtype == spec.dtype:
+        p.copy_(t)
+    else:
+        p.grad = None
+        p.data = t.to(device=device, dtype=spec.dtype, copy=True)
+    param_mod.mark_initialized(p)
+
+
+@contextlib.contextmanager
+def _eager(block):
+    """Every HybridBlock of ``block`` runs eagerly inside: no graph is
+    captured or replayed."""
+    active = [(m, m._active) for m in block.modules()
+              if isinstance(m, HybridBlock)]
+    for m, _ in active:
+        m._active = False
+    try:
+        yield
+    finally:
+        for m, a in active:
+            m._active = a
+
+
+class _Deploy(nn.Module):
+    """The forward ``export`` traces: the parameters are inputs (a list
+    in ``names`` order), so the program holds none of them; the net's
+    buffers (a quantized layer's int8 weight) are its constants."""
+
+    def __init__(self, net, names):
+        super().__init__()
+        object.__setattr__(self, "net", net)    # not a submodule
+        self.names = names
+
+    def forward(self, params, *inputs):
+        return torch.func.functional_call(
+            self.net, dict(zip(self.names, params)), inputs)
 
 
 def _tensors(obj):
@@ -314,6 +542,63 @@ class HybridBlock(Block):
 
     def reset_cache(self):
         self._graphs.clear()
+
+    def optimize_for(self, x, *args, backend=None, clear=True, **kwargs):
+        """``hybridize()`` and one call on ``(x, *args)``, whose output it
+        returns: on CUDA that call captures the graph.  The port has no
+        partitioning backends: ``backend`` must be None."""
+        if backend is not None:
+            raise ValueError("mxnet_tpu_torch has no partitioning backend "
+                             "%r: CUDA graphs are its one" % (backend,))
+        self.hybridize(True, **kwargs)
+        return self(x, *args)
+
+    def infer_shape(self, *args):
+        """Give every deferred parameter its shape: one forward on
+        ``args`` under ``pause``, with no gradient and no graph
+        captured."""
+        with autograd.pause(), torch.no_grad(), _eager(self):
+            nn.Module.__call__(self, *_unwrap(args))
+
+    def export(self, path, epoch=0, remove_amp_cast=True,
+               example_inputs=None):
+        """Write ``path-%04d.params`` (as ``save_parameters``) and
+        ``path-symbol.pt2``, a ``torch.export`` program of the inference
+        forward on ``example_inputs`` (a tuple, or one input) that takes
+        the parameters as inputs, with the header ``{"param_names":
+        [...]}``; returns ``(sym_file, param_file)``.
+        ``SymbolBlock.imports`` runs it on any device.  The program
+        keeps the example inputs' shapes.  A forward that reaches a
+        kernel with no ``torch.library`` op (the flash forward,
+        ``paged_decode``, ``int8_linear``, ``int8_dequant``) raises
+        ``NotImplementedError`` before any file is written;
+        post-training quantization's K2 / K3
+        are the ops ``mxnet_tpu_torch::int8_quantize``,
+        ``::int8_quantize_im2col`` and ``::int8_conv``."""
+        if example_inputs is None:
+            raise ValueError(
+                "export requires example_inputs=(x, ...) to trace the "
+                "deployment graph (pass the inputs you called the block "
+                "with)")
+        if not isinstance(example_inputs, (list, tuple)):
+            example_inputs = (example_inputs,)
+        inputs = tuple(_unwrap(list(example_inputs)))
+        if any(param_mod.is_deferred(p) for p in self.parameters()):
+            self.infer_shape(*inputs)
+        params = self.collect_params()
+        names = list(params)
+        with autograd.pause(), torch.no_grad(), _eager(self):
+            program = torch.export.export(
+                _Deploy(self, names),
+                ([p.detach() for p in params.values()],) + inputs,
+                strict=False)
+        param_file = "%s-%04d.params" % (path, epoch)
+        self.save_parameters(param_file)
+        sym_file = "%s-symbol.pt2" % path
+        with serialization.atomic_write(sym_file) as f:
+            torch.export.save(program, f, extra_files={
+                SYMBOL_HEADER: json.dumps({"param_names": names})})
+        return sym_file, param_file
 
     def _mx_call(self, *args, **kwargs):
         if _has_nd(args, kwargs):

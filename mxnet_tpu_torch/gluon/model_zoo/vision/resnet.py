@@ -14,6 +14,7 @@ from ....ops import nn as F
 from ...block import HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, Flatten,
                    GlobalAvgPool2D, HybridSequential, MaxPool2D)
+from ._common import no_pretrained
 
 __all__ = ["BasicBlockV1", "BasicBlockV2", "BottleneckV1", "BottleneckV2",
            "ResNetV1", "ResNetV2", "get_resnet", "resnet18_v1",
@@ -207,9 +208,7 @@ def get_resnet(version, num_layers, pretrained=False, **kwargs):
         raise ValueError("Invalid resnet depth %d" % num_layers)
     if version not in (1, 2):
         raise ValueError("Invalid resnet version %d" % version)
-    if pretrained:
-        raise RuntimeError("pretrained weights need network access; load "
-                           "weights into the net instead")
+    no_pretrained(pretrained)
     block_type, layers, channels = resnet_spec[num_layers]
     return resnet_net_versions[version - 1](
         resnet_block_versions[version - 1][block_type], layers, channels,

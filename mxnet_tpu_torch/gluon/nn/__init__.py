@@ -2,9 +2,11 @@
 activations, convolutions and pooling."""
 from .activations import (ELU, GELU, SELU, Activation, LeakyReLU,  # noqa: F401
                           Mish, PReLU, SiLU, Swish)
-from .basic_layers import (BatchNorm, Dense, Dropout, Embedding,  # noqa: F401
-                           Flatten, GroupNorm, HybridSequential, Identity,
-                           InstanceNorm, LayerNorm, RMSNorm, Sequential)
+from .basic_layers import (BatchNorm, Concatenate, Dense,  # noqa: F401
+                           Dropout, Embedding, Flatten, GroupNorm,
+                           HybridConcatenate, HybridLambda, HybridSequential,
+                           Identity, InstanceNorm, Lambda, LayerNorm, RMSNorm,
+                           Sequential, SyncBatchNorm)
 from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D,  # noqa: F401
                           Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
                           Conv3D, Conv3DTranspose, GlobalAvgPool1D,

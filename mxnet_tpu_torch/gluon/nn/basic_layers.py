@@ -4,7 +4,9 @@ Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``
 :20, ``HybridSequential`` :58, ``Dense`` :94, ``Dropout`` :144,
 ``Embedding`` :159, ``Flatten`` :178, ``Identity`` :186, ``BatchNorm``
 :195, ``LayerNorm`` :277, ``RMSNorm`` :303, ``GroupNorm`` :321 and
-``InstanceNorm`` :344.  Parameter names and shapes are MXNet's --
+``InstanceNorm`` :344, ``SyncBatchNorm`` :264, ``Lambda`` :372,
+``HybridLambda`` :384, ``Concatenate`` :405 and ``HybridConcatenate``
+:418.  Parameter names and shapes are MXNet's --
 ``weight`` (Dense: (out, in)), ``bias``, ``gamma``, ``beta``,
 ``running_mean``, ``running_var`` -- so ``collect_params()`` keys equal
 the JAX package's.  Parameters come from
@@ -18,10 +20,14 @@ sharded computes with this rank's block and returns the replicated
 result (``parallel.sharding.linear`` / ``embedding``).  ``BatchNorm``
 inside a ``TrainStep(mesh=)`` whose batch is split over data-parallel
 axes reduces its moments over the whole global batch
-(``parallel.sharding.batch_moments``), as GSPMD does.
+(``parallel.sharding.batch_moments``), as GSPMD does; so
+``SyncBatchNorm`` is that ``BatchNorm`` under MXNet's name.
 
-Not ported yet (ROADMAP queue 2): ``SyncBatchNorm``, ``Lambda``,
-``HybridLambda``, ``Concatenate`` and ``HybridConcatenate``.
+``Lambda`` / ``HybridLambda`` run a function on NDArrays: a name of
+``mx.np`` or a callable (``HybridLambda``'s takes ``F``, the port's
+``mx.nd``, first, as ``lambda F, x: F.clip(x, 0, 6)``).
+``Concatenate`` / ``HybridConcatenate`` run each child on the same
+input and concatenate the outputs along ``axis``.
 """
 from __future__ import annotations
 
@@ -31,14 +37,16 @@ import torch
 
 from ... import autograd
 from ...contrib.quantization import int8_forward
+from ...ndarray.ndarray import NDArray
 from ...ops import nn as F
 from ...parallel import sharding as _sharding
-from ..block import Block, HybridBlock
+from ..block import Block, HybridBlock, _unwrap
 from ..parameter import Parameter, finish_deferred_init
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
            "Flatten", "Identity", "BatchNorm", "LayerNorm", "RMSNorm",
-           "GroupNorm", "InstanceNorm"]
+           "GroupNorm", "InstanceNorm", "SyncBatchNorm", "Lambda",
+           "HybridLambda", "Concatenate", "HybridConcatenate"]
 
 
 class _Stack:
@@ -234,6 +242,17 @@ class BatchNorm(HybridBlock):
         return out.to(x.dtype), mean.detach(), var.detach()
 
 
+class SyncBatchNorm(BatchNorm):
+    """BatchNorm over the batch of every device (reference
+    ``SyncBatchNorm``): inside ``TrainStep(mesh=)`` with the batch split
+    over data-parallel axes its moments are the global batch's, as every
+    ``BatchNorm``'s are there; elsewhere it is ``BatchNorm``.
+    ``num_devices`` is accepted and changes nothing."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
 class LayerNorm(HybridBlock):
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
@@ -301,3 +320,69 @@ class InstanceNorm(HybridBlock):
         out = F.instance_norm(x.movedim(self._axis, 1), self.gamma,
                               self.beta, self._epsilon)
         return out.movedim(1, self._axis)
+
+
+def _np_function(function):
+    if isinstance(function, str):
+        from ... import numpy as mnp
+        return getattr(mnp, function)
+    return function
+
+
+def _on_ndarrays(fn, *args):
+    """``fn`` on the arguments as NDArrays; its result as tensors."""
+    return _unwrap(fn(*(NDArray(a) if isinstance(a, torch.Tensor) else a
+                        for a in args)))
+
+
+class Lambda(Block):
+    """``function(*args)`` as a block: a name of ``mx.np`` (``"tanh"``)
+    or a callable over NDArrays."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _np_function(function)
+
+    def forward(self, *args):
+        return _on_ndarrays(self._func, *args)
+
+
+class HybridLambda(HybridBlock):
+    """A hybridizable ``Lambda``: a name of ``mx.np``, or a callable
+    ``function(F, *args)`` handed the port's ``mx.nd`` as ``F``."""
+
+    def __init__(self, function):
+        super().__init__()
+        if isinstance(function, str):
+            self._func = _np_function(function)
+        else:
+            from ... import ndarray as nd
+            self._func = lambda *args: function(nd, *args)
+
+    def forward(self, *args):
+        return _on_ndarrays(self._func, *args)
+
+
+def _concat(block, x, axis):
+    return torch.cat([child(x) for child in block], dim=axis)
+
+
+class Concatenate(Sequential):
+    """Each child on the same input, the outputs concatenated along
+    ``axis``."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return _concat(self, x, self.axis)
+
+
+class HybridConcatenate(HybridSequential):
+    def __init__(self, axis=-1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return _concat(self, x, self.axis)

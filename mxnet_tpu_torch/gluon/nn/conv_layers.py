@@ -6,7 +6,10 @@ GlobalAvgPool1D/2D/3D`` and ``ReflectionPad2D``.  A convolution's
 weight is (channels, in_channels / groups, *kernel) in NC+spatial
 layouts and (channels, *kernel, in_channels / groups) in the
 channels-last ones (NWC, NHWC, NDHWC), as in the JAX package; the
-transposed convolutions take NC+spatial layouts only.
+transposed convolutions take NC+spatial layouts only.  A max or avg
+pool with ``ceil_mode=True`` takes MXNet's "full" convention (the last
+window of an axis may hang over its end: ``ops.nn.pooling``); the JAX
+package accepts the option and ignores it.
 """
 from __future__ import annotations
 
@@ -160,7 +163,7 @@ class Conv3DTranspose(_Conv):
 
 class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ndim, global_pool,
-                 pool_type, layout, count_include_pad=True):
+                 pool_type, layout, count_include_pad=True, ceil_mode=False):
         super().__init__()
         _check_layout(layout)
         self._kernel = _tuple(pool_size, ndim)
@@ -170,50 +173,55 @@ class _Pooling(HybridBlock):
         self._global = global_pool
         self._pool_type = pool_type
         self._count_include_pad = count_include_pad
+        self._ceil_mode = ceil_mode
         self._layout = layout
 
     def forward(self, x):
         return F.pooling(x, self._kernel, self._pool_type, self._stride,
                          self._pad, self._global, self._count_include_pad,
-                         self._layout)
+                         self._layout, self._ceil_mode)
 
 
 class MaxPool1D(_Pooling):
-    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW"):
-        super().__init__(pool_size, strides, padding, 1, False, "max", layout)
+    def __init__(self, pool_size=2, strides=None, padding=0,
+                 layout="NCW", ceil_mode=False):
+        super().__init__(pool_size, strides, padding, 1, False, "max", layout,
+                         ceil_mode=ceil_mode)
 
 
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW"):
-        super().__init__(pool_size, strides, padding, 2, False, "max", layout)
+                 layout="NCHW", ceil_mode=False):
+        super().__init__(pool_size, strides, padding, 2, False, "max", layout,
+                         ceil_mode=ceil_mode)
 
 
 class MaxPool3D(_Pooling):
     def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
-                 layout="NCDHW"):
-        super().__init__(pool_size, strides, padding, 3, False, "max", layout)
+                 layout="NCDHW", ceil_mode=False):
+        super().__init__(pool_size, strides, padding, 3, False, "max", layout,
+                         ceil_mode=ceil_mode)
 
 
 class AvgPool1D(_Pooling):
-    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
-                 count_include_pad=True):
+    def __init__(self, pool_size=2, strides=None, padding=0,
+                 layout="NCW", ceil_mode=False, count_include_pad=True):
         super().__init__(pool_size, strides, padding, 1, False, "avg", layout,
-                         count_include_pad)
+                         count_include_pad, ceil_mode)
 
 
 class AvgPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", count_include_pad=True):
+                 layout="NCHW", ceil_mode=False, count_include_pad=True):
         super().__init__(pool_size, strides, padding, 2, False, "avg", layout,
-                         count_include_pad)
+                         count_include_pad, ceil_mode)
 
 
 class AvgPool3D(_Pooling):
     def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
-                 layout="NCDHW", count_include_pad=True):
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True):
         super().__init__(pool_size, strides, padding, 3, False, "avg", layout,
-                         count_include_pad)
+                         count_include_pad, ceil_mode)
 
 
 class GlobalMaxPool1D(_Pooling):

@@ -91,6 +91,16 @@ BWD_ROUTES = {"mma": ("flash_bwd_mma", "mma"),
               "simt": ("flash_general", "general")}
 
 
+def refuse_export(kernel):
+    """Raise where ``torch.export`` traces a forward that reaches
+    ``kernel``, which has no ``torch.library`` op yet: an exported
+    program would hold its plain version in its place."""
+    if torch.compiler.is_exporting():
+        raise NotImplementedError(
+            "mxnet_tpu_torch: export cannot carry the %s kernel yet: its "
+            "torch.library op is ROADMAP queue 2's" % kernel)
+
+
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -127,7 +137,10 @@ def capture_graph(fn, pool=None, warmup=2):
     added per replay by :func:`replay_graph` (a :class:`GraphCounts`,
     whose ``transport`` does the same for ``parallel._compat.TRANSPORT``,
     the NCCL collectives a tensor-parallel program holds).  Anything
-    that cannot be captured (a host sync, a pageable copy) raises.  The
+    that cannot be captured (a host sync, a pageable copy) raises: the
+    error ``fn`` raised, after :func:`_abandon_capture` has put the
+    memory pool, the default generator and the counts back as they
+    were, so the process goes on as if no capture had begun.  The
     capture checks this thread only, so another thread's work on the
     card (a serving replica's engine reading its tokens) neither fails
     nor breaks it."""
@@ -140,9 +153,25 @@ def capture_graph(fn, pool=None, warmup=2):
     from ..parallel._compat import TRANSPORT
     before, t_before = dict(LAUNCHES), dict(TRANSPORT)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool,
-                          capture_error_mode="thread_local"):
-        out = fn()
+    dev = torch.cuda.current_device()
+    if pool is None:
+        pool = torch.cuda.graph_pool_handle()   # private, but known here
+    gen = torch.cuda.default_generators[dev]
+    outside = gen.clone_state()       # the generator outside any capture
+    failed = []
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            try:
+                out = fn()
+            except BaseException as e:
+                failed.append(e)
+                raise
+    except BaseException as e:
+        _abandon_capture(graph, dev, pool, gen, outside)
+        LAUNCHES.update(before)
+        TRANSPORT.update(t_before)
+        raise (failed[0] if failed else e)
     launches = GraphCounts({k: n - before[k] for k, n in LAUNCHES.items()
                             if n != before[k]})
     for k, n in launches.items():
@@ -152,6 +181,19 @@ def capture_graph(fn, pool=None, warmup=2):
     for k, n in launches.transport.items():
         TRANSPORT[k] -= n
     return graph, out, launches
+
+
+def _abandon_capture(graph, dev, pool, gen, outside):
+    """Leave the process as it was before a capture that failed: a
+    failed ``capture_end`` stops short of handing the memory pool back
+    and of taking the default CUDA generator out of its capture (it
+    would then raise "Offset increment outside graph capture" at every
+    unseeded random draw), so both are done here, and the graph is
+    dropped."""
+    torch._C._cuda_endAllocateToPool(dev, pool)
+    torch._C._cuda_releasePool(dev, pool)
+    graph.reset()
+    gen.graphsafe_set_state(outside)
 
 
 def replay_graph(graph, launches):
@@ -603,7 +645,8 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None,
     16-byte rows the tensor-core ones, the rest the general ones); the
     lse is float32 (B, H, T).
     Gradients flow through both outputs, on CUDA through the backward
-    kernels."""
+    kernels.  ``torch.export`` of a forward that reaches it raises."""
+    refuse_export("flash forward")
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(
             "flash_attention: %d query heads not a multiple of %d kv "
@@ -859,7 +902,9 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, scale=None):
     hold a valid id, by convention the trash page 0); ``lengths``: (S,)
     int32 tokens to attend over per slot, the new token included.  A
     slot with ``lengths == 0`` returns zeros.  Page ids and lengths are
-    trusted: the kernel reads the pages they name."""
+    trusted: the kernel reads the pages they name.  ``torch.export`` of
+    a forward that reaches it raises."""
+    refuse_export("paged_decode")
     if q.shape[1] % k_pages.shape[1] != 0:
         raise ValueError(
             "paged_attention: %d query heads not a multiple of %d kv "

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .cuda_ops import GENERAL_DTYPES, LAUNCHES, _is_cuda
+from .cuda_ops import GENERAL_DTYPES, LAUNCHES, _is_cuda, refuse_export
 
 __all__ = ["dequantize", "dequantize_plain", "int8_linear",
            "int8_linear_group", "int8_linear_group_plain",
@@ -67,6 +67,7 @@ def dequantize(q, scale, dtype):
     per-tensor ``scale`` (a Python float): on CUDA the ``int8_dequant``
     kernel of ``csrc/int8_linear.cu`` (one pass: int8 read, ``dtype``
     written), on the CPU :func:`dequantize_plain`; the same bits."""
+    refuse_export("int8_dequant")
     if q.dtype != torch.int8:
         raise TypeError("dequantize: q must be int8, got %s" % q.dtype)
     if not q.is_cuda:
@@ -171,6 +172,7 @@ def int8_linear_group(x, q, rows, scales):
     Each result is :func:`int8_linear`'s for its weight alone up to the
     order of the float32 sums (the depth split follows the stacked N);
     the plain version's exactly."""
+    refuse_export("int8_linear")
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[1]:
         raise ValueError("int8_linear: x %s and q %s are not (M, K) and "
                          "(N, K)" % (tuple(x.shape), tuple(q.shape)))
@@ -338,7 +340,11 @@ def int8_quantize(x, scale, groups=1):
     laid out, its values (-128 included) unchanged.  The
     ``int8_quantize`` kernel on CUDA (one launch, planned by
     :func:`int8_quantize_plan`), :func:`int8_quantize_plain` on the CPU;
-    the same bits."""
+    the same bits.  Traced by ``torch.export``, it is the op
+    ``mxnet_tpu_torch::int8_quantize``."""
+    if torch.compiler.is_exporting():
+        return torch.ops.mxnet_tpu_torch.int8_quantize(x, float(scale),
+                                                       groups)
     if x.dim() < 2 or x.shape[1] % groups:
         raise ValueError("int8_quantize: x of shape %s does not split into "
                          "%d groups of channels" % (tuple(x.shape), groups))
@@ -437,7 +443,11 @@ def int8_quantize_im2col(x, scale, kernel, stride=(1, 1), padding=(0, 0),
     1 :func:`int8_conv` of these rows with the layer's packed weight is
     the layer's convolution.  The ``int8_quantize`` kernel's im2col mode
     on CUDA (one launch), :func:`int8_quantize_im2col_plain` on the CPU;
-    the same bits."""
+    the same bits.  Traced by ``torch.export``, it is the op
+    ``mxnet_tpu_torch::int8_quantize_im2col``."""
+    if torch.compiler.is_exporting():
+        return torch.ops.mxnet_tpu_torch.int8_quantize_im2col(
+            x, float(scale), kernel, stride, padding, dilation)
     geo = _col_geometry(x.shape, kernel, stride, padding, dilation)
     _int8_scale(x, scale)
     if not x.is_cuda:
@@ -651,7 +661,12 @@ def int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
     The output is (N, O, OH, OW), or (N, OH, OW, O) with
     ``channels_last``.  On CUDA one launch of the ``int8_conv`` kernel on
     the route :func:`int8_conv_route` picks, :func:`int8_conv_plain` on
-    the CPU; the same bits."""
+    the CPU; the same bits.  Traced by ``torch.export``, it is the op
+    ``mxnet_tpu_torch::int8_conv``."""
+    if torch.compiler.is_exporting():
+        return torch.ops.mxnet_tpu_torch.int8_conv(
+            xq, wpk, kernel, stride, padding, dilation, groups, scale, bias,
+            bool(relu), out_dtype, bias_i32, bool(channels_last))
     return _int8_conv(xq, wpk, kernel, stride, padding, dilation, groups,
                       scale, bias, relu, out_dtype, bias_i32, channels_last)
 
@@ -732,3 +747,52 @@ def _int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
     LAUNCHES["int8_conv"] += 1
     LAUNCHES["int8_conv_" + route] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3 as torch.library ops, for programs ``torch.export`` writes
+# ---------------------------------------------------------------------------
+# An exported forward (``HybridBlock.export``) holds each K2 / K3 call as
+# one of these ops: the CPU runs the plain version, CUDA the kernel, and
+# the fake version gives the output's shape while the forward is traced.
+# Eager calls do not pass through them.
+_LIB = "mxnet_tpu_torch::"
+
+
+def _op(name, schema, cpu, cuda, fake):
+    op = torch.library.custom_op(_LIB + name, cpu, mutates_args=(),
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+
+
+def _quantize_fake(x, scale, groups):
+    cgp = padded_channels(x.shape[1] // groups)
+    return x.new_empty((x.shape[0], *x.shape[2:], groups * cgp),
+                       dtype=torch.int8)
+
+
+def _im2col_fake(x, scale, kernel, stride, padding, dilation):
+    geo = _col_geometry(x.shape, kernel, stride, padding, dilation)
+    return x.new_empty((geo[0], geo[13], geo[14], geo[15]),
+                       dtype=torch.int8)
+
+
+def _conv_fake(xq, wpk, kernel, stride, padding, dilation, groups, scale,
+               bias, relu, out_dtype, bias_i32, channels_last):
+    N, H, W, _, O, OH, OW = _conv_args(xq, wpk, kernel, stride, padding,
+                                       dilation, groups)
+    return xq.new_empty((N, OH, OW, O) if channels_last else (N, O, OH, OW),
+                        dtype=out_dtype)
+
+
+_op("int8_quantize", "(Tensor x, float scale, int groups) -> Tensor",
+    int8_quantize_plain, int8_quantize, _quantize_fake)
+_op("int8_quantize_im2col", "(Tensor x, float scale, int[] kernel, "
+    "int[] stride, int[] padding, int[] dilation) -> Tensor",
+    int8_quantize_im2col_plain, int8_quantize_im2col, _im2col_fake)
+_op("int8_conv", "(Tensor xq, Tensor wpk, int[] kernel, int[] stride, "
+    "int[] padding, int[] dilation, int groups, Tensor? scale, "
+    "Tensor? bias, bool relu, ScalarType out_dtype, Tensor? bias_i32, "
+    "bool channels_last) -> Tensor", int8_conv_plain, _int8_conv,
+    _conv_fake)

@@ -100,8 +100,14 @@ _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
 def pooling(x, kernel=(1, 1), pool_type="max", stride=None, pad=None,
-            global_pool=False, count_include_pad=True, layout=None):
-    """Max / avg / sum / lp (p=2) pooling with the "valid" convention.
+            global_pool=False, count_include_pad=True, layout=None,
+            ceil_mode=False):
+    """Max / avg / sum / lp (p=2) pooling with the "valid" convention, or
+    for max and avg with ``ceil_mode`` MXNet's "full" one: ``ceil((size
+    + 2 pad - kernel) / stride) + 1`` windows an axis, the last clipped
+    to the padded input (an avg window divided by its clipped size), as
+    torch's ``ceil_mode`` computes it; torch drops a last window that
+    would start in the right padding, which MXNet keeps.
     ``count_include_pad=False`` divides each window by its elements that
     are not padding."""
     nsp = x.dim() - 2
@@ -123,10 +129,13 @@ def pooling(x, kernel=(1, 1), pool_type="max", stride=None, pad=None,
     kernel = tuple(kernel)
     stride = tuple(stride or kernel)
     pad = _tuple(pad, nsp, 0)
+    if ceil_mode and pool_type not in ("max", "avg"):
+        raise ValueError("ceil_mode takes max and avg pooling, not %r"
+                         % pool_type)
     if pool_type == "max":
-        y = _MAX_POOL[nsp](x, kernel, stride, pad)
+        y = _MAX_POOL[nsp](x, kernel, stride, pad, ceil_mode=ceil_mode)
     elif pool_type == "avg":
-        y = _AVG_POOL[nsp](x, kernel, stride, pad,
+        y = _AVG_POOL[nsp](x, kernel, stride, pad, ceil_mode=ceil_mode,
                            count_include_pad=count_include_pad)
     else:
         src = x if pool_type == "sum" else x.abs().square()

@@ -1505,3 +1505,106 @@ def test_amp_step_guard_on_the_card(dev):
         assert cuda_ops.LAUNCHES["multi_all_finite"] == 1
     finally:
         fault.clear()
+
+
+# ----------------------------------------------------------------------
+# a failed capture, export's int8 ops and parameter files on the card
+# ----------------------------------------------------------------------
+def test_a_failed_capture_leaves_the_generator_and_the_stream_usable(dev):
+    """A capture whose function syncs with the host raises that error,
+    and leaves no trace: unseeded random draws work (the default
+    generator is out of its capture), the launch counts are as before,
+    and a fresh graph captures and replays."""
+    torch.randn(8, device=dev)
+    before = dict(cuda_ops.LAUNCHES)
+
+    def syncing():
+        x = torch.ones(4, device=dev)
+        cuda_ops.LAUNCHES["multi_sgd"] += 1       # as a wrapper would
+        return x.sum().item()
+    with pytest.raises(RuntimeError, match="capturing"):
+        cuda_ops.capture_graph(syncing, warmup=0)
+    assert cuda_ops.LAUNCHES == before
+    a = torch.randn(8, device=dev)
+    b = torch.rand(8, device=dev)
+    c = torch.nn.functional.dropout(torch.ones(64, device=dev), 0.5)
+    torch.cuda.synchronize()
+    assert a.shape == b.shape == (8,) and bool((b >= 0).all())
+    assert bool(((c == 0) | (c == 2)).all())
+    x = torch.ones(16, device=dev)
+    graph, out, _ = cuda_ops.capture_graph(lambda: x * 2 + 1)
+    x.fill_(3)
+    cuda_ops.replay_graph(graph, {})
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((16,), 7.0, device=dev))
+    # and again: a second failure, then a second graph
+    with pytest.raises(RuntimeError):
+        cuda_ops.capture_graph(syncing, warmup=0)
+    torch.randn(8, device=dev)
+    graph, out, _ = cuda_ops.capture_graph(lambda: x - 1)
+    cuda_ops.replay_graph(graph, {})
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((16,), 2.0, device=dev))
+
+
+def _quantized_cnn(dev):
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(32, 3, padding=1), nn.BatchNorm(),
+            nn.Activation("relu"),
+            nn.Conv2D(64, 3, strides=2, padding=1, activation="relu"),
+            nn.Conv2D(64, 3, padding=1, groups=64),
+            nn.Conv2D(64, 1, activation="relu"),
+            nn.GlobalAvgPool2D(), nn.Flatten(), nn.Dense(10))
+    net.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(1))
+    x = torch.rand(4, 3, 32, 32, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    with mt.autograd.pause():
+        net(x)
+    q.quantize_net(net, calib_data=[x])
+    return net, x
+
+
+def test_exported_int8_program_launches_k2_and_k3(dev, tmp_path):
+    """The imported program of a quantized net runs K2 and K3 through
+    their ``mxnet_tpu_torch::`` ops on the card, with the net's bits."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    net, x = _quantized_cnn(dev)
+    cuda_ops.reset_launch_counts()
+    with mt.autograd.pause():
+        want = net(x)
+    eager = dict(cuda_ops.LAUNCHES)
+    sym, par = net.export(str(tmp_path / "q"), example_inputs=(x,))
+    assert cuda_ops.LAUNCHES == eager           # tracing launches nothing
+    blk = SymbolBlock.imports(sym, None, par, device=dev)
+    cuda_ops.reset_launch_counts()
+    got = blk(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for k in ("int8_quantize", "int8_quantize_im2col", "int8_conv",
+              "int8_conv_hopper", "int8_conv_general"):
+        assert cuda_ops.LAUNCHES[k] == eager[k] > 0, k
+
+
+def test_load_parameters_places_them_on_the_card(dev, tmp_path):
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    src = vision.mobilenet_v2_0_25(classes=10).initialize(device="cpu")
+    x = torch.rand(2, 3, 64, 64)
+    with mt.autograd.pause():
+        src(x)
+    path = str(tmp_path / "m.params")
+    src.save_parameters(path)
+    net = vision.mobilenet_v2_0_25(classes=10)   # deferred, no device yet
+    net.load_parameters(path, device=dev)
+    assert all(p.is_cuda for p in net.parameters())
+    for k, p in net.collect_params().items():
+        assert torch.equal(p.detach().cpu(),
+                           src.collect_params()[k].detach()), k
+    with mt.autograd.pause():
+        out = net(x.to(dev))
+    assert out.shape == (2, 10) and bool(torch.isfinite(out).all())

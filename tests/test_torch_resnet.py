@@ -238,7 +238,6 @@ def test_resnet50_names_and_nhwc_weights():
 
 def test_get_model():
     assert isinstance(t_vision.get_model("ResNet18_v2"), t_vision.ResNetV2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_vision.get_model("vgg16")
+    assert isinstance(t_vision.get_model("vgg16"), t_vision.VGG)
     with pytest.raises(ValueError):
         t_vision.get_model("resnet19_v1")

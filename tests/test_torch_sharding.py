@@ -76,11 +76,12 @@ def mlp8(nn):
     return net
 
 
-def bn_net(nn):
-    """A ResNet-style stem: conv, BatchNorm, relu, then a classifier."""
+def bn_net(nn, norm="BatchNorm"):
+    """A ResNet-style stem: conv, BatchNorm (or ``norm``), relu, then a
+    classifier."""
     net = nn.HybridSequential()
     net.add(nn.Conv2D(4, 3, padding=1, in_channels=3),
-            nn.BatchNorm(in_channels=4), nn.Activation("relu"),
+            getattr(nn, norm)(in_channels=4), nn.Activation("relu"),
             nn.Flatten(), nn.Dense(5, in_units=4 * 6 * 6))
     return net
 
@@ -112,6 +113,7 @@ def t_net(kind, seed, cfg=None, dtype=None):
     else:
         net = {"mlp": lambda: mlp(nn), "mlp2": lambda: mlp(nn, 2),
                "mlp8": lambda: mlp8(nn), "bn": lambda: bn_net(nn),
+               "syncbn": lambda: bn_net(nn, "SyncBatchNorm"),
                "dense_3_2": lambda: nn.Dense(2, in_units=3),
                "dense_16_8": lambda: nn.Dense(8, in_units=16),
                "dense_8_16": lambda: nn.Dense(16, in_units=8),
@@ -199,6 +201,10 @@ def _cases():
         "bn": ("bn", 17, ("SGD", {"learning_rate": 0.1, "momentum": 0.9}),
                "sce", 3, tuple(data(9, (8, 3, 6, 6), labels=(8, 5))),
                {"mesh": {"dp": 2}}),
+        "syncbn": ("syncbn", 17, ("SGD", {"learning_rate": 0.1,
+                                          "momentum": 0.9}),
+                   "sce", 3, tuple(data(9, (8, 3, 6, 6), labels=(8, 5))),
+                   {"mesh": {"dp": 2}}),
         "sum_loss": ("dense_3_2", 11, ("SGD", {"learning_rate": 0.05}),
                      "sum", 2, (X, Y), {"mesh": {"dp": 4}}),
     })
@@ -546,7 +552,7 @@ def test_rank_children_import_no_jax(ranks):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sharded_losses_are_the_same_on_every_rank(ranks, case):
     members = _members(ranks, case)
-    assert len(members) == (2 if case == "bn" else WORLD)
+    assert len(members) == (2 if case in ("bn", "syncbn") else WORLD)
     for r in members[1:]:
         onp.testing.assert_array_equal(r[case + "/losses"],
                                        members[0][case + "/losses"])
@@ -802,6 +808,23 @@ def test_batchnorm_reduces_its_moments_over_the_global_batch(ranks):
         onp.testing.assert_allclose(r["bn/losses"], losses, rtol=1e-4)
         for k in ("1.running_mean", "1.running_var"):
             onp.testing.assert_allclose(r["bn/w/" + k], params[k],
+                                        rtol=1e-4, atol=1e-5)
+
+
+def test_sync_batchnorm_on_dp2_is_batchnorm_on_the_whole_batch(ranks):
+    """``SyncBatchNorm`` on dp=2: the losses and running statistics of
+    the JAX package's ``BatchNorm`` over the whole batch on one device,
+    and the port's ``BatchNorm`` on one device."""
+    members = _members(ranks, "syncbn")
+    assert len(members) == 2
+    losses, params = jax_run("bn", sharded=False)
+    mine = single("bn")
+    for r in members:
+        onp.testing.assert_allclose(r["syncbn/losses"], losses, rtol=1e-4)
+        onp.testing.assert_allclose(r["syncbn/losses"], mine["losses"],
+                                    rtol=1e-5)
+        for k in ("1.running_mean", "1.running_var", "1.gamma", "1.beta"):
+            onp.testing.assert_allclose(r["syncbn/w/" + k], params[k],
                                         rtol=1e-4, atol=1e-5)
 
 

@@ -53,13 +53,13 @@
 //      16-byte chunks, consecutive threads consecutive chunks, each word
 //      of depth one read of the patch at the offset a table gives it.
 //
-// (K3) implicit GEMM, two routes (ops/int8.py int8_conv_route).  Per
-//      group, rows are the output positions m = (n, oh, ow) (M = N * OH *
-//      OW), columns the group's Og output channels, and the depth k runs
-//      over (r, s, c) with c fastest, Kreal = KH * KW * Cgp, padded with
-//      zero weights to Kp, a multiple of BK.  Weights are repacked once,
-//      at the layer's construction, to (G, Og, Kp) int8.  The sums are
-//      int32, exact.
+// (K3) the int8 convolution, three routes (ops/int8.py int8_conv_route).
+//      Two are implicit GEMMs.  Per group, rows are the output positions
+//      m = (n, oh, ow) (M = N * OH * OW), columns the group's Og output
+//      channels, and the depth k runs over (r, s, c) with c fastest,
+//      Kreal = KH * KW * Cgp, padded with zero weights to Kp, a multiple
+//      of BK.  Weights are repacked once, at the layer's construction, to
+//      (G, Og, Kp) int8.  The sums are int32, exact.
 //      Epilogues: raw, int32 acc + an int32 bias (nd.contrib's
 //      quantized_conv / quantized_fully_connected); or float, y =
 //      f32(acc) * scale[o] (+ bias[o]) (relu), each operation rounded once
@@ -69,8 +69,9 @@
 //      NHWC are both one kernel.
 //      "hopper", conv_hopper (below): one group with Cgp a multiple of
 //      32, which 52 of ResNet-50's 53 convolutions and its Dense are.
-//      "general", conv_kernel: everything else (groups, depthwise; the
-//      stem through _int8_conv(..., route="general")).  A CTA of 8 warps owns a BM x BN = 128 x 64 tile of
+//      "general", conv_kernel: groups of two or more channels, odd
+//      channel counts (the stem through _int8_conv(..., route=
+//      "general")).  A CTA of 8 warps owns a BM x BN = 128 x 64 tile of
 //      one group; each step of BK = 64 depth stages the A tile (gathered
 //      from x: 32 contiguous bytes of one tap where Cgp is a multiple of
 //      32, else 4-byte words, zeros outside the image and beyond Kreal)
@@ -80,7 +81,25 @@
 //      .s32 from fragments read out of shared memory rows padded to 80
 //      bytes (no bank conflicts).  Every stride, padding, dilation and
 //      group count runs; depthwise (Cg = 1, Og = 1) wastes most of a tile
-//      but is right.
+//      but is right; it runs depthwise layers only when forced, through
+//      a copy with each channel padded to 4 bytes.
+//      "depthwise", conv_depthwise (below): one channel a group (Cg = 1,
+//      G > 1), any multiplier, kernel, stride, padding and dilation: the
+//      depthwise layers of MobileNet v1 / v2, which conv_kernel ran at
+//      1.0-1.7% of their byte bound (one mma.sync column of 64 and 9 of
+//      64 depth bytes used, each channel read as a padded 4-byte word,
+//      scattered scalar stores).  The work is a stencil, ~2 operations a
+//      byte: bound by bytes, int8 read once and the output (float32 in
+//      quantize_net, 80% of the bytes) written once.  The design moves
+//      just those: x unpadded (K2 lays one-channel groups out as one
+//      group), each input byte staged once a tile (the halo of an 8 x
+//      32 tile is 1.33x at 3 x 3 / 1, and its repeats mostly hit L2),
+//      and NCHW stores of 4 outputs at once, a warp's runs whole lines.
+//      A first design (a byte of shared memory a tap, one output column
+//      a thread) ran at 24-50% of the bound, as much issue-bound as
+//      memory-bound: its ~24 instructions an output are cut to ~10 by
+//      channel-major staging and __dp4a over packed taps (the tensor
+//      cores buy nothing at 9 MACs an output).
 //
 // What bounds K3 on this card: operations at the 7^2 and 14^2 stages
 // (2 * MACs over the 1,979 TOP/s dense int8 peak of the H100 data sheet,
@@ -396,10 +415,12 @@ struct ConvArgs {
   int N, H, W, G, Cgp, Og, KH, KW, OH, OW;
   int sh, sw, ph, pw, dh, dw;
   int Kreal, Kp, M, out_kind, relu;
-  // the launch plan (ops/int8.py int8_conv_plan): route 0 general, 1
-  // hopper; the hopper tile shape `cfg` (HOPPER_CFGS), the `splits` CTAs
-  // of a cluster that split the depth's stages evenly, and the `ctas`
-  int route, cfg, splits, ctas;
+  // the launch plan: route 0 general, 1 hopper, 2 depthwise; the hopper
+  // tile shape `cfg` (HOPPER_CFGS), the `splits` CTAs of a cluster that
+  // split the depth's stages evenly (ops/int8.py int8_conv_plan); the
+  // depthwise tile, `th` x `tw` output positions of `cb` channels
+  // (int8_depthwise_plan); and the `ctas`
+  int route, cfg, splits, ctas, th, tw, cb;
 };
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
@@ -1066,6 +1087,323 @@ int launch_hopper(const ConvArgs& a, cudaStream_t st) {
                    : launch_hopper<NWG, N, SWAP, false>(a, st);
 }
 
+// ----------------------------------------------------- K3, depthwise --
+// The route for one channel a group (G > 1, Cg = 1, any multiplier Og,
+// kernel, stride, padding and dilation).  x is K2's one-group layout of
+// the G channels, (N, H, W, Ctot) with Ctot = G rounded up to 4 and
+// channel c at byte c.  A CTA of 256 threads owns a tile: image n, CB =
+// 32 channels (a 32-byte sector of each NHWC row) and TH x TW output
+// positions (ops/int8.py int8_depthwise_plan: TW 32, 16 or 8; TH 8, or 4
+// at stride 2 and TW 32; fewer rows, then channels, where a patch is
+// larger than a CTA's shared memory).  It stages the tile's input patch,
+// PH = (TH - 1) sh + (KH - 1) dh + 1 rows x PW = (TW - 1) sw + (KW - 1)
+// dw + 1 columns, in shared memory channel-major: a channel's rows of RW
+// words, P = PH * RW words a channel, odd.  A thread loads 4 positions x
+// 4 channels (four 4-byte loads; the 8 lanes of a channel quad read a
+// 32-byte sector of one position), every unit's loads issued before any
+// is used, transposes the 4 x 4 bytes with byte permutes and stores 4
+// words (P odd: a warp's 32 stores meet 32 banks); zeros outside the
+// image.  At TW 32 a thread then takes a strip: one channel, 4
+// consecutive output columns, the tile's TH rows.  For 3 x 3 at stride
+// 1 or 2 each staged row is 2 or 3 words a strip, read once: a byte
+// permute cuts each output's 3 taps out of them, and __dp4a sums them
+// against the row's 3 weights packed in a word (a zero fourth byte), for
+// every output row the staged row reaches; NCHW output: each row's 4
+// outputs one 16-byte (8-byte for 16-bit types) store where the rows are
+// a multiple of 4.  Narrower tiles (the 14^2 and 7^2 layers) and other
+// kernels take strips of one column (a row of 4 columns a thread would
+// scatter a warp's stores over 8-16 channels' sectors): NCHW lanes along
+// the columns, each a warp-wide run of a channel's row.  Channels last:
+// lanes along the channels.  The epilogue is `finish`, as the other
+// routes'.
+constexpr int DW_CB = 32;     // channels a tile
+constexpr int DW_NT = 256;    // threads a CTA
+constexpr int DW_SMEM = 232448;   // the most shared memory a CTA takes
+
+// Bytes j .. j + 3 of the 8 bytes (lo, hi).
+__device__ __forceinline__ int window(uint32_t lo, uint32_t hi, int j) {
+  return (int)__byte_perm(lo, hi, 0x3210 + 0x1111 * j);
+}
+
+// Four values of OT as one store
+template <typename OT, int B = sizeof(OT)> struct Vec4;
+template <typename OT> struct Vec4<OT, 4> { using V = uint4; };
+template <typename OT> struct Vec4<OT, 2> { using V = uint2; };
+
+// K = 3: a 3 x 3 kernel at stride S, dilation 1, FTH output rows (the
+// taps and the row walk unrolled); K = 0: any geometry, from the
+// arguments.
+template <typename OT, int K, int S, int FTH>
+__global__ void __launch_bounds__(DW_NT, 4) conv_depthwise(const ConvArgs a) {
+  extern __shared__ __align__(16) uint32_t patch[];
+  constexpr bool FIXED = K > 0;
+  // staging units a thread holds at once (a 3 x 3 tile's all)
+  constexpr int UNITS = FIXED ? (S == 1 ? 3 : 5) : 4;
+  const int KH = FIXED ? K : a.KH, KW = FIXED ? K : a.KW;
+  const int sh = FIXED ? S : a.sh, sw = FIXED ? S : a.sw;
+  const int dh = FIXED ? 1 : a.dh, dw = FIXED ? 1 : a.dw;
+  const int TH = FIXED ? FTH : a.th, TW = a.tw, CB = a.cb;
+  const int NT = blockDim.x;
+  const int PH = (TH - 1) * sh + (KH - 1) * dh + 1;
+  const int PW = (TW - 1) * sw + (KW - 1) * dw + 1;
+  const int RW = (PW + 3) / 4;            // words of a channel's row
+  const int P = (PH * RW) | 1;            // words of a channel
+  const int Ctot = (a.G + 3) & ~3;
+  // this CTA: tile column fastest, then tile row, channel block, image
+  // (the CTAs in flight together share their halos through L2)
+  const int w_tiles = (a.OW + TW - 1) / TW, h_tiles = (a.OH + TH - 1) / TH;
+  const int c_tiles = (a.G + CB - 1) / CB;
+  int b = blockIdx.x;
+  const int tw_i = b % w_tiles;
+  b /= w_tiles;
+  const int th_i = b % h_tiles;
+  b /= h_tiles;
+  const int ct = b % c_tiles, n = b / c_tiles;
+  const int oh0 = th_i * TH, ow0 = tw_i * TW, c0 = ct * CB;
+  const int ih0 = oh0 * sh - a.ph, iw0 = ow0 * sw - a.pw;
+
+  // the patch: units of 4 channels x 4 positions of a row, channel
+  // quads fastest; up to UNITS units' loads in flight a thread
+  const int8_t* xn = a.x + (long long)n * a.H * a.W * Ctot;
+  const int CQ = CB / 4, units = PH * RW * CQ;
+  for (int u0 = 0; u0 < units; u0 += UNITS * NT) {
+    uint32_t v[UNITS][4];
+    int dst[UNITS];
+#pragma unroll
+    for (int j = 0; j < UNITS; ++j) {
+      const int u = u0 + j * NT + threadIdx.x;
+      dst[j] = -1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[j][i] = 0;
+      if (u >= units) continue;
+      const int cq = u % CQ, rest = u / CQ;
+      const int pq = rest % RW, pr = rest / RW;
+      const int c = c0 + 4 * cq, ih = ih0 + pr;
+      dst[j] = 4 * cq * P + pr * RW + pq;
+      if (c >= Ctot || (unsigned)ih >= (unsigned)a.H) continue;
+      const int8_t* row = xn + (long long)ih * a.W * Ctot + c;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int pc = 4 * pq + i, iw = iw0 + pc;
+        if (pc < PW && (unsigned)iw < (unsigned)a.W)
+          v[j][i] = __ldg(reinterpret_cast<const unsigned*>(
+              row + (long long)iw * Ctot));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < UNITS; ++j) {
+      if (dst[j] < 0) continue;
+      // word k: channel 4 cq + k at the unit's 4 positions
+      const uint32_t t0 = __byte_perm(v[j][0], v[j][1], 0x5140);
+      const uint32_t t1 = __byte_perm(v[j][2], v[j][3], 0x5140);
+      const uint32_t t2 = __byte_perm(v[j][0], v[j][1], 0x7362);
+      const uint32_t t3 = __byte_perm(v[j][2], v[j][3], 0x7362);
+      patch[dst[j]] = __byte_perm(t0, t1, 0x5410);
+      patch[dst[j] + P] = __byte_perm(t0, t1, 0x7632);
+      patch[dst[j] + 2 * P] = __byte_perm(t2, t3, 0x5410);
+      patch[dst[j] + 3 * P] = __byte_perm(t2, t3, 0x7632);
+    }
+  }
+  __syncthreads();
+
+  const bool nchw = a.sP == 1;
+  const bool bias = a.out_kind == OUT_I32 ? a.bias_i32 != nullptr
+                                          : a.bias != nullptr;
+  const long long row_step = (long long)a.OW * a.sP;
+  OT* out = static_cast<OT*>(a.out);
+  // output channel oc's scale and bias (the raw epilogue's int32 bias as
+  // float bits)
+  auto epilogue = [&](int oc, float& sc, float& bi) {
+    if constexpr (std::is_same_v<OT, int>) {
+      sc = 0.f;
+      bi = __int_as_float(bias ? a.bias_i32[oc] : 0);
+    } else {
+      sc = a.scale[oc];
+      bi = bias ? a.bias[oc] : 0.f;
+    }
+  };
+  if constexpr (FIXED) {
+    if (TW == 32) {
+      // a strip of 4 columns, a thread: 3 x 3 taps by __dp4a
+      const int s = threadIdx.x;
+      const int g = nchw ? s % 8 : s / CB, cl = nchw ? s / 8 : s % CB;
+      const int c = c0 + cl, ow = ow0 + 4 * g;
+      if (s >= CB * 8 || c >= a.G || ow >= a.OW) return;
+      const bool vec = nchw && a.OW % 4 == 0;
+      for (int m = 0; m < a.Og; ++m) {
+        const int oc = c * a.Og + m;
+        const int8_t* wr = a.w + (long long)oc * a.Kp;
+        float sc, bi;
+        epilogue(oc, sc, bi);
+        OT* dst = out + n * a.sN + oc * a.sC +
+                  ((long long)oh0 * a.OW + ow) * a.sP;
+        // row r's taps packed, the fourth byte 0
+        int wk[3], acc[FTH][4];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          uint32_t w = 0;
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            w |= (uint32_t)(uint8_t)__ldg(wr + 4 * (3 * r + q)) << (8 * q);
+          wk[r] = (int)w;
+        }
+#pragma unroll
+        for (int i = 0; i < FTH; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+        const uint32_t* rp = patch + cl * P + S * g;
+#pragma unroll
+        for (int pr = 0; pr < (FTH - 1) * S + 3; ++pr) {
+          // the taps of the 4 outputs: input columns S j .. S j + 2
+          int win[4];
+          if constexpr (S == 1) {
+            const uint32_t lo = rp[0], hi = rp[1];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) win[j] = window(lo, hi, j);
+          } else {
+            const uint32_t w0 = rp[0], w1 = rp[1], w2 = rp[2];
+            win[0] = (int)w0;
+            win[1] = window(w0, w1, 2);
+            win[2] = (int)w1;
+            win[3] = window(w1, w2, 2);
+          }
+#pragma unroll
+          for (int i = 0; i < FTH; ++i) {
+            const int r = pr - i * S;
+            if (r >= 0 && r < 3) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[i][j] = __dp4a(win[j], wk[r], acc[i][j]);
+            }
+          }
+          rp += RW;
+        }
+#pragma unroll
+        for (int i = 0; i < FTH; ++i) {
+          if (oh0 + i >= a.OH) break;
+          union {
+            OT o[4];
+            typename Vec4<OT>::V v;
+          } y;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            y.o[j] = finish<OT>(acc[i][j], sc, bi, bias, a.relu);
+          OT* d = dst + i * row_step;
+          if (vec) {
+            *reinterpret_cast<typename Vec4<OT>::V*>(d) = y.v;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (ow + j < a.OW) d[j * a.sP] = y.o[j];
+          }
+        }
+      }
+      return;
+    }
+  }
+  // narrower tiles and other kernels: a strip of one column, a thread
+  // (NCHW: lanes along the columns, a warp's stores runs of a row)
+  for (int s = threadIdx.x; s < CB * TW; s += DW_NT) {
+    const int jw = nchw ? s % TW : s / CB, cl = nchw ? s / TW : s % CB;
+    const int c = c0 + cl, ow = ow0 + jw;
+    if (c >= a.G || ow >= a.OW) continue;
+    const int8_t* col = reinterpret_cast<const int8_t*>(patch + cl * P) +
+                        jw * sw;
+    for (int m = 0; m < a.Og; ++m) {
+      const int oc = c * a.Og + m;
+      const int8_t* wr = a.w + (long long)oc * a.Kp;
+      float sc, bi;
+      epilogue(oc, sc, bi);
+      OT* dst = out + n * a.sN + oc * a.sC +
+                ((long long)oh0 * a.OW + ow) * a.sP;
+      if constexpr (FIXED) {
+        int wt[9], acc[FTH];
+#pragma unroll
+        for (int t = 0; t < 9; ++t) wt[t] = __ldg(wr + 4 * t);
+#pragma unroll
+        for (int i = 0; i < FTH; ++i) acc[i] = 0;
+        const int8_t* p = col;
+#pragma unroll
+        for (int pr = 0; pr < (FTH - 1) * S + 3; ++pr) {
+          const int v0 = p[0], v1 = p[1], v2 = p[2];
+#pragma unroll
+          for (int i = 0; i < FTH; ++i) {
+            const int r = pr - i * S;
+            if (r >= 0 && r < 3)
+              acc[i] += v0 * wt[3 * r] + v1 * wt[3 * r + 1] +
+                        v2 * wt[3 * r + 2];
+          }
+          p += 4 * RW;
+        }
+#pragma unroll
+        for (int i = 0; i < FTH; ++i)
+          if (oh0 + i < a.OH)
+            dst[i * row_step] = finish<OT>(acc[i], sc, bi, bias, a.relu);
+      } else {
+        for (int i = 0; i < TH && oh0 + i < a.OH; ++i) {
+          int acc = 0;
+          for (int r = 0; r < KH; ++r) {
+            const int8_t* p = col + (i * sh + r * dh) * RW * 4;
+            for (int q = 0; q < KW; ++q)
+              acc += p[q * dw] * (int)__ldg(wr + 4 * (r * KW + q));
+          }
+          dst[i * row_step] = finish<OT>(acc, sc, bi, bias, a.relu);
+        }
+      }
+    }
+  }
+}
+
+template <typename OT, int K, int S, int FTH>
+int launch_dw(const ConvArgs& a, int smem, cudaStream_t st) {
+  auto kern = conv_depthwise<OT, K, S, FTH>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<a.ctas, DW_NT, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// 3 x 3 at stride 1 (8 rows) or 2 (4 rows at TW 32, else 8) unrolled
+template <typename OT>
+int launch_dw(const ConvArgs& a, int smem, cudaStream_t st) {
+  if (a.KH == 3 && a.KW == 3 && a.dh == 1 && a.dw == 1 && a.sh == a.sw) {
+    if (a.sh == 1 && a.th == 8) return launch_dw<OT, 3, 1, 8>(a, smem, st);
+    if (a.sh == 2 && a.th == 4) return launch_dw<OT, 3, 2, 4>(a, smem, st);
+    if (a.sh == 2 && a.th == 8) return launch_dw<OT, 3, 2, 8>(a, smem, st);
+  }
+  return launch_dw<OT, 0, 0, 0>(a, smem, st);
+}
+
+// The depthwise route's checks: one byte a group, the plan's tile (TW 8,
+// 16 or 32, CB a multiple of 4 up to DW_CB) and CTAs as ops/int8.py
+// int8_depthwise_plan makes them.
+int launch_depthwise(const ConvArgs& a, cudaStream_t st) {
+  if (a.G < 2 || a.Cgp != 1 || a.th < 1 || (a.tw != 8 && a.tw != 16 &&
+      a.tw != 32) || a.cb < 4 || a.cb % 4 || a.cb > DW_CB ||
+      a.sh < 1 || a.sw < 1 || a.dh < 1 || a.dw < 1 || a.ph < 0 ||
+      a.pw < 0 || a.OH < 1 || a.OW < 1 || a.N < 1)
+    return (int)cudaErrorInvalidValue;
+  // the staged patch: CB channels of P words, P = rows x words a row, odd
+  const long long ph = (long long)(a.th - 1) * a.sh + (a.KH - 1) * a.dh + 1;
+  const long long pw = (long long)(a.tw - 1) * a.sw + (a.KW - 1) * a.dw + 1;
+  const int cb = a.cb;
+  const long long smem = 4ll * cb * ((ph * ((pw + 3) / 4)) | 1);
+  const long long ctas = (long long)a.N * ((a.G + cb - 1) / cb) *
+                         ((a.OH + a.th - 1) / a.th) *
+                         ((a.OW + a.tw - 1) / a.tw);
+  if (smem > DW_SMEM || ctas != a.ctas || ctas >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  switch (a.out_kind) {
+    case OUT_F16: return launch_dw<__half>(a, (int)smem, st);
+    case OUT_BF16: return launch_dw<__nv_bfloat16>(a, (int)smem, st);
+    case OUT_F32: return launch_dw<float>(a, (int)smem, st);
+    default: return launch_dw<int>(a, (int)smem, st);
+  }
+}
+
 int grid_cap() {
   static int sms[64] = {0};
   int dev = 0;
@@ -1217,12 +1555,16 @@ extern "C" int mx_int8_conv(const void* args, int args_bytes, void* stream) {
   if (args_bytes != (int)sizeof(ConvArgs)) return (int)cudaErrorInvalidValue;
   ConvArgs a;
   memcpy(&a, args, sizeof(ConvArgs));
+  // a group's bytes in x: a multiple of 4, or 1 on the depthwise route;
+  // a tap of a weight row: the group's bytes padded to 4
   if (a.M <= 0 || a.Og <= 0 || a.G <= 0 || a.Kp <= 0 || a.Kp % BK ||
-      a.Cgp % 4 || a.Kreal != a.KH * a.KW * a.Cgp || a.Kreal > a.Kp ||
+      a.Cgp <= 0 || (a.Cgp % 4 && a.route != 2) ||
+      a.Kreal != a.KH * a.KW * ((a.Cgp + 3) / 4 * 4) || a.Kreal > a.Kp ||
       a.out_kind < OUT_F16 || a.out_kind > OUT_I32 ||
       (a.out_kind != OUT_I32 && !a.scale))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (a.route == 2) return launch_depthwise(a, st);
   if (a.route == 1) {
     // every split non-empty, at most 8 CTAs a cluster, int offsets
     if (a.G != 1 || a.Cgp % 32 || a.splits < 1 || a.splits > 8 ||

@@ -76,7 +76,8 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             # its route)
             "int8_linear": 0, "int8_dequant": 0, "int8_quantize": 0,
             "int8_quantize_im2col": 0, "int8_conv": 0,
-            "int8_conv_hopper": 0, "int8_conv_general": 0}
+            "int8_conv_hopper": 0, "int8_conv_general": 0,
+            "int8_conv_depthwise": 0}
 
 #: dtype codes of the general kernels' C interface (csrc/general.cuh)
 GENERAL_DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,

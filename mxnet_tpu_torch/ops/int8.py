@@ -19,19 +19,21 @@ kernel on CUDA) and run one plain product.
 Post-training quantization (``contrib.quantization``'s quantized layers,
 ``nd.contrib``'s int8 family) runs two kernels of ``csrc/int8_conv.cu``:
 :func:`int8_quantize` (``clip(round(x / scale), -127, 127)`` to int8,
-written NHWC with each group's channels padded to a multiple of 4, tiled
-as :func:`int8_quantize_plan` says) or :func:`int8_quantize_im2col` (the
+written NHWC with each group's channels padded to a multiple of 4 -- a
+group of one channel, a depthwise layer's input, is not padded: its C
+channels lie as one group, the row padded at its end -- tiled as
+:func:`int8_quantize_plan` says) or :func:`int8_quantize_im2col` (the
 same values as im2col rows, for one group of a channel count that is not
 a multiple of 32: the stem), and :func:`int8_conv` (the int8 x int8 ->
-int32 convolution on the tensor cores, with a raw int32 or a scaled
-float epilogue; a Dense product is its 1 x 1 convolution over (M, K, 1,
-1), the im2col rows' too), on the route :func:`int8_conv_route` picks
-(``wgmma`` for one group of a multiple of 32 channels, planned by
-:func:`int8_conv_plan`; else ``mma.sync``).  :func:`int8_conv_mode`
-chooses between the two quantize layouts from a layer's geometry, and
-:func:`quantized_conv` runs the pair.  Weights are quantized and
-repacked once by :func:`pack_conv_weight`.  Each equals its plain
-version bit for bit.
+int32 convolution, with a raw int32 or a scaled float epilogue; a Dense
+product is its 1 x 1 convolution over (M, K, 1, 1), the im2col rows'
+too), on the route :func:`int8_conv_route` picks (``wgmma`` for one
+group of a multiple of 32 channels, planned by :func:`int8_conv_plan`; a
+stencil for one channel a group, planned by :func:`int8_depthwise_plan`;
+else ``mma.sync``).  :func:`int8_conv_mode` chooses between the two
+quantize layouts from a layer's geometry, and :func:`quantized_conv`
+runs the pair.  Weights are quantized and repacked once by
+:func:`pack_conv_weight`.  Each equals its plain version bit for bit.
 """
 from __future__ import annotations
 
@@ -51,8 +53,9 @@ __all__ = ["dequantize", "dequantize_plain", "int8_linear",
            "int8_quantize_plain", "int8_quantize_plan",
            "int8_quantize_im2col", "int8_quantize_im2col_plain",
            "int8_conv", "int8_conv_plain", "int8_conv_mode",
-           "int8_conv_route", "int8_conv_plan", "pack_conv_weight",
-           "padded_channels", "quantize_tensor", "quantized_conv"]
+           "int8_conv_route", "int8_conv_plan", "int8_depthwise_plan",
+           "group_bytes", "pack_conv_weight", "padded_channels",
+           "quantize_tensor", "quantized_conv"]
 
 
 def dequantize_plain(q, scale, dtype):
@@ -247,10 +250,11 @@ _CONV_ARGS = onp.dtype(
     + [(k, "<i4") for k in ("N", "H", "W", "G", "Cgp", "Og", "KH", "KW",
                             "OH", "OW", "sh", "sw", "ph", "pw", "dh", "dw",
                             "Kreal", "Kp", "M", "out_kind", "relu",
-                            "route", "cfg", "splits", "ctas")],
+                            "route", "cfg", "splits", "ctas", "th", "tw",
+                            "cb")],
     align=True)
 #: K3's routes (``ConvArgs.route``)
-CONV_ROUTES = {"general": 0, "hopper": 1}
+CONV_ROUTES = {"general": 0, "hopper": 1, "depthwise": 2}
 #: depth bytes of one stage of the hopper route (``HBK``)
 HOPPER_BK = 128
 #: the hopper route's tile shapes (``ConvArgs.cfg``, ``HCfg`` of
@@ -267,6 +271,22 @@ def padded_channels(cg):
     return (cg + 3) // 4 * 4
 
 
+def group_bytes(C, groups):
+    """The bytes one of ``groups`` groups of ``C`` channels takes in K2's
+    NHWC layout: 1 where each group is one channel (a depthwise layer's
+    input: its C channels unpadded, the row padded to a multiple of 4 at
+    its end), else the group's channels padded to a multiple of 4."""
+    return 1 if groups > 1 and C == groups else padded_channels(C // groups)
+
+
+def _layout(C, groups):
+    """K2's layout of C channels in ``groups`` groups as (groups, bytes a
+    group): one-channel groups lie as one group of C channels."""
+    if group_bytes(C, groups) == 1:
+        return 1, padded_channels(C)
+    return groups, padded_channels(C // groups)
+
+
 def quantize_tensor(x, scale):
     """``clip(round(x / scale), -127, 127)`` as int8, in ``x``'s layout:
     float32 arithmetic, the division by a 0-dim float32 tensor on x's
@@ -277,13 +297,14 @@ def quantize_tensor(x, scale):
 
 
 def _nhwc_groups(q, groups):
-    """(N, C, *spatial) -> (N, *spatial, G * Cgp), each group's channels
-    padded with zeros."""
+    """(N, C, *spatial) -> (N, *spatial, G * Cgp) in K2's layout
+    (:func:`_layout`), each group's channels padded with zeros."""
     N, C, sp = q.shape[0], q.shape[1], q.shape[2:]
+    groups, cgp = _layout(C, groups)
     cg = C // groups
     q = q.reshape(N, groups, cg, -1).permute(0, 3, 1, 2)
-    q = F.pad(q, (0, padded_channels(cg) - cg))
-    return q.reshape(N, *sp, groups * padded_channels(cg)).contiguous()
+    q = F.pad(q, (0, cgp - cg))
+    return q.reshape(N, *sp, groups * cgp).contiguous()
 
 
 def _int8_scale(x, scale):
@@ -308,8 +329,10 @@ def int8_quantize_plan(N, C, P, groups=1):
     x ``tcb`` output bytes of one image, QUANT_TILE in all, ``tcb`` 128
     for rows wider than 64 bytes (a 128-byte line of each position),
     else the row rounded up to 16, 32 or 64; ``ptiles`` x ``ctiles``
-    tiles an image, ``ctas`` in all."""
-    ctot = groups * padded_channels(C // groups)
+    tiles an image, ``ctas`` in all.  One-channel groups take the layout
+    of one group (:func:`_layout`)."""
+    groups, cgp = _layout(C, groups)
+    ctot = groups * cgp
     if P == 1 or ctot < 16:
         words = N * P * ctot // 4
         return {"kind": "rows", "tcb": 0, "ctas": min(
@@ -336,7 +359,9 @@ def int8_quantize(x, scale, groups=1):
     float32 or int8, quantized with ``scale`` (a Python float, rounded to
     float32) into (N, *spatial, G * Cgp) int8: channels last, each of the
     ``groups`` groups' C / G channels padded with zeros to
-    :func:`padded_channels`.  An int8 ``x`` takes ``scale`` 1 and is only
+    :func:`padded_channels`; where each group is one channel (depthwise),
+    the C channels unpadded, as one group (G = 1, Cgp =
+    ``padded_channels(C)``).  An int8 ``x`` takes ``scale`` 1 and is only
     laid out, its values (-128 included) unchanged.  The
     ``int8_quantize`` kernel on CUDA (one launch, planned by
     :func:`int8_quantize_plan`), :func:`int8_quantize_plain` on the CPU;
@@ -353,7 +378,7 @@ def int8_quantize(x, scale, groups=1):
         return int8_quantize_plain(x, scale, groups)
     code = _quant_code(x, "int8_quantize")
     N, C, sp = x.shape[0], x.shape[1], x.shape[2:]
-    cgp = padded_channels(C // groups)
+    groups, cgp = _layout(C, groups)
     q = torch.empty((N, *sp, groups * cgp), dtype=torch.int8,
                     device=x.device)
     if q.numel() == 0:
@@ -493,19 +518,24 @@ def _out_size(size, k, s, p, d):
 
 
 def _conv_args(xq, wpk, kernel, stride, padding, dilation, groups):
-    """Check the operands; (N, H, W, Cgp, O, OH, OW)."""
+    """Check the operands; (N, H, W, Cgp, O, OH, OW), Cgp the bytes of a
+    group in xq (1 for one unpadded channel a group: a depthwise
+    layer's input, (N, H, W, padded_channels(G)))."""
     if xq.dtype != torch.int8 or wpk.dtype != torch.int8:
         raise TypeError("int8_conv: xq and the packed weight must be int8, "
                         "got %s / %s" % (xq.dtype, wpk.dtype))
+    ctot = xq.shape[-1] if xq.dim() else 0
+    depthwise = groups > 1 and ctot == padded_channels(groups)
     if xq.dim() != 4 or wpk.dim() != 3 or wpk.shape[0] != groups or \
-            xq.shape[3] % groups:
+            (ctot % groups and not depthwise):
         raise ValueError("int8_conv: xq %s is not (N, H, W, G * Cgp) or the "
                          "weight %s not (G, O / G, Kp) for %d groups"
                          % (tuple(xq.shape), tuple(wpk.shape), groups))
-    N, H, W, ctot = xq.shape
-    cgp = ctot // groups
+    N, H, W, _ = xq.shape
+    cgp = 1 if depthwise else ctot // groups
     kh, kw = kernel
-    if cgp % 4 or wpk.shape[2] % CONV_BK or wpk.shape[2] < kh * kw * cgp:
+    if (cgp % 4 and not depthwise) or wpk.shape[2] % CONV_BK or \
+            wpk.shape[2] < kh * kw * padded_channels(cgp):
         raise ValueError("int8_conv: %d channels a group and a weight row "
                          "of %d for a %dx%d kernel" % (cgp, wpk.shape[2], kh,
                                                         kw))
@@ -524,8 +554,9 @@ def int8_conv_plain(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
     N, H, W, cgp, O, OH, OW = _conv_args(xq, wpk, kernel, stride, padding,
                                          dilation, groups)
     kh, kw = kernel
-    x = xq.permute(0, 3, 1, 2).double()
-    w = wpk[:, :, :kh * kw * cgp].reshape(groups, -1, kh, kw, cgp)
+    wc = padded_channels(cgp)                    # a tap of a weight row
+    x = xq[..., :groups * cgp].permute(0, 3, 1, 2).double()
+    w = wpk[:, :, :kh * kw * wc].reshape(groups, -1, kh, kw, wc)[..., :cgp]
     w = w.permute(0, 1, 4, 2, 3).reshape(O, cgp, kh, kw).double()
     acc = F.conv2d(x, w, None, tuple(stride), tuple(padding),
                    tuple(dilation), groups).round().to(torch.int32)
@@ -542,25 +573,107 @@ def int8_conv_plain(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
 
 
 def int8_conv_route(N, H, W, cgp, groups):
-    """K3's route for an input (N, H, W, G * Cgp): ``"hopper"`` (wgmma)
-    for one group whose channels are a multiple of 32 and whose input has
-    fewer than 2^31 bytes, else ``"general"`` (``conv_kernel``: the stem
-    with its 4 channels, groups, depthwise)."""
+    """K3's route for an input (N, H, W, G * Cgp), ``cgp`` the bytes of a
+    group (:func:`group_bytes`): ``"depthwise"`` (``conv_depthwise``) for
+    one unpadded channel a group; ``"hopper"`` (wgmma) for one group
+    whose channels are a multiple of 32 and whose input has fewer than
+    2^31 bytes; else ``"general"`` (``conv_kernel``: groups of two or
+    more channels, odd channel counts)."""
+    if groups > 1 and cgp == 1:
+        return "depthwise"
     if groups == 1 and cgp % 32 == 0 and N * H * W * cgp < 2 ** 31:
         return "hopper"
     return "general"
 
 
+#: the depthwise route's channels a tile (``DW_CB`` of csrc/int8_conv.cu)
+#: and the most shared memory a CTA may take
+DEPTHWISE_CB, DEPTHWISE_SMEM = 32, 232448
+
+
+def _dw_patch(th, tw, cb, kernel, stride, dilation):
+    """The input patch of th x tw output positions: (rows, columns, words
+    a channel's row, words a channel (odd), bytes of its cb channels)."""
+    (kh, kw), (sh, sw), (dh, dw) = kernel, stride, dilation
+    ph = (th - 1) * sh + (kh - 1) * dh + 1
+    pw = (tw - 1) * sw + (kw - 1) * dw + 1
+    rw = -(-pw // 4)
+    plane = ph * rw | 1
+    return ph, pw, rw, plane, 4 * cb * plane
+
+
+def int8_depthwise_plan(N, C, OH, OW, kernel, stride=(1, 1),
+                        dilation=(1, 1)):
+    """The depthwise route's launch for C one-channel groups: a CTA of
+    256 threads takes a tile of one image, ``cb`` channels (DEPTHWISE_CB)
+    and ``th`` x ``tw`` output positions (``tw`` 32, halved to 16 or 8
+    for narrower rows; ``th`` 8, or 4 at stride 2 and more with ``tw``
+    32), its input patch staged channel-major in ``smem`` bytes of shared
+    memory (``ph`` rows of ``rw`` words a channel, ``plane`` words a
+    channel); the rows, then the channels, halve until the patch fits in
+    DEPTHWISE_SMEM.  ``ctas`` = N x ``c_tiles`` x ``h_tiles`` x
+    ``w_tiles``.  None where one row of 4 channels does not fit."""
+    tw = 32
+    while tw > 8 and tw // 2 >= OW:
+        tw //= 2
+    th, cb = 8 if stride[0] == 1 or tw < 32 else 4, DEPTHWISE_CB
+    while (_dw_patch(th, tw, cb, kernel, stride, dilation)[4] >
+           DEPTHWISE_SMEM and (th > 1 or cb > 4)):
+        if th > 1:
+            th //= 2
+        else:
+            cb //= 2
+    ph, pw, rw, plane, smem = _dw_patch(th, tw, cb, kernel, stride,
+                                        dilation)
+    if smem > DEPTHWISE_SMEM:
+        return None
+    c_tiles = -(-C // cb)
+    h_tiles, w_tiles = -(-OH // th), -(-OW // tw)
+    return {"th": th, "tw": tw, "cb": cb, "ph": ph, "pw": pw, "rw": rw,
+            "plane": plane, "smem": smem, "c_tiles": c_tiles,
+            "h_tiles": h_tiles, "w_tiles": w_tiles,
+            "ctas": N * c_tiles * h_tiles * w_tiles}
+
+
+def int8_depthwise_blocks(plan, C, OH, OW, kernel, stride=(1, 1),
+                          padding=(0, 0), dilation=(1, 1)):
+    """Each CTA of a depthwise launch, from the same index math as
+    ``conv_depthwise``, as a dict: its image ``n``, channels [c0, c1) and
+    output tile [oh0, oh1) x [ow0, ow1), clipped to the problem; the
+    input corner of its patch (``ih0``, ``iw0``); ``units``, the staging
+    units in the order the kernel numbers them, each (channel quad,
+    position quad, patch row, the word of its first channel); and
+    ``taps``, the byte of a channel's staged patch that the tap (r, q)
+    of the tile's output (i, j) reads, (th, tw, kh, kw)."""
+    (kh, kw), (sh, sw), (dh, dw) = kernel, stride, dilation
+    th, tw, cb, rw = plan["th"], plan["tw"], plan["cb"], plan["rw"]
+    u = onp.arange(plan["ph"] * rw * (cb // 4))
+    cq, rest = u % (cb // 4), u // (cb // 4)
+    pq, pr = rest % rw, rest // rw
+    units = onp.stack([cq, pq, pr, 4 * cq * plan["plane"] + pr * rw + pq], 1)
+    i, j, r, q = onp.ogrid[:th, :tw, :kh, :kw]
+    taps = (i * sh + r * dh) * rw * 4 + j * sw + q * dw
+    for b in range(plan["ctas"]):
+        t_w, rest = b % plan["w_tiles"], b // plan["w_tiles"]
+        t_h, rest = rest % plan["h_tiles"], rest // plan["h_tiles"]
+        c_t, n = rest % plan["c_tiles"], rest // plan["c_tiles"]
+        oh0, ow0 = t_h * th, t_w * tw
+        yield {"n": n, "c0": c_t * cb, "c1": min(C, c_t * cb + cb),
+               "oh0": oh0, "oh1": min(OH, oh0 + th), "ow0": ow0,
+               "ow1": min(OW, ow0 + tw), "ih0": oh0 * sh - padding[0],
+               "iw0": ow0 * sw - padding[1], "units": units, "taps": taps}
+
+
 def int8_conv_mode(N, C, H, W, kernel, stride=(1, 1), padding=(0, 0),
                    dilation=(1, 1), groups=1):
     """How a quantized convolution of x (N, C, H, W) reads its input, and
-    on which K3 route: ``("im2col", "hopper")`` for one group whose
-    padded channels are not a multiple of 32 (the stem's 3 -> 4), where
-    the im2col rows fit (depth at most IM2COL_MAX_K, one position's patch
-    in IM2COL_PATCH bytes, int offsets): a 1 x 1 convolution over Kc
-    channels, which the hopper route takes; else ``("nhwc",
-    int8_conv_route(...))``."""
-    cgp = padded_channels(C // groups)
+    on which K3 route: ``("nhwc", "depthwise")`` for one channel a group;
+    ``("im2col", "hopper")`` for one group whose padded channels are not
+    a multiple of 32 (the stem's 3 -> 4), where the im2col rows fit
+    (depth at most IM2COL_MAX_K, one position's patch in IM2COL_PATCH
+    bytes, int offsets): a 1 x 1 convolution over Kc channels, which the
+    hopper route takes; else ``("nhwc", int8_conv_route(...))``."""
+    cgp = group_bytes(C, groups)
     if groups == 1 and cgp % 32:
         geo = _col_geometry((N, C, H, W), kernel, stride, padding, dilation)
         OH, OW, kc = geo[13:]
@@ -677,8 +790,9 @@ def _int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
                route=None):
     """:func:`int8_conv` on ``route`` (None: :func:`int8_conv_route`'s;
     ``"general"`` forces the general kernel, which the card's checks time
-    beside the hopper route; ``"hopper"`` on a shape it does not take
-    raises)."""
+    beside the other routes -- on a depthwise input through a copy with
+    each channel padded to the 4 bytes that kernel reads; ``"hopper"`` or
+    ``"depthwise"`` on a shape it does not take raises)."""
     N, H, W, cgp, O, OH, OW = _conv_args(xq, wpk, kernel, stride, padding,
                                          dilation, groups)
     if not _is_cuda(xq, wpk):
@@ -692,9 +806,21 @@ def _int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
     own = int8_conv_route(N, H, W, cgp, groups)
     if route is None:
         route = own
-    if route not in CONV_ROUTES or (route == "hopper" and own != "hopper"):
+    if route not in CONV_ROUTES or route not in ("general", own):
         raise ValueError("int8_conv: no route %r for %d groups of %d "
                          "channels" % (route, groups, cgp))
+    plan = None
+    if route == "depthwise":
+        plan = int8_depthwise_plan(N, groups, OH, OW, kernel, stride,
+                                   dilation)
+        if plan is None:
+            raise ValueError("int8_conv: a %dx%d kernel (dilation %s) has "
+                             "a patch larger than a CTA's shared memory"
+                             % (*kernel, tuple(dilation)))
+    elif own == "depthwise":
+        xq = F.pad(xq[..., :groups, None], (0, 3)).reshape(N, H, W,
+                                                         4 * groups)
+        cgp = 4
     vecs = {"scale": (scale, torch.float32), "bias": (bias, torch.float32),
             "bias_i32": (bias_i32, torch.int32)}
     if kind != 3 and scale is None:
@@ -726,13 +852,16 @@ def _int8_conv(xq, wpk, kernel, stride=(1, 1), padding=(0, 0),
                         "OW", "sh", "sw", "ph", "pw", "dh", "dw", "Kreal",
                         "Kp", "M", "out_kind", "relu", "route"),
                        (N, H, W, groups, cgp, O // groups, kh, kw, OH, OW,
-                        *stride, *padding, *dilation, kh * kw * cgp,
-                        wpk.shape[2], N * P, kind, int(bool(relu)),
-                        CONV_ROUTES[route])):
+                        *stride, *padding, *dilation,
+                        kh * kw * padded_channels(cgp), wpk.shape[2], N * P,
+                        kind, int(bool(relu)), CONV_ROUTES[route])):
         a[name] = v
     if route == "hopper":
         plan = int8_conv_plan(N * P, O, wpk.shape[2])
         for name in ("cfg", "splits", "ctas"):
+            a[name] = plan[name]
+    elif route == "depthwise":
+        for name in ("th", "tw", "cb", "ctas"):
             a[name] = plan[name]
     lib = _build.library("int8_conv")
     size = lib.mx_int8_conv_args_size()
@@ -767,7 +896,7 @@ def _op(name, schema, cpu, cuda, fake):
 
 
 def _quantize_fake(x, scale, groups):
-    cgp = padded_channels(x.shape[1] // groups)
+    groups, cgp = _layout(x.shape[1], groups)
     return x.new_empty((x.shape[0], *x.shape[2:], groups * cgp),
                        dtype=torch.int8)
 

@@ -126,7 +126,8 @@ def test_cpu_path_launches_no_kernel():
            "multi_sgd", "multi_adam", "multi_lamb_phase1",
            "multi_lamb_phase2", "multi_all_finite", "int8_linear",
            "int8_dequant", "int8_quantize", "int8_quantize_im2col",
-           "int8_conv", "int8_conv_hopper", "int8_conv_general"], 0)
+           "int8_conv", "int8_conv_hopper", "int8_conv_general",
+           "int8_conv_depthwise"], 0)
 
 
 def test_gqa_head_mismatch_raises():

@@ -1380,8 +1380,9 @@ INT8_CONV_CASES = [
 @pytest.mark.parametrize("case", INT8_CONV_CASES)
 def test_int8_conv_matches_plain_bit_for_bit(dev, case):
     """Every epilogue and layout against plain, on the route
-    ``int8_conv_route`` gives the shape and, where that is hopper, on the
-    general kernel too; each call one launch, counted under its route."""
+    ``int8_conv_route`` gives the shape and, where that is hopper or
+    depthwise, on the general kernel too; each call one launch, counted
+    under its route."""
     from mxnet_tpu_torch.ops import int8 as i8
     N, C, H, W, O, k, s, p, d, g = case
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1395,8 +1396,9 @@ def test_int8_conv_matches_plain_bit_for_bit(dev, case):
     bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
                        dtype=torch.int32)
     geo = ((k, k), (s, s), (p, p), (d, d), g)
-    own = i8.int8_conv_route(N, H, W, xq.shape[3] // g, g)
-    assert own == ("hopper" if g == 1 and C % 32 == 0 else "general")
+    own = i8.int8_conv_route(N, H, W, i8.group_bytes(C, g), g)
+    assert own == ("hopper" if g == 1 and C % 32 == 0 else
+                   "depthwise" if C == g else "general")
     for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
                dict(out_dtype=torch.int32),
                dict(out_dtype=torch.int32, bias_i32=bi, channels_last=True),
@@ -1447,6 +1449,85 @@ def test_int8_conv_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="scale 1"):
         i8.int8_quantize(torch.zeros(2, 4, device=dev, dtype=torch.int8),
                          0.5)
+
+
+# the depthwise route (N, C, H, W, multiplier, kernel, stride, pad,
+# dilation): C % 4 and C % 16 != 0 (4-byte loads), multiplier 2 and 3,
+# 5 x 5 taps, dilation 2, padding 0-2, batch 1, ragged tiles, channels
+# past one block of 32; then MobileNet v2's ten distinct depthwise
+# layers (its 17) at B=2
+DEPTHWISE_CASES = [(2, 7, 9, 9, 1, 3, 1, 1, 1), (1, 6, 13, 11, 2, 3, 2, 0, 1),
+                   (2, 32, 9, 9, 1, 3, 2, 1, 1),
+                   (1, 40, 17, 15, 1, 5, 1, 2, 1),
+                   (2, 20, 16, 16, 2, 3, 1, 2, 2),
+                   (1, 64, 8, 40, 1, 5, 2, 2, 1),
+                   (2, 3, 10, 10, 1, 3, 1, 1, 1),
+                   (1, 36, 19, 23, 3, 3, 2, 1, 2)] + [
+    (2, C, H, H, 1, 3, s, 1, 1) for C, H, s in (
+        (32, 112, 1), (96, 112, 2), (144, 56, 1), (192, 56, 2), (192, 28, 1),
+        (384, 28, 2), (384, 14, 1), (576, 14, 1), (960, 14, 2), (960, 7, 1))]
+
+
+@pytest.mark.parametrize("case", DEPTHWISE_CASES)
+def test_conv_depthwise_matches_plain_bit_for_bit(dev, case):
+    """K2's unpadded layout, then ``conv_depthwise`` in every epilogue
+    (int32 with and without its bias; float32 / bfloat16 / float16 with
+    scale, bias, relu) and both output layouts against plain; each call
+    one launch, counted under ``int8_conv_depthwise``; the general
+    kernel, forced, gives the same bits."""
+    from mxnet_tpu_torch.ops import int8 as i8
+    N, C, H, W, m, k, s, p, d = case
+    gen = torch.Generator(device=dev).manual_seed(C + H)
+    x = torch.randn(N, C, H, W, generator=gen, device=dev)
+    before = dict(cuda_ops.LAUNCHES)
+    xq = i8.int8_quantize(x, 0.02, C)
+    assert cuda_ops.LAUNCHES["int8_quantize"] == \
+        before["int8_quantize"] + 1
+    assert xq.shape == (N, H, W, i8.padded_channels(C))
+    assert torch.equal(xq, i8.int8_quantize_plain(x, 0.02, C))
+    O = C * m
+    wpk = i8.pack_conv_weight(torch.randint(
+        -127, 128, (O, 1, k, k), generator=gen, device=dev,
+        dtype=torch.int8), C)
+    scale = torch.rand(O, generator=gen, device=dev) * 1e-3
+    bias = torch.randn(O, generator=gen, device=dev)
+    bi = torch.randint(-999, 999, (O,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    geo = ((k, k), (s, s), (p, p), (d, d), C)
+    assert i8.int8_conv_route(N, H, W, i8.group_bytes(C, C), C) == \
+        "depthwise"
+    for kw in (dict(out_dtype=torch.int32, bias_i32=bi),
+               dict(out_dtype=torch.int32, channels_last=True),
+               dict(scale=scale, bias=bias, relu=True),
+               dict(scale=scale, out_dtype=torch.bfloat16),
+               dict(scale=scale, bias=bias, relu=True,
+                    out_dtype=torch.float16, channels_last=True),
+               dict(scale=scale, bias=bias, channels_last=True)):
+        want = i8.int8_conv_plain(xq, wpk, *geo, **kw)
+        for route in (None, "general"):
+            before = dict(cuda_ops.LAUNCHES)
+            got = i8._int8_conv(xq, wpk, *geo, route=route, **kw)
+            name = "int8_conv_" + (route or "depthwise")
+            assert cuda_ops.LAUNCHES[name] == before[name] + 1
+            assert cuda_ops.LAUNCHES["int8_conv"] == before["int8_conv"] + 1
+            assert torch.equal(got, want), (route, sorted(kw))
+
+
+def test_the_depthwise_route_refuses_other_shapes(dev):
+    from mxnet_tpu_torch.ops import int8 as i8
+    x = torch.randn(2, 24, 9, 9, device=dev)
+    xq = i8.int8_quantize(x, 0.02, 2)                  # 2 groups of 12
+    wpk = i8.pack_conv_weight(torch.zeros(8, 12, 3, 3, dtype=torch.int8,
+                                          device=dev), 2)
+    with pytest.raises(ValueError, match="no route 'depthwise'"):
+        i8._int8_conv(xq, wpk, (3, 3), groups=2, out_dtype=torch.int32,
+                      route="depthwise")
+    xq = i8.int8_quantize(x, 0.02, 24)                 # depthwise
+    wpk = i8.pack_conv_weight(torch.zeros(24, 1, 3, 3, dtype=torch.int8,
+                                          device=dev), 24)
+    with pytest.raises(ValueError, match="no route 'hopper'"):
+        i8._int8_conv(xq, wpk, (3, 3), groups=24, out_dtype=torch.int32,
+                      route="hopper")
 
 
 def test_quantized_net_hybridizes_into_graphs(dev):
@@ -1586,7 +1667,7 @@ def test_exported_int8_program_launches_k2_and_k3(dev, tmp_path):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     for k in ("int8_quantize", "int8_quantize_im2col", "int8_conv",
-              "int8_conv_hopper", "int8_conv_general"):
+              "int8_conv_hopper", "int8_conv_depthwise"):
         assert cuda_ops.LAUNCHES[k] == eager[k] > 0, k
 
 

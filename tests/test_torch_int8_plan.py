@@ -221,7 +221,9 @@ def test_int8_conv_mode_at_the_edges(edge):
     mode, route = i8.int8_conv_mode(N, C, H, W, (k, k), (s, s), (p, p),
                                     (d, d), g)
     cgp = i8.padded_channels(C // g)
-    if g > 1:                        # grouped and depthwise stay general
+    if g > 1 and C == g:             # depthwise: its own route
+        assert (mode, route) == ("nhwc", "depthwise")
+    elif g > 1:                      # grouped stays general
         assert (mode, route) == ("nhwc", "general")
     elif cgp % 32:                   # the stem, odd channel counts
         assert (mode, route) == ("im2col", "hopper")

@@ -2,7 +2,8 @@
 
     python3 tools/kernel_variants.py LIB VARIANT [VARIANT ...]
 
-``LIB`` names a source of ``mxnet_tpu_torch/csrc`` with a timing case
+``LIB`` names a source of ``mxnet_tpu_torch/csrc`` (``int8_depthwise``:
+``int8_conv.cu``'s depthwise route) with a timing case
 here: ``flash_fwd_mma`` (BERT-base's float32 attention, q/k/v (16, 12,
 512, 64) non-causal, and a causal GQA case for the error),
 ``paged_general`` (the float32 serving shape: 8 slots, lengths 51-347,
@@ -10,6 +11,10 @@ here: ``flash_fwd_mma`` (BERT-base's float32 attention, q/k/v (16, 12,
 ``chip_smoke.INT8_CONV_TIMED``'s ResNet-50 shapes, B=32, float32 NCHW
 out as ``QuantizedConv2D`` writes it, then bf16 NHWC and raw int32; each
 by ``chip_smoke.graph_ms`` and ``chip_smoke.device_ms``) or
+``int8_depthwise`` (K3's depthwise route at MobileNet v2's ten distinct
+depthwise layers, B=32, float32 NCHW out with scale and bias, as
+``QuantizedConv2D`` writes it; each by ``chip_smoke.graph_ms`` and
+``chip_smoke.device_ms``, summed over the forward's 17 layers) or
 ``int8_linear`` (the bf16 decode's
 five launches at M = 8, ``chip_smoke.INT8_SHAPES``, wq | wk | wv and
 w1 | w3 stacked, each timed alone by ``chip_smoke.graph_ms`` and back to
@@ -60,6 +65,14 @@ def _compile(files):
         print(f, "regs:", " | ".join(regs)[:600], flush=True)
         libs[f] = so
     return libs
+
+
+# MobileNet v2 1.0's depthwise layers at 224^2, 3 x 3, padding 1: (C,
+# H, stride, layers in the forward)
+MOBILENET_V2_DW = [(32, 112, 1, 1), (96, 112, 2, 1), (144, 56, 1, 2),
+                   (192, 56, 2, 1), (192, 28, 1, 2), (384, 28, 2, 1),
+                   (384, 14, 1, 3), (576, 14, 1, 3), (960, 14, 2, 1),
+                   (960, 7, 1, 2)]
 
 
 def _case(lib_name, dev):
@@ -130,6 +143,30 @@ def _case(lib_name, dev):
             return (sum(not torch.equal(i8.int8_conv(*a, **kw), want)
                         for _, a, kw, want in cases),)
         return run, errors, None
+    if lib_name == "int8_depthwise":
+        from mxnet_tpu_torch.ops import int8 as i8
+        cases = []
+        for C, H, s, n in MOBILENET_V2_DW:
+            x = torch.randn(32, C, H, H, generator=gen).to(dev)
+            wq = torch.randint(-127, 128, (C, 1, 3, 3), dtype=torch.int8,
+                               generator=gen).to(dev)
+            args = (i8.int8_quantize(x, 0.02, C), i8.pack_conv_weight(wq, C),
+                    (3, 3), (s, s), (1, 1), (1, 1), C)
+            kw = dict(scale=torch.full((C,), 1e-4, device=dev),
+                      bias=torch.zeros(C, device=dev))
+            cases.append(("3x3/%d %d@%d" % (s, C, H), n, args, kw,
+                          i8.int8_conv_plain(*args, **kw)))
+
+        def run():
+            return {name: (n, cs.graph_ms(lambda: i8.int8_conv(*a, **kw)),
+                           cs.device_ms(lambda: i8.int8_conv(*a, **kw),
+                                        "conv_depthwise")[0])
+                    for name, n, a, kw, _ in cases}
+
+        def errors():
+            return (sum(not torch.equal(i8.int8_conv(*a, **kw), want)
+                        for _, _, a, kw, want in cases),)
+        return run, errors, None
     if lib_name == "int8_linear":
         from mxnet_tpu_torch.ops.int8 import (int8_linear_group,
                                               int8_linear_group_plain)
@@ -180,8 +217,9 @@ def main(argv):
         if f not in libs:
             continue
         lib = ctypes.CDLL(libs[f])
-        _build._declare(lib_name, lib)
-        _build._libs[lib_name] = lib
+        source = "int8_conv" if lib_name == "int8_depthwise" else lib_name
+        _build._declare(source, lib)
+        _build._libs[source] = lib
         co.PAGED_TARGET_CTAS = int(n) if n else target
         errs = errors()
         if lib_name == "int8_conv":
@@ -190,6 +228,16 @@ def main(argv):
                   % (spec, errs[0], {k: (round(a, 4), round(b, 4))
                                      for k, (a, b) in times.items()}),
                   flush=True)
+            continue
+        if lib_name == "int8_depthwise":
+            times = run()
+            print("%-40s unequal cases %d; the forward's 17: %.4f ms by "
+                  "graph_ms, %.4f ms by the profiler; per shape (graph_ms, "
+                  "device_ms) %s"
+                  % (spec, errs[0], sum(n * a for n, a, _ in times.values()),
+                     sum(n * b for n, _, b in times.values()),
+                     {k: (round(a, 4), round(b, 4))
+                      for k, (_, a, b) in times.items()}), flush=True)
             continue
         if lib_name == "int8_linear":
             times = run()

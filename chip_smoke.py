@@ -4664,10 +4664,12 @@ def ring_block_check(co, dev):
     return worst
 
 
-def _run_ranks(out_dir, backend, world=RING_WORLD, mode="--ring-rank"):
-    """Start the rank children (``mode``: ``--ring-rank`` or
-    ``--serve-tp-rank``) and wait; stop them all when one fails or the
-    time runs out."""
+def _run_ranks(out_dir, backend, world=RING_WORLD, mode="--ring-rank",
+               timeout=RING_TIMEOUT_S):
+    """Start the rank children (``mode``: ``--ring-rank``,
+    ``--serve-tp-rank`` or ``--elastic-rank``, whose third argument is
+    its part in place of a backend) and wait; stop them all when one
+    fails or the time runs out."""
     procs, logs = [], []
     for r in range(world):
         log = open(os.path.join(out_dir, "rank%d.log" % r), "w")
@@ -4681,7 +4683,7 @@ def _run_ranks(out_dir, backend, world=RING_WORLD, mode="--ring-rank"):
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs) or \
-                    time.monotonic() - t0 > RING_TIMEOUT_S:
+                    time.monotonic() - t0 > timeout:
                 break
             time.sleep(0.2)
     finally:
@@ -5841,6 +5843,450 @@ def serve_tp_phase(mt, co, net, dev, card, reqs, one_rank, backend="gloo",
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 17: resilient multi-worker training (fault_dist, fault_elastic)
+# ----------------------------------------------------------------------
+ELASTIC_WORLD = 2
+ELASTIC_B, ELASTIC_T = 4, 512   # per rank: BERT-base at full width
+ELASTIC_STEPS = 3               # (a)-(c); the elastic runs take 4
+ELASTIC_RUN_STEPS = 4
+ELASTIC_LR = 2e-5
+#: the knobs the rank children set (seconds): a heartbeat round waits
+#: 5 s for a silent peer, a vote 10 s, a gloo collective 30 s
+ELASTIC_KNOBS = {"MXNET_FAULT_HEARTBEAT_TIMEOUT": "5",
+                 "MXNET_FAULT_CONSENSUS_TIMEOUT": "10",
+                 "MXNET_FAULT_COLLECTIVE_TIMEOUT": "30",
+                 "MXNET_FAULT_ELASTIC_DRAIN": "5",
+                 "MXNET_FAULT_BOOTSTRAP_TIMEOUT": "60"}
+#: (d): the peer's loss must surface within the heartbeat timeout plus
+#: this much (the FileComm's poll and the scheduler)
+ELASTIC_LOST_SLACK_S = 2.0
+ELASTIC_TIMEOUT_S = 400
+ELASTIC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "multi_adam")
+
+
+def _timed_file_comm(fd, *args, **kwargs):
+    """A ``FileComm`` that notes when each of its rounds began
+    (``.starts``: how long a lost peer takes to surface)."""
+    comm = fd.FileComm(*args, **kwargs)
+    comm.starts = []
+    inner = comm.allgather
+
+    def allgather(payload, timeout=None):
+        comm.starts.append(time.monotonic())
+        return inner(payload, timeout=timeout)
+    comm.allgather = allgather
+    return comm
+
+
+def _digest(net):
+    import hashlib
+    h = hashlib.sha256()
+    for _, p in sorted(net.collect_params().items()):
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _counters(profiler, names):
+    return {n: profiler.get_counter(n) for n in names}
+
+
+def elastic_rank(rank, out_dir, part):
+    """One rank of the elastic phase (``chip_smoke.py --elastic-rank R
+    DIR PART``, gloo through a ``FileStore`` in DIR, both ranks on card
+    0): PART ``abcd`` runs (a) a control, (b) a coordinated retry, (c)
+    the step lease with fleet telemetry (f), then (d) a lost rank; PART
+    ``e`` a maintenance drain.  A JSON report into DIR."""
+    os.environ.update(ELASTIC_KNOBS)
+    store = "file://" + os.path.join(out_dir, "store")
+    os.environ.update(MX_COORD_ADDR=store, MX_NUM_WORKERS=str(ELASTIC_WORLD),
+                      MX_WORKER_ID=str(rank))
+    torch.cuda.set_device(0)
+    import shutil
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import fault, flightrec, profiler, telemetry
+    from mxnet_tpu_torch import fault_dist as fd
+    from mxnet_tpu_torch import fault_elastic as fe
+    from mxnet_tpu_torch.ops import cuda_ops as co
+    check(fd.initialize(store, ELASTIC_WORLD, rank, backend="gloo"),
+          "elastic: rank %d did not join" % rank)
+    dev = torch.device("cuda", 0)
+    cfg = mt.models.bert_base_config(dtype="bfloat16")
+    report = {"rank": rank, "part": part}
+
+    def build():
+        net = mt.models.BERTForPretrain(cfg).initialize(
+            device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        tr = mt.gluon.Trainer(net.collect_params(), "adamw",
+                              {"learning_rate": ELASTIC_LR, "wd": 0.01},
+                              kvstore="dist_sync", update_on_kvstore=True)
+        return net, tr
+
+    def one_step(net, tr, t, lr_scale=1.0):
+        batch = bert_batch(cfg, dev, ELASTIC_B, ELASTIC_T, 1000 * rank + t)
+        tr.set_learning_rate(ELASTIC_LR * lr_scale)
+        with mt.autograd.record():
+            loss = bert_loss(mt, net, *batch)
+        mt.autograd.backward(loss)
+        tr.step(1)
+        return loss.item()
+
+    def run(steps, net, tr):
+        losses, ms = [], []
+        for t in range(steps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            losses.append(one_step(net, tr, t))
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    dist_counters = ["fault::dist::" + k for k in (
+        "coordinated_retries", "generation_bumps", "vote_rounds",
+        "heartbeats", "lease_ops", "lease_activations", "gave_up")]
+    co.reset_launch_counts()
+    if part == "abcd":
+        # (a) control: N steps at world 2, every push and pull voted
+        fault.clear()
+        torch.manual_seed(8)     # dropout: the same masks every run
+        net, tr = build()
+        tr._init_kvstore()
+        grad_bytes = sum(p.numel() * p.element_size()
+                         for p in net.parameters())
+        c0 = _counters(profiler, dist_counters)
+        losses, ms = run(ELASTIC_STEPS, net, tr)
+        c1 = _counters(profiler, dist_counters)
+        report["a"] = {"losses": losses, "digest": _digest(net), "ms": ms,
+                       "params": len(list(net.parameters())),
+                       "grad_bytes": grad_bytes,
+                       "counters": {k: c1[k] - c0[k] for k in c0}}
+        print("elastic (a) rank %d: losses %s, step ms %s" % (
+            rank, losses, ["%.0f" % x for x in ms]), flush=True)
+        del net, tr
+        gc.collect()
+        # (b) kvstore_fail on rank 1 only, at a pull of the 2nd step (a
+        # pull is local: the fault is visible where its peer is not
+        # parked in a collective); both vote, bump and re-issue
+        fault.clear()
+        torch.manual_seed(8)     # dropout: the same masks every run
+        net, tr = build()
+        n = report["a"]["params"]
+        if rank == 1:
+            # the broadcast at the kvstore's start pulls each key once,
+            # and each step pulls each key once
+            fault.inject("kvstore_fail", at=2 * n + 3, op="pull")
+        tr._init_kvstore()
+        c0 = _counters(profiler, dist_counters)
+        losses, ms = run(ELASTIC_STEPS, net, tr)
+        c1 = _counters(profiler, dist_counters)
+        report["b"] = {"losses": losses, "digest": _digest(net), "ms": ms,
+                       "fired": fault.stats().get("kvstore_fail", 0),
+                       "generation": fd.generation().value,
+                       "counters": {k: c1[k] - c0[k] for k in c0}}
+        print("elastic (b) rank %d: losses %s, step ms %s, %s" % (
+            rank, losses, ["%.0f" % x for x in ms], report["b"]),
+            flush=True)
+        del net, tr
+        gc.collect()
+        # (c) the step lease, and (f) fleet telemetry after one beat
+        fault.clear()
+        hb = fd.enable_step_heartbeat(every=1)
+        lease = fd.enable_step_lease()
+        torch.manual_seed(8)     # dropout: the same masks every run
+        net, tr = build()
+        tr._init_kvstore()
+        votes0 = fd.default_comm()._round
+        c0 = _counters(profiler, dist_counters)
+        losses, ms, view = [], [], None
+        for t in range(ELASTIC_STEPS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            losses.append(one_step(net, tr, t))
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if t == 0:
+                sess = telemetry.enable_fleet_telemetry()
+            elif view is None:
+                view = sess.fleet_view()
+        c1 = _counters(profiler, dist_counters)
+        report["c"] = {"losses": losses, "digest": _digest(net), "ms": ms,
+                       "per_op_rounds": fd.default_comm()._round - votes0,
+                       "beat_rounds": hb.comm._round, "beats": hb.beats,
+                       "lease": lease.state(),
+                       "fleet_ranks": sorted(view.ranks) if view else None,
+                       "counters": {k: c1[k] - c0[k] for k in c0}}
+        print("elastic (c) rank %d: losses %s, step ms %s, %s" % (
+            rank, losses, ["%.0f" % x for x in ms], report["c"]),
+            flush=True)
+        fd.disable_step_heartbeat()
+        del net, tr
+        gc.collect()
+    # (d) a lost rank / (e) a drain, under the ElasticRunner
+    fault.clear()
+    torch.manual_seed(8)     # dropout: the same masks every run
+    net, tr = build()
+    post, comms, notice = [], [], {}
+    ckpt_dir = os.path.join(out_dir, "ckpt%d" % rank)
+    kept = os.path.join(out_dir, "restored_from")
+
+    def step_fn(t, info):
+        if notice.get("at") == t:
+            notice["set"]()
+        loss = one_step(net, tr, t, info.lr_scale)
+        if info.epoch:
+            post.append(loss)
+        return loss
+
+    def save_fn(path, t):
+        os.makedirs(path)
+        net.save_parameters(os.path.join(path, "net.params"))
+        tr.save_states(os.path.join(path, "trainer.states"))
+
+    def restore_fn(path, info):
+        net.load_parameters(os.path.join(path, "net.params"))
+        tr.reset_kvstore()
+        tr.load_states(os.path.join(path, "trainer.states"))
+        shutil.copytree(path, kept)
+        for f in (fault.ELASTIC_STATE, fault.ELASTIC_MANIFEST):
+            shutil.copy(os.path.join(ckpt_dir, f), kept)
+
+    def comm_factory(r, w, epoch):
+        comms.append(_timed_file_comm(fd, os.path.join(out_dir, "hb"), r,
+                                      w, namespace="el%d" % epoch))
+        return comms[-1]
+
+    runner = fe.ElasticRunner(
+        step_fn, board=fe.FileBoard(os.path.join(out_dir, "board")),
+        comm_factory=comm_factory, rank=rank, world=ELASTIC_WORLD,
+        save_fn=save_fn, restore_fn=restore_fn, ckpt_dir=ckpt_dir,
+        ckpt_every=2, min_world=1, telemetry=False)
+    server = None
+    if part == "abcd" and rank == 1:
+        fault.inject("peer_hang", at=3)   # its 3rd beat: after the ckpt
+    if part == "e" and rank == 1:
+        server, url = _metadata_stub()
+        poller = runner.watch_maintenance(url=url, interval=0.05)
+
+        def announce():
+            server.value = "TERMINATE_ON_HOST_MAINTENANCE"
+            deadline = time.monotonic() + 10
+            while not runner._notice_pending():
+                check(time.monotonic() < deadline,
+                      "elastic (e): the poller never saw the notice")
+                time.sleep(0.01)
+        notice.update(at=1, set=announce)
+    el_names = ["fault::elastic::" + k for k in (
+        "resizes", "rebootstraps", "restores", "drains", "votes",
+        "checkpoints")]
+    c0 = _counters(profiler, el_names + ["fault::dist::peer_lost"])
+    t0 = time.monotonic()
+    out = {"voted_out": False}
+    try:
+        status = runner.run(ELASTIC_RUN_STEPS)
+        out.update(completed=status.completed, drained=status.drained)
+    except fe.VotedOutError as e:
+        out.update(voted_out=True, error=str(e)[:200])
+    out["wall_s"] = time.monotonic() - t0
+    if server is not None:
+        poller.stop()
+        server.shutdown()
+    c1 = _counters(profiler, el_names + ["fault::dist::peer_lost"])
+    events = flightrec.events()
+    lost = [e for e in events if e["kind"] == "error.peer_lost"]
+    resumed = [e for e in events
+               if e["kind"] == "step.begin" and e.get("epoch") == 1]
+    out.update(
+        history=[list(h) for h in runner.history], post=post,
+        world=runner.info.world, survivors=runner.info.survivors,
+        lr_scale=runner.info.lr_scale, generation=runner.info.gen.value,
+        counters={k.split("::")[-1]: c1[k] - c0[k] for k in c0},
+        lost_ranks=[list(e["ranks"]) for e in lost],
+        # the last beat that did not complete: how long the silence took
+        # to surface
+        lost_after_s=(lost[0]["t"] - time.time() + time.monotonic()
+                      - comms[0].starts[-1]) if lost and comms[0].starts
+        else None,
+        # from the loss to the first step at the new world (the vote, the
+        # re-bootstrap and the restore)
+        resize_s=(resumed[0]["t"] - lost[0]["t"]) if lost and resumed
+        else None)
+    _sync(dev)
+    report["launches"] = dict(co.LAUNCHES)   # the path's, not the solo's
+    if out.get("completed") and runner.resizes and rank == 0:
+        # the one-rank run restored from the same checkpoint (weights,
+        # optimizer states, RNG) at the same scaled LR
+        del net, tr
+        gc.collect()
+        net, tr = build()
+        net.load_parameters(os.path.join(kept, "net.params"))
+        tr.load_states(os.path.join(kept, "trainer.states"))
+        st = fault.load_elastic_state(kept)
+        out["solo"] = [one_step(net, tr, t, runner.info.lr_scale)
+                       for t in range(st["step"], ELASTIC_RUN_STEPS)]
+    report["run"] = out
+    print("elastic (%s) rank %d: %s" % (part, rank, out), flush=True)
+    report["imported_jax"] = any(m.split(".")[0] in ("jax", "jaxlib",
+                                                     "mxnet_tpu")
+                                 for m in sys.modules)
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _metadata_stub():
+    """A stub instance-metadata server on 127.0.0.1 whose answer is its
+    ``value`` (the maintenance notice of (e))."""
+    import http.server
+    import threading
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = server.value.encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+    server = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+    server.value = "NONE"
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, "http://127.0.0.1:%d/maintenance-event" % \
+        server.server_port
+
+
+def elastic_phase(mt, co, dev, card):
+    """dp=2 BERT-base (full width, bf16, per-rank B=4 T=512) on 2 gloo
+    ranks sharing the card, through the Gluon Trainer with a dist_sync
+    kvstore (AdamW on the store): (a) a control, (b) a coordinated
+    retry, (c) the step lease, (f) fleet telemetry, (d) a lost rank and
+    (e) a drain, each checked here.  Returns the launch counts, summed
+    over both runs' rank 0."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="mx_elastic_") as root:
+        reps = {}
+        for part in ("abcd", "e"):
+            d = os.path.join(root, part)
+            os.makedirs(d)
+            wall = _run_ranks(d, part, world=ELASTIC_WORLD,
+                              mode="--elastic-rank",
+                              timeout=ELASTIC_TIMEOUT_S)
+            reps[part] = []
+            for r in range(ELASTIC_WORLD):
+                with open(os.path.join(d, "rank%d.json" % r)) as f:
+                    reps[part].append(json.load(f))
+            print("elastic %s: 2 gloo ranks on one card, %.1f s [%s]"
+                  % (part, wall, card))
+    for part, rr in reps.items():
+        check(not any(r["imported_jax"] for r in rr),
+              "elastic: a rank child imported JAX")
+        for r in rr:
+            check(all(r["launches"][k] > 0 for k in ELASTIC_KERNELS),
+                  "elastic %s: rank %d missed a kernel of the path: %s"
+                  % (part, r["rank"], r["launches"]))
+    a0, a1 = (r["a"] for r in reps["abcd"])
+    check(all(math.isfinite(x) for x in a0["losses"] + a1["losses"]),
+          "elastic (a): a loss is not finite")
+    check(a0["digest"] == a1["digest"],
+          "elastic (a): the ranks' parameters differ")
+    print("elastic (a) control: BERT-base bf16, dp=2, B=%d T=%d a rank, %d "
+          "steps: losses rank 0 %s, rank 1 %s; parameters %s; host ms a "
+          "step %s / %s; %d per-op vote rounds; %.1f MB of gradients "
+          "all-reduced a step, each staged through pinned host memory "
+          "[%s]" % (ELASTIC_B, ELASTIC_T, ELASTIC_STEPS, a0["losses"],
+                    a1["losses"], a0["digest"],
+                    ["%.1f" % x for x in a0["ms"]],
+                    ["%.1f" % x for x in a1["ms"]],
+                    a0["counters"]["fault::dist::vote_rounds"],
+                    a0["grad_bytes"] / 1e6, card))
+    b = [r["b"] for r in reps["abcd"]]
+    for r, bb, aa in zip(reps["abcd"], b, (a0, a1)):
+        check(bb["losses"] == aa["losses"] and bb["digest"] == aa["digest"],
+              "elastic (b): rank %d's run differs from (a)" % r["rank"])
+    keys = ("fault::dist::coordinated_retries",
+            "fault::dist::generation_bumps")
+    check(b[1]["fired"] == 1 and b[0]["fired"] == 0,
+          "elastic (b): the fault fired %s" % [x["fired"] for x in b])
+    check(all(bb["counters"][k] == 1 for bb in b for k in keys) and
+          b[0]["generation"] == b[1]["generation"],
+          "elastic (b): retries / bumps / generations %s"
+          % [(bb["counters"], bb["generation"]) for bb in b])
+    # the retry is in step 1 on both ranks: its cost beside (a)'s step 1
+    retry_ms = [bb["ms"][1] - aa["ms"][1] for bb, aa in zip(b, (a0, a1))]
+    print("elastic (b) coordinated retry: kvstore_fail on rank 1's pull; "
+          "both ranks voted, bumped the generation once (retries %s, "
+          "bumps %s, final generations %s) and re-issued; losses and "
+          "parameters equal (a)'s bit for bit; the retried step's host ms "
+          "less (a)'s step 1: %s [%s]"
+          % ([bb["counters"][keys[0]] for bb in b],
+             [bb["counters"][keys[1]] for bb in b],
+             [bb["generation"] for bb in b],
+             ["%.1f" % x for x in retry_ms], card))
+    c = [r["c"] for r in reps["abcd"]]
+    for r, cc, aa in zip(reps["abcd"], c, (a0, a1)):
+        check(cc["losses"] == aa["losses"] and cc["digest"] == aa["digest"],
+              "elastic (c): rank %d's leased run differs from (a)"
+              % r["rank"])
+        check(cc["per_op_rounds"] == 0 and cc["lease"] == "active" and
+              cc["beat_rounds"] == cc["beats"] == ELASTIC_STEPS,
+              "elastic (c): rank %d: %s" % (r["rank"], cc))
+    med = [sorted(x["ms"])[len(x["ms"]) // 2] for x in (a0, c[0])]
+    print("elastic (c) step lease: 0 per-op vote rounds over %d steps, %d "
+          "beat rounds (= beats), losses equal (a)'s bit for bit; host ms "
+          "a step, rank 0 median: %.1f per-op voting, %.1f leased [%s]"
+          % (ELASTIC_STEPS, c[0]["beat_rounds"], med[0], med[1], card))
+    check(c[0]["fleet_ranks"] == [0, 1],
+          "elastic (f): rank 0's FleetView names %s" % c[0]["fleet_ranks"])
+    print("elastic (f) fleet telemetry: enable_fleet_telemetry() after one "
+          "beat; rank 0's FleetView names ranks %s [%s]"
+          % (c[0]["fleet_ranks"], card))
+    d0, d1 = (r["run"] for r in reps["abcd"])
+    hb_s = float(ELASTIC_KNOBS["MXNET_FAULT_HEARTBEAT_TIMEOUT"])
+    check(d0["lost_ranks"] == [[1]] and d0["lost_after_s"] is not None and
+          d0["lost_after_s"] <= hb_s + ELASTIC_LOST_SLACK_S,
+          "elastic (d): rank 0 lost %s after %s s" % (d0["lost_ranks"],
+                                                      d0["lost_after_s"]))
+    check(d0["completed"] and d0["world"] == 1 and d0["lr_scale"] == 0.5
+          and all(d0["counters"][k] == 1 for k in
+                  ("resizes", "rebootstraps", "restores")),
+          "elastic (d): rank 0 %s" % d0)
+    check(len(d0["post"]) == ELASTIC_RUN_STEPS - 2 and
+          d0["post"] == d0["solo"],
+          "elastic (d): after the resize %s, one-rank restore %s"
+          % (d0["post"], d0.get("solo")))
+    check(d1["voted_out"], "elastic (d): rank 1 was not voted out: %s" % d1)
+    print("elastic (d) lost rank: peer_hang on rank 1 after the step-2 "
+          "checkpoint; rank 0 got PeerLostError naming %s after %.2f s "
+          "(heartbeat timeout %.0f s + slack %.0f s), committed world 1, "
+          "voted, re-bootstrapped and restored: %.2f s to its next step; at lr_scale "
+          "%.1f: losses %s == the one-rank restore's %s bit for bit; "
+          "resizes/rebootstraps/restores %s; rank 1 voted out "
+          "(VotedOutError), exit 0 [%s]"
+          % (d0["lost_ranks"][0], d0["lost_after_s"], hb_s,
+             ELASTIC_LOST_SLACK_S, d0["resize_s"] or float("nan"),
+             d0["lr_scale"], d0["post"], d0["solo"],
+             [d0["counters"][k] for k in ("resizes", "rebootstraps",
+                                          "restores")], card))
+    e0, e1 = (r["run"] for r in reps["e"])
+    check(e1.get("drained") and e1["counters"]["drains"] == 1,
+          "elastic (e): rank 1 did not drain: %s" % e1)
+    check(e0["completed"] and e0["world"] == 1 and
+          e0["counters"]["resizes"] == 1,
+          "elastic (e): rank 0 did not resize without it: %s" % e0)
+    print("elastic (e) drain: a TERMINATE notice from the stub metadata "
+          "server reached rank 1's MaintenancePoller; it checkpointed, "
+          "posted its leave record and exited 0 (drains %d); rank 0 "
+          "resized to world %d and finished, losses after %s [%s]"
+          % (e1["counters"]["drains"], e0["world"], e0["post"], card))
+    launches = dict.fromkeys(co.LAUNCHES, 0)
+    for part in reps:
+        for k, v in reps[part][0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def _short_names(obj, width=48):
     """``obj`` with every dict key cut to ``width`` characters (the times
     of kernels whose names then coincide summed): the kernels line keeps
@@ -5870,6 +6316,8 @@ def main(argv):
         return ring_rank(int(argv[2]), *argv[3:5])
     if argv[1:2] == ["--serve-tp-rank"]:  # a child of serve_tp_phase
         return serve_tp_rank(int(argv[2]), argv[3], argv[4], int(argv[5]))
+    if argv[1:2] == ["--elastic-rank"]:   # a child of elastic_phase
+        return elastic_rank(int(argv[2]), argv[3], argv[4])
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import cuda_ops as co
@@ -5892,6 +6340,11 @@ def main(argv):
             "flash_bwd": [bwd_timing(co, dev, card, shape)
                           for shape in (TRAIN_ATTN, BERT_ATTN)],
             "paged_decode": paged_timing(co, dev)}}))
+        return 0
+    if argv[1:] == ["--elastic"]:
+        # only the elastic phase (its two pairs of rank children)
+        elastic_phase(mt, co, dev, card)
+        print(card)
         return 0
     if argv[1:] == ["--ring-nccl"]:
         # only the rank children's phases (ring, ep, dp_tp, pipeline,
@@ -5926,8 +6379,9 @@ def main(argv):
         print(card)
         return 0
     check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing | "
-          "--ring-nccl | --ring-rank RANK DIR [BACKEND] | --serve-tp-rank "
-          "RANK DIR BACKEND WORLD]")
+          "--ring-nccl | --elastic | --ring-rank RANK DIR [BACKEND] | "
+          "--serve-tp-rank RANK DIR BACKEND WORLD | --elastic-rank RANK DIR "
+          "PART]")
     ptxas_report(_build)
 
     flash = flash_phase(co, dev)
@@ -6018,6 +6472,9 @@ def main(argv):
     torch.cuda.empty_cache()
     remat_launches = remat_phase(mt, co, dev, card)
     ckpt_launches = checkpoint_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic_launches = elastic_phase(mt, co, dev, card)
 
     for k in optim:
         if k["name"] == "multi_adam":
@@ -6043,7 +6500,7 @@ def main(argv):
              "int8_resnet": int8_resnet_launches,
              "amp_bert": amp_bert_launches,
              "amp_resnet": amp_resnet_launches, "guard": guard_launches,
-             **zoo_paths}
+             "elastic": elastic_launches, **zoo_paths}
     for path, kernels_of_path in (
             ("int8_resnet", ("int8_quantize", "int8_quantize_im2col",
                              "int8_conv_hopper")),
@@ -6059,6 +6516,7 @@ def main(argv):
                        "multi_adam")),
             ("pipeline", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
             ("kvstore", ("multi_sgd",)),
+            ("elastic", ELASTIC_KERNELS),
             ("zoo_train", ("multi_sgd",)),
             ("zoo_int8", ("int8_quantize", "int8_quantize_im2col",
                           "int8_conv_hopper", "int8_conv_depthwise")),

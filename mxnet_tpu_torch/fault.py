@@ -1,7 +1,6 @@
 """fault -- the fault-tolerance runtime's injection and retry core.
 
-Counterpart of ``mxnet_tpu/fault.py`` (its :1-520 and the checksum
-manifests), standard library only:
+Counterpart of ``mxnet_tpu/fault.py``:
 
 **Defenses**
 - :func:`retry_call` / :class:`RetryPolicy` -- exponential backoff with
@@ -10,11 +9,12 @@ manifests), standard library only:
   / ``fault::gave_up`` profiler counters.
 - checksum manifests (:func:`write_manifest` / :func:`verify_manifest`)
   so a resume can detect a torn checkpoint.
+- the non-finite gradient guard and the preemption autosave (below).
 
 **Offense** -- a deterministic fault-injection harness the tests use to
-prove every defense fires: :func:`inject` arms a fault
-programmatically; ``MXNET_FAULT_SPEC`` arms them from the environment.
-Spec DSL (``;``-separated)::
+prove every defense fires: :func:`inject` arms a fault programmatically;
+``MXNET_FAULT_SPEC`` arms them from the environment.  Spec DSL
+(``;``-separated)::
 
     kind[@N][:key=val[:key=val...]]
 
@@ -25,13 +25,21 @@ Spec DSL (``;``-separated)::
     serve_engine_kill@1            kill a serving engine thread
     serve_decode_fail@2[:op=fatal] fail the 2nd decode commit
     serve_slow_decode:op=0.2       stall each decode commit 0.2 s
-
     nan_grad@2                     NaN the first fresh gradient at the
                                    2nd Trainer.step
+    preempt@5                      deliver a simulated preemption on step 5
+    worker_kill@1                  SIGKILL a dataloader pool worker
+    dist_bootstrap_fail@1          fail the 1st process-group bootstrap
+    peer_hang@2                    hang this worker's 2nd heartbeat past
+                                   its peers' timeout
+    maintenance_event@1            deliver a TERMINATE maintenance notice
+    peer_preempt@6                 SIGKILL this worker at its 6th step (a
+                                   hard preemption: no notice, no autosave)
+    peer_join@3                    post a join record at the 3rd step, as
+                                   if a replacement rank arrived
 
 A JSON list of ``{"kind": ..., "at": ..., ...}`` objects is accepted
-too.  All randomness is seeded (``seed=`` per fault).  The kinds of the
-reference's training and multi-host seams parse and arm here as there.
+too.  All randomness is seeded (``seed=`` per fault).
 
 **The non-finite gradient guard** (reference :660-716):
 :func:`grads_finite` checks a parameter list's gradients with one
@@ -39,10 +47,29 @@ reference's training and multi-host seams parse and arm here as there.
 :class:`GradGuard` makes every step of a Trainer skip a non-finite
 batch (``Trainer.step(skip_nonfinite=True)`` for one step), counting
 ``fault::nonfinite_steps``; :func:`step_hook`, the Trainer's step seam,
-delivers ``nan_grad``.  Its ``preempt`` and ``peer_preempt`` kinds, the
-dataloader's seam, ``PreemptionHandler``, ``on_preemption``,
-``load_snapshot`` and the elastic state wait for ROADMAP queue 4 and
-raise ``NotImplementedError``.
+delivers ``nan_grad``, ``preempt`` (the autosave below) and
+``peer_preempt`` (SIGKILL of this process).
+
+**Preemption** (reference :717-1062): :func:`on_preemption` installs a
+:class:`PreemptionHandler` that, on SIGTERM / SIGINT, an injected
+``preempt`` or a maintenance notice (``fault_dist.MaintenancePoller``),
+writes a new generation of ``Block.save_parameters`` +
+``Trainer.save_states`` + host RNG files and swaps a checksummed resume
+manifest onto them (``fault::preemptions``); :func:`load_snapshot`
+verifies and restores it.  :func:`save_elastic_state` /
+:func:`load_elastic_state` keep the elastic runner's step, generation,
+world and epoch beside its checkpoint.  The host RNG state is PyTorch's
+CPU generator, every CUDA generator that was initialized, numpy's global
+state and ``random``'s (the reference keeps numpy's).
+:func:`dataloader_hook` is the DataLoader's per-batch seam
+(``worker_kill``), duck-typed on the pool's ``_pool`` list of processes.
+
+The multi-host half (coordinated recovery: the resilient bootstrap,
+generation-gated collective retry, heartbeats, the step lease,
+maintenance notices) is :mod:`mxnet_tpu_torch.fault_dist`, exposed as
+``mx.fault.dist``; the elastic half (survive a lost rank by resizing the
+job) is :mod:`mxnet_tpu_torch.fault_elastic`, exposed as
+``mx.fault.elastic``.
 
 Retry knobs from the environment: ``MXNET_FAULT_MAX_RETRIES`` (3),
 ``MXNET_FAULT_BACKOFF`` (0.05s base), ``MXNET_FAULT_BACKOFF_MAX`` (2.0s),
@@ -53,7 +80,9 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import pickle
 import random as _random
+import signal as _signal
 import threading
 import time
 from collections import defaultdict
@@ -69,8 +98,9 @@ __all__ = [
     "check", "kvstore_check", "collective_check", "serve_engine_check",
     "serve_decode_check", "checkpoint_hook",
     "file_sha256", "write_manifest", "verify_manifest",
-    "GradGuard", "grads_finite", "step_hook",
-    "PreemptionHandler", "on_preemption", "load_snapshot",
+    "GradGuard", "grads_finite", "step_hook", "dataloader_hook",
+    "PreemptionHandler", "preempt_handler", "on_preemption",
+    "load_snapshot",
     "save_elastic_state", "load_elastic_state",
 ]
 
@@ -257,14 +287,35 @@ KINDS = {
 }
 
 _ACTIVE = False          # fast gate read by the instrumented seams
-# process-wide step heartbeat (the reference's fault_dist installs it;
-# the port's heartbeat waits for ROADMAP queue 4, so it stays None and
-# telemetry.enable_fleet_telemetry needs an explicit heartbeat)
+# process-wide step heartbeat (fault_dist.enable_step_heartbeat installs
+# it; Trainer.step / parallel.TrainStep beat it) -- here so the hot step
+# path pays one attribute read and no fault_dist import
 _DIST_HEARTBEAT = None
+# process-wide step lease (fault_dist.enable_step_lease installs it;
+# coordinated ops ride it with lease=True).  Read through _step_lease()
+# and written through _set_step_lease(): the signal-handler and poller
+# preemption paths consult it while the main thread may be enabling or
+# disabling lease mode
+_STEP_LEASE = None
 _faults = []
-# RLock, as in the reference (a signal handler may re-enter it)
+# RLock, not Lock: PreemptionHandler._on_signal runs on the main thread
+# between bytecodes and reaches _step_lease() (this lock); a plain Lock
+# would deadlock when SIGTERM lands inside a locked region of that thread
 _fault_lock = threading.RLock()
 _fired_stats = defaultdict(int)
+
+
+def _step_lease():
+    """The installed process-wide step lease (or None), read under
+    ``_fault_lock``."""
+    with _fault_lock:
+        return _STEP_LEASE
+
+
+def _set_step_lease(lease):
+    global _STEP_LEASE
+    with _fault_lock:
+        _STEP_LEASE = lease
 
 
 class _Fault:
@@ -563,25 +614,47 @@ def verify_manifest(path, only=None):
 # ----------------------------------------------------------------------
 # the training step's seam and the non-finite gradient guard
 # ----------------------------------------------------------------------
-def _queue4(name):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            "fault.%s is not ported yet (ROADMAP queue 4: preemption and "
-            "the elastic state)" % name)
-    stub.__name__ = name
-    return stub
-
-
 def step_hook(trainer):
-    """Trainer.step entry: deliver armed step-site faults (``nan_grad``;
-    ``preempt`` / ``peer_preempt`` raise, ROADMAP queue 4)."""
+    """Trainer.step entry: deliver armed step-site faults."""
     for f in check("step"):
         if f.kind == "nan_grad":
             _corrupt_grads(trainer)
-        elif f.kind in ("preempt", "peer_preempt"):
-            raise NotImplementedError(
-                "fault %s is not ported yet (ROADMAP queue 4: preemption "
-                "and the elastic state)" % f.kind)
+        elif f.kind == "preempt":
+            _deliver_preemption()
+        elif f.kind == "peer_preempt":
+            _hard_preempt()
+
+
+def _hard_preempt():
+    """SIGKILL this worker: the injected form of a hard preemption (no
+    notice, no SIGTERM autosave window).  ``mx.fault.elastic`` is the
+    defense: the surviving ranks detect the silence and resize the job.
+    The black box flushes first."""
+    _flightrec.note_terminal("hard_preempt")
+    os.kill(os.getpid(), _signal.SIGKILL)
+
+
+def dataloader_hook(pool):
+    """Per-batch-submit seam: SIGKILL one pool worker when armed."""
+    for f in check("dataloader"):
+        _kill_one_worker(pool, f.rng)
+
+
+def _kill_one_worker(pool, rng):
+    """SIGKILL one process of ``pool._pool`` (a ``multiprocessing``
+    pool's worker list), chosen by the fault's seeded ``rng``."""
+    procs = list(getattr(pool, "_pool", []) or [])
+    if not procs:
+        return
+    victim = procs[rng.randrange(len(procs))]
+    try:
+        os.kill(victim.pid, _signal.SIGKILL)
+    except (OSError, ProcessLookupError):
+        return
+    try:
+        victim.join(timeout=2.0)
+    except (OSError, AssertionError, ValueError):
+        pass
 
 
 def _grads(params):
@@ -657,28 +730,342 @@ class GradGuard:
         self.consecutive = 0
 
 
-# the preemption / elastic half of the reference module
-dataloader_hook = _queue4("dataloader_hook")
-preempt_handler = _queue4("preempt_handler")
-PreemptionHandler = _queue4("PreemptionHandler")
-on_preemption = _queue4("on_preemption")
-load_snapshot = _queue4("load_snapshot")
-save_elastic_state = _queue4("save_elastic_state")
-load_elastic_state = _queue4("load_elastic_state")
+# ----------------------------------------------------------------------
+# preemption-aware autosave
+# ----------------------------------------------------------------------
+_preempt_handler = None
+
+
+def preempt_handler():
+    """The installed process-wide :class:`PreemptionHandler` (or None),
+    read under ``_fault_lock``: the maintenance poller's thread consults
+    it while the main thread may be swapping handlers."""
+    with _fault_lock:
+        return _preempt_handler
+
+
+def _proc_tag(idx):
+    """Per-process filename tag: ``.p<rank>`` in a multi-process job,
+    empty with one process (keeps single-process snapshot names)."""
+    return "" if idx is None else ".p%d" % int(idx)
+
+
+def _detect_process_index():
+    """This worker's rank for multi-process snapshot names, or None with
+    one process: the launcher's ``MX_NUM_WORKERS`` / ``MX_WORKER_ID``
+    first (so an autosave before the bootstrap already tells the ranks
+    apart), then a live ``torch.distributed`` group of more than one."""
+    n = os.environ.get("MX_NUM_WORKERS")
+    if n and int(n) > 1:
+        return int(os.environ.get("MX_WORKER_ID", "0"))
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        return dist.get_rank()
+    return None
+
+
+def _rng_state():
+    """The host RNG state: PyTorch's CPU generator, each CUDA generator
+    already initialized, numpy's global state and ``random``'s."""
+    import numpy as _onp
+    import torch
+    state = {"numpy": _onp.random.get_state(), "random": _random.getstate(),
+             "torch": torch.get_rng_state()}
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        state["cuda"] = torch.cuda.get_rng_state_all()
+    return state
+
+
+def _set_rng_state(state):
+    import numpy as _onp
+    import torch
+    if "numpy" in state:
+        _onp.random.set_state(state["numpy"])
+    if "random" in state:
+        _random.setstate(state["random"])
+    if "torch" in state:
+        torch.set_rng_state(state["torch"])
+    if "cuda" in state and torch.cuda.is_available():
+        torch.cuda.set_rng_state_all(state["cuda"])
+
+
+class PreemptionHandler:
+    """On SIGTERM / SIGINT (or an injected ``preempt`` fault) atomically
+    snapshot the parameters, the trainer states and the host RNG state,
+    and write a checksummed resume manifest; :func:`load_snapshot`
+    restores all of it.  A second signal during a save is ignored.
+
+    In a multi-process job every worker autosaves to the (often shared)
+    ``save_dir``: file names carry a ``.p<rank>`` suffix so concurrent
+    autosaves never clobber each other, and a resume reads its own
+    rank's snapshot."""
+
+    def __init__(self, save_dir, net=None, trainer=None, prefix="preempt",
+                 signals=(_signal.SIGTERM, _signal.SIGINT), on_fire=None,
+                 exit_on_signal=True, process_index=None):
+        self.save_dir = save_dir
+        self.net = net
+        self.trainer = trainer
+        self.prefix = prefix
+        self.process_index = process_index
+        self.signals = tuple(signals)
+        self.on_fire = on_fire
+        self.exit_on_signal = exit_on_signal
+        self.fired = 0
+        self._prev = {}
+        self._saving = threading.Lock()
+        self._pid = None
+        self._generation = None  # resolved lazily past existing snapshots
+        self._tagged_prefix = None
+
+    def _host_prefix(self):
+        """``prefix`` with the per-process tag; resolved lazily (the job
+        may not be up at construction), then frozen.  While the rank is
+        unknown the untagged name is used without freezing it."""
+        if self._tagged_prefix is None:
+            idx = self.process_index if self.process_index is not None \
+                else _detect_process_index()
+            if idx is None:
+                return self.prefix
+            self._tagged_prefix = self.prefix + _proc_tag(idx)
+        return self._tagged_prefix
+
+    # -- lifecycle ------------------------------------------------------
+    def install(self):
+        """Install the signal handlers (main thread only, as Python's
+        ``signal.signal`` requires); :meth:`uninstall` puts the previous
+        ones back."""
+        self._pid = os.getpid()
+        for sig in self.signals:
+            self._prev[sig] = _signal.signal(sig, self._on_signal)
+        return self
+
+    def uninstall(self):
+        global _preempt_handler
+        for sig, prev in self._prev.items():
+            _signal.signal(sig, prev)
+        self._prev.clear()
+        with _fault_lock:
+            if _preempt_handler is self:
+                _preempt_handler = None
+
+    def _on_signal(self, signum, frame):
+        if os.getpid() != self._pid:
+            # a forked child (a dataloader worker) inherited the handler:
+            # die with the default semantics instead of snapshotting there
+            _signal.signal(signum, _signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        self.fire(reason=_signal.Signals(signum).name)
+        if not self.exit_on_signal:
+            return
+        # the snapshot is on disk: hand the signal back, so the process
+        # still dies or interrupts as it would have
+        prev = self._prev.get(signum, _signal.SIG_DFL)
+        if callable(prev):
+            prev(signum, frame)
+        elif prev != _signal.SIG_IGN:
+            _signal.signal(signum, _signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+
+    # -- snapshot -------------------------------------------------------
+    def fire(self, reason="manual"):
+        if not self._saving.acquire(blocking=False):
+            return None
+        lease = _step_lease()
+        if lease is not None:
+            # this rank may survive the fire (a live-migration notice, a
+            # manual fire): the release is voted at the next beat, so the
+            # whole fleet drops the lease together
+            lease.request_release(reason="preemption:%s" % reason)
+        try:
+            manifest = self.snapshot(reason=reason)
+            self.fired += 1
+            _profiler.counter_bump("fault::preemptions", 1, cat="fault")
+            _flightrec.note_terminal("preempt:%s" % reason)
+            if self.on_fire is not None:
+                self.on_fire(self, reason)
+            return manifest
+        finally:
+            self._saving.release()
+
+    def _path(self, suffix):
+        return os.path.join(self.save_dir, self._host_prefix() + suffix)
+
+    def _next_generation(self):
+        """The first unused generation number in ``save_dir``: the live
+        manifest may still name the files of an existing one."""
+        import re
+        pat = re.compile(re.escape(self._host_prefix()) + r"\.g(\d+)\.")
+        gens = [int(m.group(1)) for f in os.listdir(self.save_dir)
+                for m in [pat.match(f)] if m]
+        return max(gens) + 1 if gens else 0
+
+    def snapshot(self, reason="manual"):
+        """Write a new generation of snapshot files, then swap the resume
+        manifest onto it (the commit point: a kill before it leaves the
+        previous manifest naming the previous, intact generation).  Older
+        generations are pruned after the swap."""
+        os.makedirs(self.save_dir, exist_ok=True)
+        if self._generation is None:
+            self._generation = self._next_generation()
+        else:
+            self._generation += 1
+        tag = ".g%d" % self._generation
+        files = []
+        if self.net is not None:
+            self.net.save_parameters(self._path(tag + ".params"))
+            files.append(self._path(tag + ".params"))
+        if self.trainer is not None:
+            self.trainer.save_states(self._path(tag + ".states"))
+            files.append(self._path(tag + ".states"))
+        _atomic_write_bytes(self._path(tag + ".rng"),
+                            pickle.dumps(_rng_state(),
+                                         pickle.HIGHEST_PROTOCOL))
+        files.append(self._path(tag + ".rng"))
+        manifest = write_manifest(
+            self._path(".resume.json"), files,
+            extra={"reason": reason, "generation": self._generation})
+        self._prune(keep=set(os.path.basename(f) for f in files))
+        return manifest
+
+    def _prune(self, keep):
+        import re
+        # a worker prunes only its own generations
+        pat = re.compile(re.escape(self._host_prefix()) + r"\.g\d+\.")
+        for f in os.listdir(self.save_dir):
+            if pat.match(f) and f not in keep:
+                try:
+                    os.remove(os.path.join(self.save_dir, f))
+                except OSError:
+                    pass
+
+
+def on_preemption(save_dir, net=None, trainer=None, **kwargs):
+    """Install (and return) the process-wide preemption handler.  The
+    injected ``preempt`` fault and a real SIGTERM / SIGINT both fire it."""
+    global _preempt_handler
+    prev = preempt_handler()
+    if prev is not None:
+        prev.uninstall()
+    handler = PreemptionHandler(save_dir, net=net, trainer=trainer, **kwargs)
+    handler.install()
+    with _fault_lock:
+        _preempt_handler = handler
+    return handler
+
+
+def _deliver_preemption():
+    handler = preempt_handler()
+    if handler is not None:
+        handler.fire(reason="injected")
+    else:
+        os.kill(os.getpid(), _signal.SIGTERM)
+
+
+def load_snapshot(save_dir, net=None, trainer=None, prefix="preempt",
+                  restore_rng=True, process_index=None):
+    """Verify and restore a preemption snapshot; returns the manifest.
+    File names come from the manifest (snapshots are generation-
+    versioned).  Raises :class:`CorruptCheckpointError` when the check
+    fails.  In a multi-process job a worker reads its own ``.p<rank>``
+    snapshot, falling back only to the untagged single-process name."""
+    idx = process_index if process_index is not None \
+        else _detect_process_index()
+    manifest_path = os.path.join(
+        save_dir, prefix + _proc_tag(idx) + ".resume.json")
+    if idx is not None and not os.path.exists(manifest_path):
+        manifest_path = os.path.join(save_dir, prefix + ".resume.json")
+    ok, bad = verify_manifest(manifest_path)
+    if not ok:
+        raise CorruptCheckpointError(
+            "preemption snapshot failed verification: %s" % ", ".join(bad))
+    with open(manifest_path, "rb") as f:
+        manifest = json.loads(f.read().decode())
+
+    def resolve(suffix):
+        for rel in manifest.get("files", {}):
+            if rel.endswith(suffix):
+                return os.path.join(save_dir, rel)
+        return None
+
+    params = resolve(".params")
+    if net is not None and params is not None:
+        net.load_parameters(params)
+    states = resolve(".states")
+    if trainer is not None and states is not None:
+        trainer.load_states(states)
+    rng_path = resolve(".rng")
+    if restore_rng and rng_path is not None:
+        with open(rng_path, "rb") as f:
+            _set_rng_state(pickle.load(f))
+    return manifest
+
+
+# ----------------------------------------------------------------------
+# elastic-state snapshot (mx.fault.elastic's resume manifest)
+# ----------------------------------------------------------------------
+ELASTIC_STATE = "elastic.state"      # pickled payload
+ELASTIC_MANIFEST = "elastic.json"    # checksum manifest + summary
+
+
+def save_elastic_state(save_dir, step, generation, world, epoch=0,
+                       checkpoint=None, extra=None):
+    """Atomically snapshot the elastic runner's state (step, generation,
+    world size, resize epoch, host RNG) beside the model checkpoint it
+    describes, then write its checksum manifest.  Call after the model
+    checkpoint completes: the manifest is the commit point."""
+    os.makedirs(save_dir, exist_ok=True)
+    payload = {
+        "step": int(step), "generation": int(generation),
+        "world": int(world), "epoch": int(epoch),
+        "checkpoint": checkpoint, "time": time.time(),
+        "rng": _rng_state(),
+    }
+    if extra:
+        payload["extra"] = dict(extra)
+    path = os.path.join(save_dir, ELASTIC_STATE)
+    _atomic_write_bytes(path, pickle.dumps(payload,
+                                           pickle.HIGHEST_PROTOCOL))
+    return write_manifest(
+        os.path.join(save_dir, ELASTIC_MANIFEST), [path],
+        extra={"step": int(step), "generation": int(generation),
+               "world": int(world), "epoch": int(epoch)})
+
+
+def load_elastic_state(save_dir, restore_rng=True):
+    """Verify and load the elastic-state snapshot: the payload dict
+    (``step`` / ``generation`` / ``world`` / ``epoch`` / ``checkpoint``)
+    or None when there is none.  A torn snapshot raises
+    :class:`CorruptCheckpointError` instead of resuming from garbage."""
+    mpath = os.path.join(save_dir, ELASTIC_MANIFEST)
+    spath = os.path.join(save_dir, ELASTIC_STATE)
+    if not os.path.exists(mpath) and not os.path.exists(spath):
+        return None
+    ok, bad = verify_manifest(mpath)
+    if not ok:
+        raise CorruptCheckpointError(
+            "elastic state failed verification: %s" % ", ".join(bad))
+    with open(spath, "rb") as f:
+        payload = pickle.load(f)
+    if restore_rng:
+        _set_rng_state(payload.get("rng") or {})
+    return payload
 
 
 def __getattr__(name):
-    # mx.fault.dist: the ported part of the multi-host layer (the error
-    # classifier); mx.fault.elastic waits for ROADMAP queue 4
+    # mx.fault.dist / mx.fault.elastic: the coordinated multi-process and
+    # elastic-resize layers, imported on first use
     if name == "dist":
         from . import fault_dist as dist
         globals()["dist"] = dist
         return dist
     if name == "elastic":
-        raise NotImplementedError(
-            "fault.elastic is not ported yet (ROADMAP queue 4)")
+        from . import fault_elastic as elastic
+        globals()["elastic"] = elastic
+        return elastic
     raise AttributeError("module %r has no attribute %r"
                          % (__name__, name))
-
 
 _load_env_spec()

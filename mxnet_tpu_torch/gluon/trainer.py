@@ -50,8 +50,15 @@ fresh gradients and one host sync, and a "finite" verdict of the guard
 spares the scaler a second check.  The checks run after the stale-
 gradient check and before any update or push, so a skipped step leaves
 every weight as it was; its gradients count as consumed.  The step seam
-delivers the ``fault`` harness's ``nan_grad``.  Not ported yet: the
-elastic ``reset_kvstore`` (ROADMAP queue 4).
+delivers the ``fault`` harness's step faults (``nan_grad``, ``preempt``,
+``peer_preempt``), and with a step heartbeat installed
+(``fault_dist.enable_step_heartbeat``) ``step`` beats it after the
+kvstore is made (reference :166-182): a hung peer surfaces as a
+``PeerLostError`` there, and under a step lease the beat is the step's
+aggregate vote.  :meth:`reset_kvstore` (reference :112-142) detaches the
+store, so the next step rebuilds it over the current world (the elastic
+resize), carrying an ``update_on_kvstore`` store's optimizer states
+over.
 
 ``save_states`` / ``load_states`` (:403, :428) write and read the
 optimizer states as one npz with the JAX Trainer's keys: ``s<i>_<j>``
@@ -111,6 +118,7 @@ class Trainer:
                                              **optimizer_params)
         self._states = [None] * len(params)
         self._grad_guard = None
+        self._pending_opt_states = None
 
     @property
     def optimizer(self):
@@ -143,6 +151,32 @@ class Trainer:
             for i, p in enumerate(self._params):
                 kv.init(i, p.data())
             kv.set_optimizer(self._optimizer)
+            carried = self._pending_opt_states
+            if carried and hasattr(kv, "_opt_states"):
+                kv._opt_states.update(carried)
+            self._pending_opt_states = None
+
+    def reset_kvstore(self, kvstore=None, update_on_kvstore=None):
+        """Detach the kvstore so the next ``step`` rebuilds it over the
+        CURRENT world: the Trainer's side of an elastic resize.  After a
+        re-bootstrap the old store describes the old world; its
+        ``update_on_kvstore`` optimizer states are carried onto the
+        rebuilt store, so Adam / momentum resume rather than restart.
+        ``kvstore`` / ``update_on_kvstore`` override the original
+        settings when given."""
+        carried = None
+        if self._kvstore is not None:
+            carried = getattr(self._kvstore, "_opt_states", None)
+        from ..kvstore import kvstore as _kvs
+        _kvs.reset_distributed()
+        if kvstore is not None:
+            self._kvstore_type = kvstore
+        if update_on_kvstore is not None:
+            self._update_on_kvstore = update_on_kvstore
+        self._kvstore = None
+        self._kv_initialized = False
+        self._pending_opt_states = carried if self._update_on_kvstore \
+            else None
 
     def _on_kvstore(self):
         return bool(self._update_on_kvstore) and self._kvstore is not None
@@ -186,6 +220,11 @@ class Trainer:
             _fault.step_hook(self)
         if not self._kv_initialized:
             self._init_kvstore()
+        if _fault._DIST_HEARTBEAT is not None:
+            # the step-boundary peer-health allgather, after the store
+            # is made (it may bootstrap the job the beat votes over)
+            _fault._DIST_HEARTBEAT.beat(
+                step=getattr(self._optimizer, "num_update", None))
         self._optimizer.rescale_grad = self._grad_rescale(batch_size)
         if self._on_kvstore():
             self._step_on_kvstore(ignore_stale_grad, skip_nonfinite)

@@ -26,17 +26,24 @@ transient failure is retried with backoff (``fault.retry_call``,
 counters ``fault::retries`` / ``fault::gave_up``); a push or pushpull
 with an optimizer or updater retries only an entry-seam
 ``InjectedFault`` (a re-run would apply the gradient twice).  A store
-over more than one worker does not retry alone: a solo retry would
-re-enter a collective its peers have left, and the coordinated retry
-(``fault_dist.coordinated_call``) waits for ROADMAP queue 4, so there
-a failure reaches the caller.  With ``profile_kvstore`` on, the ops
-record the reference's spans (``KVStore::push`` / ``pull`` /
+over more than one worker never retries alone (a solo retry would
+re-enter a collective its peers have left): its ops go through
+``fault_dist.coordinated_call(op="KVStore.<op>", mutating=..,
+lease=True)``, where every worker votes after each attempt and all
+re-issue together, or all abort; under an active step lease the
+success path skips the per-op vote.  A dist store joins the job from
+the launcher's environment at construction (``MX_COORD_ADDR`` /
+``MX_NUM_WORKERS`` / ``MX_WORKER_ID`` -> ``fault_dist.initialize``,
+reference :102), and :func:`reset_distributed` forgets that join, the
+elastic resize's seam (reference :132).  With ``profile_kvstore`` on,
+the ops record the reference's spans (``KVStore::push`` / ``pull`` /
 ``pushpull`` / ``reduce``) and the ``kvstore::push_bytes`` /
 ``pull_bytes`` counters.
 """
 from __future__ import annotations
 
 import functools
+import os
 import pickle
 
 import torch
@@ -48,7 +55,7 @@ from ..ndarray.ndarray import NDArray
 from ..utils.serialization import CorruptCheckpointError, atomic_write
 from .base import KVStoreBase
 
-__all__ = ["KVStore", "create"]
+__all__ = ["KVStore", "create", "reset_distributed"]
 
 _TYPES = ("local", "device", "nccl", "dist_sync", "dist_device_sync",
           "dist_async", "dist", "p3", "horovod", "byteps")
@@ -62,16 +69,56 @@ def _retrying(op, mutating=False):
             def attempt():
                 _fault.kvstore_check(op)
                 return fn(self, *args, **kwargs)
-            if self.num_workers > 1:
-                return attempt()
             is_mutating = mutating and (self._updater is not None
                                         or self._optimizer is not None)
+            if self.num_workers > 1:
+                from .. import fault_dist as _fdist
+                return _fdist.coordinated_call(
+                    attempt, op="KVStore.%s" % op, mutating=is_mutating,
+                    lease=True)
             policy = _fault.entry_only_policy() if is_mutating \
                 else _fault.mutating_policy()
             return _fault.retry_call(attempt, op="KVStore.%s" % op,
                                      policy=policy)
         return wrapper
     return deco
+
+
+_dist_initialized = False
+
+
+def _maybe_init_distributed():
+    """Join the job from the launcher's environment (``MX_COORD_ADDR`` /
+    ``MX_NUM_WORKERS`` / ``MX_WORKER_ID``) through the resilient
+    bootstrap (``fault_dist.initialize``: retries with backoff, and with
+    ``MXNET_FAULT_BOOTSTRAP_FALLBACK=1`` a degrade to one process).
+    Without ``MX_COORD_ADDR`` the launcher made the process group (or
+    there is none) and nothing happens."""
+    global _dist_initialized
+    if _dist_initialized:
+        return
+    coord = os.environ.get("MX_COORD_ADDR")
+    if not coord:
+        _dist_initialized = True
+        return
+    n = int(os.environ.get("MX_NUM_WORKERS", "1"))
+    rank = int(os.environ.get("MX_WORKER_ID", "0"))
+    if n > 1:
+        from .. import fault_dist as _fdist
+        _fdist.initialize(coordinator_address=coord, num_processes=n,
+                          process_id=rank)
+    # marked only on success: a raised BootstrapError leaves the next
+    # create() free to retry the join
+    _dist_initialized = True
+
+
+def reset_distributed():
+    """Forget this process's bootstrap, so the next dist store joins the
+    CURRENT world: the elastic re-bootstrap's seam (``mx.fault.elastic``,
+    ``Trainer.reset_kvstore``).  The store keeps no group of its own (it
+    reduces over the default group), so the latch is all there is."""
+    global _dist_initialized
+    _dist_initialized = False
 
 
 def _t(v):
@@ -126,6 +173,8 @@ class KVStore(KVStoreBase):
         self._compression = None
         self._is_dist = kv_type.startswith("dist") or kv_type in (
             "horovod", "byteps", "p3")
+        if self._is_dist:
+            _maybe_init_distributed()
 
     @staticmethod
     def is_capable(capability):

@@ -31,8 +31,14 @@ and be independent across the rows of a batch, as in the reference.
 ``stage_fn(params_i, x)`` takes stage ``i``'s slice of
 ``params_stacked``: a tensor or a dict / list / tuple of tensors whose
 leading dimension is the stage (``torch.func.functional_call`` turns a
-Block into one).  The reference's fault seams (``_comm`` / ``_gen``,
-``_launch``'s coordinated retry) are not ported yet (ROADMAP queue 4).
+Block into one).  Both entry points launch through the reference's
+fault seam (:func:`_launch`, reference :401-426): the
+``collective_fail`` injection point, then ``fault_dist.coordinated_call``
+in a job of more than one rank (or with a ``_comm`` given: every rank
+votes after a failed attempt and all re-issue together, and with
+``mutating=True`` a mid-op failure aborts everywhere), else
+``fault.retry_call``, never under a per-attempt timeout.  ``_comm`` /
+``_gen`` are the test seams of ``coordinated_call``'s parameters.
 """
 from __future__ import annotations
 
@@ -41,8 +47,9 @@ import functools
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import fault as _fault
 from . import _compat
-from .mesh import current_mesh
+from .mesh import _world, current_mesh
 
 __all__ = ["SCHEDULES", "LAST", "gpipe_forward", "schedule_info",
            "pipeline_apply", "pipeline_vjp"]
@@ -305,11 +312,28 @@ def _scheduled(stage_fn, params_dev, xm, gym, sim, n, v, mesh, axis,
     return outs, dxs, dparams
 
 
-def _check(schedule, virtual_stages, params_stacked, n, _comm, _gen):
-    if _comm is not None or _gen is not None:
-        raise NotImplementedError(
-            "mxnet_tpu_torch: the pipeline's fault seams (_comm / _gen) "
-            "are not ported yet (ROADMAP queue 4)")
+def _launch(attempt, mutating, _comm, _gen):
+    """The pipeline's fault seam (the kvstore's and the ring's protocol):
+    with more than one rank, ``coordinated_call`` (a failed attempt is
+    voted and re-issued by every rank together; a mid-op failure of a
+    mutating call aborts everywhere); with one, ``retry_call``.  Never a
+    per-attempt timeout: an abandoned attempt would issue a second
+    identical exchange on the same group."""
+    if _comm is not None or _world()[1] > 1:
+        from .. import fault_dist as _fdist
+        # the production path (ambient comm and generation) rides an
+        # ACTIVE step lease; the test seams stay on per-op voting
+        return _fdist.coordinated_call(attempt, op="pipeline",
+                                       mutating=mutating, comm=_comm,
+                                       gen=_gen,
+                                       lease=(_comm is None and
+                                              _gen is None) or None)
+    policy = _fault.entry_only_policy() if mutating \
+        else _fault.mutating_policy()
+    return _fault.retry_call(attempt, op="pipeline", policy=policy)
+
+
+def _check(schedule, virtual_stages, params_stacked, n):
     if schedule not in SCHEDULES:
         raise ValueError("unknown schedule %r (one of %s)"
                          % (schedule, ", ".join(SCHEDULES)))
@@ -361,17 +385,24 @@ def pipeline_apply(stage_fn, params_stacked, x, mesh, num_microbatches,
     """Forward a batch ``x`` (B, ...) through the stage stack
     ``params_stacked`` (leading dimension: the ``n * v`` stages, whole
     on every rank) in ``num_microbatches``; returns (B, ...) on every
-    rank.  ``mutating`` is accepted for the reference's signature (it
-    selects a retry policy of the fault seam, queue 4)."""
+    rank.  ``mutating=True`` (a ``stage_fn`` that mutates host state)
+    makes a mid-op failure abort every rank instead of re-running it
+    (:func:`_launch`)."""
     n = mesh.axis_size(axis_name)
-    v = _check(schedule, virtual_stages, params_stacked, n, _comm, _gen)
+    v = _check(schedule, virtual_stages, params_stacked, n)
     xm = _microbatches(x, num_microbatches)
     d = mesh.axis_index(axis_name)
     order, _ = _stage_order(n, v)
     sim = _simulate(schedule, n, num_microbatches, v, with_backward=False)
-    outs, _, _ = _scheduled(stage_fn, _mine(params_stacked, order, d, v),
-                            xm, None, sim, n, v, mesh, axis_name, False)
-    outs = _compat.broadcast(outs, n - 1, axis_name, mesh)
+
+    def attempt():
+        _fault.collective_check("pipeline")
+        outs, _, _ = _scheduled(stage_fn,
+                                _mine(params_stacked, order, d, v), xm,
+                                None, sim, n, v, mesh, axis_name, False)
+        return _compat.broadcast(outs, n - 1, axis_name, mesh)
+
+    outs = _launch(attempt, mutating, _comm, _gen)
     return outs.reshape(x.shape[:1] + outs.shape[2:])
 
 
@@ -385,22 +416,27 @@ def pipeline_vjp(stage_fn, params_stacked, x, gy, mesh, num_microbatches,
     microbatches (the tree of ``params_stacked``, stage order), all
     replicated on every rank."""
     n = mesh.axis_size(axis_name)
-    v = _check(schedule, virtual_stages, params_stacked, n, _comm, _gen)
+    v = _check(schedule, virtual_stages, params_stacked, n)
     xm = _microbatches(x, num_microbatches)
     gym = gy.reshape(xm.shape)
     d = mesh.axis_index(axis_name)
     order, inv = _stage_order(n, v)
     sim = _simulate(schedule, n, num_microbatches, v, with_backward=True)
-    mine = _mine(params_stacked, order, d, v)
-    outs, dxs, dparams = _scheduled(stage_fn, mine, xm, gym, sim, n, v,
-                                    mesh, axis_name, True)
-    outs = _compat.broadcast(outs, n - 1, axis_name, mesh)
-    dxs = _compat.broadcast(dxs, 0, axis_name, mesh)
     _, spec = pytree.tree_flatten(params_stacked)
-    gathered = []
-    for g in dparams:
-        g = _compat._gather_raw(g, 0, axis_name, mesh) if n > 1 else g
-        gathered.append(g[torch.as_tensor(inv, device=g.device)])
-    dparams = pytree.tree_unflatten(gathered, spec)
+
+    def attempt():
+        _fault.collective_check("pipeline")
+        mine = _mine(params_stacked, order, d, v)
+        outs, dxs, dparams = _scheduled(stage_fn, mine, xm, gym, sim, n, v,
+                                        mesh, axis_name, True)
+        outs = _compat.broadcast(outs, n - 1, axis_name, mesh)
+        dxs = _compat.broadcast(dxs, 0, axis_name, mesh)
+        gathered = []
+        for g in dparams:
+            g = _compat._gather_raw(g, 0, axis_name, mesh) if n > 1 else g
+            gathered.append(g[torch.as_tensor(inv, device=g.device)])
+        return outs, dxs, pytree.tree_unflatten(gathered, spec)
+
+    outs, dxs, dparams = _launch(attempt, mutating, _comm, _gen)
     return (outs.reshape(x.shape[:1] + outs.shape[2:]),
             dxs.reshape(x.shape[:1] + dxs.shape[2:]), dparams)

@@ -25,17 +25,24 @@ logsumexps (:func:`_merge`, float32).
 * ``double_buffer=False`` is the legacy flat ring, differentiated by
   autograd through the per-step flash calls and permutes.
 
-The fault-plane wrapping of the reference's ``ring_attention_sharded``
-(``retry_call``, ``coordinated_call``, the ``_comm`` / ``_gen`` seams)
-is not ported yet (ROADMAP queue 4).
+``ring_attention_sharded`` launches through the fault seam of the
+reference (:593-614): the ``collective_fail`` injection point, then, in
+a job of more than one rank (or with a ``_comm`` given),
+``fault_dist.coordinated_call`` -- every rank votes after a failed
+attempt and the fleet re-enters the ring as one -- and with one rank
+``fault.retry_call``.  Neither wraps the collective in a per-attempt
+timeout thread (an abandoned attempt would issue a second identical
+collective on the same group).  ``_comm`` / ``_gen`` are the test seams
+of ``coordinated_call``'s parameters.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import fault as _fault
 from ..ops.cuda_ops import flash_attention_block_bwd, flash_attention_with_lse
 from ._compat import ppermute, ppermute_start, shard_map
-from .mesh import current_mesh
+from .mesh import _world, current_mesh
 
 __all__ = ["LAYOUTS", "BALANCE_LAYOUTS", "stripe_permutation",
            "unstripe_permutation", "stripe_sequence", "unstripe_sequence",
@@ -409,11 +416,10 @@ def ring_attention_sharded(q, k, v, mesh, axis_name="cp", causal=False,
     layouts compute the same).  ``permute_inputs`` (default True for
     striped) stripes q / k / v on the way in and unstripes the output;
     ``False`` means the data are striped already, and the output stays
-    striped."""
-    if _comm is not None or _gen is not None:
-        raise NotImplementedError("mxnet_tpu_torch: the ring's fault-plane "
-                                  "seams (_comm, _gen) are not ported yet "
-                                  "(ROADMAP queue 4)")
+    striped.  With more than one rank (or ``_comm``) a failed attempt is
+    voted and re-issued by every rank together
+    (``fault_dist.coordinated_call``); ``_comm`` / ``_gen`` are its test
+    seams."""
     axes = ring_axes(axis_name)
     n_total = ring_size(mesh, axis_name)
     if layout is None:
@@ -440,7 +446,23 @@ def ring_attention_sharded(q, k, v, mesh, axis_name="cp", causal=False,
         return ring_attention_local(qq, kk, vv, body_axis, causal=causal,
                                     scale=scale, double_buffer=double_buffer,
                                     layout=layout, mesh=mesh)
-    out = shard_map(body, mesh, (spec, spec, spec), spec)(q, k, v)
+
+    def attempt():
+        _fault.collective_check("ring_attention")
+        return shard_map(body, mesh, (spec, spec, spec), spec)(q, k, v)
+
+    if _comm is not None or _world()[1] > 1:
+        from .. import fault_dist as _fdist
+        # lease=True on the production path (ambient comm and
+        # generation): an ACTIVE step lease covers the launch with the
+        # step-boundary vote; the test seams stay on per-op voting
+        out = _fdist.coordinated_call(attempt, op="ring_attention",
+                                      comm=_comm, gen=_gen,
+                                      lease=(_comm is None and
+                                             _gen is None) or None)
+    else:
+        out = _fault.retry_call(attempt, op="ring_attention",
+                                policy=_fault.mutating_policy())
     if permute_inputs:
         out = unstripe_sequence(out, n_total)
     return out

@@ -56,7 +56,8 @@ its first rank; loading cuts each to the blocks of whatever mesh the
 restoring step has (dp x tp, dp only, one device).  ``resize(mesh,
 checkpoint=None)`` (:347) rebinds the step to another mesh the same way
 without a file: the parameters are gathered and re-sharded, the states
-created fresh.
+created fresh.  With a step heartbeat installed
+(``fault_dist.enable_step_heartbeat``) each call beats it first.
 
 ``remat=True`` runs the forward under ``torch.utils.checkpoint``
 (non-reentrant): its activations are recomputed in the backward, as
@@ -75,6 +76,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import autograd
+from .. import fault as _fault
 from ..utils import serialization
 from . import _compat
 from .mesh import mesh_scope
@@ -269,6 +271,10 @@ class TrainStep:
         if self.mesh is not None and not self.mesh.is_member:
             raise RuntimeError("TrainStep: rank %d is outside the step's "
                                "mesh" % self.mesh.rank)
+        if _fault._DIST_HEARTBEAT is not None:
+            # step-boundary peer health (fault_dist): a hung peer shows
+            # here, before the step's collectives (reference :246-249)
+            _fault._DIST_HEARTBEAT.beat(step=self._t)
         batch = self._batch(batch)
         self._t += 1
         opt = self.optimizer

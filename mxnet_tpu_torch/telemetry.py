@@ -872,8 +872,6 @@ def enable_fleet_telemetry(heartbeat=None, sess=None):
         from . import fault as _fault
         heartbeat = _fault._DIST_HEARTBEAT
     if heartbeat is None:
-        # the port's step heartbeat (fault_dist) waits for ROADMAP
-        # queue 4: until then a caller passes its own
         raise RuntimeError(
             "no heartbeat to attach telemetry to — enable_step_"
             "heartbeat() first or pass heartbeat=")

@@ -377,7 +377,7 @@ def test_convert_hybrid_block_keeps_norms_float32():
     assert dtypes[1]["1.gamma"] == dtypes[1]["3.gamma"] == "float32"
 
 
-def test_amp_surface():
+def test_amp_surface(tmp_path):
     assert tmx.amp is t_amp
     assert t_amp.list_lp16_ops() == j_amp.list_lp16_ops()
     assert t_amp.list_fp32_ops() == j_amp.list_fp32_ops()
@@ -394,8 +394,17 @@ def test_amp_surface():
     x = torch.ones(2)
     with t_amp.scale_loss([x, x], tr) as scaled:
         assert [float(s[0]) for s in scaled] == [2.0 ** 16] * 2
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        t_fault.PreemptionHandler()
-    t_fault.inject("preempt", at=1)
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    # the preemption half of the fault runtime is ported: an injected
+    # preempt at the step seam fires the installed handler, which
+    # snapshots the AMP trainer's net and states
+    handler = t_fault.on_preemption(str(tmp_path), net=net, trainer=tr,
+                                    exit_on_signal=False)
+    try:
+        t_fault.inject("preempt", at=1)
         t_fault.step_hook(tr)
+        assert handler.fired == 1
+        manifest = t_fault.load_snapshot(str(tmp_path), net=net)
+        assert manifest["reason"] == "injected"
+    finally:
+        handler.uninstall()
+        t_fault.clear()

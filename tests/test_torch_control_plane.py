@@ -306,10 +306,10 @@ def test_classify_torch_runtime_errors_and_the_ports_injected_ones():
         assert type(info.value).__name__ == "XlaRuntimeError"
         verdicts.append(tfault_dist.classify_xla_error(info.value))
     assert verdicts == ["transient", "fatal"]
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        tfault_dist.coordinated_call
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        tfault.PreemptionHandler()
+    # the rest of the module is ported: one process votes with itself
+    assert isinstance(tfault_dist.default_comm(), tfault_dist.LocalComm)
+    assert tfault_dist.coordinated_call(lambda: 7, op="t") == 7
+    assert callable(tfault.PreemptionHandler)
 
 
 # ----------------------------------------------------------------------

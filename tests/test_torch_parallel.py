@@ -590,8 +590,25 @@ def test_one_rank_mesh_runs_the_same_code():
 
 
 def test_ring_fault_plane_seams_are_not_ported():
+    """The name predates the port of the seams: ``_comm`` / ``_gen`` now
+    run the ring through ``coordinated_call``, and an injected
+    ``collective_fail`` is voted and re-issued together."""
+    from mxnet_tpu_torch import fault as tfault
+    from mxnet_tpu_torch import fault_dist as tfd
+    from mxnet_tpu_torch import profiler as tprof
     mesh = tpar.create_mesh(cp=1, device="cpu")
-    q = torch.zeros(1, 1, 4, 2)
-    for kw in ({"_comm": object()}, {"_gen": 1}):
-        with pytest.raises(NotImplementedError, match="queue 4"):
-            tpar.ring_attention_sharded(q, q, q, mesh, **kw)
+    q = torch.arange(8.0).reshape(1, 1, 4, 2)
+    want = tpar.ring_attention_sharded(q, q, q, mesh)
+    gen = tfd.Generation()
+    before = tprof.get_counter("fault::dist::coordinated_retries")
+    tfault.inject("collective_fail", at=1)
+    try:
+        got = tpar.ring_attention_sharded(q, q, q, mesh,
+                                          _comm=tfd.InProcessComm.create(1)[0],
+                                          _gen=gen)
+    finally:
+        tfault.clear()
+    assert torch.equal(got, want)
+    assert gen.value == 1
+    assert tprof.get_counter("fault::dist::coordinated_retries") == \
+        before + 1

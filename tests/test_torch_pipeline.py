@@ -274,9 +274,29 @@ def test_pipeline_validates_like_jax():
                                 virtual_stages=2)
     with pytest.raises(ValueError, match="stage stack has 2 stages"):
         parallel.pipeline_apply(_stage, torch.zeros(2, 2, 2), x, mesh, 2)
-    for kw in ({"_comm": object()}, {"_gen": 1}):
-        with pytest.raises(NotImplementedError, match="queue 4"):
-            parallel.pipeline_vjp(_stage, ws, x, x, mesh, 2, **kw)
+    # the fault seams are ported: a vote over a one-rank comm, and a
+    # mid-op failure of a mutating call aborts instead of re-running
+    from mxnet_tpu_torch import fault, fault_dist
+    comm = fault_dist.InProcessComm.create(1)[0]
+    y0 = parallel.pipeline_vjp(_stage, ws, x, x, mesh, 2, _comm=comm,
+                               _gen=fault_dist.Generation())[0]
+    assert torch.equal(y0, torch.zeros(4, 2))
+    calls = []
+
+    def flaky(w, h):
+        calls.append(1)
+        if len(calls) == 1:
+            raise fault.TransientError("mid-op")
+        return _stage(w, h)
+    with pytest.raises(fault_dist.CoordinatedAbortError):
+        parallel.pipeline_apply(flaky, ws, x, mesh, 2, mutating=True,
+                                _comm=comm, _gen=fault_dist.Generation())
+    calls.clear()
+    gen = fault_dist.Generation()
+    assert torch.equal(parallel.pipeline_apply(
+        flaky, ws, x, mesh, 2, _comm=comm, _gen=gen), _stage(ws[0], x))
+    # voted, re-issued once: the failed call, then 2 microbatches
+    assert gen.value == 1 and len(calls) == 3
     # one rank: the stages run in order, no exchange
     w = torch.eye(2).reshape(1, 2, 2) * 2
     y, dx, dw = parallel.pipeline_vjp(_stage, w, torch.ones(4, 2),

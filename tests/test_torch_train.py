@@ -298,12 +298,16 @@ def test_unported_training_options_raise():
         TrainStep(net, None, opt, aot=True)
     params = net.collect_params()
     # skip_nonfinite, refused until the low-precision slice, now runs: a
-    # step with no fresh gradient is stale; preemption is still queue 4
+    # step with no fresh gradient is stale; preemption and the elastic
+    # reset of the kvstore are ported too
+    tr = gluon.Trainer(params, "sgd", kvstore="dist_sync")
     with pytest.raises(UserWarning, match="not updated by backward"):
-        gluon.Trainer(params, "sgd").step(1, skip_nonfinite=True)
+        tr.step(1, skip_nonfinite=True)
+    assert tr._kvstore is not None and tr._kvstore.num_workers == 1
+    tr.reset_kvstore()
+    assert tr._kvstore is None and not tr._kv_initialized
     from mxnet_tpu_torch import fault
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        fault.PreemptionHandler()
+    assert fault.PreemptionHandler("unused").fired == 0
     # multi_precision and LAMB, refused until the optimizer slice, now work
     opt = optimizer.Adam(multi_precision=True)
     w16 = torch.ones(3, dtype=torch.float16)

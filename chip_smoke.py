@@ -80,6 +80,12 @@ for bit against their nets, and BERT-base's export refused. Each
 path that runs kernels does so with the launch counts reset before it
 and read after it, and fails unless every kernel it goes through was
 launched.
+Last, ``mx.monitor`` on BERT-base bf16 training (3 steps monitored
+against the same 3 unmonitored, bit for bit; a NaN located at its
+layer) and on a hybridized ResNet-50 (the capture queues nothing, the
+replay is bit for bit), then the analysis gates (``verify --smoke``,
+``racecheck --smoke``, ``lint`` and ``race`` against their baselines);
+``python3 chip_smoke.py --analysis`` runs that phase alone.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without a CUDA device it exits non-zero at once.
 
@@ -160,6 +166,15 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def dump_json(path, obj):
+    """Write ``obj`` as JSON through a temporary file and ``os.replace``,
+    so a reader never sees a half-written report."""
+    tmp = "%s.tmp%d" % (path, os.getpid())
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
 
 
 def card_line():
@@ -4609,8 +4624,7 @@ def ring_rank(rank, out_dir, backend="gloo"):
     report["imported_jax"] = any(m.split(".")[0] in ("jax", "jaxlib",
                                                      "mxnet_tpu")
                                  for m in sys.modules)
-    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
-        json.dump(report, f)
+    dump_json(os.path.join(out_dir, "rank%d.json" % rank), report)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -5715,8 +5729,7 @@ def serve_tp_rank(rank, out_dir, backend, world):
     report["imported_jax"] = any(m.split(".")[0] in ("jax", "jaxlib",
                                                      "mxnet_tpu")
                                  for m in sys.modules)
-    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
-        json.dump(report, f)
+    dump_json(os.path.join(out_dir, "rank%d.json" % rank), report)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -6129,8 +6142,7 @@ def elastic_rank(rank, out_dir, part):
     report["imported_jax"] = any(m.split(".")[0] in ("jax", "jaxlib",
                                                      "mxnet_tpu")
                                  for m in sys.modules)
-    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
-        json.dump(report, f)
+    dump_json(os.path.join(out_dir, "rank%d.json" % rank), report)
     return 0
 
 
@@ -6287,6 +6299,282 @@ def elastic_phase(mt, co, dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# the analysis phase: mx.monitor at BERT-base width and on a hybridized
+# ResNet-50, then the checkers' gates
+# ----------------------------------------------------------------------
+#: encoder layer whose FFN weight gets the NaN
+MON_NAN_LAYER = 6
+ANALYSIS_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                    "multi_adam")
+
+
+def _host_reads(fn):
+    """The calls ``fn()`` made that copy a tensor to the host
+    (``Tensor.item`` / ``cpu`` / ``tolist`` / ``numpy``), by name."""
+    names = ("item", "cpu", "tolist", "numpy")
+    real = {n: getattr(torch.Tensor, n) for n in names}
+    counts = dict.fromkeys(names, 0)
+
+    def counting(n):
+        def call(self, *a, **k):
+            counts[n] += 1
+            return real[n](self, *a, **k)
+        return call
+    try:
+        for n in names:
+            setattr(torch.Tensor, n, counting(n))
+        fn()
+    finally:
+        for n in names:
+            setattr(torch.Tensor, n, real[n])
+    return {n: c for n, c in counts.items() if c}
+
+
+def _block_names(net, root):
+    """The monitor's name of every block of ``net`` (no suffix)."""
+    return {root + ("." + n if n else "") for n, _ in net.named_modules()}
+
+
+def _finite_stats(res):
+    return all(math.isfinite(float(v)) for _, _, v in res)
+
+
+def monitor_bert(mt, co, dev, card):
+    """``Monitor(interval=1)`` on BERT-base bf16 (B=16, T=512, the flash
+    path): 3 Trainer / AdamW steps unmonitored, then the same 3 from the
+    same weights, dropout seed and fresh optimizer with the monitor
+    installed; the losses and the final weights must be equal bit for
+    bit (the hooks only read), every block's output and every parameter
+    must have a finite stat, and the monitored steps must launch the
+    flash kernels and ``multi_adam``.  Then a NaN in encoder layer 6's
+    FFN weight must be the first ``"nan"`` of ``toc()``'s unsorted
+    output, at that layer's FFN output.  Returns the launch counts of
+    the monitored steps."""
+    from mxnet_tpu_torch import monitor as monitor_mod
+    cfg = mt.models.bert_base_config(dtype="bfloat16")
+    net = mt.models.BERTForPretrain(cfg).initialize(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    batch = bert_batch(cfg, dev, BERT_B, BERT_T, 7)
+    init = [p.detach().clone() for p in net.parameters()]
+    state = {}
+
+    def fresh():
+        with torch.no_grad():
+            for p, v in zip(net.parameters(), init):
+                p.copy_(v)
+        state["trainer"] = mt.gluon.Trainer(
+            net.collect_params(), "adamw", {"learning_rate": 2e-5,
+                                            "wd": 0.01})
+        torch.cuda.manual_seed(8)     # dropout's masks: the same each run
+
+    def step(mon=None):
+        if mon is not None:
+            mon.tic()
+        with mt.autograd.record():
+            loss = bert_loss(mt, net, *batch)
+        mt.autograd.backward(loss)
+        state["trainer"].step(1)
+        res = mon.toc() if mon is not None else None
+        return loss.item(), res
+
+    def run(mon=None):
+        fresh()
+        losses, times, results = [], [], []
+        for _ in range(BERT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loss, res = step(mon)
+            times.append((time.monotonic() - t0) * 1e3)
+            losses.append(loss)
+            results.append(res)
+        return losses, times, results, [p.detach().clone()
+                                        for p in net.parameters()]
+    fresh()
+    step()                        # warm-up: the library's first calls
+    plain_losses, plain_ms, _, plain_w = run()
+    mon = mt.monitor.Monitor(interval=1)
+    mon.install(net)
+    t0 = monitor_mod.TRANSFERS["count"]
+    co.reset_launch_counts()
+    mon_losses, mon_ms, results, mon_w = run(mon)
+    torch.cuda.synchronize()
+    launches = dict(co.LAUNCHES)
+    transfers = (monitor_mod.TRANSFERS["count"] - t0) / BERT_STEPS
+    same_w = all(torch.equal(a, b) for a, b in zip(plain_w, mon_w))
+    del plain_w, mon_w
+    if mon_losses != plain_losses or not same_w:
+        again, _, _, _ = run()       # is the step itself deterministic?
+        check(False, "monitor bert: monitored losses %s (weights equal "
+              "%s) differ from unmonitored %s (a second unmonitored run "
+              "%s)" % (mon_losses, same_w, plain_losses, again))
+    res = results[-1]
+    names = [n for _, n, _ in res]
+    blocks = _block_names(net, "bertforpretrain")
+    params = set(net.collect_params())
+    seen = {n.rsplit("_output", 1)[0] for n in names if "_output" in n}
+    check(blocks <= seen and params <= set(names),
+          "monitor bert: missing stats for %s"
+          % sorted((blocks - seen) | (params - set(names)))[:8])
+    check(len(names) == len(set(names)), "monitor bert: duplicate names")
+    check(all(_finite_stats(r) for r in results),
+          "monitor bert: a stat is not finite: %s"
+          % [x for x in res if not math.isfinite(float(x[2]))][:4])
+    for name in ANALYSIS_KERNELS[:3]:
+        check(launches[name] == cfg.num_layers * BERT_STEPS,
+              "monitor bert: %s launched %d times in %d steps"
+              % (name, launches[name], BERT_STEPS))
+    check_opt_launches("monitor bert", launches, "multi_adam", BERT_STEPS,
+                       net.parameters())
+    # host reads of one step without and with the monitor, then both
+    # steps timed in turns (host synchronized; kernels by the profiler)
+    reads = (_host_reads(lambda: step()), _host_reads(lambda: step(mon)))
+    busy = [device_busy(lambda: step(), reps=5),
+            device_busy(lambda: step(mon), reps=5),
+            device_busy(lambda: step(mon), reps=5),
+            device_busy(lambda: step(), reps=5)]
+    plain_b, mon_b = (busy[0], busy[3]), (busy[1], busy[2])
+    print("monitor bert-base (bf16, B=%d, T=%d, %d blocks, %d parameters): "
+          "losses unmonitored %s monitored %s (bit for bit: %s, weights "
+          "bit for bit: %s); those steps' ms unmonitored %s monitored %s; "
+          "host transfers a monitored step: %g by toc(); host reads a step "
+          "unmonitored %s, monitored %s; launches %s [%s]"
+          % (BERT_B, BERT_T, len(blocks), len(params), plain_losses,
+             mon_losses, mon_losses == plain_losses, same_w,
+             ["%.2f" % t for t in plain_ms], ["%.2f" % t for t in mon_ms],
+             transfers, reads[0], reads[1],
+             {k: v for k, v in launches.items() if v}, card))
+    print("monitor bert-base step, in turns unmonitored / monitored / "
+          "monitored / unmonitored (5 steps each): host ms %s, kernel ms "
+          "%s, device busy %s, device events %s; monitored - unmonitored: "
+          "host %+.2f ms (%+.1f%%), kernels %+.2f ms, %+.0f device events "
+          "[%s]"
+          % (["%.2f" % b[0] for b in busy], ["%.2f" % b[1] for b in busy],
+             ["%.1f%%" % (100 * b[1] / b[0]) for b in busy],
+             [b[3]["device events"] for b in busy],
+             sum(b[0] for b in mon_b) / 2 - sum(b[0] for b in plain_b) / 2,
+             100 * (sum(b[0] for b in mon_b) / sum(b[0] for b in plain_b)
+                    - 1),
+             sum(b[1] for b in mon_b) / 2 - sum(b[1] for b in plain_b) / 2,
+             sum(b[3]["device events"] for b in mon_b) / 2
+             - sum(b[3]["device events"] for b in plain_b) / 2, card))
+    added = {}
+    for sign, pair in ((1, mon_b), (-1, plain_b)):
+        for b in pair:
+            for k, (ms, n) in b[4].items():
+                was = added.get(k, (0.0, 0.0))
+                added[k] = (was[0] + sign * ms / 2, was[1] + sign * n / 2)
+    print("monitor bert-base: kernels the monitor adds a step (ms, "
+          "launches): %s" % "; ".join(
+              "%s %.3f, %+.0f" % (k[:60], ms, n) for k, (ms, n) in
+              sorted(added.items(), key=lambda kv: -kv[1][0])[:5]))
+    check(transfers == 1, "monitor bert: %g host transfers by toc() a "
+          "step, want 1" % transfers)
+    # the first NaN: one weight of layer 6's FFN
+    layer = getattr(net.bert, "layer%d" % MON_NAN_LAYER)
+    w = layer.inter.weight
+    with torch.no_grad():
+        keep = w[0, 0].clone()
+        w[0, 0] = float("nan")
+    mon.tic()
+    with mt.autograd.pause():
+        net(*batch[:2])
+    res = mon.toc()
+    with torch.no_grad():
+        w[0, 0] = keep
+    first = next(i for i, (_, _, v) in enumerate(res) if v == "nan")
+    want = "bertforpretrain.bert.layer%d.inter_output" % MON_NAN_LAYER
+    print("monitor bert: NaN in bert.layer%d.inter.weight[0, 0]: first "
+          "\"nan\" is entry %d of %d, %s; the %d before it finite"
+          % (MON_NAN_LAYER, first, len(res), res[first][1], first))
+    check(res[first][1] == want, "monitor bert: the first NaN is %s, want "
+          "%s" % (res[first][1], want))
+    check(_finite_stats(res[:first]), "monitor bert: a stat before the "
+          "NaN layer is not finite")
+    mon.uninstall()
+    return launches
+
+
+def monitor_hybridized(mt, co, dev, card):
+    """``Monitor`` on ResNet-50 bf16 hybridized (B=32): the capture with
+    the hooks installed succeeds, its warm-ups and capture queue nothing
+    (each block once, from the first call's eager forward), a replay
+    queues the net's own output only, and the replayed output equals
+    the unmonitored replay bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(RESNET_B, 3, 224, 224, generator=gen, device=dev).to(
+        torch.bfloat16)
+    net = _resnet50(mt, dev).cast("bfloat16")
+    with mt.autograd.pause():
+        net(x)                                   # materialise
+        net.hybridize()
+        net(x)                                   # eager, then capture
+        want = net(x)                            # unmonitored replay
+        net.hybridize()                          # drop the graph
+        mon = mt.monitor.Monitor(interval=1, pattern=".*_output")
+        mon.install(net)
+        mon.tic()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        net(x)                                   # eager, then capture
+        torch.cuda.synchronize()
+        capture_s = time.monotonic() - t0
+        first = [n for _, n, _ in mon.queue]
+        got = net(x)                             # replay
+        extra = [n for _, n, _ in mon.queue[len(first):]]
+        res = mon.toc()
+    mon.uninstall()
+    blocks = {n + "_output" for n in _block_names(net, "resnetv1")}
+    print("monitor resnet50 hybridized (bf16, B=%d): first call %.2f s "
+          "(eager + 2 warm-ups + capture) queued %d entries for %d "
+          "blocks, %d duplicates; a replay queued %s; replay bit for bit "
+          "with the unmonitored one: %s [%s]"
+          % (RESNET_B, capture_s, len(first), len(blocks),
+             len(first) - len(set(first)), extra, torch.equal(got, want),
+             card))
+    check(len(net._graphs) == 1, "monitor resnet50: no graph captured")
+    check(len(first) == len(set(first)) and set(first) <= blocks,
+          "monitor resnet50: the capture queued entries")
+    check(extra == ["resnetv1_output"], "monitor resnet50: a replay "
+          "queued %s" % extra)
+    check(torch.equal(got, want), "monitor resnet50: the monitored replay "
+          "differs from the unmonitored one")
+    check(_finite_stats(res), "monitor resnet50: a stat is not finite")
+
+
+def analysis_gates(card):
+    """The checkers' gates as ``python -m mxnet_tpu_torch.analysis``
+    runs them, in this process: verify --smoke (every scenario clean,
+    every mutation found), racecheck --smoke, lint and race against
+    their baselines.  Returns each gate's seconds."""
+    from mxnet_tpu_torch.analysis.__main__ import main as analysis
+    secs = {}
+    for argv in (["verify", "--smoke"], ["racecheck", "--smoke"],
+                 ["lint", "--smoke"], ["race", "--smoke"]):
+        t0 = time.monotonic()
+        rc = analysis(argv)
+        secs[" ".join(argv)] = round(time.monotonic() - t0, 2)
+        check(rc == 0, "analysis %s: exit %d" % (" ".join(argv), rc))
+    print("analysis gates (seconds): %s [%s]" % (secs, card))
+    return secs
+
+
+def analysis_phase(mt, co, dev, card):
+    """``mx.monitor`` at BERT-base width and on a hybridized ResNet-50,
+    then the analysis gates.  Returns the monitored BERT steps' launch
+    counts."""
+    t0 = time.monotonic()
+    launches = monitor_bert(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    monitor_hybridized(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis_gates(card)
+    print("analysis phase %.1f s" % (time.monotonic() - t0))
+    return launches
+
+
 def _short_names(obj, width=48):
     """``obj`` with every dict key cut to ``width`` characters (the times
     of kernels whose names then coincide summed): the kernels line keeps
@@ -6341,6 +6629,14 @@ def main(argv):
                           for shape in (TRAIN_ATTN, BERT_ATTN)],
             "paged_decode": paged_timing(co, dev)}}))
         return 0
+    if argv[1:] == ["--analysis"]:
+        # only the analysis phase: the monitor and the checkers' gates
+        launches = analysis_phase(mt, co, dev, card)
+        check(all(launches[k] > 0 for k in ANALYSIS_KERNELS),
+              "analysis: a kernel of the path was not launched: %s"
+              % launches)
+        print(card)
+        return 0
     if argv[1:] == ["--elastic"]:
         # only the elastic phase (its two pairs of rank children)
         elastic_phase(mt, co, dev, card)
@@ -6379,7 +6675,8 @@ def main(argv):
         print(card)
         return 0
     check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing | "
-          "--ring-nccl | --elastic | --ring-rank RANK DIR [BACKEND] | "
+          "--ring-nccl | --elastic | --analysis | --ring-rank RANK DIR "
+          "[BACKEND] | "
           "--serve-tp-rank RANK DIR BACKEND WORLD | --elastic-rank RANK DIR "
           "PART]")
     ptxas_report(_build)
@@ -6475,6 +6772,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     elastic_launches = elastic_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis_launches = analysis_phase(mt, co, dev, card)
 
     for k in optim:
         if k["name"] == "multi_adam":
@@ -6500,7 +6800,8 @@ def main(argv):
              "int8_resnet": int8_resnet_launches,
              "amp_bert": amp_bert_launches,
              "amp_resnet": amp_resnet_launches, "guard": guard_launches,
-             "elastic": elastic_launches, **zoo_paths}
+             "elastic": elastic_launches, "analysis": analysis_launches,
+             **zoo_paths}
     for path, kernels_of_path in (
             ("int8_resnet", ("int8_quantize", "int8_quantize_im2col",
                              "int8_conv_hopper")),
@@ -6517,6 +6818,7 @@ def main(argv):
             ("pipeline", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
             ("kvstore", ("multi_sgd",)),
             ("elastic", ELASTIC_KERNELS),
+            ("analysis", ANALYSIS_KERNELS),
             ("zoo_train", ("multi_sgd",)),
             ("zoo_int8", ("int8_quantize", "int8_quantize_im2col",
                           "int8_conv_hopper", "int8_conv_depthwise")),

@@ -47,9 +47,12 @@ random = numpy.random
 
 __version__ = "2.0.0.torch0"
 
-#: the control-plane modules and ``amp``, loaded on first attribute access
+#: the control-plane modules, ``amp``, ``monitor`` (also ``mon``) and
+#: ``analysis``, loaded on first attribute access
 _LAZY = {"profiler": ".profiler", "telemetry": ".telemetry",
-         "flightrec": ".flightrec", "fault": ".fault", "amp": ".amp"}
+         "flightrec": ".flightrec", "fault": ".fault", "amp": ".amp",
+         "monitor": ".monitor", "mon": ".monitor",
+         "analysis": ".analysis"}
 
 
 def __getattr__(name):

@@ -99,6 +99,18 @@ __all__ = [
 
 log = logging.getLogger("mxnet_tpu_torch.fault.dist")
 
+#: The model checker's virtual clock (``analysis.modelcheck``): its
+#: simulated threads set ``_SIM_CLOCK.fn`` so deadlines run on the
+#: checker's clock; every other thread reads the real one.
+#: ``fault_elastic`` shares this object.
+_SIM_CLOCK = threading.local()
+
+
+def _now():
+    """``time.monotonic``, or the model checker's clock on its threads."""
+    clk = getattr(_SIM_CLOCK, "fn", None)
+    return clk() if clk is not None else time.monotonic()
+
 
 # ----------------------------------------------------------------------
 # exceptions
@@ -356,14 +368,38 @@ class InProcessComm:
         timeout = _consensus_timeout() if timeout is None else timeout
         rnd = self._round
         self._round += 1
+        sched = self._shared.get("sched")
+        if sched is not None:
+            # the model checker's seam (analysis.modelcheck): a
+            # cooperative, virtual-time twin of the wait below.  Votes
+            # persist per round and a timeout names the silent ranks, as
+            # there, but blocking and deadline expiry are the
+            # scheduler's decisions.  Nothing else sets "sched".
+            votes = self._shared["rounds"].setdefault(rnd, {})
+            sched.point("comm.vote", obj=("comm", id(self._shared), rnd),
+                        write=True,
+                        detail="round %d rank %d" % (rnd, self.rank))
+            votes[self.rank] = payload
+            if not sched.block(lambda: len(votes) >= self.world,
+                               obj=("comm", id(self._shared), rnd),
+                               timeout=timeout,
+                               detail="round %d rank %d" % (rnd, self.rank)):
+                missing = sorted(set(range(self.world)) - set(votes))
+                raise PeerLostError(
+                    "consensus round %d: no vote from process(es) %s "
+                    "within %.1fs" % (rnd, missing, timeout),
+                    process_indices=missing)
+            out = [votes[r] for r in sorted(votes)]
+            self._shared["rounds"].pop(rnd - 1, None)
+            return out
         cond = self._shared["cond"]
         with cond:
             votes = self._shared["rounds"].setdefault(rnd, {})
             votes[self.rank] = payload
             cond.notify_all()
-            deadline = time.monotonic() + timeout
+            deadline = _now() + timeout
             while len(votes) < self.world:
-                left = deadline - time.monotonic()
+                left = deadline - _now()
                 if left <= 0:
                     missing = sorted(set(range(self.world)) - set(votes))
                     raise PeerLostError(
@@ -449,7 +485,7 @@ class FileComm(_RoundComm):
         with open(tmp, "w") as f:
             json.dump(payload, f)
         os.replace(tmp, self._path(rnd, self.rank))
-        deadline = time.monotonic() + timeout
+        deadline = _now() + timeout
         votes = {}
         while len(votes) < self.world:
             for r in range(self.world):
@@ -462,7 +498,7 @@ class FileComm(_RoundComm):
                     continue  # not written yet (or mid-replace)
             if len(votes) == self.world:
                 break
-            if time.monotonic() > deadline:
+            if _now() > deadline:
                 missing = sorted(set(range(self.world)) - set(votes))
                 raise PeerLostError(
                     "consensus round %d: no vote from process(es) %s "
@@ -514,10 +550,10 @@ class CoordServiceComm(_RoundComm):
         """Until every key is in the store: ``check`` polled with a
         backoff from 50 us to 2 ms (a ``FileStore``'s own ``wait`` sleeps
         10 ms a poll, which a vote a kvstore op cannot afford)."""
-        deadline = time.monotonic() + timeout
+        deadline = _now() + timeout
         delay = 5e-5
         while not self._client.check(keys):
-            if time.monotonic() > deadline:
+            if _now() > deadline:
                 raise TimeoutError("votes missing after %.1fs" % timeout)
             time.sleep(delay)
             delay = min(2 * delay, 2e-3)
@@ -712,6 +748,14 @@ def classify_xla_error(e):
 # ----------------------------------------------------------------------
 # generation-gated coordinated retry
 # ----------------------------------------------------------------------
+#: Protocol bugs put back on purpose, armed only by
+#: ``analysis.modelcheck.mutations()`` to show the checker finds each
+#: (``"solo_reissue"``: a transiently failed rank retries without
+#: voting; ``"skip_lease_revoke"``: a rank ignores a peer's failure flag
+#: in the step-lease beat and keeps its lease).  Empty in production.
+_TEST_MUTATIONS = set()
+
+
 class Generation:
     """Monotonic recovery epoch shared by all workers of a job.  Bumps
     only happen from a *complete* vote round (every worker saw the same
@@ -847,6 +891,15 @@ def coordinated_call(fn, comm=None, op=None, policy=None, mutating=False,
                 err = e
             else:
                 err, fatal = e, True
+        if _TEST_MUTATIONS and "solo_reissue" in _TEST_MUTATIONS \
+                and err is not None and not fatal:
+            # the mutation: the failed rank retries ALONE, with no vote
+            # and no shared generation bump
+            failures += 1
+            if failures > policy.max_retries:
+                raise err
+            time.sleep(policy.delay(failures))
+            continue
         vote = {"gen": start_gen, "ok": err is None,
                 "entry": (err is None
                           or isinstance(err, _fault.InjectedFault))
@@ -1003,7 +1056,10 @@ class StepLease:
     Thread-safety: the state is shared between the step thread (op
     bookkeeping, beats) and the maintenance-poller/preemption paths
     (:meth:`revoke_local`); every access rides ``_lock``.
-"""
+
+    ``_sim`` is the model checker's seam (``analysis.modelcheck``): its
+    scheduler installs itself there so the lease's transitions become
+    schedule points.  Production never sets it."""
 
     def __init__(self, heartbeat=None, gen=None, rearm=None):
         # RLock, not Lock: request_release() is reached from the
@@ -1023,6 +1079,7 @@ class StepLease:
             "MXNET_FAULT_LEASE_REARM", "1")) if rearm is None
             else int(rearm))
         self._local_error = None
+        self._sim = None  # the model checker's seam; None in production
 
     @property
     def gen(self):
@@ -1036,6 +1093,12 @@ class StepLease:
     def _heartbeat(self):
         return self._hb if self._hb is not None \
             else _fault._DIST_HEARTBEAT
+
+    def _point(self, kind, detail=""):
+        sim = self._sim
+        if sim is not None:
+            sim.point(kind, obj=("lease", id(self)), write=True,
+                      detail=detail)
 
     def active(self):
         with self._lock:
@@ -1149,6 +1212,7 @@ class StepLease:
         if was != "revoked":
             _profiler.counter_bump("fault::dist::lease_revocations", 1,
                                    cat="fault")
+        self._point("lease.revoke", "local failure on op %s" % op)
         _flightrec.record("lease.escalate",
                           op=str(op) if op is not None else None,
                           gen=self.gen.value)
@@ -1196,6 +1260,11 @@ class StepLease:
         with self._lock:
             local = self._s["failure"]
         if flags:
+            if _TEST_MUTATIONS and "skip_lease_revoke" in _TEST_MUTATIONS \
+                    and local is None:
+                # the mutation: a rank that sees a PEER's failure flag
+                # keeps its lease and reports its step successful
+                return votes
             self._consume_ops()
             self._revoke_locked(clear_drop=True)
             with self._lock:
@@ -1205,6 +1274,8 @@ class StepLease:
                 # the escalating rank already counted its revocation
                 _profiler.counter_bump("fault::dist::lease_revocations",
                                        1, cat="fault")
+            self._point("lease.revoke",
+                        "flags from rank(s) %s" % sorted(flags))
             _flightrec.record("lease.revoke", how="flags",
                               ranks=tuple(sorted(flags)),
                               gen=self.gen.value)
@@ -1229,6 +1300,8 @@ class StepLease:
             if was != "revoked":
                 _profiler.counter_bump("fault::dist::lease_revocations",
                                        1, cat="fault")
+            self._point("lease.revoke",
+                        "release requested by rank(s) %s" % sorted(drops))
             _flightrec.record("lease.release",
                               ranks=tuple(sorted(drops)))
             log.warning("step lease released (requested by rank(s) %s: "
@@ -1259,6 +1332,7 @@ class StepLease:
         if activated:
             _profiler.counter_bump("fault::dist::lease_activations", 1,
                                    cat="fault")
+            self._point("lease.activate", "gen %d" % min(gens))
             _flightrec.record("lease.activate", gen=min(gens))
             log.info("step lease ACTIVE at generation %d — coordinated "
                      "ops skip per-op voting until a failure is flagged",

@@ -167,13 +167,24 @@ def _join_every():
 # primitive the vote needs: posted records persist, and each rank
 # decides for itself which subset it waits for.
 class InProcessBoard:
-    """Dict-backed board for tests: threads as ranks."""
+    """Dict-backed board for tests: threads as ranks.
+
+    ``_sched`` is the model checker's seam (``analysis.modelcheck``):
+    with its cooperative scheduler installed, every post, claim, sweep
+    and wait is a schedule point on a virtual clock.  Production never
+    sets it."""
 
     def __init__(self):
         self._data = {}
         self._cond = threading.Condition(threading.Lock())
+        self._sched = None  # the model checker's seam; None in production
 
     def post(self, key, payload):
+        if self._sched is not None:
+            self._sched.point("board.post", obj=("board", id(self)),
+                              write=True, detail=str(key))
+            self._data[str(key)] = payload
+            return
         with self._cond:
             self._data[str(key)] = payload
             self._cond.notify_all()
@@ -183,6 +194,13 @@ class InProcessBoard:
         there yet; True when this caller won the slot.  The primitive
         the commit's uniqueness rests on (see :func:`vote_resize`)."""
         key = str(key)
+        if self._sched is not None:
+            self._sched.point("board.claim", obj=("board", id(self)),
+                              write=True, detail=key)
+            if key in self._data:
+                return False
+            self._data[key] = payload
+            return True
         with self._cond:
             if key in self._data:
                 return False
@@ -193,11 +211,22 @@ class InProcessBoard:
     def sweep(self, prefix):
         """All posted ``{key: payload}`` whose key starts with prefix."""
         prefix = str(prefix)
+        if self._sched is not None:
+            self._sched.point("board.sweep", obj=("board", id(self)),
+                              write=False, detail=prefix)
+            return {k: v for k, v in self._data.items()
+                    if k.startswith(prefix)}
         with self._cond:
             return {k: v for k, v in self._data.items()
                     if k.startswith(prefix)}
 
     def wait(self, timeout):
+        if self._sched is not None:
+            # virtual wait: runnable again after any board write or a
+            # clock advance; the caller's deadlines read _now(), the
+            # same virtual clock
+            self._sched.board_wait(("board", id(self)), timeout)
+            return
         with self._cond:
             self._cond.wait(timeout)
 
@@ -277,8 +306,24 @@ class FileBoard:
         time.sleep(min(timeout, self.poll))
 
 
+#: The model checker's virtual clock, shared with ``fault_dist``: its
+#: simulated threads set ``_SIM_CLOCK.fn`` so the vote's drain deadlines
+#: run on the checker's clock; every other thread reads the real one.
+_SIM_CLOCK = _fdist._SIM_CLOCK
+
+
 def _now():
-    return time.monotonic()
+    """``time.monotonic``, or the model checker's clock on its threads."""
+    clk = getattr(_SIM_CLOCK, "fn", None)
+    return clk() if clk is not None else time.monotonic()
+
+
+#: Protocol bugs put back on purpose, armed only by
+#: ``analysis.modelcheck.mutations()`` (``"skip_commit_funnel"``: any
+#: rank commits its own view of an identical round;
+#: ``"skip_join_barrier"``: a joiner steps before adopting a committed
+#: record).  Empty in production.
+_TEST_MUTATIONS = set()
 
 
 def _bkey(epoch, stage, rank):
@@ -464,6 +509,18 @@ def vote_resize(board, rank, world, lost=(), gen=0, epoch=1, drain=None,
             gen_next = max(int(posted[r]["gen"]) for r in alive) + 1
             coord = posted[alive[0]].get("coord")
             step_next = max(int(posted[r].get("step", 0)) for r in alive)
+            if _TEST_MUTATIONS and "skip_commit_funnel" in _TEST_MUTATIONS:
+                # the mutation: ANY rank that sees an identical round
+                # commits its OWN view, with no leader funnel and no
+                # re-sweep before the commit
+                board.post(_bkey(epoch, "commit", rank),
+                           {"rank": rank, "survivors": alive,
+                            "gen": gen_next, "coord": coord,
+                            "joiners": joiners, "step": step_next})
+                _profiler.counter_bump("fault::elastic::votes", 1,
+                                       cat="fault")
+                return ResizeIntent(alive, world, gen_next, epoch, coord,
+                                    rank, joiners=joiners, step=step_next)
             # Only the LEADER (lowest agreed rank) tries to commit;
             # everyone else adopts what got committed.  An identical-
             # proposal round is necessary but NOT sufficient: a slow
@@ -549,6 +606,17 @@ def vote_join(board, jid, *, drain=None, coord_hint=None, gen=0):
     board.post(_jkey(jid), {"jid": jid, "coord": coord_hint,
                             "gen": int(gen)})
     _flightrec.record("join.post", jid=jid, gen=int(gen))
+    if _TEST_MUTATIONS and "skip_join_barrier" in _TEST_MUTATIONS:
+        # the mutation: the newcomer starts stepping BEFORE adopting a
+        # committed record, guessing the fleet from the proposals it
+        # sees and keeping its own generation
+        seen = set()
+        for key, v in board.sweep("rz/").items():
+            if "/p" in key and isinstance(v, dict):
+                seen.update(int(x) for x in v.get("survivors") or ())
+        surv = sorted(seen) or [0]
+        return ResizeIntent(surv, len(surv), int(gen), 1, coord_hint,
+                            -1, joiners=[jid], step=0, jid=jid)
     deadline = _now() + drain
     while True:
         commits = [(key, c) for key, c in sorted(board.sweep("rz/").items())

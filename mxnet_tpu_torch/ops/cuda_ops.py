@@ -48,6 +48,8 @@ same way.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -55,7 +57,8 @@ from . import _build
 __all__ = ["flash_attention_with_lse", "flash_attention",
            "flash_attention_block_bwd", "paged_attention",
            "paged_split_plan", "paged_general_plan", "LAUNCHES",
-           "reset_launch_counts", "capture_graph", "replay_graph",
+           "reset_launch_counts", "capture_graph", "capturing",
+           "replay_graph",
            "GraphCounts"]
 
 NEG_INF = float("-inf")
@@ -127,6 +130,16 @@ class GraphCounts(dict):
     transport = {}
 
 
+_CAPTURE = threading.local()
+
+
+def capturing():
+    """True on this thread while :func:`capture_graph` runs its warm-ups
+    or its capture: code reached there (a forward hook, ``mx.monitor``)
+    must queue nothing and sync nothing."""
+    return getattr(_CAPTURE, "depth", 0) > 0
+
+
 def capture_graph(fn, pool=None, warmup=2):
     """``(graph, out, launches)``: ``fn()`` run ``warmup`` times on a side
     stream (first uses build kernels, fill lazy caches and let the
@@ -144,7 +157,15 @@ def capture_graph(fn, pool=None, warmup=2):
     were, so the process goes on as if no capture had begun.  The
     capture checks this thread only, so another thread's work on the
     card (a serving replica's engine reading its tokens) neither fails
-    nor breaks it."""
+    nor breaks it.  :func:`capturing` is True on this thread meanwhile."""
+    _CAPTURE.depth = getattr(_CAPTURE, "depth", 0) + 1
+    try:
+        return _capture_graph(fn, pool, warmup)
+    finally:
+        _CAPTURE.depth -= 1
+
+
+def _capture_graph(fn, pool, warmup):
     side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

@@ -101,6 +101,12 @@ from .parallel.sharding import placement, shard_params
 
 log = logging.getLogger("mxnet_tpu_torch.serve")
 
+#: Protocol bugs put back on purpose, armed only by
+#: ``analysis.modelcheck.mutations()`` (``"serve_stale_commit"``: a
+#: decode commit skips the slot-epoch check; ``"skip_cow_copy"``: a
+#: prefix admission writes into the shared page).  Empty in production.
+_TEST_MUTATIONS = set()
+
 __all__ = ["ServeConfig", "SlotScheduler", "WarmPool", "Server",
            "DeadlineExceededError", "OverloadedError", "quantize_weights"]
 
@@ -204,7 +210,10 @@ class SlotScheduler:
     All shared state lives in ONE dict (``_s``) with immutable values,
     every access under ``_lock``.  ``audit`` records allocator-invariant
     breaches (double-allocated or double-freed pages) for
-    :meth:`check_conservation`.
+    :meth:`check_conservation`.  ``sim`` is the model checker's seam
+    (``analysis.modelcheck``): its scheduler makes every transaction's
+    start a schedule point (outside the locked body, so each transaction
+    stays atomic).  Production leaves it None.
 
     Request lifecycle::
 
@@ -215,7 +224,7 @@ class SlotScheduler:
     """
 
     def __init__(self, slots, pages, page_size, max_pages_per_slot,
-                 prefix_cache=True, ladder=None):
+                 sim=None, prefix_cache=True, ladder=None):
         self._lock = threading.Lock()
         self.page_size = int(page_size)
         # prefill ladder, when known: partial-extension hits are only
@@ -229,6 +238,7 @@ class SlotScheduler:
         self.num_pages = int(pages)
         self.prefix_cache = bool(prefix_cache)
         self.audit = []
+        self._sim = sim
         self._s = {
             # page 0 is the trash page -- never allocated
             "free_pages": tuple(p for p in range(pages)
@@ -251,11 +261,15 @@ class SlotScheduler:
         }
 
     # -- seams ----------------------------------------------------------
-    @staticmethod
-    def _point(kind, detail=""):
-        # every scheduler transaction lands in the flight recorder,
-        # called before / outside the locked transaction body
+    def _point(self, kind, detail=""):
+        # every scheduler transaction lands in the flight recorder (and
+        # is a model-checker schedule point), called before / outside
+        # the locked transaction body
         _flightrec.record(kind, detail=detail)
+        sim = self._sim
+        if sim is not None:
+            sim.point(kind, obj=("sched", id(self)), write=True,
+                      detail=detail)
 
     def _pages_for(self, tokens):
         return max(1, -(-int(tokens) // self.page_size))
@@ -477,8 +491,10 @@ class SlotScheduler:
                 # copy-on-write.  The private copy takes the page's table
                 # position; the shared src stays refcounted (so eviction
                 # can't free it before the engine's copy).
-                table_head = table_head[:b0]
-                cow = (shared_chain[b0], None)
+                if not (_TEST_MUTATIONS
+                        and "skip_cow_copy" in _TEST_MUTATIONS):
+                    table_head = table_head[:b0]
+                    cow = (shared_chain[b0], None)
             s["slots"] = dict(s["slots"])
             got = self._alloc(s, need - len(table_head))
             if got is None:
@@ -670,8 +686,12 @@ class SlotScheduler:
             for entry, (token, done) in zip(snapshot, results):
                 slot, epoch = entry["slot"], entry["epoch"]
                 ent = s["slots"].get(slot)
-                if ent is None or ent["epoch"] != epoch:
-                    continue  # freed or reassigned mid-flight: drop
+                if ent is None:
+                    continue  # freed mid-flight (cancel): drop
+                if ent["epoch"] != epoch and not (
+                        _TEST_MUTATIONS
+                        and "serve_stale_commit" in _TEST_MUTATIONS):
+                    continue  # reassigned mid-flight: drop
                 rid = ent["rid"]
                 req = s["reqs"][rid]
                 tokens = req["tokens"] + (token,)

@@ -65,6 +65,13 @@ PRIORITIES = ("high", "normal", "low")
 #: rendering of a replica-side DeadlineExceededError)
 TERMINAL = ("done", "cancelled", "failed", "deadline")
 
+#: Protocol bugs put back on purpose, armed only by
+#: ``analysis.modelcheck.mutations()`` (``"skip_failover_dedupe"``: the
+#: store accepts a late echo of a failed-over attempt).  Empty in
+#: production.
+_TEST_MUTATIONS = set()
+
+
 def _env_int(name, default):
     return int(os.environ.get(name, str(default)))
 
@@ -83,13 +90,17 @@ class ReplicaGroup:
     ``threaded=True`` spawns one daemon waiter per dispatch;
     ``threaded=False`` leaves delivery and death detection to the
     caller, through :meth:`_deliver` / :meth:`_on_replica_dead`.
+    ``sim`` is the model checker's seam (``analysis.modelcheck``): its
+    scheduler makes every routing transaction a schedule point.
+    Production leaves it None.
     """
 
-    def __init__(self, servers, threaded=True, queue_limit=None,
+    def __init__(self, servers, sim=None, threaded=True, queue_limit=None,
                  slo_target_ms=None):
         if not servers:
             raise ValueError("ReplicaGroup needs at least one Server")
         self.servers = list(servers)
+        self._sim = sim
         self._threaded = bool(threaded)
         self.queue_limit = _env_int("MXNET_SERVE_QUEUE_LIMIT", 0) \
             if queue_limit is None else int(queue_limit)
@@ -123,11 +134,14 @@ class ReplicaGroup:
         return cls(servers, **kw)
 
     # -- seams ----------------------------------------------------------
-    @staticmethod
-    def _point(kind, detail="", **fields):
-        # flight-recorder event, called OUTSIDE the locked regions, like
-        # SlotScheduler._point
+    def _point(self, kind, detail="", **fields):
+        # flight-recorder event and model-checker schedule point, called
+        # OUTSIDE the locked regions, like SlotScheduler._point
         _flightrec.record(kind, detail=detail, **fields)
+        sim = self._sim
+        if sim is not None:
+            sim.point(kind, obj=("router", id(self)), write=True,
+                      detail=detail)
 
     # -- admission ------------------------------------------------------
     def _worst_p99_ms(self):
@@ -375,6 +389,9 @@ class ReplicaGroup:
             dup = (req["state"] in TERMINAL) if req is not None \
                 else (gid in s["delivered"])
             known = req is not None or gid in s["delivered"]
+            if dup and "skip_failover_dedupe" in _TEST_MUTATIONS \
+                    and req is not None:
+                dup = False  # the mutation: a second delivery
             if dup or not known:
                 self._s = dict(s, dup_drops=s["dup_drops"] + 1)
                 ev = None

@@ -611,6 +611,37 @@ def test_hybridized_block_replays_outside_any_scope(dev):
     assert torch.is_grad_enabled()
 
 
+def test_monitor_on_a_hybridized_block_captures_and_replays(dev):
+    """``mx.monitor`` on a hybridized block: the first call's eager
+    forward queues each block once, its warm-ups and capture queue
+    nothing (no duplicate names), the capture succeeds with the hooks
+    installed, a replay queues the hybridized block's own output only,
+    and the replayed output equals the unmonitored replay bit for bit."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.monitor import Monitor
+    blk = _resnet_block(dev)
+    x = torch.from_numpy(onp.random.RandomState(0).randn(
+        4, 32, 16, 16).astype(onp.float32)).to(dev)
+    with autograd.pause():
+        blk.hybridize()
+        blk(x)
+        want = blk(x)                        # unmonitored replay
+        blk.hybridize()                      # drop the graph
+        mon = Monitor(interval=1, pattern=".*_output")
+        mon.install(blk)
+        mon.tic()
+        blk(x)                               # eager, then capture
+        names = [n for _, n, _ in mon.queue]
+        assert len(blk._graphs) == 1 and len(names) == len(set(names))
+        assert not cuda_ops.capturing()
+        got = blk(x)                         # replay
+        assert [n for _, n, _ in mon.queue[len(names):]] == \
+            ["bottleneckv1_output"]
+        res = mon.toc()
+    assert torch.equal(got, want)
+    assert res and all(v != "nan" for _, _, v in res)
+
+
 def test_hybridized_training_mode_updates_batch_norm_stats(dev):
     """In training mode a replay updates BatchNorm's running statistics
     in place, once per call, as eager calls do."""

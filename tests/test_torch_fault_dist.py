@@ -122,6 +122,10 @@ PORT = types.SimpleNamespace(fault=tfault, fd=tfd, fe=tfe, rec=trec,
 
 def _reset(m):
     m.fault.clear()
+    # the process-wide recovery epoch: another test file run earlier in
+    # this process may have bumped one package's and not the other's
+    with m.fd._ambient_lock:
+        m.fd._generation = None
     m.fd.disable_step_lease()
     m.fd.disable_step_heartbeat()
     m.fd.set_default_comm(None)

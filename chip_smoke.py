@@ -6575,6 +6575,421 @@ def analysis_phase(mt, co, dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# the data phase: recordio, the native reader, ImageRecordIter feeding
+# ResNet-50's TrainStep, a killed worker, a DataLoader feeding the LM
+# ----------------------------------------------------------------------
+DATA_RECORDS, DATA_B, DATA_SIDE = 1024, 128, 224
+DATA_STEPS = 10                 # fed steps whose metric reads are counted
+DATA_LM_LAYERS, DATA_LM_T, DATA_LM_STEPS = 2, 1024, 3
+DATA_RESNET_KERNELS = ("multi_sgd",)
+DATA_LM_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "multi_adam")
+
+
+class _RawImages:
+    """HWC uint8 images from raw records (no cv2 on the machine): the
+    payload reshaped, labels the headers', ToTensor in numpy."""
+
+    def __init__(self, mt, path):
+        self.ds = mt.gluon.data.RecordFileDataset(path)
+        self.unpack = mt.recordio.unpack
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        import numpy as onp
+        header, body = self.unpack(self.ds[i])
+        img = onp.frombuffer(body, onp.uint8).reshape(DATA_SIDE, DATA_SIDE,
+                                                      3)
+        return (img.astype("float32") / 255.0).transpose(2, 0, 1), \
+            float(header.label)
+
+
+def data_records(mt, tmp):
+    """1024 synthetic 224x224x3 records, labels i % 1000: JPEG at quality
+    85 through ``pack_img`` (``bench.py``'s), or raw HWC bytes through
+    ``pack`` where cv2 is missing.  Every record is read through the
+    native reader and the Python one, which must agree.  Returns (path,
+    cv2 present)."""
+    import numpy as onp
+    try:
+        import cv2
+        have_cv2 = True
+        print("data: cv2 %s present: JPEG records" % cv2.__version__)
+    except ImportError:
+        have_cv2 = False
+        print("data: cv2 is not installed on this machine: raw HWC uint8 "
+              "records through recordio.pack, read back by a numpy "
+              "reshape")
+    rec = os.path.join(tmp, "synth.rec")
+    t0 = time.monotonic()
+    rs = onp.random.RandomState(0)
+    w = mt.recordio.MXIndexedRecordIO(os.path.join(tmp, "synth.idx"), rec,
+                                      "w")
+    for i in range(DATA_RECORDS):
+        img = rs.randint(0, 255, (DATA_SIDE, DATA_SIDE, 3)).astype("uint8")
+        header = mt.recordio.IRHeader(0, float(i % 1000), i, 0)
+        w.write_idx(i, mt.recordio.pack_img(header, img, quality=85)
+                    if have_cv2 else mt.recordio.pack(header, img.tobytes()))
+    w.close()
+    write_s = time.monotonic() - t0
+    native = mt.gluon.data.RecordFileDataset(rec)
+    check(native.native, "data: the native reader was not used")
+    from mxnet_tpu_torch import _native
+    os.environ["MXNET_NATIVE_DISABLE"] = "1"
+    try:
+        plain = mt.gluon.data.RecordFileDataset(rec)
+    finally:
+        del os.environ["MXNET_NATIVE_DISABLE"]
+    check(not plain.native and len(native) == len(plain) == DATA_RECORDS,
+          "data: the readers disagree on the records")
+    t0 = time.monotonic()
+    a = [native[i] for i in range(DATA_RECORDS)]
+    native_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    b = [plain[i] for i in range(DATA_RECORDS)]
+    plain_s = time.monotonic() - t0
+    check(a == b, "data: native and Python readers disagree")
+    mb = sum(map(len, a)) / 1e6
+    print("data: %d records (%.1f MB) written in %.2f s; read back equal "
+          "through the native reader (%s, %.1f ms) and the Python reader "
+          "(%.1f ms)" % (DATA_RECORDS, mb, write_s, _native.library_path(),
+                         native_s * 1e3, plain_s * 1e3))
+    return rec, have_cv2
+
+
+class _LoaderIter:
+    """A ``DataLoader`` of (data, label) batches read as a DataIter."""
+
+    def __init__(self, mt, loader):
+        self._mt, self._loader, self._it = mt, loader, None
+
+    def reset(self):
+        self._it = iter(self._loader)
+
+    def next(self):
+        if self._it is None:
+            self.reset()
+        try:
+            data, label = next(self._it)
+        except StopIteration:
+            self._it = None
+            raise
+        return self._mt.io.DataBatch(data=[data], label=[label], pad=0)
+
+
+def _data_iter(mt, rec, have_cv2, threads, thread_pool=False):
+    """The fed iterator: ``ImageRecordIter`` with the reference's
+    settings (decode in forked workers); with ``thread_pool`` a
+    ``DataLoader`` of the same transforms on worker threads; without
+    cv2, a ``DataLoader`` over the raw records."""
+    if have_cv2 and not thread_pool:
+        return mt.io.ImageRecordIter(
+            path_imgrec=rec, data_shape=(3, DATA_SIDE, DATA_SIDE),
+            batch_size=DATA_B, shuffle=False, preprocess_threads=threads,
+            prefetch_buffer=6, round_batch=True)
+    if have_cv2:
+        T = mt.gluon.data.vision.transforms
+        ds = mt.gluon.data.vision.ImageRecordDataset(rec).transform_first(
+            T.Compose([T.CenterCrop((DATA_SIDE, DATA_SIDE)), T.ToTensor()]))
+    else:
+        ds = _RawImages(mt, rec)
+    return _LoaderIter(mt, mt.gluon.data.DataLoader(
+        ds, batch_size=DATA_B, num_workers=threads, last_batch="rollover",
+        prefetch=6, thread_pool=thread_pool))
+
+
+def _batches(it):
+    """Endless (data bf16, label int32) batches of ``it``, epoch after
+    epoch."""
+    while True:
+        it.reset()
+        while True:
+            try:
+                b = it.next()
+            except StopIteration:
+                break
+            yield (b.data[0]._data.to(torch.bfloat16),
+                   b.label[0]._data.to(torch.int32))
+
+
+def loader_alone(it, dev, card, n=16):
+    """Images/s of the iterator with no step behind it."""
+    gen = _batches(it)
+    for _ in range(2):
+        next(gen)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        x, y = next(gen)
+    torch.cuda.synchronize()
+    rate = n * DATA_B / (time.monotonic() - t0)
+    check(tuple(x.shape) == (DATA_B, 3, DATA_SIDE, DATA_SIDE) and
+          x.device.type == y.device.type == dev.type,
+          "data: a batch is %s on %s" % (tuple(x.shape), x.device))
+    print("data loader alone, %s: %.1f images/s (B=%d, %d workers, "
+          "prefetch 6; os.cpu_count() %d) [%s]"
+          % (_feed_name(it), rate, DATA_B, it._loader._num_workers,
+             os.cpu_count(), card))
+    return rate
+
+
+def _feed_name(it):
+    if not isinstance(it, _LoaderIter):
+        return "ImageRecordIter (worker processes, shared memory)"
+    return "DataLoader on worker %s" % ("threads" if it._loader._thread_pool
+                                        else "processes (raw records)")
+
+
+def data_resnet(mt, co, dev, card, it, it_threads, tmp):
+    """ResNet-50 (bf16 NCHW, BatchNorm float32) through ``TrainStep`` and
+    SGD(lr 0.1, momentum 0.9, wd 1e-4) at B=128, fed by ``it``, then fed
+    by ``it_threads`` and by one synthetic device batch; Accuracy and
+    CrossEntropy updated every step.  Returns the fed steps' launch
+    counts."""
+    import numpy as onp
+    net = _resnet50(mt, dev).cast("bfloat16")
+    for m in net.modules():
+        if isinstance(m, mt.gluon.nn.BatchNorm):
+            m.cast("float32")
+    with mt.autograd.pause():
+        net(torch.zeros(2, 3, DATA_SIDE, DATA_SIDE, device=dev,
+                        dtype=torch.bfloat16))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    kept = {}
+
+    def fwd(model, x, y):
+        out = model(x)
+        kept["out"] = out.detach()
+        return loss_fn(out.float(), y).mean()
+    step = mt.parallel.TrainStep(net, None, mt.optimizer.SGD(
+        learning_rate=0.1, momentum=0.9, wd=1e-4), forward_fn=fwd)
+    gen = _batches(it)
+    acc, ce = mt.metric.Accuracy(), mt.metric.CrossEntropy()
+    x, y = next(gen)
+    step(x, y)                                  # warm-up
+    torch.cuda.synchronize()
+    co.reset_launch_counts()
+    losses, preds, labels = [], [], []
+
+    def fed_steps():
+        for _ in range(DATA_STEPS):
+            x, y = next(gen)
+            losses.append(step(x, y))
+            probs = kept["out"].float().softmax(-1)
+            acc.update([y], [kept["out"]])
+            ce.update([y], [probs])
+            preds.append((kept["out"].argmax(-1), probs))
+            labels.append(y)
+        vals = torch.stack(losses).tolist()
+        return vals, acc.get()[1], ce.get()[1]
+    t0 = time.monotonic()
+    reads = _host_reads(lambda: kept.__setitem__("res", fed_steps()))
+    wall = time.monotonic() - t0
+    launches = dict(co.LAUNCHES)
+    vals, acc_v, ce_v = kept["res"]
+    check(all(math.isfinite(v) for v in vals),
+          "data_resnet: a loss is not finite: %s" % vals)
+    check(reads == {"tolist": 3}, "data_resnet: the loop read %s to the "
+          "host; want its own losses once and one read per metric get()"
+          % reads)
+    lab = torch.cat(labels).cpu().numpy()
+    am = torch.cat([p[0] for p in preds]).cpu().numpy()
+    pr = torch.cat([p[1] for p in preds]).double().cpu().numpy()
+    want_acc = float((am == lab).mean())
+    want_ce = float(-onp.log(pr[onp.arange(len(lab)), lab] + 1e-12).mean())
+    check(acc_v == want_acc and abs(ce_v - want_ce) <= 1e-6 * want_ce,
+          "data_resnet: metrics %s / %s, numpy float64 %s / %s"
+          % (acc_v, ce_v, want_acc, want_ce))
+    check_opt_launches("data_resnet", launches, "multi_sgd", DATA_STEPS,
+                       net.parameters())
+    del preds, labels, losses
+    print("data_resnet: %d fed steps in %.2f s (%.1f images/s with the "
+          "metrics and their reads), losses %s; host reads %s; accuracy "
+          "%.6f, cross-entropy %.6f = numpy float64 [%s]"
+          % (DATA_STEPS, wall, DATA_STEPS * DATA_B / wall,
+             ["%.4f" % v for v in vals], reads, acc_v, ce_v, card))
+    rows = {}
+    xs, ys = next(gen)
+    gen_t = _batches(it_threads)
+    for feed, fn in ((_feed_name(it), lambda: step(*next(gen))),
+                     (_feed_name(it_threads), lambda: step(*next(gen_t))),
+                     ("synthetic device batch", lambda: step(xs, ys))):
+        ms, dev_ms, top, _, _ = device_busy(fn, reps=5)
+        rows[feed] = (DATA_B / ms * 1e3, 100 * dev_ms / ms)
+        print("data_resnet fed by %s: step %.1f ms host, %.1f ms of kernels "
+              "(device busy %.1f%%), %.1f images/s [%s]; top kernels (ms "
+              "per step): %s" % (feed, ms, dev_ms, 100 * dev_ms / ms,
+                                 DATA_B / ms * 1e3, card,
+                                 "; ".join("%s %.3f" % t for t in top)))
+    syn = rows["synthetic device batch"]
+    for feed in (_feed_name(it), _feed_name(it_threads)):
+        fed = rows[feed]
+        print("data_resnet: fed by %s %.1f images/s (busy %.1f%%) against "
+              "synthetic %.1f images/s (busy %.1f%%): the feed costs %.1f%% "
+              "of the throughput [%s]" % (feed, fed[0], fed[1], syn[0],
+                                          syn[1], 100 * (1 - fed[0] / syn[0]),
+                                          card))
+    # the profiler's data counters over one more epoch of fed steps
+    prof = mt.profiler
+    prof.set_config(profile_all=False, profile_imperative=False,
+                    profile_memory=False, profile_data=True,
+                    filename=os.path.join(tmp, "data.json"))
+    before = {k: prof.get_counter(k) for k in ("dataloader::batches",
+                                               "dataloader::samples")}
+    prof.set_state("run")
+    try:
+        for _ in range(DATA_RECORDS // DATA_B):
+            step(*next(gen))
+        torch.cuda.synchronize()
+    finally:
+        prof.set_state("stop")
+    agg = prof._state["agg"].get("DataLoader::next", [0, 0.0])
+    print("data_resnet profiler: %s; DataLoader::next %d fetches, mean wait "
+          "%.2f ms [%s]" % ({k: prof.get_counter(k) - v for k, v in
+                             before.items()}, agg[0],
+                            1e3 * agg[1] / max(agg[0], 1), card))
+    check(prof.get_counter("dataloader::batches") > before[
+        "dataloader::batches"], "data_resnet: the profiler counted no batch")
+    del step, net
+    return launches
+
+
+class _Slowed:
+    """``ds`` with each item 10 ms slower: a worker killed at a submit
+    then always leaves a batch outstanding, which the loader must see."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        time.sleep(0.01)
+        return self.ds[i]
+
+
+def data_worker_kill(mt, rec, have_cv2, card):
+    """A worker killed at the third submit, after CUDA is up: the pool is
+    rebuilt once and the epoch equals an unfaulted one, batch by batch
+    in order."""
+    def epoch():
+        if have_cv2:
+            T = mt.gluon.data.vision.transforms
+            ds = mt.gluon.data.vision.ImageRecordDataset(rec) \
+                .transform_first(T.Compose([T.CenterCrop(DATA_SIDE),
+                                            T.ToTensor()]))
+        else:
+            ds = _RawImages(mt, rec)
+        with mt.gluon.data.DataLoader(_Slowed(ds.take(256)), batch_size=32,
+                                      num_workers=4, prefetch=4) as loader:
+            return [[t._data for t in b] for b in loader]
+    want = epoch()
+    base = mt.profiler.get_counter("fault::worker_restarts")
+    mt.fault.clear()
+    mt.fault.inject("worker_kill", at=3)
+    try:
+        got = epoch()
+    finally:
+        mt.fault.clear()
+    restarts = mt.profiler.get_counter("fault::worker_restarts") - base
+    check(restarts == 1, "data: worker_restarts moved by %d, want 1"
+          % restarts)
+    check(len(got) == len(want) and all(
+        all(torch.equal(a, b) for a, b in zip(g, w))
+        for g, w in zip(got, want)), "data: the faulted epoch differs")
+    print("data worker kill: a worker SIGKILLed at the 3rd submit (CUDA up "
+          "in the parent), the pool rebuilt once (fault::worker_restarts "
+          "%d), %d batches of the epoch equal to an unfaulted epoch, in "
+          "order [%s]" % (restarts, len(got), card))
+
+
+def data_lm(mt, co, dev, card):
+    """``llama3_8b_config`` at full width, 2 of 32 layers, T=1024: 3
+    AdamW ``TrainStep`` steps fed by a ``DataLoader`` over an
+    ``ArrayDataset`` of seeded int32 token windows and targets
+    (``batchify.Stack()``), ``Perplexity`` updated on the device each
+    step.  Returns the run's launch counts."""
+    import numpy as onp
+    net = build_model(mt, dev, DATA_LM_LAYERS)
+    V, T = net.cfg.vocab_size, DATA_LM_T
+    rng = onp.random.RandomState(4)
+    seq = rng.randint(0, V, (6, T + 1)).astype("int32")
+    ds = mt.gluon.data.ArrayDataset(seq[:, :-1], seq[:, 1:])
+    loader = mt.gluon.data.DataLoader(
+        ds, batch_size=2, batchify_fn=mt.gluon.data.batchify.Stack())
+    loss_fn = mt.gluon.loss.SoftmaxCELoss()
+    ppl = mt.metric.Perplexity()
+    kept = {}
+
+    def fwd(model, tokens, lab):
+        logits = model(tokens).float()
+        kept["logits"] = logits.detach()
+        return loss_fn(logits.reshape(-1, V), lab.reshape(-1)).mean()
+    step = mt.parallel.TrainStep(net, None,
+                                 mt.optimizer.AdamW(learning_rate=1e-3),
+                                 forward_fn=fwd)
+    torch.cuda.synchronize()
+    co.reset_launch_counts()
+    t0 = time.monotonic()
+    losses = []
+    for batch in loader:
+        b = batch._data
+        check(b.device.type == dev.type and tuple(b.shape) == (2, 2, T),
+              "data_lm: a batch is %s on %s" % (tuple(b.shape), b.device))
+        toks, lab = b[:, 0], b[:, 1]
+        losses.append(step(toks, lab))
+        ppl.update([lab], [kept["logits"].softmax(-1)])
+    vals = torch.stack(losses).tolist()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(co.LAUNCHES)
+    value = ppl.get()[1]
+    check(len(vals) == DATA_LM_STEPS and all(math.isfinite(v) for v in vals)
+          and math.isfinite(value), "data_lm: losses %s, perplexity %s"
+          % (vals, value))
+    check(abs(math.log(value) - sum(vals) / len(vals)) < 1e-2,
+          "data_lm: log perplexity %.5f against the mean loss %.5f"
+          % (math.log(value), sum(vals) / len(vals)))
+    print("data_lm: %d AdamW steps (llama3_8b widths, %d layers, B=2, T=%d) "
+          "fed by a DataLoader in %.2f s, losses %s, perplexity %.2f; "
+          "launches %s [%s]" % (len(vals), DATA_LM_LAYERS, T, wall,
+                                ["%.4f" % v for v in vals], value,
+                                {k: launches[k] for k in DATA_LM_KERNELS},
+                                card))
+    return launches
+
+
+def data_phase(mt, co, dev, card):
+    """The data pipeline on the card; returns the launch counts of the
+    ``data_resnet`` and ``data_lm`` paths."""
+    import tempfile
+    t0 = time.monotonic()
+    threads = min(16, os.cpu_count() or 4)
+    with tempfile.TemporaryDirectory(prefix="mx_data_") as tmp:
+        rec, have_cv2 = data_records(mt, tmp)
+        it = _data_iter(mt, rec, have_cv2, threads)
+        it_threads = _data_iter(mt, rec, have_cv2, threads, thread_pool=True)
+        try:
+            loader_alone(it, dev, card)
+            loader_alone(it_threads, dev, card)
+            resnet = data_resnet(mt, co, dev, card, it, it_threads, tmp)
+        finally:
+            it._loader.close()
+            it_threads._loader.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        data_worker_kill(mt, rec, have_cv2, card)
+    lm = data_lm(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("data phase %.1f s [%s]" % (time.monotonic() - t0, card))
+    return resnet, lm
+
+
 def _short_names(obj, width=48):
     """``obj`` with every dict key cut to ``width`` characters (the times
     of kernels whose names then coincide summed): the kernels line keeps
@@ -6637,6 +7052,15 @@ def main(argv):
               % launches)
         print(card)
         return 0
+    if argv[1:] == ["--data"]:
+        # only the data phase
+        resnet, lm = data_phase(mt, co, dev, card)
+        check(all(resnet[k] > 0 for k in DATA_RESNET_KERNELS) and
+              all(lm[k] > 0 for k in DATA_LM_KERNELS),
+              "data: a kernel of the path was not launched: %s / %s"
+              % (resnet, lm))
+        print(card)
+        return 0
     if argv[1:] == ["--elastic"]:
         # only the elastic phase (its two pairs of rank children)
         elastic_phase(mt, co, dev, card)
@@ -6675,7 +7099,8 @@ def main(argv):
         print(card)
         return 0
     check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing | "
-          "--ring-nccl | --elastic | --analysis | --ring-rank RANK DIR "
+          "--ring-nccl | --elastic | --analysis | --data | --ring-rank "
+          "RANK DIR "
           "[BACKEND] | "
           "--serve-tp-rank RANK DIR BACKEND WORLD | --elastic-rank RANK DIR "
           "PART]")
@@ -6775,6 +7200,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     analysis_launches = analysis_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_resnet_launches, data_lm_launches = data_phase(mt, co, dev, card)
 
     for k in optim:
         if k["name"] == "multi_adam":
@@ -6801,7 +7229,8 @@ def main(argv):
              "amp_bert": amp_bert_launches,
              "amp_resnet": amp_resnet_launches, "guard": guard_launches,
              "elastic": elastic_launches, "analysis": analysis_launches,
-             **zoo_paths}
+             "data_resnet": data_resnet_launches,
+             "data_lm": data_lm_launches, **zoo_paths}
     for path, kernels_of_path in (
             ("int8_resnet", ("int8_quantize", "int8_quantize_im2col",
                              "int8_conv_hopper")),
@@ -6819,6 +7248,8 @@ def main(argv):
             ("kvstore", ("multi_sgd",)),
             ("elastic", ELASTIC_KERNELS),
             ("analysis", ANALYSIS_KERNELS),
+            ("data_resnet", DATA_RESNET_KERNELS),
+            ("data_lm", DATA_LM_KERNELS),
             ("zoo_train", ("multi_sgd",)),
             ("zoo_int8", ("int8_quantize", "int8_quantize_im2col",
                           "int8_conv_hopper", "int8_conv_depthwise")),

@@ -13,8 +13,9 @@ the MoE), ``models`` (the Llama-class
 ``TransformerLM`` and its paged KV cache, BERT), ``serve`` (the
 continuous-batching server, tensor-parallel over a mesh) and
 ``convert`` (weights to and from the JAX package, as numpy); the control
-plane ``profiler``, ``telemetry``, ``flightrec`` and ``fault``, and
-``amp`` (mixed precision with dynamic loss scaling), loaded on first
+plane ``profiler``, ``telemetry``, ``flightrec`` and ``fault``,
+``amp`` (mixed precision with dynamic loss scaling) and the data
+pipeline (``io``, ``recordio``, ``image``, ``metric``), loaded on first
 use, as the JAX package's lazy table loads them (``serve_router``
 is imported as ``mxnet_tpu_torch.serve_router``, as there); and the
 imperative MXNet surface: ``nd``
@@ -47,12 +48,14 @@ random = numpy.random
 
 __version__ = "2.0.0.torch0"
 
-#: the control-plane modules, ``amp``, ``monitor`` (also ``mon``) and
-#: ``analysis``, loaded on first attribute access
+#: the control-plane modules, ``amp``, ``monitor`` (also ``mon``),
+#: ``analysis`` and the data pipeline (``io``, ``recordio``, ``image``,
+#: ``metric``), loaded on first attribute access
 _LAZY = {"profiler": ".profiler", "telemetry": ".telemetry",
          "flightrec": ".flightrec", "fault": ".fault", "amp": ".amp",
          "monitor": ".monitor", "mon": ".monitor",
-         "analysis": ".analysis"}
+         "analysis": ".analysis", "io": ".io", "recordio": ".recordio",
+         "image": ".image", "metric": ".gluon.metric"}
 
 
 def __getattr__(name):

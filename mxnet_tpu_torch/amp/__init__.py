@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as _onp
 import torch
 
+from ..gluon.parameter import grad_of
 from .lists import FP16_FP32_FUNCS, FP16_FUNCS, FP32_FUNCS
 from .loss_scaler import LossScaler
 
@@ -89,8 +90,9 @@ def unscale(trainer):
     inv = 1.0 / scaler.loss_scale
     with torch.no_grad():
         for p in trainer._params:
-            if p.requires_grad and p.grad is not None:
-                p.grad.mul_(inv)
+            g = grad_of(p)
+            if p.requires_grad and g is not None:
+                g.mul_(inv)
     scaler._manual_unscaled = True
 
 

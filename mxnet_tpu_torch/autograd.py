@@ -169,10 +169,12 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
-         create_graph=False):
+         create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables``, returned
     (not accumulated); one for a single variable.  NDArray variables get
-    NDArray gradients."""
+    NDArray gradients.  ``train_mode`` is accepted, as ``backward``'s is:
+    torch's backward replays the graph recorded, in the mode it was
+    recorded in."""
     from .ndarray.ndarray import NDArray
     heads, head_grads = _seeded(heads, head_grads)
     single = not isinstance(variables, (list, tuple))

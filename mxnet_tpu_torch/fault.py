@@ -659,12 +659,16 @@ def _kill_one_worker(pool, rng):
 
 def _grads(params):
     """The floating-point gradients of the trainable ``params``."""
+    import torch
     out = []
     for p in params:
         if getattr(p, "grad_req", "write") == "null" or \
                 not getattr(p, "requires_grad", True):
             continue
-        g = getattr(p, "grad", None)
+        # torch's gradient as written (a port parameter's ``grad``
+        # reads zeros where none was)
+        g = torch._C.TensorBase.grad.__get__(p) \
+            if isinstance(p, torch.Tensor) else getattr(p, "grad", None)
         if g is not None and g.is_floating_point():
             out.append(g)
     return out

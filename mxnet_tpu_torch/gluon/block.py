@@ -180,18 +180,19 @@ class Block(nn.Module):
             seen.add(id(p))
         return out
 
-    def initialize(self, init=None, device=None, generator=None,
-                   force_reinit=False):
-        """Initialize every parameter on ``device`` (``None`` = the
-        current context: CUDA outside any scope, raising without a card)
-        with its own initializer, else ``init`` (default
-        ``Uniform(0.07)``), drawing from ``generator`` (default:
+    def initialize(self, init=None, device=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None):
+        """Initialize every parameter on ``device`` (``ctx`` is its MXNet
+        alias; ``None`` = the current context: CUDA outside any scope,
+        raising without a card) with its own initializer, else ``init``
+        (default ``Uniform(0.07)``), drawing from ``generator`` (default:
         ``mx.np.random``'s generator for the device).  A parameter with
         an unknown dimension is filled at the block's first forward.
-        Returns the block."""
+        ``verbose`` is accepted, as the reference's is.  Returns the
+        block."""
         if init is None or isinstance(init, str):
             init = init_mod.create(init or "uniform")
-        device = resolve_device(device)
+        device = resolve_device(device if device is not None else ctx)
         if generator is None:
             from ..numpy import random as np_random
             generator = np_random.generator(device)
@@ -199,6 +200,63 @@ class Block(nn.Module):
             param_mod.initialize(p, name, init, device, generator,
                                  force_reinit)
         return self
+
+    def __setattr__(self, name, value):
+        if isinstance(value, param_mod.Parameter) and \
+                param_mod._spec(value).name is None:
+            param_mod._spec(value).name = name
+        super().__setattr__(name, value)
+
+    def register_child(self, block, name=None):
+        """Hold ``block`` as a child under ``name`` (default: the number
+        of children so far)."""
+        self.add_module(name or str(len(self._modules)), block)
+
+    @property
+    def params(self):
+        """This block's own parameters (not its children's), by name."""
+        return OrderedDict((k, p) for k, p in self._parameters.items()
+                           if p is not None)
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx`` (its gradient dropped); a
+        deferred one will be made there.  The captured graphs are
+        dropped."""
+        dev = torch.empty(0, device=resolve_device(ctx)).device
+        with torch.no_grad():
+            for p in self.parameters():
+                spec = param_mod._spec(p)
+                if param_mod.is_deferred(p):
+                    if spec.deferred is not None:
+                        spec.deferred = spec.deferred[:2] + (dev,) + \
+                            spec.deferred[3:]
+                elif p.device != dev:
+                    p.grad = None
+                    p.data = p.data.to(dev)
+        for m in self.modules():
+            if isinstance(m, HybridBlock):
+                m.reset_cache()
+
+    reset_device = reset_ctx
+
+    def summary(self, *inputs):
+        """Print each parameter's name, shape and size, and the total (the
+        reference's table; ``inputs`` are accepted and not run)."""
+        lines = ["-" * 64,
+                 "%-28s %-24s %s" % ("Layer", "Param shape", "#Params"),
+                 "=" * 64]
+        total = 0
+        for name, p in self.collect_params().items():
+            shape = param_mod._spec(p).shape if param_mod.is_deferred(p) \
+                else tuple(p.shape)
+            n = 1
+            for d in (shape or ()):
+                n *= max(d, 0)
+            total += n
+            lines.append("%-28s %-24s %d" % (name, str(shape), n))
+        lines.append("=" * 64)
+        lines.append("Total params: %d" % total)
+        print("\n".join(lines))
 
     def cast(self, dtype):
         """Cast every parameter (BatchNorm's statistics included) to
@@ -242,8 +300,9 @@ class Block(nn.Module):
     def zero_grad(self):
         """Set every gradient that exists to zero, in place."""
         for p in self.parameters():
-            if p.grad is not None:
-                p.grad.zero_()
+            g = param_mod.grad_of(p)
+            if g is not None:
+                g.zero_()
 
     # -- parameter files (reference :166-274) ------------------------------
     def save_parameters(self, filename, deduplicate=False):
@@ -341,8 +400,8 @@ class Block(nn.Module):
                 and v.dtype.name == "bfloat16" else v)
             want = param_mod._spec(p).shape if param_mod.is_deferred(p) \
                 else param_mod.global_shape(p)
-            if len(want) != t.dim() or any(
-                    w not in (0, d) for w, d in zip(want, t.shape)):
+            if want is not None and (len(want) != t.dim() or any(
+                    w not in (0, d) for w, d in zip(want, t.shape))):
                 raise ValueError("Parameter %s has shape %s in %s; the block "
                                  "wants %s" % (name, tuple(t.shape), where,
                                                tuple(want)))

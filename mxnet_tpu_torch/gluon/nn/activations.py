@@ -43,7 +43,9 @@ class PReLU(HybridBlock):
     def __init__(self, alpha_initializer=None, in_channels=1):
         super().__init__()
         self.alpha = Parameter((in_channels,), "float32",
-                               alpha_initializer or initializer.Constant(0.25))
+                               init=alpha_initializer
+                               or initializer.Constant(0.25),
+                               allow_deferred_init=True)
 
     def forward(self, x):
         return F.leaky_relu(x, "prelu", gamma=self.alpha)

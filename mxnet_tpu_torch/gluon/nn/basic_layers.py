@@ -105,8 +105,11 @@ class Dense(HybridBlock):
         self._units = units
         self._flatten = flatten
         self._activation = activation
-        self.weight = Parameter((units, in_units), dtype, weight_initializer)
-        self.bias = Parameter((units,), dtype, bias_initializer) \
+        self.weight = Parameter((units, in_units), dtype,
+                                init=weight_initializer,
+                                allow_deferred_init=True)
+        self.bias = Parameter((units,), dtype, init=bias_initializer,
+                              allow_deferred_init=True) \
             if use_bias else None
 
     def forward(self, x):
@@ -149,7 +152,8 @@ class Embedding(HybridBlock):
                  weight_initializer=None):
         super().__init__()
         self.weight = Parameter((input_dim, output_dim), dtype,
-                                weight_initializer)
+                                init=weight_initializer,
+                                allow_deferred_init=True)
 
     def forward(self, x):
         if _sharding.placement(self.weight) is not None:
@@ -168,10 +172,10 @@ class Identity(HybridBlock):
 
 
 def _norm_params(block, in_channels, center, scale, gamma_init, beta_init):
-    block.gamma = Parameter((in_channels,), "float32", gamma_init,
-                            "write" if scale else "null")
-    block.beta = Parameter((in_channels,), "float32", beta_init,
-                           "write" if center else "null")
+    block.gamma = Parameter((in_channels,), "float32", init=gamma_init,
+                            allow_deferred_init=True, differentiable=scale)
+    block.beta = Parameter((in_channels,), "float32", init=beta_init,
+                           allow_deferred_init=True, differentiable=center)
 
 
 class BatchNorm(HybridBlock):
@@ -203,9 +207,13 @@ class BatchNorm(HybridBlock):
         _norm_params(self, in_channels, center, scale, gamma_initializer,
                      beta_initializer)
         self.running_mean = Parameter((in_channels,), "float32",
-                                      running_mean_initializer, "null")
+                                      init=running_mean_initializer,
+                                      allow_deferred_init=True,
+                                      differentiable=False)
         self.running_var = Parameter((in_channels,), "float32",
-                                     running_variance_initializer, "null")
+                                     init=running_variance_initializer,
+                                     allow_deferred_init=True,
+                                     differentiable=False)
 
     def forward(self, x):
         ch = x.shape[self._axis]
@@ -272,18 +280,23 @@ class LayerNorm(HybridBlock):
 
 
 class RMSNorm(HybridBlock):
-    """RMS normalization over the last axis.  ``gamma`` is float32 in
-    every model, as in the JAX layer, so the output of a norm is float32
-    whatever the input's dtype."""
+    """RMS normalization over ``axis`` (reference ``RMSNorm(axis=-1,
+    epsilon=1e-6, gamma_initializer="ones", in_channels=0)``).  ``gamma``
+    is float32 in every model, as in the JAX layer, so the output of a
+    norm is float32 whatever the input's dtype."""
 
-    def __init__(self, in_channels=0, epsilon=1e-6, gamma_initializer="ones"):
+    def __init__(self, axis=-1, epsilon=1e-6, gamma_initializer="ones",
+                 in_channels=0):
         super().__init__()
+        self._axis = axis
         self._epsilon = epsilon
-        self.gamma = Parameter((in_channels,), "float32", gamma_initializer)
+        self.gamma = Parameter((in_channels,), "float32",
+                               init=gamma_initializer,
+                               allow_deferred_init=True)
 
     def forward(self, x):
-        finish_deferred_init(self.gamma, (x.shape[-1],))
-        return F.rms_norm(x, self.gamma, eps=self._epsilon)
+        finish_deferred_init(self.gamma, (x.shape[self._axis],))
+        return F.rms_norm(x, self.gamma, axis=self._axis, eps=self._epsilon)
 
 
 class GroupNorm(HybridBlock):

@@ -65,8 +65,10 @@ class _Conv(HybridBlock):
             raise NotImplementedError(
                 "Transposed conv supports NC* layouts only")
         self.weight = Parameter(self._weight_shape(in_channels), dtype,
-                                weight_initializer)
-        self.bias = Parameter((channels,), dtype, bias_initializer) \
+                                init=weight_initializer,
+                                allow_deferred_init=True)
+        self.bias = Parameter((channels,), dtype, init=bias_initializer,
+                              allow_deferred_init=True) \
             if use_bias else None
 
     def _weight_shape(self, in_ch):

@@ -8,10 +8,12 @@ Counterpart of ``mxnet_tpu/gluon/parameter.py`` (``Parameter`` :26,
 port's parameter is a ``torch.nn.Parameter`` (the subclass
 :class:`TorchParameter`), so ``collect_params``,
 ``convert.load_params``, the optimizers and the ``Trainer`` see torch
-parameters.  :func:`Parameter` makes one and hangs the MXNet metadata on
-it as ``p._mx`` (a :class:`ParamSpec`):
+parameters.  :class:`Parameter` (the reference's signature) makes one
+and hangs the MXNet metadata on it as ``p._mx`` (a :class:`ParamSpec`);
+``isinstance(p, Parameter)`` holds for every port parameter:
 
-* a shape may hold ``0`` for a dimension not known yet.  Until
+* a shape may hold ``0`` for a dimension not known yet (with
+  ``allow_deferred_init``, as every layer's parameters have it).  Until
   :func:`initialize` and, for such a shape, the first forward
   (:func:`finish_deferred_init`) give it storage, the parameter is an
   uninitialized one (``torch.nn.parameter.UninitializedParameter``),
@@ -35,7 +37,9 @@ and ``p.grad``.  So on a :class:`TorchParameter` both attributes give
 torch's tensor as ever (the same storage, for torch code and the
 optimizers), and that tensor can also be called: ``p.data()`` is an
 ``NDArray`` over the parameter itself (sharing its storage, and tracked
-by autograd), ``p.grad()`` an ``NDArray`` over its gradient.
+by autograd), ``p.grad()`` an ``NDArray`` over its gradient.  Where
+torch holds no gradient, ``p.grad`` reads zeros, as MXNet's gradient
+buffer does before a backward; :func:`grad_of` is torch's own.
 
 Every parameter gets its storage the one way: :func:`initialize` (a
 known shape) or :func:`finish_deferred_init` (a shape with a 0, at the
@@ -53,7 +57,7 @@ from .. import initializer as init_mod
 __all__ = ["Parameter", "Constant", "TorchParameter", "ParamSpec",
            "DeferredInitializationError", "initialize",
            "finish_deferred_init", "global_shape", "is_deferred",
-           "mark_initialized", "set_grad_req", "cast"]
+           "mark_initialized", "set_grad_req", "cast", "grad_of"]
 
 _GET_DATA = torch._C.TensorBase.data.__get__
 _SET_DATA = torch._C.TensorBase.data.__set__
@@ -95,6 +99,9 @@ class ParamSpec:
     sharding_spec: tuple = None
     placement: object = None
     global_shape: tuple = None
+    name: str = None
+    allow_deferred_init: bool = True
+    differentiable: bool = True
 
 
 class _Accessor(torch.Tensor):
@@ -104,12 +111,17 @@ class _Accessor(torch.Tensor):
 
     def __call__(self, ctx=None, device=None):
         from ..ndarray.ndarray import NDArray
+        if self._mx_target is None:
+            raise RuntimeError(
+                "Cannot get gradient array for Parameter %s because "
+                "grad_req='null'" % (self._mx_name,))
         return NDArray(self._mx_target)
 
 
-def _accessor(tensor, target):
+def _accessor(tensor, target, name=None):
     acc = torch.Tensor._make_subclass(_Accessor, tensor)
     acc._mx_target = target
+    acc._mx_name = name
     return acc
 
 
@@ -137,8 +149,21 @@ class _MXParameterMixin:
 
     @property
     def grad(self):
+        """Torch's gradient, callable as MXNet's ``p.grad()``.  MXNet's
+        gradient buffer exists from initialization, so before a backward
+        (or after a ``Trainer`` step dropped a ``"write"`` gradient) this
+        is a fresh zero tensor of the weight's shape, not attached to
+        the parameter; under ``grad_req="null"`` calling it raises
+        ``RuntimeError``.  :func:`grad_of` tells whether a gradient was
+        written."""
         g = _GET_GRAD(self)
-        return None if g is None else _accessor(g, g)
+        if g is not None:
+            return _accessor(g, g)
+        if is_deferred(self):
+            return None
+        zeros = torch.zeros_like(_GET_DATA(self))
+        return _accessor(zeros, zeros if self.requires_grad else None,
+                         self.name)
 
     @grad.setter
     def grad(self, value):
@@ -177,6 +202,13 @@ class _MXParameterMixin:
 
     def cast(self, dtype):
         cast(self, dtype)
+
+    @property
+    def name(self):
+        """The reference's name: the attribute a block holds it under
+        (``"weight"``, ``"bias"``) unless given at construction."""
+        return _spec(self).name
+
 
     @property
     def grad_req(self):
@@ -236,14 +268,50 @@ class _UninitializedParameter(_MXParameterMixin, UninitializedParameter):
     cls_to_become = TorchParameter
 
 
-def Parameter(shape, dtype="float32", init=None, grad_req="write"):
-    """An uninitialized parameter carrying a :class:`ParamSpec`; it
-    becomes a :class:`TorchParameter` when given storage."""
-    spec = ParamSpec(tuple(shape), _dtype(dtype), init, grad_req=grad_req)
-    p = _UninitializedParameter(requires_grad=_requires_grad(grad_req),
-                                dtype=spec.dtype)
-    p._mx = spec
-    return p
+class _ParameterType(type):
+    """``isinstance(p, Parameter)`` holds for every port parameter, before
+    its shape is known (``_UninitializedParameter``) and after
+    (:class:`TorchParameter`)."""
+
+    def __instancecheck__(cls, obj):
+        return isinstance(obj, _MXParameterMixin)
+
+    def __subclasscheck__(cls, sub):
+        return isinstance(sub, type) and issubclass(sub, _MXParameterMixin)
+
+
+class Parameter(metaclass=_ParameterType):
+    """``Parameter(shape=None, dtype="float32", lr_mult=1.0, wd_mult=1.0,
+    init=None, allow_deferred_init=False, differentiable=True,
+    stype="default", grad_stype="default", grad_req="write", name=None)``,
+    the reference's signature and order (``gluon/parameter.py:26-30``):
+    an uninitialized parameter carrying a :class:`ParamSpec`, which
+    becomes a :class:`TorchParameter` when given storage.  A shape with
+    a 0 (or None) waits for the first forward only with
+    ``allow_deferred_init``; else ``initialize`` raises ``ValueError``.
+    ``differentiable=False`` means ``grad_req="null"``.  Sparse storage
+    types are not ported."""
+
+    def __new__(cls, shape=None, dtype="float32", lr_mult=1.0, wd_mult=1.0,
+                init=None, allow_deferred_init=False, differentiable=True,
+                stype="default", grad_stype="default", grad_req="write",
+                name=None):
+        if stype != "default" or grad_stype != "default":
+            raise NotImplementedError(
+                "mxnet_tpu_torch: Parameter(stype=%r, grad_stype=%r): sparse "
+                "storage is not ported yet (ROADMAP queue 5 item 2, sparse)"
+                % (stype, grad_stype))
+        if not differentiable:
+            grad_req = "null"
+        spec = ParamSpec(None if shape is None else tuple(shape),
+                         _dtype(dtype), init, grad_req=grad_req,
+                         lr_mult=lr_mult, wd_mult=wd_mult, name=name,
+                         allow_deferred_init=allow_deferred_init,
+                         differentiable=differentiable)
+        p = _UninitializedParameter(requires_grad=_requires_grad(grad_req),
+                                    dtype=spec.dtype)
+        p._mx = spec
+        return p
 
 
 def Constant(value):
@@ -253,7 +321,7 @@ def Constant(value):
     value = torch.as_tensor(value._data if hasattr(value, "_data")
                             else value)
     return Parameter(tuple(value.shape), value.dtype,
-                     init_mod.Constant(value.detach().cpu()),
+                     init=init_mod.Constant(value.detach().cpu()),
                      grad_req="null")
 
 
@@ -271,6 +339,16 @@ def global_shape(p):
     if meta is not None and meta.global_shape is not None:
         return tuple(meta.global_shape)
     return tuple(p.shape)
+
+
+def grad_of(p):
+    """Torch's gradient of ``p`` as written by a backward, or None (the
+    ``grad`` attribute of a port parameter reads zeros then)."""
+    return _GET_GRAD(p)
+
+
+def _unknown(shape):
+    return shape is None or any(d in (0, -1) for d in shape)
 
 
 def is_deferred(p):
@@ -304,7 +382,12 @@ def initialize(p, name, default_init, device, generator=None,
     if spec.initialized and not force_reinit:
         return
     if is_deferred(p):
-        if any(d == 0 for d in spec.shape):
+        if _unknown(spec.shape):
+            if not spec.allow_deferred_init:
+                raise ValueError(
+                    "Cannot initialize Parameter %s because it has invalid "
+                    "shape %s and deferred init is disallowed."
+                    % (spec.name or name, spec.shape))
             spec.deferred = (name, default_init, device, generator)
             return
         p.materialize(spec.shape, device=device, dtype=spec.dtype)
@@ -323,8 +406,8 @@ def finish_deferred_init(p, shape):
                              "shape %s" % (have, shape))
         return
     spec = _spec(p)
-    if len(shape) != len(spec.shape) or any(
-            old not in (0, new) for old, new in zip(spec.shape, shape)):
+    if spec.shape is not None and (len(shape) != len(spec.shape) or any(
+            old not in (0, -1, new) for old, new in zip(spec.shape, shape))):
         raise ValueError("Expected shape %s is incompatible with given "
                          "shape %s" % (spec.shape, shape))
     if spec.deferred is None:
@@ -339,7 +422,10 @@ def finish_deferred_init(p, shape):
 
 def set_grad_req(p, grad_req):
     """``"write"`` / ``"add"`` -> trainable, ``"null"`` -> frozen (no
-    gradient)."""
+    gradient); a parameter made with ``differentiable=False`` stays
+    ``"null"``."""
+    if not _spec(p).differentiable:
+        grad_req = "null"
     p.requires_grad_(_requires_grad(grad_req))
     _spec(p).grad_req = grad_req
     if not p.requires_grad:

@@ -75,6 +75,7 @@ from torch import nn
 from .. import fault as _fault
 from .. import optimizer as opt_mod
 from .. import profiler as _profiler
+from . import parameter as param_mod
 from ..utils import serialization
 
 __all__ = ["Trainer"]
@@ -199,7 +200,7 @@ class Trainer:
             return
         prof_t0 = _profiler._now_us() if _profiler._STEP else None
         for i, p in enumerate(self._params):
-            if p.requires_grad and p.grad is not None:
+            if p.requires_grad and param_mod.grad_of(p) is not None:
                 g = p.grad()
                 kv.pushpull(i, g, out=g, priority=-i)
         if prof_t0 is not None:
@@ -248,7 +249,7 @@ class Trainer:
         for i, p in enumerate(self._params):
             if not p.requires_grad:
                 continue
-            if p.grad is None:
+            if param_mod.grad_of(p) is None:
                 if not ignore_stale_grad:
                     raise UserWarning(self._stale_msg(self._param_names[i]))
                 continue

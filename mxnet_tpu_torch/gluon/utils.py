@@ -1,15 +1,18 @@
-"""Gluon utilities (reference ``mxnet_tpu/gluon/utils.py:15-64``):
-``split_data``, ``split_and_load`` and ``clip_global_norm``.
-``download`` / ``check_sha1`` are not ported: nothing is downloaded."""
+"""Gluon utilities (reference ``mxnet_tpu/gluon/utils.py:15-102``):
+``split_data``, ``split_and_load``, ``clip_global_norm``, ``check_sha1``
+and ``shape_is_known``.  ``download`` is not ported: nothing is
+downloaded."""
 from __future__ import annotations
 
+import hashlib
 import warnings
 
 import torch
 
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm",
+           "check_sha1", "shape_is_known"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -61,3 +64,19 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
             for t in ts:
                 t.copy_((t.float() * scale).to(t.dtype))
     return total_f
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the SHA-1 of ``filename``'s bytes is ``sha1_hash`` (hex)."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha1.update(chunk)
+    return sha1.hexdigest() == sha1_hash
+
+
+def shape_is_known(shape):
+    """False for None and for a shape with an unknown (0 or -1) size."""
+    if shape is None:
+        return False
+    return all(d not in (0, -1) for d in shape)

@@ -57,9 +57,10 @@ class InitDesc(str):
     initializer that overrides the suffix dispatch (the parameter's own
     ``init``, e.g. a layer's ``bias_initializer``)."""
 
-    def __new__(cls, name, attrs=None):
+    def __new__(cls, name, attrs=None, global_init=None):
         ret = super().__new__(cls, name)
         ret.attrs = attrs or {}
+        ret.global_init = global_init
         return ret
 
 

@@ -438,9 +438,9 @@ class MoEFeedForward(Block):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         E, D, H = cfg.moe_num_experts, cfg.dim, cfg.hidden_dim
-        self.gate = Parameter((D, E), cfg.dtype)
-        self.experts_w1 = Parameter((E, D, H), cfg.dtype)
-        self.experts_w2 = Parameter((E, H, D), cfg.dtype)
+        self.gate = Parameter((D, E), cfg.dtype, name="gate")
+        self.experts_w1 = Parameter((E, D, H), cfg.dtype, name="experts_w1")
+        self.experts_w2 = Parameter((E, H, D), cfg.dtype, name="experts_w2")
         self._capacity = cfg.moe_capacity_factor
         self.last_aux_loss = None
 
@@ -457,9 +457,9 @@ class MoEFeedForward(Block):
 class TransformerBlock(Block):
     def __init__(self, cfg: LlamaConfig, layer_idx=0):
         super().__init__()
-        self.attention_norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
+        self.attention_norm = RMSNorm(in_channels=cfg.dim, epsilon=cfg.norm_eps)
         self.attention = Attention(cfg, layer_idx=layer_idx)
-        self.ffn_norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
+        self.ffn_norm = RMSNorm(in_channels=cfg.dim, epsilon=cfg.norm_eps)
         use_moe = (cfg.moe_num_experts > 0
                    and layer_idx % max(1, cfg.moe_every) == 0)
         self.feed_forward = MoEFeedForward(cfg) if use_moe \
@@ -494,7 +494,7 @@ class TransformerLM(Block):
             setattr(self, "layer%d" % i, blk)   # keys layer0.*, as in JAX
             blocks.append(blk)
         self.layers = tuple(blocks)
-        self.norm = RMSNorm(cfg.dim, epsilon=cfg.norm_eps)
+        self.norm = RMSNorm(in_channels=cfg.dim, epsilon=cfg.norm_eps)
         self.output = Dense(cfg.vocab_size, in_units=cfg.dim, use_bias=False,
                             flatten=False, dtype=cfg.dtype)
         self.output.weight.shard(("tp", None))

@@ -209,8 +209,9 @@ class Monitor:
                 if _param.is_deferred(p) or not self.re_prog.match(name):
                     continue
                 named.append((name, p.detach()))
-                if self.monitor_all and p.grad is not None:
-                    named.append((name + "_grad", p.grad))
+                g = _param.grad_of(p)
+                if self.monitor_all and g is not None:
+                    named.append((name + "_grad", g))
         if self.stat_func is None:
             self.queue.extend(
                 (self.step, name, stat) for (name, _), stat in

@@ -891,17 +891,22 @@ def _global_amax(params):
 INT8_GROUPS = (("wq", "wk", "wv"), ("w1", "w3"))
 
 
-def _int8_layers(net):
+def _int8_layers(net, q=None, scales=None):
     """``{Dense: Int8Weight}`` of ``net``'s quantized weights: each comes
     from :func:`quantize_weights` and computes in its weight's own dtype.
     The net's parameters stay as they are.  A tensor-parallel rank
     quantizes its blocks with the whole weight's scale, so each int8
-    block is the block of the whole int8 weight.  The layers of a block
-    named by INT8_GROUPS share one stacked int8 tensor (an
+    block is the block of the whole int8 weight.  ``q`` / ``scales``
+    (``{name: int8 weight}``, ``{name: scale}``) are a caller's int8
+    weights, whole, taken in place of quantizing the net's.  The layers
+    of a block named by INT8_GROUPS share one stacked int8 tensor (an
     :class:`Int8Group`), each layer's weight a block of its rows."""
     ps = net.collect_params()
     params = {k: p.detach() for k, p in ps.items()}
-    q, scales = quantize_weights(params, amax=_global_amax(ps))
+    if scales:
+        q = {k: _local_copy(ps[k], q[k]).to(torch.int8) for k in scales}
+    else:
+        q, scales = quantize_weights(params, amax=_global_amax(ps))
     modules = dict(net.named_modules())
     layers = {}
     for name, scale in scales.items():
@@ -930,6 +935,34 @@ def _int8_layers(net):
                                        group)
                 r0 += n
     return layers
+
+
+def _local_copy(p, value):
+    """``value`` (an NDArray, tensor or array of the whole parameter) on
+    ``p``'s device, cut to this rank's block when ``p`` is sharded."""
+    from .ndarray.ndarray import NDArray
+    t = value._data if isinstance(value, NDArray) else torch.as_tensor(value)
+    sh = placement(p)
+    if sh is not None:
+        from .parallel.sharding import local_block
+        t = local_block(t, sh.spec, sh.mesh)
+    return t.to(p.device)
+
+
+def _take_params(net, params, scales):
+    """Write the caller's ``params`` into ``net``'s parameters (in place,
+    cast to each one's dtype), all but the int8 weights that ``scales``
+    names: the serving programs read the net's own parameters."""
+    ps = net.collect_params()
+    missing = [k for k in ps if k not in params]
+    extra = [k for k in params if k not in ps]
+    if missing or extra:
+        raise ValueError("WarmPool params: missing %s, unknown %s"
+                         % (missing, extra))
+    with torch.no_grad():
+        for k, p in ps.items():
+            if k not in scales:
+                p.copy_(_local_copy(p, params[k]).to(p.dtype))
 
 
 # ----------------------------------------------------------------------
@@ -1066,9 +1099,17 @@ class WarmPool:
     communicators are warmed first); under gloo with CUDA tensors they
     stage through host memory, which no graph can hold, so the programs
     run eagerly and ``stats["eager"]`` says why (``programs`` 0).  The
-    backend decides this, never a failure."""
+    backend decides this, never a failure.
 
-    def __init__(self, net, serve_cfg: ServeConfig, mesh=None):
+    ``params`` (reference ``serve.py:1087-1105``): a caller's
+    ``{name: array}`` of every parameter, served in place of the net's
+    (written into the net's parameters, which the programs read);
+    ``scales`` (``{name: scale}``) marks the entries of ``params`` that
+    are int8 weights (``quantize_weights``' output), served through the
+    int8 path as they are."""
+
+    def __init__(self, net, serve_cfg: ServeConfig, mesh=None, params=None,
+                 scales=None):
         t0 = time.monotonic()
         self.net = net
         self.cfg = net.cfg
@@ -1076,10 +1117,14 @@ class WarmPool:
         self.mesh = mesh
         if mesh is not None:
             shard_params(net, mesh)
+        scales = dict(scales or {})
+        if params is not None:
+            _take_params(net, params, scales)
         spec = self.spec = serve_cfg.cache_spec(net.cfg, mesh)
         dev = self.device = net.output.weight.device
         self.k_pages, self.v_pages = init_pools(spec, dev)
-        self.int8 = _int8_layers(net) if serve_cfg.int8 else {}
+        self.int8 = _int8_layers(net, params, scales) \
+            if serve_cfg.int8 or scales else {}
         S, MP = spec.slots, spec.max_pages_per_slot
         i32, i64, f32 = torch.int32, torch.int64, torch.float32
 

@@ -1720,3 +1720,54 @@ def test_load_parameters_places_them_on_the_card(dev, tmp_path):
     with mt.autograd.pause():
         out = net(x.to(dev))
     assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("pin", [False, True])
+@pytest.mark.parametrize("workers", [0, 2])
+def test_dataloader_batch_lands_on_cuda(dev, pin, workers):
+    """One host-to-device copy a batch, to the current context's device
+    (CUDA outside any scope), staged in pinned memory with pin_memory;
+    forked workers after CUDA is up run no torch op."""
+    from mxnet_tpu_torch.gluon import data
+    x = onp.arange(40, dtype="float32").reshape(10, 4)
+    y = onp.arange(10, dtype="int64")
+    torch.zeros(1, device=dev)                  # CUDA is up before forks
+    with data.DataLoader(data.ArrayDataset(x, y), batch_size=4,
+                         pin_memory=pin, num_workers=workers) as loader:
+        batches = list(loader)
+    assert len(batches) == 3
+    for i, (a, b) in enumerate(batches):
+        assert a._data.is_cuda and b._data.is_cuda
+        assert b._data.dtype == torch.int32
+        assert torch.equal(a._data.cpu(), torch.from_numpy(x[4 * i:4 * i +
+                                                            4]))
+
+
+def test_metric_updates_do_not_sync(dev):
+    """Accuracy / TopKAccuracy / CrossEntropy / Perplexity update on the
+    device with no host synchronization; get() equals a float64 numpy
+    recomputation."""
+    from mxnet_tpu_torch.gluon import metric
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn(64, 10, device=dev, generator=gen)
+    probs = logits.softmax(-1)
+    labels = torch.randint(0, 10, (64,), device=dev, generator=gen)
+    mets = [metric.Accuracy(), metric.TopKAccuracy(3),
+            metric.CrossEntropy(), metric.Perplexity()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            for m in mets:
+                m.update([labels], [probs])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    p = probs.double().cpu().numpy()
+    lab = labels.cpu().numpy()
+    picked = p[onp.arange(64), lab]
+    want = [(p.argmax(1) == lab).mean(),
+            (onp.argsort(-p, 1)[:, :3] == lab[:, None]).sum() / 64,
+            -onp.log(picked + 1e-12).mean(),
+            math.exp(-onp.log(onp.maximum(picked, 1e-10)).mean())]
+    for m, w in zip(mets, want):
+        assert abs(m.get()[1] - w) <= 1e-5 * max(1.0, abs(w)), m.name

@@ -474,7 +474,13 @@ def test_package_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.utils.serialization, "
             "mxnet_tpu_torch.flightrec, mxnet_tpu_torch.profiler, "
             "mxnet_tpu_torch.telemetry, mxnet_tpu_torch.fault, "
-            "mxnet_tpu_torch.fault_dist, mxnet_tpu_torch.serve_router; "
+            "mxnet_tpu_torch.fault_dist, mxnet_tpu_torch.serve_router, "
+            "mxnet_tpu_torch.recordio, mxnet_tpu_torch._native, "
+            "mxnet_tpu_torch.io, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.gluon.data.vision, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.gluon.metric; "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.gluon.data; "
             # chip_smoke.py and what its ring phase's and tensor-parallel
             # serving phase's rank children import
             "import chip_smoke; chip_smoke.ring_rank_modules(); "

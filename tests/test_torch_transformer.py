@@ -371,7 +371,8 @@ def test_default_device_is_cuda_and_raises_without_card():
 _ENTRY_POINTS = {
     "Dense": lambda device: Dense(4, in_units=4).initialize(device=device),
     "Embedding": lambda device: Embedding(8, 4).initialize(device=device),
-    "RMSNorm": lambda device: RMSNorm(4).initialize(device=device),
+    "RMSNorm": lambda device: RMSNorm(in_channels=4).initialize(
+        device=device),
     "Conv2D": lambda device: Conv2D(4, 3, in_channels=2).initialize(
         device=device),
     "BatchNorm": lambda device: BatchNorm(in_channels=4).initialize(

@@ -86,6 +86,15 @@ layer) and on a hybridized ResNet-50 (the capture queues nothing, the
 replay is bit for bit), then the analysis gates (``verify --smoke``,
 ``racecheck --smoke``, ``lint`` and ``race`` against their baselines);
 ``python3 chip_smoke.py --analysis`` runs that phase alone.
+Then the data pipeline (``--data`` alone), and the imperative surface
+(``--imperative`` alone): ResNet-50 spelled in legacy ``mx.nd`` against
+``net(x)`` bit for bit, ``mx.np.linalg`` / ``mx.nd.linalg`` at 4096^2
+float32 held by residuals in float64, ``mx.np.fft`` round trips on the
+ResNet-50 batch, ``mx.nd.image`` on 128 images against the CPU, a sparse
+logistic regression at avazu-app's 1,000,000 features (``LibSVMIter``
+CSR batches, a row_sparse push to a kvstore updating through
+``multi_sgd``) against scipy in float64, SSD-300's MultiBox chain against
+the CPU, and ``mx.nd.save`` / ``load`` of BERT-base bit for bit.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without a CUDA device it exits non-zero at once.
 
@@ -6990,6 +6999,593 @@ def data_phase(mt, co, dev, card):
     return resnet, lm
 
 
+# -- the imperative surface (mx.nd legacy ops, np.linalg / fft,
+# nd.image, nd.sparse + kvstore, nd.contrib detection) -----------------
+IMP_B = 32
+IMP_LEGACY_REL = 1e-2         # of max|logit| where the spellings' calls differ
+IMP_LINALG_N = 4096
+IMP_LINALG_TOL = 1e-4
+IMP_FFT_TOL = 1e-5            # round trips, of max|x|
+IMP_FFT_REF_TOL = 1e-4        # rfft2 against float64 numpy, of max|ref|
+IMP_IMAGES = 128
+IMP_SPARSE_DIM = 1000000      # avazu-app's feature count (LIBSVM data sets)
+IMP_SPARSE_ROWS = 2048
+IMP_SPARSE_NNZ = 20
+IMP_SPARSE_B = 256
+IMP_SPARSE_RTOL = 1e-5
+IMP_SPARSE_LR = 0.5
+IMP_DET_TOL = 1e-5
+# SSD-300 (Liu et al., 2016): six maps, their anchor sizes and ratios ->
+# 4 / 6 / 6 / 6 / 4 / 4 anchors a cell, 8732 in all
+SSD_MAPS = [(38, (0.1, 0.141), (1, 2, 0.5)),
+            (19, (0.2, 0.272), (1, 2, 0.5, 3, 1 / 3)),
+            (10, (0.37, 0.447), (1, 2, 0.5, 3, 1 / 3)),
+            (5, (0.54, 0.619), (1, 2, 0.5, 3, 1 / 3)),
+            (3, (0.71, 0.79), (1, 2, 0.5)),
+            (1, (0.88, 0.961), (1, 2, 0.5))]
+SSD_CLASSES = 21
+
+
+def legacy_resnet_v1(mt, net, x):
+    """``net`` (a Gluon ResNet V1 of the port) applied to the NDArray
+    ``x`` in the legacy ``mx.nd`` spelling: its blocks walked in order,
+    each layer one ``mx.nd`` op (``Convolution``, ``BatchNorm`` with the
+    running statistics, ``Activation``, ``Pooling``, ``elemwise_add``,
+    ``Flatten``, ``FullyConnected``) on the net's own parameters."""
+    nd = mt.nd
+    nn = mt.gluon.nn
+    vision = mt.gluon.model_zoo.vision
+
+    def p(param):
+        return None if param is None else param.data()
+
+    def layer(blk, x):
+        if isinstance(blk, nn.Conv2D):
+            return nd.Convolution(
+                x, p(blk.weight), p(blk.bias), kernel=blk._kernel,
+                stride=blk._strides, pad=blk._padding,
+                dilate=blk._dilation, num_filter=blk._channels,
+                num_group=blk._groups, no_bias=blk.bias is None,
+                layout=blk._layout)
+        if isinstance(blk, nn.BatchNorm):
+            return nd.BatchNorm(x, p(blk.gamma), p(blk.beta),
+                                p(blk.running_mean), p(blk.running_var),
+                                eps=blk._epsilon, fix_gamma=not blk._scale,
+                                use_global_stats=True, axis=blk._axis)
+        if isinstance(blk, nn.Activation):
+            return nd.Activation(x, act_type=blk._act_type)
+        if isinstance(blk, (nn.MaxPool2D, nn.GlobalAvgPool2D)):
+            return nd.Pooling(x, kernel=blk._kernel, stride=blk._stride,
+                              pad=blk._pad, pool_type=blk._pool_type,
+                              global_pool=blk._global,
+                              count_include_pad=blk._count_include_pad,
+                              layout=blk._layout)
+        if isinstance(blk, nn.Flatten):
+            return nd.Flatten(x)
+        if isinstance(blk, nn.Dense):
+            return nd.FullyConnected(x.astype(blk.weight.dtype),
+                                     p(blk.weight), p(blk.bias),
+                                     num_hidden=blk._units,
+                                     no_bias=blk.bias is None)
+        if isinstance(blk, (vision.BasicBlockV1, vision.BottleneckV1)):
+            res = x if blk.downsample is None else layer(blk.downsample, x)
+            return nd.Activation(nd.elemwise_add(layer(blk.body, x), res),
+                                 act_type="relu")
+        if isinstance(blk, (nn.HybridSequential, nn.Sequential)):
+            for child in blk:
+                x = layer(child, x)
+            return x
+        if isinstance(blk, vision.ResNetV1):
+            return layer(blk.output, layer(blk.features, x))
+        raise TypeError("legacy_resnet_v1: no legacy spelling of %s"
+                        % type(blk).__name__)
+    return layer(net, x)
+
+
+def _wall_ms(fn, iters=10, warmup=2):
+    """Mean host-clocked ms of ``fn()`` (synchronized before and after)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def imp_legacy_resnet(mt, dev, card):
+    """ResNet-50 v1, B=32 bf16 NCHW, spelled in legacy ``mx.nd`` against
+    ``net(x)``: the same torch calls, so bit for bit."""
+    net = _resnet50(mt, dev).cast("bfloat16")
+    x = torch.randn(IMP_B, 3, 224, 224, generator=torch.Generator(
+        device=dev).manual_seed(21), device=dev).to(torch.bfloat16)
+    xn = mt.nd.NDArray(x)
+    with mt.autograd.pause():
+        want = net(x)
+        got = legacy_resnet_v1(mt, net, xn)._data
+        same = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        check(same or err <= IMP_LEGACY_REL * top,
+              "legacy resnet50: max|d| %.4g over %.0e of max|logit| %.4g"
+              % (err, IMP_LEGACY_REL, top))
+        gluon_ms = _wall_ms(lambda: net(x))
+        legacy_ms = _wall_ms(lambda: legacy_resnet_v1(mt, net, xn))
+    print("imperative legacy resnet50 (B=%d bf16 NCHW, eager): legacy "
+          "mx.nd spelling == net(x) bit for bit: %s (max|d| %.4g, max|logit| "
+          "%.4g); %.0f images/s legacy (%.2f ms), %.0f images/s net(x) "
+          "(%.2f ms), host-clocked [%s]"
+          % (IMP_B, same, err, top, IMP_B / legacy_ms * 1e3, legacy_ms,
+             IMP_B / gluon_ms * 1e3, gluon_ms, card))
+    del net
+    return {"same": same, "legacy_ms": legacy_ms, "gluon_ms": gluon_ms}
+
+
+def _res(a, b):
+    """||a - b||_F / ||b||_F in float64 on the card."""
+    a, b = a.double(), b.double()
+    return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+
+def _orth(q):
+    """||Q^T Q - I||_F / sqrt(n) in float64."""
+    q = q.double()
+    eye = torch.eye(q.shape[-1], dtype=torch.float64, device=q.device)
+    return (torch.linalg.norm(q.mT @ q - eye) / q.shape[-1] ** 0.5).item()
+
+
+def imp_linalg(mt, dev, card, n=IMP_LINALG_N):
+    """``mx.np.linalg`` and ``mx.nd.linalg`` at n x n float32 (a Gaussian
+    A, and S = A A^T / n + I, SPD with eigenvalues in about [1, 5]), each
+    held by a residual computed in float64 on the card; the singular
+    values and eigenvalues of a 12 x 64 x 64 batch against float64 numpy."""
+    import numpy as onp
+    np_, la, nd = mt.np, mt.np.linalg, mt.nd
+    gen = torch.Generator(device=dev).manual_seed(22)
+    A = torch.randn(n, n, generator=gen, device=dev) / n ** 0.5
+    S = A @ A.T + torch.eye(n, device=dev)
+    b = torch.randn(n, 1, generator=gen, device=dev)
+    An, Sn, bn = (mt.nd.NDArray(t) for t in (A, S, b))
+    eye64 = torch.eye(n, dtype=torch.float64, device=dev)
+    res, ms = {}, {}
+
+    def timed(name, fn):
+        fn()                          # the library's first-call set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+    q, r = timed("qr", lambda: la.qr(An))
+    res["qr"] = max(_res(q._data @ r._data, A), _orth(q._data))
+    u, s, vh = timed("svd", lambda: la.svd(An))
+    res["svd"] = max(_res(u._data * s._data @ vh._data, A), _orth(u._data),
+                     _orth(vh._data.T))
+    # torch's default CUDA driver (gesvdj), which the port does not use:
+    # its residuals for the record
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u2, s2, vh2 = torch.linalg.svd(A, full_matrices=False)
+    torch.cuda.synchronize()
+    gesvdj = ((time.perf_counter() - t0) * 1e3, _res(u2 * s2 @ vh2, A),
+              _orth(u2), _orth(vh2.T))
+    del u2, s2, vh2
+    w, v = timed("eigh", lambda: la.eigh(Sn))
+    res["eigh"] = max(_res(S.double() @ v._data.double(),
+                           v._data.double() * w._data.double()),
+                      _orth(v._data))
+    L = timed("cholesky", lambda: la.cholesky(Sn))._data
+    res["cholesky"] = _res(L @ L.T, S)
+    x = timed("solve", lambda: la.solve(Sn, bn))._data
+    res["solve"] = _res(S.double() @ x.double(), b)
+    inv = timed("inv", lambda: la.inv(Sn))._data
+    res["inv"] = (torch.linalg.norm(S.double() @ inv.double() - eye64)
+                  / n ** 0.5).item()
+    sign, logdet = timed("slogdet", lambda: la.slogdet(Sn))
+    ref_sign, ref_logdet = torch.linalg.slogdet(S.double())
+    check(sign.item() == ref_sign.item(), "slogdet: sign")
+    res["slogdet"] = abs(logdet.item() - ref_logdet.item()) / abs(
+        ref_logdet.item())
+    xl = timed("lstsq", lambda: la.lstsq(Sn, bn))[0]._data
+    res["lstsq"] = _res(S.double() @ xl.double(), b)
+    pinv = timed("pinv", lambda: la.pinv(Sn))._data
+    res["pinv"] = (torch.linalg.norm(S.double() @ pinv.double() - eye64)
+                   / n ** 0.5).item()
+    nrm = timed("norm", lambda: la.norm(An))
+    res["norm"] = abs(nrm.item() - torch.linalg.norm(A.double()).item()) \
+        / torch.linalg.norm(A.double()).item()
+    C = timed("nd.gemm2", lambda: nd.linalg.gemm2(An, Sn))._data
+    res["nd.gemm2"] = _res(C, A.double() @ S.double())
+    Lp = timed("nd.potrf", lambda: nd.linalg.potrf(Sn))
+    res["nd.potrf"] = _res(Lp._data @ Lp._data.T, S)
+    Pi = timed("nd.potri", lambda: nd.linalg.potri(Lp))._data
+    res["nd.potri"] = (torch.linalg.norm(S.double() @ Pi.double() - eye64)
+                       / n ** 0.5).item()
+    X = timed("nd.trsm", lambda: nd.linalg.trsm(Lp, An))._data
+    res["nd.trsm"] = _res(torch.tril(Lp._data).double() @ X.double(), A)
+    T = timed("nd.trmm", lambda: nd.linalg.trmm(Lp, An))._data
+    res["nd.trmm"] = _res(T, torch.tril(Lp._data).double() @ A.double())
+    K = timed("nd.syrk", lambda: nd.linalg.syrk(An))._data
+    res["nd.syrk"] = _res(K, A.double() @ A.double().T)
+    U, lam = timed("nd.syevd", lambda: nd.linalg.syevd(Sn))
+    res["nd.syevd"] = max(_res(U._data.double().T * lam._data.double()
+                               @ U._data.double(), S), _orth(U._data.T))
+    Lq, Q = timed("nd.gelqf", lambda: nd.linalg.gelqf(An))
+    res["nd.gelqf"] = max(_res(Lq._data @ Q._data, A), _orth(Q._data.T))
+    Ii = timed("nd.inverse", lambda: nd.linalg.inverse(Sn))._data
+    res["nd.inverse"] = (torch.linalg.norm(S.double() @ Ii.double() - eye64)
+                         / n ** 0.5).item()
+    sld = timed("nd.sumlogdiag", lambda: nd.linalg.sumlogdiag(Lp))
+    ref = torch.log(torch.diagonal(Lp._data.double())).sum().item()
+    res["nd.sumlogdiag"] = abs(sld.item() - ref) / abs(ref)
+    bad = {k: v for k, v in res.items() if not v <= IMP_LINALG_TOL}
+    check(not bad, "linalg residuals over %.0e: %s" % (IMP_LINALG_TOL, bad))
+    # the batch at BERT-base's heads
+    Bt = torch.randn(12, 64, 64, generator=gen, device=dev)
+    St = Bt @ Bt.mT / 64 + torch.eye(64, device=dev)
+    sv = la.svd(mt.nd.NDArray(Bt), compute_uv=False).asnumpy()
+    ev = la.eigvalsh(mt.nd.NDArray(St)).asnumpy()
+    sv64 = onp.linalg.svd(Bt.double().cpu().numpy(), compute_uv=False)
+    ev64 = onp.linalg.eigvalsh(St.double().cpu().numpy())
+    # a singular value within 1e-4 of its matrix's largest (float32's
+    # normwise bound; the smallest of a Gaussian 64 x 64 are ~1e-2 of
+    # it), an eigenvalue of S (in [1, 5]) within 1e-4 of itself
+    batch_err = max(
+        float((onp.abs(sv - sv64) / sv64.max(-1, keepdims=True)).max()),
+        float((onp.abs(ev - ev64) / onp.abs(ev64)).max()))
+    check(batch_err <= 1e-4, "linalg batch: singular values / eigenvalues "
+          "off by %.3e (limit 1e-4)" % batch_err)
+    w_eig, _ = la.eig(mt.nd.NDArray(St[0]))
+    eig_err = float(onp.abs(onp.sort(w_eig.asnumpy().real) - ev64[0]).max()
+                    / ev64[0].max())
+    check(eig_err <= 1e-4, "linalg eig on CUDA: eigenvalues off by %.3e"
+          % eig_err)
+    print("imperative linalg n=%d float32, residual in float64 (limit "
+          "%.0e) and ms: %s; 12x64x64 batch svd / eigvalsh vs float64 numpy "
+          "rel err %.3e, eig (torch %s) %.3e; torch's default CUDA svd "
+          "(gesvdj, not used) %.1f ms, ||USV-A|| %.2e, ||UtU-I|| %.2e, "
+          "||VtV-I|| %.2e [%s]"
+          % ((n, IMP_LINALG_TOL, ", ".join("%s %.2e %.1f ms" % (k, res[k],
+                                                                ms[k])
+                                           for k in res), batch_err,
+              torch.__version__, eig_err) + gesvdj + (card,)))
+    return {"n": n, "residual": res, "ms": ms, "batch_err": batch_err,
+            "gesvdj": gesvdj}
+
+
+def imp_fft(mt, dev, card):
+    """``mx.np.fft`` on the ResNet-50 input batch: two round trips and
+    rfft2 against float64 numpy."""
+    import numpy as onp
+    x = torch.randn(IMP_B, 3, 224, 224, generator=torch.Generator(
+        device=dev).manual_seed(23), device=dev)
+    xn = mt.nd.NDArray(x)
+    fft = mt.np.fft
+    top = x.abs().max().item()
+    ms = {"rfft2": time_ms(lambda: fft.rfft2(xn)),
+          "irfft2": 0.0, "fftn": time_ms(lambda: fft.fftn(xn))}
+    spec = fft.rfft2(xn)
+    ms["irfft2"] = time_ms(lambda: fft.irfft2(spec, s=(224, 224)))
+    back = fft.irfft2(spec, s=(224, 224))._data
+    full = fft.fftn(xn)
+    ms["ifftn"] = time_ms(lambda: fft.ifftn(full))
+    backn = fft.ifftn(full)._data.real
+    e1 = (back - x).abs().max().item() / top
+    e2 = (backn - x).abs().max().item() / top
+    ref = onp.fft.rfft2(x.double().cpu().numpy())
+    e3 = float(onp.abs(spec.asnumpy() - ref).max() / onp.abs(ref).max())
+    check(e1 <= IMP_FFT_TOL and e2 <= IMP_FFT_TOL,
+          "fft round trips off by %.3e / %.3e of max|x|" % (e1, e2))
+    check(e3 <= IMP_FFT_REF_TOL, "rfft2 off float64 numpy by %.3e" % e3)
+    print("imperative fft (%d, 3, 224, 224) float32: rfft2->irfft2 %.2e, "
+          "fftn->ifftn %.2e of max|x| (limit %.0e), rfft2 vs float64 numpy "
+          "%.2e of max|ref| (limit %.0e); ms %s [%s]"
+          % (IMP_B, e1, e2, IMP_FFT_TOL, e3, IMP_FFT_REF_TOL,
+             ", ".join("%s %.3f" % kv for kv in ms.items()), card))
+    return {"ms": ms, "errs": (e1, e2, e3)}
+
+
+def _image_pipeline(mt, imgs):
+    img = mt.nd.image
+    r = img.resize(imgs, 256, keep_ratio=True)
+    c = img.crop(r, 16, 16, 224, 224)
+    f = img.flip_left_right(c)
+    t = img.to_tensor(f)
+    return r, c, f, t, img.normalize(t, mean=(0.485, 0.456, 0.406),
+                                     std=(0.229, 0.224, 0.225))
+
+
+def imp_image(mt, dev, card):
+    """``mx.nd.image`` on 128 uint8 224^2 x 3 images: resize (short side
+    256), crop, flip, to_tensor, normalize, against the same calls on the
+    CPU: resize within one step in uint8 and 1e-5 of max|x| in float32,
+    the later steps (given the card's resize) bit for bit, normalize
+    within 1e-5."""
+    img = mt.nd.image
+    gen = torch.Generator(device=dev).manual_seed(24)
+    raw = torch.randint(0, 256, (IMP_IMAGES, 224, 224, 3), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    got = _image_pipeline(mt, mt.nd.NDArray(raw))
+    rf = img.resize(mt.nd.NDArray(raw.float()), 256, keep_ratio=True)._data
+    with mt.cpu():
+        r_cpu = img.resize(mt.nd.NDArray(raw.cpu()), 256, keep_ratio=True)
+        rf_cpu = img.resize(mt.nd.NDArray(raw.float().cpu()), 256,
+                            keep_ratio=True)._data
+        c2 = img.crop(mt.nd.NDArray(got[0]._data.cpu()), 16, 16, 224, 224)
+        f2 = img.flip_left_right(c2)
+        t2 = img.to_tensor(f2)
+        n2 = img.normalize(t2, mean=(0.485, 0.456, 0.406),
+                           std=(0.229, 0.224, 0.225))
+    diff = {"resize_uint8": (got[0]._data.cpu().int() - r_cpu._data.int())
+            .abs().max().item(),
+            "resize_float32": (rf.cpu() - rf_cpu).abs().max().item()
+            / rf_cpu.abs().max().item(),
+            "normalize": (got[4]._data.cpu() - n2._data).abs().max().item()}
+    exact = all(torch.equal(a._data.cpu(), b._data) for a, b in
+                zip(got[1:4], (c2, f2, t2)))
+    check(diff["resize_uint8"] <= 1 and diff["resize_float32"] <= 1e-5
+          and diff["normalize"] <= 1e-5 and exact,
+          "nd.image card vs CPU: %s, crop / flip / to_tensor exact %s"
+          % (diff, exact))
+    ms = _wall_ms(lambda: _image_pipeline(mt, mt.nd.NDArray(raw)))
+    print("imperative nd.image %d uint8 224^2 x 3: card vs CPU %s (limits: "
+          "resize uint8 1, float32 1e-5 of max|x|, normalize 1e-5); crop / "
+          "flip / to_tensor bit for bit: %s; the pipeline %.2f ms a batch, "
+          "host-clocked [%s]"
+          % (IMP_IMAGES, {k: "%.3g" % v for k, v in diff.items()}, exact, ms,
+             card))
+    return {"ms": ms, "diff": diff}
+
+
+def _libsvm_file(path, seed=25):
+    """IMP_SPARSE_ROWS rows of ~IMP_SPARSE_NNZ distinct sorted features
+    out of IMP_SPARSE_DIM, values N(0, 1), labels 0 / 1."""
+    import numpy as onp
+    from mxnet_tpu_torch.utils.serialization import atomic_write
+    rng = onp.random.RandomState(seed)
+    rows = []
+    with atomic_write(path, "w") as f:
+        for _ in range(IMP_SPARSE_ROWS):
+            k = rng.randint(IMP_SPARSE_NNZ // 2, IMP_SPARSE_NNZ * 3 // 2 + 1)
+            cols = onp.sort(rng.choice(IMP_SPARSE_DIM, k, replace=False))
+            vals = rng.randn(k).astype(onp.float32)
+            lab = int(rng.rand() < 0.5)
+            rows.append((cols, vals, lab))
+            f.write("%d %s\n" % (lab, " ".join(
+                "%d:%r" % (c, float(v)) for c, v in zip(cols, vals))))
+    return rows
+
+
+def _sparse_plain(rows, w0, steps):
+    """The same 8 steps in scipy CSR float64 on the host: logistic loss,
+    dense momentum SGD (lazy_update changes nothing)."""
+    import numpy as onp
+    import scipy.sparse as sps
+    w = w0.astype(onp.float64).copy()
+    mom = onp.zeros_like(w)
+    losses = []
+    for s in range(steps):
+        part = rows[s * IMP_SPARSE_B:(s + 1) * IMP_SPARSE_B]
+        X = sps.csr_matrix(
+            (onp.concatenate([v for _, v, _ in part]).astype(onp.float64),
+             onp.concatenate([c for c, _, _ in part]),
+             onp.concatenate([[0], onp.cumsum([len(c) for c, _, _ in part])])),
+            shape=(len(part), IMP_SPARSE_DIM))
+        y = onp.asarray([lab for _, _, lab in part], onp.float64)[:, None]
+        z = X @ w
+        losses.append(float((onp.logaddexp(0, z) - y * z).mean()))
+        g = X.T @ (1 / (1 + onp.exp(-z)) - y) / len(part)
+        mom = 0.9 * mom - IMP_SPARSE_LR * g
+        w = w + mom
+    return losses, w
+
+
+def imp_sparse(mt, co, dev, card, tmp):
+    """Sparse logistic regression at avazu-app's width: LibSVMIter CSR
+    batches, ``nd.sparse.dot``, a row_sparse gradient pushed to a local
+    kvstore with SGD(momentum=0.9, lazy_update=True) (``multi_sgd`` on
+    the card), rows pulled by the batch's indices; against scipy float64.
+    Returns the launch counts of the steps."""
+    import numpy as onp
+    path = os.path.join(tmp, "avazu_like.libsvm")
+    rows = _libsvm_file(path)
+    it = mt.io.LibSVMIter(path, (IMP_SPARSE_DIM,), batch_size=IMP_SPARSE_B)
+    w0 = onp.random.RandomState(26).randn(IMP_SPARSE_DIM, 1).astype(
+        onp.float32) * 0.01
+    kv = mt.kv.create("local")
+    kv.init("w", mt.nd.array(w0))
+    kv.set_optimizer(mt.optimizer.SGD(learning_rate=IMP_SPARSE_LR,
+                                      momentum=0.9, lazy_update=True))
+    w = mt.nd.zeros((IMP_SPARSE_DIM, 1))
+    steps = IMP_SPARSE_ROWS // IMP_SPARSE_B
+    losses, build_ms, step_ms = [], [], []
+    co.reset_launch_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = it.next()
+        csr, y = batch.data[0], batch.label[0].reshape((-1, 1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kv.row_sparse_pull("w", out=w, row_ids=csr.indices)
+        w.attach_grad()
+        with mt.autograd.record():
+            z = mt.nd.sparse.dot(csr, w)
+            loss = (mt.np.logaddexp(0, z) - y * z).mean()
+        loss.backward()
+        kv.push("w", w.grad.tostype("row_sparse"))
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        build_ms.append((t1 - t0) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = dict(co.LAUNCHES)
+    final = mt.nd.zeros((IMP_SPARSE_DIM, 1))
+    kv.pull("w", out=final)
+    ref_losses, ref_w = _sparse_plain(rows, w0, steps)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    w_err = float(onp.abs(final.asnumpy() - ref_w).max()
+                  / onp.abs(ref_w).max())
+    check(loss_err <= IMP_SPARSE_RTOL and w_err <= IMP_SPARSE_RTOL,
+          "sparse classifier vs scipy float64: losses %.3e, w %.3e (rtol "
+          "%.0e)" % (loss_err, w_err, IMP_SPARSE_RTOL))
+    check(launches["multi_sgd"] == steps, "sparse classifier: multi_sgd "
+          "launched %d times in %d steps" % (launches["multi_sgd"], steps))
+    nnz = sum(len(c) for c, _, _ in rows)
+    print("imperative sparse logistic regression (%d x %d CSR batches of "
+          "%d, %d nonzeros, dense-backed %.2f GB a batch): %d steps, losses "
+          "%s vs scipy float64 max rel %.2e, final w %.2e of max|w| (rtol "
+          "%.0e); %.2f ms a step, batch host build + copy %.2f ms (median); "
+          "multi_sgd launches %d [%s]"
+          % (IMP_SPARSE_ROWS, IMP_SPARSE_DIM, IMP_SPARSE_B, nnz,
+             IMP_SPARSE_B * IMP_SPARSE_DIM * 4 / 1e9, steps,
+             ["%.5f" % v for v in losses], loss_err, w_err,
+             IMP_SPARSE_RTOL, sorted(step_ms)[steps // 2],
+             sorted(build_ms)[steps // 2], launches["multi_sgd"], card))
+    del it, kv, w, final
+    return launches, {"step_ms": step_ms, "build_ms": build_ms}
+
+
+def _ssd_inputs(mt, dev, seed=27):
+    """SSD-300's six maps, B=32 labels (1-8 boxes, 20 classes), class
+    scores and box offsets from a seed, on ``dev``."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    maps = [mt.nd.NDArray(torch.zeros(1, 1, s, s, device=dev))
+            for s, _, _ in SSD_MAPS]
+    lab = -onp.ones((IMP_B, 8, 5), onp.float32)
+    for n in range(IMP_B):
+        k = rng.randint(1, 9)
+        xy = rng.rand(k, 2) * 0.7
+        wh = 0.05 + rng.rand(k, 2) * 0.3
+        lab[n, :k, 0] = rng.randint(0, SSD_CLASSES - 1, k)
+        lab[n, :k, 1:3] = xy
+        lab[n, :k, 3:5] = onp.minimum(xy + wh, 1.0)
+    A = sum(s * s * (len(sz) + len(r) - 1) for s, sz, r in SSD_MAPS)
+    cls = rng.randn(IMP_B, SSD_CLASSES, A).astype(onp.float32)
+    loc = (rng.randn(IMP_B, A * 4) * 0.1).astype(onp.float32)
+    nd = lambda a: mt.nd.NDArray(torch.from_numpy(a).to(dev))  # noqa
+    return maps, nd(lab), nd(cls), nd(loc)
+
+
+def _ssd_chain(mt, maps, lab, cls, prob, loc):
+    c, npx = mt.nd.contrib, mt.npx
+    out = {}
+    for tag, prior, target, detect in (
+            ("nd", c.MultiBoxPrior, c.MultiBoxTarget, c.MultiBoxDetection),
+            ("npx", npx.multibox_prior, npx.multibox_target,
+             npx.multibox_detection)):
+        t0 = time.perf_counter()
+        anchors = mt.np.concatenate([prior(m, sizes=sz, ratios=r)
+                                     for m, (_, sz, r) in zip(maps,
+                                                              SSD_MAPS)], 1)
+        t1 = time.perf_counter()
+        tgt = target(anchors, lab, cls, overlap_threshold=0.5,
+                     negative_mining_ratio=3, negative_mining_thresh=0.5)
+        t2 = time.perf_counter()
+        det = detect(prob, loc, anchors, nms_threshold=0.45, nms_topk=400)
+        det.wait_to_read()
+        t3 = time.perf_counter()
+        out[tag] = ([anchors] + list(tgt) + [det],
+                    {"prior": (t1 - t0) * 1e3, "target": (t2 - t1) * 1e3,
+                     "detection": (t3 - t2) * 1e3})
+    return out
+
+
+def imp_detection(mt, dev, card):
+    """The SSD-300 MultiBox chain (nd.contrib and npx) on the card
+    against the same calls on the CPU."""
+    maps, lab, cls, loc = _ssd_inputs(mt, dev)
+    # the class probabilities once, on the card: both chains decode the
+    # same scores (a softmax on the CPU rounds differently, and the
+    # order of near-equal scores decides NMS)
+    prob = mt.npx.softmax(cls, axis=1)
+    got = _ssd_chain(mt, maps, lab, cls, prob, loc)
+    with mt.cpu():
+        cpu_in = [[mt.nd.NDArray(m._data.cpu()) for m in maps]] + \
+            [mt.nd.NDArray(a._data.cpu()) for a in (lab, cls, prob, loc)]
+        want = _ssd_chain(mt, *cpu_in)
+    report = {}
+    for tag in ("nd", "npx"):
+        (a, lt, lm, ct, det), ms = got[tag]
+        (a2, lt2, lm2, ct2, det2), _ = want[tag]
+        check(a.shape == (1, 8732, 4), "ssd anchors: %s" % (a.shape,))
+        exact = all(torch.equal(x._data.cpu(), y._data) for x, y in
+                    ((a, a2), (lt, lt2), (lm, lm2), (ct, ct2)))
+        derr = (det._data.cpu() - det2._data).abs().max().item()
+        kept = int((det._data[..., 0] >= 0).sum().item())
+        pos = int((ct._data > 0).sum().item())
+        check(exact and derr <= IMP_DET_TOL, "ssd %s: card vs CPU anchors / "
+              "targets exact %s, detections max|d| %.3g" % (tag, exact, derr))
+        report[tag] = ms
+        print("imperative ssd300 %s MultiBox chain (B=%d, 8732 anchors, %d "
+              "classes): anchors and targets == CPU %s, detections max|d| "
+              "%.2g (limit %.0e); %d positive anchors, %d detections kept; "
+              "ms %s [%s]" % (tag, IMP_B, SSD_CLASSES, exact, derr,
+                              IMP_DET_TOL, pos, kept,
+                              ", ".join("%s %.1f" % kv for kv in ms.items()),
+                              card))
+    return report
+
+
+def imp_save_load(mt, dev, card, tmp):
+    """``mx.nd.save`` / ``load`` of BERT-base's float32 parameters from the
+    card, bit for bit."""
+    net = mt.models.BERTForPretrain(mt.models.bert_base_config()).initialize(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(28))
+    params = {n: mt.nd.NDArray(p.detach())
+              for n, p in net.named_parameters()}
+    count = sum(v.size for v in params.values())
+    nbytes = sum(v.size * v.itemsize for v in params.values())
+    path = os.path.join(tmp, "bert_base.params")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mt.nd.save(path, params)
+    t1 = time.perf_counter()
+    back = mt.nd.load(path)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(set(back) == set(params) and all(
+        back[k]._data.device.type == "cuda" and
+        torch.equal(back[k]._data, params[k]._data) for k in params),
+        "nd.save / nd.load: BERT-base parameters differ")
+    print("imperative nd.save / nd.load BERT-base float32 (%d arrays, %.1f M "
+          "parameters, %.1f MB): bit for bit on the card; save %.0f MB/s, "
+          "load %.0f MB/s (warm page cache) [%s]"
+          % (len(params), count / 1e6, nbytes / 1e6, nbytes / 1e6 / (t1 - t0),
+             nbytes / 1e6 / (t2 - t1), card))
+    os.unlink(path)
+    del net, params, back
+    return {"save_mb_s": nbytes / 1e6 / (t1 - t0),
+            "load_mb_s": nbytes / 1e6 / (t2 - t1)}
+
+
+def imperative_phase(mt, co, dev, card):
+    """The imperative surface on the card; returns the launch counts of
+    the sparse classifier's steps (the ``imperative`` path)."""
+    import tempfile
+    t0 = time.monotonic()
+    imp_legacy_resnet(mt, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    imp_linalg(mt, dev, card)
+    imp_fft(mt, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    imp_image(mt, dev, card)
+    with tempfile.TemporaryDirectory(prefix="mx_imp_") as tmp:
+        launches, _ = imp_sparse(mt, co, dev, card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        imp_detection(mt, dev, card)
+        imp_save_load(mt, dev, card, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("imperative phase %.1f s [%s]" % (time.monotonic() - t0, card))
+    return launches
+
+
 def _short_names(obj, width=48):
     """``obj`` with every dict key cut to ``width`` characters (the times
     of kernels whose names then coincide summed): the kernels line keeps
@@ -7061,6 +7657,13 @@ def main(argv):
               % (resnet, lm))
         print(card)
         return 0
+    if argv[1:] == ["--imperative"]:
+        # only the imperative surface's phase
+        launches = imperative_phase(mt, co, dev, card)
+        check(launches["multi_sgd"] > 0, "imperative: multi_sgd was not "
+              "launched: %s" % launches)
+        print(card)
+        return 0
     if argv[1:] == ["--elastic"]:
         # only the elastic phase (its two pairs of rank children)
         elastic_phase(mt, co, dev, card)
@@ -7099,7 +7702,8 @@ def main(argv):
         print(card)
         return 0
     check(len(argv) == 1, "usage: chip_smoke.py [--kernel-timing | "
-          "--ring-nccl | --elastic | --analysis | --data | --ring-rank "
+          "--ring-nccl | --elastic | --analysis | --data | --imperative | "
+          "--ring-rank "
           "RANK DIR "
           "[BACKEND] | "
           "--serve-tp-rank RANK DIR BACKEND WORLD | --elastic-rank RANK DIR "
@@ -7203,6 +7807,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     data_resnet_launches, data_lm_launches = data_phase(mt, co, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    imperative_launches = imperative_phase(mt, co, dev, card)
 
     for k in optim:
         if k["name"] == "multi_adam":
@@ -7230,7 +7837,8 @@ def main(argv):
              "amp_resnet": amp_resnet_launches, "guard": guard_launches,
              "elastic": elastic_launches, "analysis": analysis_launches,
              "data_resnet": data_resnet_launches,
-             "data_lm": data_lm_launches, **zoo_paths}
+             "data_lm": data_lm_launches,
+             "imperative": imperative_launches, **zoo_paths}
     for path, kernels_of_path in (
             ("int8_resnet", ("int8_quantize", "int8_quantize_im2col",
                              "int8_conv_hopper")),
@@ -7250,6 +7858,7 @@ def main(argv):
             ("analysis", ANALYSIS_KERNELS),
             ("data_resnet", DATA_RESNET_KERNELS),
             ("data_lm", DATA_LM_KERNELS),
+            ("imperative", ("multi_sgd",)),
             ("zoo_train", ("multi_sgd",)),
             ("zoo_int8", ("int8_quantize", "int8_quantize_im2col",
                           "int8_conv_hopper", "int8_conv_depthwise")),

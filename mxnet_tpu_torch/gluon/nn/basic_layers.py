@@ -148,12 +148,17 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
+    """``sparse_grad=True`` asks for a ``row_sparse`` gradient, which,
+    as in the reference, is held dense: the layer computes the same."""
+
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None):
+                 weight_initializer=None, sparse_grad=False):
         super().__init__()
         self.weight = Parameter((input_dim, output_dim), dtype,
                                 init=weight_initializer,
-                                allow_deferred_init=True)
+                                allow_deferred_init=True,
+                                grad_stype="row_sparse" if sparse_grad
+                                else "default")
 
     def forward(self, x):
         if _sharding.placement(self.weight) is not None:

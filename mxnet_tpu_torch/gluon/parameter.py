@@ -289,18 +289,15 @@ class Parameter(metaclass=_ParameterType):
     becomes a :class:`TorchParameter` when given storage.  A shape with
     a 0 (or None) waits for the first forward only with
     ``allow_deferred_init``; else ``initialize`` raises ``ValueError``.
-    ``differentiable=False`` means ``grad_req="null"``.  Sparse storage
-    types are not ported."""
+    ``differentiable=False`` means ``grad_req="null"``.  ``stype`` /
+    ``grad_stype`` are accepted and, as in the reference, change nothing:
+    a parameter and its gradient are dense tensors whatever the storage
+    type (``row_sparse`` gradients reach a kvstore as dense rows)."""
 
     def __new__(cls, shape=None, dtype="float32", lr_mult=1.0, wd_mult=1.0,
                 init=None, allow_deferred_init=False, differentiable=True,
                 stype="default", grad_stype="default", grad_req="write",
                 name=None):
-        if stype != "default" or grad_stype != "default":
-            raise NotImplementedError(
-                "mxnet_tpu_torch: Parameter(stype=%r, grad_stype=%r): sparse "
-                "storage is not ported yet (ROADMAP queue 5 item 2, sparse)"
-                % (stype, grad_stype))
         if not differentiable:
             grad_req = "null"
         spec = ParamSpec(None if shape is None else tuple(shape),

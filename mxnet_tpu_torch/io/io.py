@@ -1,7 +1,7 @@
 """Legacy data iterators (counterpart of ``mxnet_tpu/io/io.py``):
 ``DataBatch``, ``DataDesc``, ``DataIter``, ``NDArrayIter``, ``CSVIter``,
 ``ImageRecordIter``, ``ResizeIter``, ``PrefetchingIter`` and
-``LibSVMIter``, which refuses until sparse arrays are ported.
+``LibSVMIter`` (CSR batches).
 
 Batches are NDArrays on the current context's device (CUDA outside any
 scope).  ``NDArrayIter`` holds its arrays there and gathers each batch on
@@ -217,15 +217,81 @@ class CSVIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM-format batches are CSR arrays, which the port does not have
-    yet: constructing one raises ``NotImplementedError``."""
+    """LibSVM-format batches as CSR arrays (``src/io/iter_libsvm.cc``;
+    reference ``io/io.py:206``).  Each ``data_libsvm`` line is ``<label>
+    <idx>:<val> ...`` with 0-based feature indices; with
+    ``label_libsvm`` the labels come from that file, one vector a line.
+    The file is parsed on the host once; each batch's values are
+    scattered into a dense (batch_size, data_shape[0]) float32 array on
+    the current context, whose ``CSRNDArray`` view derives its structure
+    when first read (DELTAS.md #2).  ``round_batch`` pads the last batch
+    by wrapping to the start (``pad`` says how many rows)."""
 
     def __init__(self, data_libsvm, data_shape, label_libsvm=None,
                  label_shape=None, batch_size=1, round_batch=True,
                  **kwargs):
-        raise NotImplementedError(
-            "mxnet_tpu_torch: LibSVMIter yields CSR batches, and sparse "
-            "arrays are not ported yet (ROADMAP queue 5 item 2, sparse)")
+        super().__init__(batch_size)
+        self._data_shape = tuple(data_shape)
+        self._rows = []    # (cols int64[], vals float32[]) per example
+        self._labels = []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                lead, label = 0, 0.0
+                if ":" not in parts[0]:
+                    label, lead = float(parts[0]), 1
+                pairs = [tok.split(":") for tok in parts[lead:]]
+                self._rows.append((
+                    _onp.asarray([int(i) for i, _ in pairs], _onp.int64),
+                    _onp.asarray([float(v) for _, v in pairs],
+                                 _onp.float32)))
+                self._labels.append(label)
+        if label_libsvm is not None:
+            with open(label_libsvm) as f:
+                self._labels = [[float(x) for x in line.split()]
+                                for line in f if line.strip()]
+        self._label_shape = tuple(label_shape) if label_shape else None
+        self._round = round_batch
+        self.reset()
+
+    def reset(self):
+        self._cursor = 0
+
+    def iter_next(self):
+        return self._cursor < len(self._rows)
+
+    def next(self):
+        from ..context import resolve_device
+        from ..ndarray import sparse as _sparse
+        if not self.iter_next():
+            raise StopIteration
+        n = len(self._rows)
+        idxs, pad = [], 0
+        while len(idxs) < self.batch_size:
+            if self._cursor >= n:
+                if not self._round or not idxs:
+                    break
+                idxs.append(pad % n)
+                pad += 1
+                continue
+            idxs.append(self._cursor)
+            self._cursor += 1
+        rows = [self._rows[i] for i in idxs]
+        r = _onp.repeat(_onp.arange(len(rows)), [len(c) for c, _ in rows])
+        c = _onp.concatenate([c for c, _ in rows])
+        v = _onp.concatenate([v for _, v in rows])
+        dev = resolve_device()
+        dense = torch.zeros((len(idxs), self._data_shape[0]),
+                            dtype=torch.float32, device=dev)
+        dense[torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev)] = \
+            torch.from_numpy(v).to(dev)
+        labels = _onp.asarray([self._labels[i] for i in idxs], _onp.float32)
+        if self._label_shape:
+            labels = labels.reshape((len(idxs),) + self._label_shape)
+        return DataBatch(data=[_sparse.csr_matrix(NDArray(dense))],
+                         label=[mnp.array(labels)], pad=pad)
 
 
 class ImageRecordIter(DataIter):

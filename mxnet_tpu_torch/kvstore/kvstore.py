@@ -328,7 +328,10 @@ class KVStore(KVStoreBase):
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """The rows ``row_ids`` of the stored value, zeros elsewhere
-        (reference ``PullRowSparseImpl``, dense storage)."""
+        (reference ``PullRowSparseImpl``, dense storage).  ``row_ids`` is
+        an array of row indices (a ``CSRNDArray``'s ``indices`` too; a
+        repeated row is pulled once) or a ``RowSparseNDArray``, whose
+        rows are its ``indices``."""
         if row_ids is None:
             return self.pull(key, out, priority)
         keys, outs = self._normalize(key, out)
@@ -336,6 +339,8 @@ class KVStore(KVStoreBase):
             else [row_ids] * len(keys)
         for k, o, r in zip(keys, outs, rids):
             src = self._store[k]._data
+            if getattr(r, "stype", "default") == "row_sparse":
+                r = r.indices
             idx = _t(r).long().reshape(-1).to(src.device)
             new = torch.zeros_like(src)
             new[idx] = src[idx]

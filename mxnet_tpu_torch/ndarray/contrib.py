@@ -1,63 +1,92 @@
-"""``mx.nd.contrib`` -- the op-level int8 quantization family.
+"""``mx.nd.contrib``: MXNet's contrib operators over torch.
 
-Counterpart of ``mxnet_tpu/ndarray/contrib.py:465-742`` (the reference's
-``src/operator/quantization/``).  Ranges follow the zero-centered int8
-convention: scale = 127 / max(|min|, |max|), and a product's int32
-range is QuantizationRangeForMultiplication.  ``quantized_conv`` and
-``quantized_fully_connected`` return the raw int32 sums (plus the bias
-shifted to the int32 scale) from the ``int8_conv`` kernel on CUDA (its
-raw epilogue; the int8 data reach it through the ``int8_quantize``
-kernel at scale 1, which only lays them out channels last, or as im2col
-rows where ``ops.int8.int8_conv_mode`` says so), the plain version on
-the CPU.  The others are plain PyTorch on the arrays' device,
-each rounding where the JAX op does: float32 arithmetic, a Python scalar
-rounded to float32 first, a cast to an integer type truncating.
+Counterpart of ``mxnet_tpu/ndarray/contrib.py``:
 
-The rest of the reference's ``nd.contrib`` (detection, resizing, the
-sliding-window attention, the graph ops, ...) waits for ROADMAP queue 5;
-its names raise ``NotImplementedError``.
+* the op-level int8 quantization family (:465-742 there, the reference's
+  ``src/operator/quantization/``).  Ranges follow the zero-centered int8
+  convention: scale = 127 / max(|min|, |max|), and a product's int32
+  range is QuantizationRangeForMultiplication.  ``quantized_conv`` and
+  ``quantized_fully_connected`` return the raw int32 sums (plus the bias
+  shifted to the int32 scale) from the ``int8_conv`` kernel on CUDA (its
+  raw epilogue; the int8 data reach it through the ``int8_quantize``
+  kernel at scale 1, which only lays them out channels last, or as im2col
+  rows where ``ops.int8.int8_conv_mode`` says so), the plain version on
+  the CPU.  The others are plain PyTorch on the arrays' device, each
+  rounding where the JAX op does: float32 arithmetic, a Python scalar
+  rounded to float32 first, a cast to an integer type truncating;
+* detection (:mod:`._detection`: the SSD MultiBox family, box encode /
+  decode, bipartite matching, proposals, the PS-ROI poolings,
+  ``RROIAlign``) and ``npx.contrib``'s ROI / box / interleaved-attention
+  ops under their ``nd.contrib`` names;
+* layers (``AdaptiveAvgPooling2D``, ``BilinearResize2D``,
+  ``SyncBatchNorm``, ``BatchNormWithReLU``), tensor utilities, the
+  custom-gradient ops (``gradientmultiplier``, ``round_ste``,
+  ``sign_ste``, ``IdentityAttachKLSparseReg``, each a
+  ``torch.autograd.Function``) and ``hawkesll``;
+* DGL's graph ops on ``CSRNDArray`` graphs (:mod:`._dgl`).
+
+Host-numpy ops (data-dependent control flow, as in the reference) say
+so and return on their input's device.  ``sldwin_atten_*``, ``im2col``
+/ ``col2im`` and ``deformable_convolution`` wait for ROADMAP queue 5
+item 3 (sequence models) and raise ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
 import numpy as _onp
 import torch
 
+from ..numpy_extension.contrib import (  # noqa: F401
+    box_iou, box_nms, interleaved_matmul_encdec_qk,
+    interleaved_matmul_encdec_valatt, interleaved_matmul_selfatt_qk,
+    interleaved_matmul_selfatt_valatt, roi_align, roi_pooling)
 from ..ops import int8 as _int8
 from ..ops import nn as _nn
-from .ndarray import NDArray
+from ._detection import (MultiBoxDetection, MultiBoxPrior,  # noqa: F401
+                         MultiBoxTarget, MultiProposal, Proposal, RROIAlign,
+                         bipartite_matching, box_decode, box_encode,
+                         deformable_psroi_pooling, multi_proposal, proposal,
+                         psroi_pooling)
+from ._dgl import (dgl_adjacency, dgl_csr_neighbor_non_uniform_sample,  # noqa
+                   dgl_csr_neighbor_uniform_sample, dgl_graph_compact,
+                   dgl_subgraph, edge_id)
+from .legacy_ops import _waits, khatri_rao, resize_like_jax  # noqa: F401
+from .ndarray import NDArray, apply_op
 
-__all__ = ["quantize", "quantize_v2", "dequantize", "requantize",
-           "calibrate_entropy", "quantized_conv", "quantized_fully_connected",
-           "quantized_pooling", "quantized_flatten", "quantized_act",
-           "quantized_elemwise_add", "quantized_elemwise_mul",
-           "quantized_concat", "quantized_embedding", "quantized_batch_norm"]
+__all__ = [
+    "MultiBoxPrior", "MultiBoxTarget", "MultiBoxDetection", "ROIAlign",
+    "AdaptiveAvgPooling2D", "BilinearResize2D", "SyncBatchNorm",
+    "BatchNormWithReLU", "quadratic", "index_copy", "index_array",
+    "edge_id", "getnnz", "boolean_mask", "dynamic_reshape",
+    "box_encode", "box_decode", "bipartite_matching", "hawkesll",
+    "sldwin_atten_score", "sldwin_atten_context", "sldwin_atten_mask_like",
+    "div_sqrt_dim", "box_iou", "box_nms", "roi_align", "roi_pooling",
+    "quantize", "quantize_v2", "dequantize", "requantize",
+    "calibrate_entropy", "quantized_conv", "quantized_fully_connected",
+    "quantized_pooling", "quantized_flatten", "quantized_act",
+    "quantized_elemwise_add", "quantized_elemwise_mul", "quantized_concat",
+    "quantized_embedding", "quantized_batch_norm", "RROIAlign",
+    "IdentityAttachKLSparseReg", "allclose", "fft", "ifft", "count_sketch",
+    "khatri_rao", "gradientmultiplier", "round_ste", "sign_ste",
+    "psroi_pooling", "deformable_psroi_pooling", "proposal",
+    "multi_proposal", "Proposal", "MultiProposal",
+    "interleaved_matmul_selfatt_qk", "interleaved_matmul_selfatt_valatt",
+    "interleaved_matmul_encdec_qk", "interleaved_matmul_encdec_valatt",
+]
 
 _INT8_RANGE = 127.0
 _INT32_RANGE = 2147483647.0
 
-#: the reference's other nd.contrib names (ROADMAP queue 5)
-_QUEUE5 = frozenset((
-    "MultiBoxPrior", "MultiBoxTarget", "MultiBoxDetection", "box_encode",
-    "box_decode", "bipartite_matching", "AdaptiveAvgPooling2D",
-    "BilinearResize2D", "SyncBatchNorm", "BatchNormWithReLU", "quadratic",
-    "index_copy", "index_array", "getnnz", "boolean_mask",
-    "dynamic_reshape", "div_sqrt_dim", "allclose", "fft", "ifft",
-    "count_sketch", "khatri_rao", "gradientmultiplier", "round_ste",
-    "sign_ste", "psroi_pooling", "deformable_psroi_pooling", "proposal",
-    "multi_proposal", "RROIAlign", "IdentityAttachKLSparseReg", "hawkesll",
-    "sldwin_atten_score", "sldwin_atten_context", "sldwin_atten_mask_like",
-    "dgl_csr_neighbor_uniform_sample",
-    "dgl_csr_neighbor_non_uniform_sample", "dgl_subgraph", "dgl_adjacency",
-    "dgl_graph_compact", "edge_id", "im2col", "col2im",
-    "deformable_convolution"))
-
-
-def __getattr__(name):
-    if name in _QUEUE5:
-        raise NotImplementedError(
-            "mx.nd.contrib.%s is not ported yet (ROADMAP queue 5)" % name)
-    raise AttributeError("module %r has no attribute %r"
-                         % (__name__, name))
+ROIAlign = roi_align
+sldwin_atten_score = _waits("contrib.sldwin_atten_score", 3,
+                            "sequence models")
+sldwin_atten_context = _waits("contrib.sldwin_atten_context", 3,
+                              "sequence models")
+sldwin_atten_mask_like = _waits("contrib.sldwin_atten_mask_like", 3,
+                                "sequence models")
+im2col = _waits("contrib.im2col", 3, "sequence models")
+col2im = _waits("contrib.col2im", 3, "sequence models")
+deformable_convolution = _waits("contrib.deformable_convolution", 3,
+                                "sequence models")
 
 
 def _t(x):
@@ -348,3 +377,267 @@ def quantized_batch_norm(data, gamma, beta, moving_mean, moving_var,
     f = (f - _t(moving_mean).float().reshape(shape)) * inv \
         * _t(gamma).float().reshape(shape) + _t(beta).float().reshape(shape)
     return _three(_sym_quantize(f, _INT8_RANGE / calib), -calib, calib)
+
+
+# ----------------------------------------------------------------------
+# pooling, resizing and normalization layers
+# ----------------------------------------------------------------------
+def AdaptiveAvgPooling2D(data, output_size=1):
+    return apply_op(lambda x: _nn.adaptive_avg_pool2d(x, output_size),
+                    [data], "AdaptiveAvgPooling2D")
+
+
+def BilinearResize2D(data, height=1, width=1, scale_height=None,
+                     scale_width=None, mode="size"):
+    """NCHW bilinear resize as ``jax.image.resize(method="linear")``
+    (antialiased when it shrinks), in float32 and back to the dtype."""
+    def g(x):
+        _, _, h, w = x.shape
+        if scale_height is not None:
+            nh = int(h * scale_height)
+            nw = int(w * (scale_width or scale_height))
+        else:
+            nh, nw = height, width
+        return resize_like_jax(x, (nh, nw), "linear")
+    return apply_op(g, [data], "BilinearResize2D")
+
+
+def SyncBatchNorm(data, gamma, beta, moving_mean, moving_var, key=None,
+                  eps=1e-3, momentum=0.9, fix_gamma=True,
+                  use_global_stats=False, output_mean_var=False, ndev=1,
+                  **kw):
+    """Cross-device batch norm as an imperative op on one device: batch
+    norm (the reference's semantics with ndev=1; a mesh's synchronized
+    statistics are ``parallel.sharding.batch_scope``'s)."""
+    from .. import numpy_extension as npx
+    return npx.batch_norm(data, gamma, beta, moving_mean, moving_var,
+                          eps=eps, momentum=momentum, fix_gamma=fix_gamma,
+                          use_global_stats=use_global_stats,
+                          output_mean_var=output_mean_var)
+
+
+def BatchNormWithReLU(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                      momentum=0.9, fix_gamma=True, use_global_stats=False,
+                      **kw):
+    """Batch norm then ReLU (``contrib/batch_norm_relu.cc``)."""
+    from .. import numpy_extension as npx
+    return npx.relu(npx.batch_norm(data, gamma, beta, moving_mean,
+                                   moving_var, eps=eps, momentum=momentum,
+                                   fix_gamma=fix_gamma,
+                                   use_global_stats=use_global_stats))
+
+
+# ----------------------------------------------------------------------
+# tensor utilities
+# ----------------------------------------------------------------------
+def quadratic(data, a=0.0, b=0.0, c=0.0):
+    """a x^2 + b x + c (``contrib/quadratic_op.cc``)."""
+    return apply_op(lambda x: a * x * x + b * x + c, [data], "quadratic")
+
+
+def index_copy(old_tensor, index_vector, new_tensor):
+    """``old_tensor`` with the rows ``index_vector`` replaced by
+    ``new_tensor``'s (a new array)."""
+    def g(old, idx, new):
+        out = old.clone()
+        out[idx.long()] = new.to(old.dtype)
+        return out
+    return apply_op(g, [old_tensor, index_vector, new_tensor], "index_copy")
+
+
+def index_array(data, axes=None):
+    """out[i0, ..., ik, :] = (i0, ..., ik) over ``axes`` (all by
+    default), int32 (the reference's int64 with 64-bit types off)."""
+    def g(x):
+        grids = torch.meshgrid(*[torch.arange(s, device=x.device)
+                                 for s in x.shape], indexing="ij")
+        ax = axes if axes is not None else range(x.dim())
+        return torch.stack([grids[a] for a in ax], -1).to(torch.int32)
+    return apply_op(g, [data], "index_array")
+
+
+def getnnz(data, axis=None):
+    """The count of nonzeros (over ``axis``), int32."""
+    return apply_op(lambda x: (x != 0).sum(axis).to(torch.int32)
+                    if axis is not None else (x != 0).sum().to(torch.int32),
+                    [data], "getnnz")
+
+
+def boolean_mask(data, index, axis=0):
+    """The slices along ``axis`` where ``index`` is nonzero.  Its shape
+    depends on the data: the selection is computed on the device and
+    read by the host once."""
+    def g(x, i):
+        return x.index_select(axis, torch.nonzero(i.reshape(-1) != 0)
+                              .reshape(-1))
+    return apply_op(g, [data, index], "boolean_mask")
+
+
+def dynamic_reshape(data, shape_like):
+    """``data`` reshaped to the shape held in ``shape_like`` (read by the
+    host)."""
+    shp = [int(s) for s in (shape_like.asnumpy() if isinstance(
+        shape_like, NDArray) else _onp.asarray(shape_like)).reshape(-1)]
+    return apply_op(lambda x: x.reshape(shp), [data], "dynamic_reshape")
+
+
+def div_sqrt_dim(data):
+    """data / sqrt(data.shape[-1])."""
+    return apply_op(lambda x: x / torch.tensor(
+        _onp.sqrt(float(x.shape[-1])), dtype=x.dtype, device=x.device),
+        [data], "div_sqrt_dim")
+
+
+def allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
+    """1.0 or 0.0, float32 (``contrib/allclose_op.cc``)."""
+    return apply_op(lambda x, y: torch.isclose(
+        x, y.to(x.dtype), rtol=rtol, atol=atol, equal_nan=equal_nan).all()
+        .to(torch.float32), [a, b], "allclose")
+
+
+def fft(data, compute_size=128):
+    """The 1-D FFT of real rows, real and imaginary parts interleaved:
+    (..., d) -> (..., 2d) float32."""
+    def g(x):
+        spec = torch.fft.fft(x.to(torch.complex64), dim=-1)
+        return torch.view_as_real(spec).reshape(x.shape[:-1] +
+                                                (2 * x.shape[-1],))
+    return apply_op(g, [data], "fft")
+
+
+def ifft(data, compute_size=128):
+    """The inverse of :func:`fft`: interleaved (..., 2d) -> the real part
+    (..., d), scaled by 1/d."""
+    def g(x):
+        d = x.shape[-1] // 2
+        pairs = x.float().reshape(x.shape[:-1] + (d, 2)).contiguous()
+        return torch.fft.ifft(torch.view_as_complex(pairs), dim=-1).real
+    return apply_op(g, [data], "ifft")
+
+
+def count_sketch(data, h, s, out_dim, processing_batch_size=32):
+    """out[..., h[i]] += s[i] * data[..., i] (``count_sketch.cc``)."""
+    def g(x, hh, ss):
+        flat = x.reshape(-1, x.shape[-1])
+        out = torch.zeros((flat.shape[0], int(out_dim)), dtype=x.dtype,
+                          device=x.device)
+        out.index_add_(1, hh.reshape(-1).long(),
+                       flat * ss.reshape(-1).to(x.dtype)[None, :])
+        return out.reshape(x.shape[:-1] + (int(out_dim),))
+    return apply_op(g, [data, h, s], "count_sketch")
+
+
+# ----------------------------------------------------------------------
+# custom gradients
+# ----------------------------------------------------------------------
+class _GradScale(torch.autograd.Function):
+    """Identity forward; the backward multiplies by ``scalar``."""
+
+    @staticmethod
+    def forward(ctx, x, scalar):
+        ctx.scalar = scalar
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy * ctx.scalar, None
+
+
+def gradientmultiplier(data, scalar=1.0):
+    """Identity forward, gradient times ``scalar`` (the gradient reversal
+    layer's building block, ``gradient_multiplier_op.cc``)."""
+    return apply_op(lambda x: _GradScale.apply(x, scalar), [data],
+                    "gradientmultiplier")
+
+
+class _STE(torch.autograd.Function):
+    """``fn`` forward, the identity's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None
+
+
+def round_ste(data):
+    """round with a straight-through gradient (``stes_op.cc``)."""
+    return apply_op(lambda x: _STE.apply(x, torch.round), [data],
+                    "round_ste")
+
+
+def sign_ste(data):
+    """sign with a straight-through gradient (``stes_op.cc``)."""
+    return apply_op(lambda x: _STE.apply(x, torch.sign), [data], "sign_ste")
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """Identity forward; the backward adds the KL sparseness penalty's
+    gradient at the batch's mean activation."""
+
+    @staticmethod
+    def forward(ctx, x, target, penalty):
+        ctx.save_for_backward(x.mean(0))
+        ctx.target, ctx.penalty = target, penalty
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (rho_hat,) = ctx.saved_tensors
+        rho = ctx.target
+        r = rho_hat.clamp(1e-6, 1 - 1e-6)
+        pen = ctx.penalty * (-rho / r + (1 - rho) / (1 - r))
+        return gy + pen[None] / gy.shape[0], None, None
+
+
+def IdentityAttachKLSparseReg(data, sparseness_target=0.1, penalty=0.001,
+                              momentum=0.9):
+    """Identity forward; the backward adds the KL-sparseness gradient of
+    the batch's mean activation (``identity_attach_KL_sparse_reg.cc``).
+    ``momentum`` is accepted and unused, as in the reference, which keeps
+    no moving average across calls (DELTAS.md #14)."""
+    return apply_op(lambda x: _KLSparseReg.apply(x, sparseness_target,
+                                                 penalty), [data],
+                    "IdentityAttachKLSparseReg")
+
+
+# ----------------------------------------------------------------------
+# Hawkes process log-likelihood (contrib/hawkes_ll-inl.h)
+# ----------------------------------------------------------------------
+def hawkesll(lda, alpha, beta, state, lags, marks, valid_length, max_time):
+    """Log-likelihood of a marked multivariate Hawkes process with an
+    exponential kernel, and the state after it: (loglik (N,), state (N,
+    K)).  Each mark's excitation decays from its own last event; the
+    compensators settle at ``max_time``.  A loop over the T events."""
+    def g(mu, a, b, st, lg, mk, vl, mt):
+        N, T = lg.shape
+        K = mu.shape[1]
+        rows = torch.arange(N, device=mu.device)
+        ll = torch.zeros(N, dtype=mu.dtype, device=mu.device)
+        state_t = st.clone()
+        last = torch.zeros((N, K), dtype=mu.dtype, device=mu.device)
+        t = torch.zeros(N, dtype=mu.dtype, device=mu.device)
+        for j in range(T):
+            ci = mk[:, j].long()
+            valid = (j < vl).to(mu.dtype)
+            t_new = t + lg[:, j]
+            d = t_new - last[rows, ci]
+            ed = torch.exp(-b[ci] * d)
+            s_ci = state_t[rows, ci]
+            lam = mu[rows, ci] + a[ci] * b[ci] * s_ci * ed
+            comp = mu[rows, ci] * d + a[ci] * s_ci * (1 - ed)
+            ll = ll + valid * (torch.log(torch.clamp(lam, min=1e-30)) - comp)
+            on = valid > 0
+            state_t = state_t.index_put((rows, ci),
+                                        torch.where(on, 1 + s_ci * ed, s_ci))
+            last = last.index_put((rows, ci),
+                                  torch.where(on, t_new, last[rows, ci]))
+            t = torch.where(on, t_new, t)
+        d = mt[:, None] - last
+        ed = torch.exp(-b[None, :] * d)
+        ll = ll - (mu * d + a[None, :] * state_t * (1 - ed)).sum(1)
+        return ll, state_t * ed
+    return apply_op(g, [lda, alpha, beta, state, lags, marks, valid_length,
+                        max_time], "hawkesll")

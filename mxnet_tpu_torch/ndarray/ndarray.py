@@ -249,6 +249,15 @@ class NDArray:
     def stype(self):
         return "default"
 
+    def tostype(self, stype):
+        """This array in storage type ``stype``: itself for "default", a
+        ``row_sparse`` / ``csr`` view of the same values otherwise
+        (:mod:`.sparse`)."""
+        if stype == "default":
+            return self
+        from .sparse import _from_dense
+        return _from_dense(self, stype)
+
     @property
     def T(self):
         return self.transpose()

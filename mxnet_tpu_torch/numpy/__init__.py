@@ -27,7 +27,7 @@ import numpy as onp
 import torch
 import torch.nn.functional as F
 
-from ..context import resolve_device
+from ..context import current_context, resolve_device  # noqa: F401
 from ..ndarray.ndarray import (NDArray, apply_op, as_tensor, to_numpy_dtype,
                                to_torch_dtype)
 
@@ -1669,4 +1669,4 @@ def genfromtxt(*args, **kwargs):
     return NDArray(onp.genfromtxt(*args, **kwargs))
 
 
-from . import random  # noqa: E402,F401
+from . import fft, linalg, random  # noqa: E402,F401

@@ -9,12 +9,12 @@ head_dim), forward and backward; on the CPU their plain versions.
 ``dropout`` and the samplers draw from ``mx.np.random``'s generator for
 the device.
 
-Not ported here, and raising ``NotImplementedError`` with their ROADMAP
-queue (5): ``rnn``, ``ctc_loss``, ``im2col`` / ``col2im`` /
-``deformable_convolution``, ``custom``, the ``sldwin_atten_*`` ops and
-the SSD ``multibox_*`` ops, whose JAX modules (``ops/{rnn,ctc,
-sliding}.py``, ``library.py``, ``ndarray/contrib.py``) or detection
-pipeline the port does not have yet.
+The SSD ``multibox_*`` ops are in :mod:`._multibox`.  Not ported here,
+and raising ``NotImplementedError`` with their ROADMAP queue (5):
+``rnn``, ``ctc_loss``, ``im2col`` / ``col2im`` /
+``deformable_convolution``, ``custom`` and the ``sldwin_atten_*`` ops,
+whose JAX modules (``ops/{rnn,ctc,sliding}.py``, ``library.py``) the
+port does not have yet.
 """
 from __future__ import annotations
 
@@ -514,6 +514,8 @@ def _not_ported(name):
 
 for _name in ("rnn", "ctc_loss", "im2col", "col2im", "deformable_convolution",
               "custom", "sldwin_atten_score", "sldwin_atten_context",
-              "sldwin_atten_mask_like", "multibox_prior", "multibox_target",
-              "multibox_detection"):
+              "sldwin_atten_mask_like"):
     globals()[_name] = _not_ported(_name)
+
+from ._multibox import (multibox_detection, multibox_prior,  # noqa: E402
+                        multibox_target)

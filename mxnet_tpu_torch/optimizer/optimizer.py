@@ -273,12 +273,15 @@ def _groups(items, n_states):
 @register
 class SGD(Optimizer):
     """SGD with momentum (``sgd_update``, ``sgd_mom_update``); a list runs
-    as one ``multi_sgd`` call per group."""
+    as one ``multi_sgd`` call per group.  ``lazy_update`` is accepted and
+    changes nothing, as in the reference: gradients are dense, so every
+    row is updated."""
 
     _fused = "sgd"
     _nesterov = False
 
-    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+    def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=False,
+                 **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.momentum = momentum
 

@@ -4,9 +4,10 @@ The port's own copy of what it needs from
 ``mxnet_tpu/utils/serialization.py``: ``atomic_write`` (:44), ``save``
 (:66), ``savez`` (:78) and ``load`` (:103).  Arrays go to numpy; a
 bfloat16 array is stored as float32 (exact) with a dtype tag in the
-``__bfloat16__`` member (a JSON dict, as uint8 bytes), so files cross
-between the two packages both ways.  Sparse storage types are not
-ported (ROADMAP queue 5): a file that tags one is refused.
+``__bfloat16__`` member (a JSON dict, as uint8 bytes), and a sparse
+array (``row_sparse``, ``csr``) as its dense values with a ``stype`` tag
+there, from which :func:`load` rebuilds the sparse view, so files cross
+between the two packages both ways.
 """
 from __future__ import annotations
 
@@ -31,15 +32,20 @@ class CorruptCheckpointError(ValueError):
 
 
 def _to_numpy(arr):
-    """(numpy array, tag): the tag is ``{"dtype": "bfloat16"}`` for a
-    bf16 array, else None."""
+    """(numpy array, tag): the tag holds ``"dtype": "bfloat16"`` for a
+    bf16 array and ``"stype"`` for a sparse one; None when neither."""
+    stype = getattr(arr, "stype", "default")
     t = arr._data if isinstance(arr, NDArray) else arr
     if not isinstance(t, torch.Tensor):
         return onp.asarray(t), None
     t = t.detach().cpu()
+    tag = {}
     if t.dtype == torch.bfloat16:
-        return t.float().numpy(), {"dtype": "bfloat16"}
-    return t.numpy(), None
+        t = t.float()
+        tag["dtype"] = "bfloat16"
+    if stype in ("row_sparse", "csr"):
+        tag["stype"] = stype
+    return t.numpy(), (tag or None)
 
 
 @contextlib.contextmanager
@@ -123,11 +129,10 @@ def load(file, device=None):
                 tag = meta.get(k) or {}
                 if isinstance(tag, str):            # older files
                     tag = {"dtype": tag}
-                if tag.get("stype"):
-                    raise NotImplementedError(
-                        "mxnet_tpu_torch: sparse arrays are not ported yet "
-                        "(ROADMAP queue 5): %r holds %s" % (k, tag["stype"]))
                 out[k] = nd(z[k], tag)
+                if tag.get("stype"):
+                    from ..ndarray.sparse import _from_dense
+                    out[k] = _from_dense(out[k], tag["stype"])
     except (zipfile.BadZipFile, EOFError, KeyError, ValueError, OSError) as e:
         raise CorruptCheckpointError("corrupt or truncated array file %r: %s"
                                      % (file, e)) from e

@@ -4,7 +4,10 @@ model served through the forward and decode kernels, a small bf16
 model trained through the forward and backward kernels, a head_dim-64
 BERT layer through all three flash kernels, and the Gluon layers'
 card paths: ``hybridize()`` as CUDA-graph replay, NHWC against NCHW,
-BatchNorm's running statistics.
+BatchNorm's running statistics; and a small case of each of
+``chip_smoke.py``'s imperative sub-phases (legacy ``mx.nd``, linalg,
+fft, ``nd.image``, the sparse classifier, the MultiBox chain, save /
+load), which check themselves.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports neither jax nor mxnet_tpu, so it also runs on
@@ -1771,3 +1774,56 @@ def test_metric_updates_do_not_sync(dev):
             math.exp(-onp.log(onp.maximum(picked, 1e-10)).mean())]
     for m, w in zip(mets, want):
         assert abs(m.get()[1] - w) <= 1e-5 * max(1.0, abs(w)), m.name
+
+
+# -- the imperative surface: one small case of each chip_smoke sub-phase --
+@pytest.fixture()
+def smoke(dev, monkeypatch):
+    """chip_smoke at small sizes (its imperative sub-phases check and
+    raise themselves), under the CUDA context."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    import mxnet_tpu_torch as mt
+    for name, value in (("IMP_B", 2), ("IMP_IMAGES", 4),
+                        ("IMP_SPARSE_DIM", 20000), ("IMP_SPARSE_ROWS", 64),
+                        ("IMP_SPARSE_B", 16)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(
+        chip_smoke, "_resnet50", lambda mt, dev, layout="NCHW":
+        mt.gluon.model_zoo.vision.resnet18_v1().initialize(
+            device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    return chip_smoke, mt
+
+
+def test_imperative_legacy_resnet(smoke, dev):
+    cs, mt = smoke
+    assert cs.imp_legacy_resnet(mt, dev, "card")["same"]
+
+
+def test_imperative_linalg_fft_image(smoke, dev):
+    cs, mt = smoke
+    res = cs.imp_linalg(mt, dev, "card", n=256)
+    assert max(res["residual"].values()) <= cs.IMP_LINALG_TOL
+    cs.imp_fft(mt, dev, "card")
+    cs.imp_image(mt, dev, "card")
+
+
+def test_imperative_sparse_detection_save_load(smoke, dev, tmp_path):
+    cs, mt = smoke
+    launches, _ = cs.imp_sparse(mt, cuda_ops, dev, "card", str(tmp_path))
+    assert launches["multi_sgd"] == cs.IMP_SPARSE_ROWS // cs.IMP_SPARSE_B
+    cs.imp_detection(mt, dev, "card")
+    cs.imp_save_load(mt, dev, "card", str(tmp_path))
+
+
+def test_imperative_entry_points_default_to_the_card(dev):
+    import mxnet_tpu_torch as mt
+    assert mt.nd.array([1.0])._data.is_cuda
+    assert mt.nd.sparse.zeros("csr", (2, 2))._data.is_cuda
+    assert mt.np.fft.fftfreq(4)._data.is_cuda
+    assert mt.np.linalg.inv(mt.nd.eye(2))._data.is_cuda
+    w, _ = mt.np.linalg.eig(mt.nd.eye(3) * 2)
+    assert w._data.is_cuda and w.dtype == onp.complex64

@@ -4,7 +4,7 @@ the JAX package on the same inputs (``with mx.cpu():``).
 F13: ``Block.initialize(ctx=, verbose=)``; ``gluon.Parameter`` as a class
 with the reference's signature and positional order (``isinstance`` of
 every parameter a block holds, ``differentiable``, ``lr_mult``, sparse
-storage refused); ``Parameter.grad()`` zeros before a backward and
+storage types accepted, F15); ``Parameter.grad()`` zeros before a backward and
 ``RuntimeError`` under ``grad_req="null"``; ``Parameter.name``; and
 ``Block.register_child`` / ``params`` / ``reset_ctx`` / ``summary``.
 F14: ``nn.RMSNorm(axis=)``, ``autograd.grad(train_mode=)``,
@@ -114,9 +114,14 @@ def test_parameter_deferred_init_is_refused_unless_allowed():
 @pytest.mark.parametrize("stype", [("row_sparse", "default"),
                                    ("default", "row_sparse")])
 def test_parameter_sparse_storage_is_refused(stype):
-    with pytest.raises(NotImplementedError, match="queue 5 item 2"):
-        mt.gluon.Parameter(shape=(2, 2), stype=stype[0],
-                           grad_stype=stype[1])
+    # sparse storage types are accepted since F15 and, as in the
+    # reference, hold the parameter dense
+    jp = mx.gluon.Parameter(shape=(2, 2), stype=stype[0],
+                            grad_stype=stype[1])
+    tp = mt.gluon.Parameter(shape=(2, 2), stype=stype[0],
+                            grad_stype=stype[1])
+    assert tp._mx.shape == jp.shape == (2, 2)
+    assert isinstance(tp, mt.gluon.Parameter)
 
 
 def test_grad_before_backward_is_zeros_and_null_raises():

@@ -1,8 +1,7 @@
 """``mx.io`` and ``mx.image`` of the port against the JAX package on the
 same files and seeds: ``ImageRecordIter`` (0 and 2 workers),
 ``NDArrayIter`` under each last-batch handling, ``CSVIter``,
-``ResizeIter``, ``PrefetchingIter``; ``LibSVMIter`` refuses (sparse is
-not ported).  ``mx.image``: decode, resize and crops, every augmenter
+``ResizeIter``, ``PrefetchingIter``, ``LibSVMIter`` (CSR batches).  ``mx.image``: decode, resize and crops, every augmenter
 (the random ones seeded), ``CreateAugmenter`` / ``CreateDetAugmenter``
 lists, ``ImageIter`` and ``ImageDetIter``.
 """
@@ -142,9 +141,17 @@ def test_csv_resize_and_prefetching_iters_match(tmp_path):
 
 
 def test_libsvm_iter_refuses(tmp_path):
+    # ported with sparse arrays: the reference's CSR batches
     (tmp_path / "x.libsvm").write_text("1 0:1.5 3:2\n0 1:1\n")
-    with pytest.raises(NotImplementedError, match="queue 5 item 2"):
-        tio.LibSVMIter(str(tmp_path / "x.libsvm"), (4,))
+    with mx.cpu():
+        want = jio.LibSVMIter(str(tmp_path / "x.libsvm"), (4,)).next()
+    with mt.cpu():
+        got = tio.LibSVMIter(str(tmp_path / "x.libsvm"), (4,)).next()
+    assert got.data[0].stype == want.data[0].stype == "csr"
+    onp.testing.assert_array_equal(got.data[0].asnumpy(),
+                                   want.data[0].asnumpy())
+    onp.testing.assert_array_equal(got.label[0].asnumpy(),
+                                   want.label[0].asnumpy())
 
 
 # ----------------------------------------------------------------------

@@ -454,7 +454,7 @@ def test_nd_contrib_int8_family():
     hist = onp.histogram(_rand(19, 5000), bins=1001, range=(-2, 2))[0]
     _equal("calibrate_entropy", hist, edges)
     with pytest.raises(NotImplementedError, match="queue 5"):
-        tmx.nd.contrib.MultiBoxPrior
+        tmx.nd.contrib.sldwin_atten_score(None, None, None, 1)
     with pytest.raises(AttributeError):
         tmx.nd.contrib.not_an_op
 
